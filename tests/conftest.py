@@ -41,6 +41,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy tests excluded from the tier-1 timed run",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips inside the test without one",
+    )
 
 
 # -------------------------------------------------- schedule parity
