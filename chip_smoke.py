@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch port: ``python3 chip_smoke.py``.
 
-Drives the port's serving path on one NVIDIA GPU at the full width of
-the repo's production LM (436 M parameters, Dm 2048, 16 heads x 128
-with GQA 2:1, 8 blocks, dense 4x FFN, vocab 32768, bfloat16) and fails
-on the first phase that goes wrong:
+Drives the port's serving and training paths on one NVIDIA GPU at the
+full width of the repo's production LM (436 M parameters, Dm 2048, 16
+heads x 128 with GQA 2:1, 8 blocks, dense 4x FFN, vocab 32768,
+bfloat16) and fails on the first phase that goes wrong:
 
 1. device   — card name and count, ``nvidia-smi`` name and power limit;
-2. build    — ``nvcc`` builds the KV-cache kernels from ``csrc/``;
-3. kernels  — each kernel against its plain PyTorch version at the
-   serving shapes, bitwise (they are copies), timed beside its bytes
+2. build    — ``nvcc`` builds the KV-cache and flash-attention kernels
+   from ``csrc/``, one compiler per source, all started together;
+3. kernels  — each KV-cache kernel against its plain PyTorch version at
+   the serving shapes, bitwise (they are copies), timed beside its bytes
    bound, the plain version and one ``index_put_`` call;
-4. decode   — teacher-forced paged logits (chunk 1) against the dense
+4. flash    — the three flash kernels against their plain versions at
+   the training shape (B 4, 16 heads over 8 KV heads, T 4096, D 128,
+   bf16, causal; normalised L-inf <= 2e-2), there with a window of 1024
+   (the banded sweep), and at T 512 in float32 with
+   a window of 96, q_off != k_off and a random carry (atol = rtol =
+   1e-4), each timed beside its bound, its plain version and SDPA;
+5. train    — ``run_training`` at the full width and depth (B 4 x T
+   4096, SGD lr 1e-2, 4 steps, seed 0): finite losses, the first near
+   ln(vocab), every flash kernel launched once per block per step; then
+   one step's gradients through the kernels against dense attention (at
+   batch 1), 2 windowed steps (window 1024, 2 blocks), and one step
+   under ``torch.profiler`` (kernel time by family, device idle share);
+6. decode   — teacher-forced paged logits (chunk 1) against the dense
    KV-cached decode step, which writes through ``cache_row_write``;
-5. serve    — ``run_engine`` on a seeded 16-request trace in continuous
+7. serve    — ``run_engine`` on a seeded 16-request trace in continuous
    and static batching: every request finishes, step counts equal the
    dry ``simulate_schedule``, the page pool drains full, both batching
    modes emit the same tokens, and the paged write kernel ran on every
@@ -26,7 +39,11 @@ printing no result, where no CUDA device is visible.
 
 from __future__ import annotations
 
+import dataclasses
+import io
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -35,7 +52,18 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_TOL = 5e-2                  # paged vs dense logits, bfloat16
+FLASH_BF16_TOL = 2e-2            # kernel vs plain, normalised L-inf, bf16
+FLASH_F32_TOL = 1e-4             # kernel vs plain, atol = rtol, float32
+GRAD_TOL = 2e-2                  # flash vs dense step grads, relative L2
+TRAIN = dict(batch=4, seq=4096, heads=16, kv_heads=8, head_dim=128,
+             stages=8, microbatches=1, dense_ffn=True, moe_mult=4,
+             vocab=32768, rope=True, norm=True, use_flash=True,
+             dtype="bfloat16")     # flagship_large, bench.py:545-550
+TRAIN_STEPS = 4
+TILE = 64                        # the flash kernels' q and k tile rows
 MODEL = dict(heads=16, kv_heads=8, head_dim=128, stages=8,
              dense_ffn=True, moe_mult=4, vocab=32768, rope=True,
              norm=True, dtype="bfloat16", microbatches=1)
@@ -81,9 +109,9 @@ def time_graph(fn, launches: int = 200, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / (reps * launches)
 
 
-def time_eager(fn, calls: int = 50) -> float:
+def time_eager(fn, calls: int = 50, warm: int = 3) -> float:
     """ms per call issued from the host loop (launch cost included)."""
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -219,6 +247,421 @@ def kernel_cache_row(TK, dev, gen) -> dict:
 # ------------------------------------------------------------ phase 4
 
 
+def live_tile_pairs(tq: int, tk: int, q_off: int, k_off: int, causal: bool,
+                    window) -> int:
+    """(q tile, k tile) pairs the flash kernels compute for one row,
+    from the kernels' own loop bounds (csrc/flash_attention.cu)."""
+    n_q, n_k = -(-tq // TILE), -(-tk // TILE)
+    pairs = 0
+    for qt in range(n_q):
+        lo, hi = 0, n_k - 1
+        if causal:
+            q_first = q_off + qt * TILE
+            hi = min(hi, (q_first + TILE - 1 - k_off) // TILE)
+            if window:
+                lo = max(0, (q_first - (window - 1) - k_off) // TILE)
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def visible_pairs(tq: int, tk: int, q_off: int, k_off: int, causal: bool,
+                  window) -> int:
+    """(query, key) pairs of one row the function needs: every pair
+    without ``causal``, else each query's keys at global positions
+    ``(q_pos - window, q_pos]`` (``window`` None: all of ``<= q_pos``)
+    that lie in ``[k_off, k_off + tk)``. Masked cells of the kernels'
+    live tiles are not counted."""
+    if not causal:
+        return tq * tk
+    rel = np.arange(tq, dtype=np.int64) + (q_off - k_off)  # q_pos - k_off
+    hi = np.minimum(tk - 1, rel)
+    lo = np.maximum(0, rel - window + 1) if window else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bounds(q3, k3, q_off, k_off, causal, window, peak) -> dict:
+    """Per kernel: (operations, bytes) the work needs and the bound in
+    ms, the larger of operations over ``peak`` and bytes over the HBM
+    rate. Operations: 2 per multiply-add over the visible (query, key)
+    pairs of each product the function needs (forward S and PV; dk/dv
+    S, dP, dV and dK; dq S, dP and dQ). Bytes: every input read once,
+    every output written once."""
+    bh, tq, d = q3.shape
+    bhkv, tk, _ = k3.shape
+    e = q3.element_size()
+    mac = bh * visible_pairs(tq, tk, q_off, k_off, causal, window) * d
+    qd, kd = bh * tq * d, bhkv * tk * d
+    work = {
+        "flash_fwd": (2 * 2 * mac,
+                      e * (qd + 2 * kd) + 4 * 2 * qd + 4 * 4 * bh * tq),
+        "flash_bwd_dkdv": (2 * 4 * mac,
+                           e * (2 * qd + 2 * kd) + 4 * 2 * bh * tq
+                           + 4 * 2 * kd),
+        "flash_bwd_dq": (2 * 3 * mac,
+                         e * (2 * qd + 2 * kd) + 4 * 2 * bh * tq + 4 * qd),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+        out[name] = {"ops": ops, "bytes": nbytes,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+    return out
+
+
+def by_batch(fn, batch: int, *args, **kw):
+    """``fn`` over each batch element's rows, results concatenated: the
+    plain versions at the full shape, one [16, 4096, 4096] float32 score
+    block at a time instead of four."""
+    outs = [fn(*(a.chunk(batch)[i] if isinstance(a, torch.Tensor) else a
+                 for a in args), **kw) for i in range(batch)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def flash_bf16_check(TFA, dev, gen, window) -> dict:
+    """The three kernels at the training shape (bf16, causal, zero
+    carry, offsets 0, ``window``) against their plain versions by batch
+    element; raises past ``FLASH_BF16_TOL``. → the inputs, the
+    normalised and absolute errors, and per kernel its kernel and plain
+    calls."""
+    b, hq, hkv, t, d = (TRAIN["batch"], TRAIN["heads"], TRAIN["kv_heads"],
+                        TRAIN["seq"], TRAIN["head_dim"])
+    bf = torch.bfloat16
+    q3, do3 = (torch.randn((b * hq, t, d), generator=gen, device=dev).to(bf)
+               for _ in range(2))
+    k3, v3 = (torch.randn((b * hkv, t, d), generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    carry = TFA.zero_carry(b * hq, t, d, dev)
+    kw = dict(causal=True, q_heads=hq, window=window)
+    got = TFA._flash_call(q3, k3, v3, *carry, **kw)
+    want = by_batch(TFA._flash_call_plain, b, q3, k3, v3, *carry, 0, 0,
+                    **kw)
+    o, m, l = got
+    L = m + torch.log(l)
+    delta = (do3.float() * (o / l[..., None])).sum(-1)
+    bargs = (q3, k3, v3, do3, L, delta, 0, 0)
+    got += TFA._flash_bwd_dkdv(*bargs, **kw) + (TFA._flash_bwd_dq(*bargs,
+                                                                 **kw),)
+    want += by_batch(TFA._flash_bwd_dkdv_plain, b, *bargs, **kw) + (
+        by_batch(TFA._flash_bwd_dq_plain, b, *bargs, **kw),)
+    torch.cuda.synchronize()
+    names = ("o", "m", "l", "dk", "dv", "dq")
+    errs = {n: norm_err(g, w) for n, g, w in zip(names, got, want)}
+    bad = {n: e for n, e in errs.items() if not e <= FLASH_BF16_TOL}
+    if bad:
+        raise AssertionError(f"flash kernels vs plain (window {window}): "
+                             f"normalised L-inf {bad} > {FLASH_BF16_TOL}")
+    abs_err = {n: (g - w).abs().max().item()
+               for n, g, w in zip(names, got, want)}
+    calls = {
+        "flash_fwd": (lambda: TFA._flash_call(q3, k3, v3, *carry, **kw),
+                      lambda: by_batch(TFA._flash_call_plain, b, q3, k3, v3,
+                                       *carry, 0, 0, **kw)),
+        "flash_bwd_dkdv": (lambda: TFA._flash_bwd_dkdv(*bargs, **kw),
+                           lambda: by_batch(TFA._flash_bwd_dkdv_plain, b,
+                                            *bargs, **kw)),
+        "flash_bwd_dq": (lambda: TFA._flash_bwd_dq(*bargs, **kw),
+                         lambda: by_batch(TFA._flash_bwd_dq_plain, b,
+                                          *bargs, **kw)),
+    }
+    return {"q3": q3, "k3": k3, "v3": v3, "do3": do3, "errs": errs,
+            "calls": calls,
+            "abs_err": {"flash_fwd": abs_err["o"],
+                        "flash_bwd_dkdv": max(abs_err["dk"], abs_err["dv"]),
+                        "flash_bwd_dq": abs_err["dq"]},
+            "bounds": flash_bounds(q3, k3, 0, 0, True, window,
+                                   BF16_FLOPS_PER_S)}
+
+
+def flash_train_shape(TFA, dev, gen, card) -> list:
+    """The causal training-shape check, each kernel timed beside its
+    bound, its plain version and SDPA; → one result dict per kernel."""
+    b, hq, hkv, t, d = (TRAIN["batch"], TRAIN["heads"], TRAIN["kv_heads"],
+                        TRAIN["seq"], TRAIN["head_dim"])
+    c = flash_bf16_check(TFA, dev, gen, None)
+    # One PyTorch call for the same functions: SDPA, causal, GQA.
+    q4, k4, v4, do4 = (c[x].view(b, -1, t, d)
+                       for x in ("q3", "k3", "v3", "do3"))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_eager(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                      enable_gqa=True), calls=10)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    lib_fb = time_eager(sdpa_fwd_bwd, calls=10)
+    replaces = {
+        "flash_fwd": "tpu_p2p/ops/flash_attention.py:101 (_kernel) and "
+                     ":208 (_kernel_flat)",
+        "flash_bwd_dkdv": "tpu_p2p/ops/flash_attention.py:717 "
+                          "(_bwd_dkdv_kernel)",
+        "flash_bwd_dq": "tpu_p2p/ops/flash_attention.py:826 "
+                        "(_bwd_dq_kernel) and :693 (_dq_reduce_kernel)",
+    }
+    rows = []
+    for name, (fn, plain) in c["calls"].items():
+        ms = time_eager(fn, calls=10, warm=2)
+        plain_ms = time_eager(plain, calls=2, warm=1)
+        lib = lib_fwd if name == "flash_fwd" else lib_fb
+        bd = c["bounds"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "tpu_p2p_torch/csrc/flash_attention.cu",
+            "replaces": replaces[name], "max_abs_err": c["abs_err"][name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": lib,
+        })
+        say(f"kernel {name} @ B{b} H{hq}/{hkv} T{t} D{d} bf16 causal: "
+            f"normalised L-inf vs plain {c['errs']} (tol {FLASH_BF16_TOL}) "
+            f"| {ms:.3f} ms vs bound {bd['bound_ms']:.3f} ms "
+            f"({bd['bound_by']}: {bd['ops'] / 1e12:.3f} TFLOP, "
+            f"{bd['bytes'] / 1e9:.3f} GB; "
+            f"{bd['ops'] / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+            f"SDPA {'fwd' if name == 'flash_fwd' else 'fwd+bwd'} "
+            f"{lib:.3f} ms | {card}")
+    return rows
+
+
+def flash_train_windowed(TFA, dev, gen, card) -> None:
+    """The training-shape check with ``--attn-window 1024`` (the banded
+    sweep), each kernel timed beside its live-tile bound."""
+    window, t = 1024, TRAIN["seq"]
+    c = flash_bf16_check(TFA, dev, gen, window)
+    times = {n: time_eager(fn, calls=10) for n, (fn, _) in c["calls"].items()}
+    bounds = c["bounds"]
+    say(f"flash bf16 @ B{TRAIN['batch']} H{TRAIN['heads']}/"
+        f"{TRAIN['kv_heads']} T{t} D{TRAIN['head_dim']} window {window}: "
+        f"normalised L-inf vs plain {c['errs']} (tol {FLASH_BF16_TOL}) | "
+        f"{live_tile_pairs(t, t, 0, 0, True, window)} live tile pairs, "
+        f"{visible_pairs(t, t, 0, 0, True, window)} visible (query, key) "
+        f"pairs a row (causal: {live_tile_pairs(t, t, 0, 0, True, None)}, "
+        f"{visible_pairs(t, t, 0, 0, True, None)}) | ms "
+        + ", ".join(f"{n} {times[n]:.3f} (bound {bounds[n]['bound_ms']:.3f}"
+                    f" {bounds[n]['bound_by']})" for n in times)
+        + f" | {card}")
+
+
+def flash_f32_window(TFA, dev, gen, card) -> None:
+    """The three kernels in float32 at T 512, window 96 (not a tile
+    multiple), q_off != k_off and a random incoming carry, against their
+    plain versions at atol = rtol = FLASH_F32_TOL."""
+    b, hq, hkv, t, d = 2, TRAIN["heads"], TRAIN["kv_heads"], 512, 128
+    q_off, k_off, window = 300, 250, 96
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    q3, do3, o0 = rnd(b * hq, t, d), rnd(b * hq, t, d), rnd(b * hq, t, d)
+    k3, v3 = rnd(b * hkv, t, d), rnd(b * hkv, t, d)
+    m0 = rnd(b * hq, t)
+    l0 = torch.rand((b * hq, t), generator=gen, device=dev)
+    kw = dict(causal=True, q_heads=hq, window=window)
+    fargs = (q3, k3, v3, o0, m0, l0, q_off, k_off)
+    got = TFA._flash_call(*fargs, **kw)
+    want = TFA._flash_call_plain(*fargs, **kw)
+    o, m, l = want
+    L = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), 1e30)
+    delta = rnd(b * hq, t)
+    bargs = (q3, k3, v3, do3, L, delta, q_off, k_off)
+    got += TFA._flash_bwd_dkdv(*bargs, **kw) + (TFA._flash_bwd_dq(*bargs,
+                                                                 **kw),)
+    want += TFA._flash_bwd_dkdv_plain(*bargs, **kw) + (
+        TFA._flash_bwd_dq_plain(*bargs, **kw),)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("o", "m", "l", "dk", "dv", "dq"), got, want):
+        torch.testing.assert_close(g, w, atol=FLASH_F32_TOL,
+                                   rtol=FLASH_F32_TOL, msg=name)
+        errs[name] = (g - w).abs().max().item()
+    bounds = flash_bounds(q3, k3, q_off, k_off, True, window,
+                          F32_FLOPS_PER_S)
+    times = {
+        "flash_fwd": time_eager(lambda: TFA._flash_call(*fargs, **kw)),
+        "flash_bwd_dkdv": time_eager(
+            lambda: TFA._flash_bwd_dkdv(*bargs, **kw)),
+        "flash_bwd_dq": time_eager(lambda: TFA._flash_bwd_dq(*bargs, **kw)),
+    }
+    say(f"flash f32 @ B{b} H{hq}/{hkv} T{t} D{d} window {window} q_off "
+        f"{q_off} k_off {k_off}, random carry: max abs err vs plain "
+        f"{errs} (atol = rtol = {FLASH_F32_TOL}) | ms "
+        + ", ".join(f"{n} {times[n]:.4f} (bound {bounds[n]['bound_ms']:.4f}"
+                    f" {bounds[n]['bound_by']})" for n in times)
+        + f" | {card}")
+
+
+# ------------------------------------------------------------ phase 5
+
+
+def run_train(cfg, steps: int, TFA, dev) -> dict:
+    """``run_training`` with a record every step; → records, launches,
+    per-step ms (from the records' wall clock, each read after the
+    step's loss reached the host) and peak memory."""
+    from tpu_p2p_torch.train import run_training
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TFA.reset_launches()
+    out = run_training(cfg, steps=steps, lr=1e-2, seed=0, log_every=1,
+                       log_stream=buf, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(TFA.launches)
+    recs = [json.loads(s) for s in buf.getvalue().splitlines()]
+    walls = [0.0] + [r["wall_s"] for r in recs]
+    del out
+    return {"recs": recs, "launches": launches,
+            "losses": [r["loss"] for r in recs],
+            "step_ms": [1e3 * (b - a) for a, b in zip(walls, walls[1:])],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def check_train_run(run: dict, cfg, steps: int) -> None:
+    losses = run["losses"]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    want = steps * cfg.stages * cfg.microbatches
+    if any(n != want for n in run["launches"].values()):
+        raise AssertionError(f"flash launches {run['launches']} over "
+                             f"{steps} steps, expected {want} of each "
+                             "(once per block per microbatch per step)")
+
+
+def train(TFA, dev, card) -> dict:
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+
+    cfg = FlagshipConfig(**TRAIN)
+    run = run_train(cfg, TRAIN_STEPS, TFA, dev)
+    check_train_run(run, cfg, TRAIN_STEPS)
+    ln_v = math.log(cfg.vocab)
+    if not ln_v - 1 <= run["losses"][0] <= ln_v + 2:
+        raise AssertionError(f"first loss {run['losses'][0]} outside "
+                             f"[ln V - 1, ln V + 2] = [{ln_v - 1}, "
+                             f"{ln_v + 2}]")
+    p50 = statistics.median(run["step_ms"][1:])
+    tokens = cfg.batch * cfg.seq
+    say(f"train flagship_large (B{cfg.batch} T{cfg.seq}, {cfg.stages} "
+        f"blocks, bf16, flash, SGD lr 1e-2, seed 0): losses "
+        f"{run['losses']} | step ms {[round(x) for x in run['step_ms']]}, "
+        f"p50 of steps 2-{TRAIN_STEPS} {p50:.0f} ms = "
+        f"{tokens / p50 * 1e3:.0f} tokens/s | peak memory "
+        f"{run['peak_gib']:.2f} GiB | flash launches {run['launches']} | "
+        f"{card}")
+    return {"launches": run["launches"], "step_ms_p50": p50}
+
+
+def grads_vs_dense(dev, card) -> None:
+    """One step's gradients through the kernels against dense attention
+    from the same params and batch, at batch 1: the dense path saves a
+    float32 [16, 4096, 4096] score block per block, which at batch 4
+    over 8 blocks exceeds the card."""
+    from tpu_p2p_torch.models.flagship import (
+        FlagshipConfig, flagship_token_batch, init_flagship_params,
+        make_flagship_lm_grad_fn)
+
+    cfg = FlagshipConfig(**{**TRAIN, "batch": 1})
+    params = init_flagship_params(cfg, seed=0, device=dev)
+    toks, tgts = flagship_token_batch(cfg, seed=1, device=dev)
+    g_f, l_f = make_flagship_lm_grad_fn(cfg)(params, toks, tgts)
+    g_d, l_d = make_flagship_lm_grad_fn(
+        dataclasses.replace(cfg, use_flash=False))(params, toks, tgts)
+    torch.cuda.synchronize()
+    rel = {k: ((g_f[k].float() - g_d[k].float()).norm()
+               / g_d[k].float().norm().clamp_min(1e-30)).item()
+           for k in g_d}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= GRAD_TOL:
+        raise AssertionError(f"flash vs dense grads: relative L2 {rel} > "
+                             f"{GRAD_TOL}")
+    say(f"grads flash vs dense @ B1 T{cfg.seq} (cut from B{TRAIN['batch']}"
+        f" for the dense path's memory): summed CE {l_f.item():.4f} vs "
+        f"{l_d.item():.4f}; per-leaf relative L2 max {rel[worst]:.2e} "
+        f"({worst}), tol {GRAD_TOL}: "
+        + ", ".join(f"{k} {v:.1e}" for k, v in sorted(rel.items()))
+        + f" | {card}")
+
+
+def train_windowed(TFA, dev, card) -> None:
+    """The windowed kernels through the entry point: window 1024 at 2
+    blocks, 2 steps."""
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+
+    cfg = FlagshipConfig(**{**TRAIN, "stages": 2, "attn_window": 1024})
+    run = run_train(cfg, 2, TFA, dev)
+    check_train_run(run, cfg, 2)
+    say(f"train windowed (window 1024, 2 blocks, B{cfg.batch} T{cfg.seq}):"
+        f" losses {run['losses']} | step ms "
+        f"{[round(x) for x in run['step_ms']]} | flash launches "
+        f"{run['launches']} | {card}")
+
+
+KERNEL_FAMILIES = (
+    ("flash", ("flash_fwd_kernel", "flash_bwd_")),
+    ("gemm", ("gemm", "Gemm", "nvjet", "xmma", "cutlass", "cublas")),
+    ("copy/cast", ("copy", "Copy", "Memcpy", "Memset", "cast", "Cat")),
+    ("reduce", ("reduce", "Reduce", "softmax", "norm")),
+    ("elementwise", ("elementwise", "Elementwise", "vectorized")),
+)
+
+
+def profile_step(dev, card) -> None:
+    """One flagship_large train step under ``torch.profiler``: device
+    time by kernel family and the device's idle share of the step's
+    wall time (kernels of one stream do not overlap, so their summed
+    time is the busy time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch.models.flagship import (
+        FlagshipConfig, flagship_token_batch, init_flagship_params,
+        make_flagship_lm_train_step)
+
+    cfg = FlagshipConfig(**TRAIN)
+    params = init_flagship_params(cfg, seed=0, device=dev)
+    toks, tgts = flagship_token_batch(cfg, seed=1, device=dev)
+    step = make_flagship_lm_train_step(cfg, lr=1e-2, donate=True)
+    step(params, toks, tgts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, toks, tgts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam_ms, by_name, count = {}, {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3
+        count += 1
+        family = next((f for f, keys in KERNEL_FAMILIES
+                       if any(k in ev.name for k in keys)), "other")
+        fam_ms[family] = fam_ms.get(family, 0.0) + ms
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+    busy = sum(fam_ms.values())
+    if not count:
+        raise AssertionError("the profiler recorded no device activity")
+    say(f"profile one train step (flagship_large): wall {wall_ms:.1f} ms, "
+        f"device busy {busy:.1f} ms over {count} device events, idle share "
+        f"{1 - busy / wall_ms:.3f} | by family (ms): "
+        + ", ".join(f"{f} {v:.1f}" for f, v in
+                    sorted(fam_ms.items(), key=lambda kv: -kv[1]))
+        + f" | {card}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        say(f"  {ms:9.2f} ms  {name[:110]}")
+
+
+# ------------------------------------------------------------ phase 6
+
+
 def decode_parity(cfg, params, dev, TK) -> dict:
     """Teacher-forced dense decode vs the paged step at chunk 1 over
     ``DECODE_POSITIONS`` positions; the cache window equals the paged
@@ -262,7 +705,7 @@ def decode_parity(cfg, params, dev, TK) -> dict:
     return {"max_abs_diff": worst, "bitwise": bitwise, "launches": counts}
 
 
-# ------------------------------------------------------------ phase 5
+# ------------------------------------------------------------ phase 7
 
 
 def serve_config(cfg):
@@ -340,6 +783,7 @@ def main() -> int:
         return 2
     from tpu_p2p_torch.models.flagship import (
         FlagshipConfig, init_flagship_params)
+    from tpu_p2p_torch.ops import flash_attention as TFA
     from tpu_p2p_torch.ops import kvcache as TK
     from tpu_p2p_torch.utils import cuda_build
 
@@ -352,9 +796,10 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    info = cuda_build.build(["kvcache"])["kvcache"]
-    say(f"build: {info['cmd'] or 'up to date: ' + str(info['path'])} "
-        f"({time.perf_counter() - t0:.2f} s)")
+    for src, info in cuda_build.build(["kvcache", "flash_attention"]).items():
+        say(f"build {src}: {info['cmd'] or 'up to date: ' + str(info['path'])}"
+            f" ({info['seconds']:.2f} s)")
+    say(f"build: {time.perf_counter() - t0:.2f} s wall, all sources at once")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [kernel_paged(TK, dev, gen), kernel_cache_row(TK, dev, gen)]
@@ -363,6 +808,21 @@ def main() -> int:
             f"(graph replay) vs bound {k['bound_ms']:.5f} ms, plain "
             f"{k['plain_ms']:.5f} ms, index_put_ {k['library_ms']:.5f} ms, "
             f"host loop {k['host_loop_ms']:.5f} ms | {card}")
+
+    kernels += flash_train_shape(TFA, dev, gen, card)
+    torch.cuda.empty_cache()
+    flash_train_windowed(TFA, dev, gen, card)
+    flash_f32_window(TFA, dev, gen, card)
+    torch.cuda.empty_cache()
+
+    trn = train(TFA, dev, card)
+    torch.cuda.empty_cache()
+    grads_vs_dense(dev, card)
+    torch.cuda.empty_cache()
+    train_windowed(TFA, dev, card)
+    torch.cuda.empty_cache()
+    profile_step(dev, card)
+    torch.cuda.empty_cache()
 
     cfg = FlagshipConfig(batch=SLOTS, **MODEL)
     t0 = time.perf_counter()
@@ -379,7 +839,8 @@ def main() -> int:
 
     srv = serve(cfg, params, TK, card)
     launches = {"cache_row_write": dec["launches"]["cache_row_write"],
-                "paged_rows_write": srv["launches"]["paged_rows_write"]}
+                "paged_rows_write": srv["launches"]["paged_rows_write"],
+                **trn["launches"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

@@ -88,3 +88,128 @@ def test_kernel_rejects_a_non_contiguous_pool_on_card(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         TK.paged_rows_write(pool, torch.zeros((1, 1, 8, 8), device=cuda),
                             z, z, z, z, 0)
+
+
+# ------------------------------------------------------ flash kernels
+
+from tpu_p2p_torch.ops import flash_attention as TFA  # noqa: E402
+
+# (head dim, causal, window, q_off, k_off, Tq, Tk): ragged tiles, a
+# window that is not a tile multiple, q_off != k_off, and q_off < k_off
+# where the first queries see no key (fully-masked rows).
+_FLASH_CASES = [(128, False, None, 0, 0, 200, 264),
+                (128, True, None, 0, 0, 256, 256),
+                (128, True, 96, 37, 5, 200, 264),
+                (64, True, None, 3, 70, 130, 190),
+                (32, True, 40, 100, 20, 64, 192)]
+_B, _HQ, _HKV = 2, 4, 2
+
+
+def _flash_inputs(dtype, d, tq, tk, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bh, bhkv = _B * _HQ, _B * _HKV
+    q = torch.randn((bh, tq, d), generator=g).to(dtype)
+    k = torch.randn((bhkv, tk, d), generator=g).to(dtype)
+    v = torch.randn((bhkv, tk, d), generator=g).to(dtype)
+    o0 = torch.randn((bh, tq, d), generator=g)
+    m0 = torch.randn((bh, tq), generator=g)
+    l0 = torch.rand((bh, tq), generator=g)
+    do = torch.randn((bh, tq, d), generator=g).to(dtype)
+    return q, k, v, o0, m0, l0, do
+
+
+def _bwd_plain(*args, **kw):
+    """``(dq, dk, dv)`` from the two per-kernel plain versions."""
+    return (TFA._flash_bwd_dq_plain(*args, **kw),
+            *TFA._flash_bwd_dkdv_plain(*args, **kw))
+
+
+def _norm_err(got, want):
+    """max |got - want| / max |want|, the bf16 yardstick."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _FLASH_CASES,
+                         ids=[f"d{c[0]}_{'causal' if c[1] else 'dense'}"
+                              f"_w{c[2]}_off{c[3]}-{c[4]}"
+                              for c in _FLASH_CASES])
+def test_flash_kernels_match_plain_on_card_f32(cuda, case):
+    d, causal, window, q_off, k_off, tq, tk = case
+    x = [t.to(cuda) for t in _flash_inputs(torch.float32, d, tq, tk, 2)]
+    q, k, v, o0, m0, l0, do = x
+    kw = dict(causal=causal, q_heads=_HQ, window=window)
+    before = dict(TFA.launches)
+    got = TFA._flash_call(q, k, v, o0, m0, l0, q_off, k_off, **kw)
+    want = TFA._flash_call_plain(q, k, v, o0, m0, l0, q_off, k_off, **kw)
+    for g_, w_, name in zip(got, want, "oml"):
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4,
+                                   msg=name)
+    o, m, l = want
+    L = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), 1e30)
+    delta = torch.randn(L.shape, generator=torch.Generator(
+        device="cpu").manual_seed(3)).to(cuda)
+    args = (q, k, v, do, L, delta, q_off, k_off)
+    got = TFA._flash_bwd_call(*args, **kw)
+    want = _bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g_, w_, atol=1e-4, rtol=1e-4, msg=name)
+    assert {k_: TFA.launches[k_] - before[k_] for k_ in before} == {
+        "flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}
+
+
+@pytest.mark.cuda
+def test_flash_kernels_match_plain_on_card_bf16(cuda):
+    # The train dtype at head dim 128: normalised L-inf <= 2e-2 (p and
+    # ds are rounded to bf16 against tile-local vs whole-row maxima).
+    x = [t.to(cuda) for t in _flash_inputs(torch.bfloat16, 128, 320, 320, 4)]
+    q, k, v, o0, m0, l0, do = x
+    kw = dict(causal=True, q_heads=_HQ)
+    zero = TFA.zero_carry(q.shape[0], 320, 128, cuda)
+    got = TFA._flash_call(q, k, v, *zero, **kw)
+    want = TFA._flash_call_plain(q, k, v, *zero, **kw)
+    for g_, w_ in zip(got, want):
+        assert _norm_err(g_, w_) <= 2e-2
+    o, m, l = want
+    L = m + torch.log(l)
+    delta = (do.float() * (o / l[..., None])).sum(-1)
+    got = TFA._flash_bwd_call(q, k, v, do, L, delta, **kw)
+    want = _bwd_plain(q, k, v, do, L, delta, **kw)
+    for g_, w_ in zip(got, want):
+        assert _norm_err(g_, w_) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_attention_grads_match_dense_on_card(cuda, window):
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn((2, 4, 192, 64), generator=g).to(cuda)
+    k, v = (torch.randn((2, 2, 192, 64), generator=g).to(cuda)
+            for _ in range(2))
+    from tpu_p2p_torch.ops.attention import dense_attention
+
+    outs = []
+    for fn in (lambda a, b, c: TFA.flash_attention(a, b, c, True, window),
+               lambda a, b, c: dense_attention(a, b, c, causal=True,
+                                               window=window)):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ts)
+        torch.sum(out ** 2).backward()
+        outs.append((out.detach(), *(t.grad for t in ts)))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_cannot_take_on_card(cuda):
+    q = torch.zeros((2, 64, 48), device=cuda)      # head dim 48
+    with pytest.raises(ValueError, match="head dims"):
+        TFA._flash_call(q, q, q, *TFA.zero_carry(2, 64, 48, cuda),
+                        causal=True, q_heads=2)
+    q = torch.zeros((2, 64, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TFA._flash_call(q, q, q, *TFA.zero_carry(2, 64, 64, cuda),
+                        causal=True, q_heads=2)

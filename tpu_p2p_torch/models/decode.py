@@ -24,6 +24,7 @@ from tpu_p2p_torch.models.flagship import (
     FlagshipConfig,
     _dense_ffn,
     _rms_norm,
+    _unembed,
     torch_dtype,
 )
 from tpu_p2p_torch.ops.kvcache import cache_row_write
@@ -137,12 +138,6 @@ def _decode_stack(params, cache: Cache, x, pos: int, cfg: FlagshipConfig):
         x = _decode_sub_block(sub, x, h, k_all[s], v_all[s], pos, pos_rows,
                               cfg)
     return cache, x
-
-
-def _unembed(y, emb, compute: torch.dtype):
-    """Tied unembed in the compute dtype with float32 accumulation:
-    both operands widened to float32 (exact for bf16 products)."""
-    return torch.matmul(y.to(compute).float(), emb.to(compute).float().t())
 
 
 def make_flagship_lm_decode_step(cfg: FlagshipConfig):

@@ -1,20 +1,31 @@
 """Flagship model config — the port's copy of
 ``tpu_p2p/models/flagship_config.py``.
 
-The model-shape fields only: the mesh factoring and the training-time
-parallelism schedules (FSDP, tp/ep/pp overlap, remat, flash) belong to
-the training slice of the port and are not here yet. Field names and
-defaults match the reference, so one keyword set builds both configs.
+The model-shape fields, ``use_flash``, and every training field the
+reference's train CLI sets. Field names and defaults match the
+reference, so one keyword set builds both configs. The port runs on one
+device, so the fields that schedule a mesh (sequence-parallel strategy,
+FSDP and its overlap, the tp/ep/pp overlaps, the pipeline schedule and
+its lowering) and rematerialization are not ported yet: a non-default
+value raises rather than being ignored.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+# Fields whose machinery is not ported, with the reference's default.
+NOT_PORTED_FIELDS = {
+    "sp_strategy": "ring", "zero_dp": False, "overlap": "none",
+    "tp_overlap": "none", "ep_overlap": "none", "pp_overlap": "none",
+    "pp_chunks": 4, "pp_schedule": "1f1b", "tick_lowering": "masked",
+    "remat": False, "remat_policy": "",
+}
+
 
 @dataclass(frozen=True)
 class FlagshipConfig:
-    """Global shapes of the flagship transformer."""
+    """Global shapes of the flagship transformer, and how it trains."""
 
     batch: int = 8
     seq: int = 256
@@ -35,8 +46,28 @@ class FlagshipConfig:
     norm: bool = False       # pre-norm RMSNorm gains ln1/ln2 (+ lnf)
     dense_ffn: bool = False  # dense gelu MLP (wf1/wf2) instead of MoE
     attn_window: int = 0     # > 0: sliding-window attention
+    use_flash: bool = False  # attention through the flash kernels
+    # (dense attention otherwise)
+    sp_strategy: str = "ring"
+    zero_dp: bool = False
+    overlap: str = "none"
+    tp_overlap: str = "none"
+    ep_overlap: str = "none"
+    pp_overlap: str = "none"
+    pp_chunks: int = 4
+    pp_schedule: str = "1f1b"
+    tick_lowering: str = "masked"
+    remat: bool = False
+    remat_policy: str = ""
 
     def __post_init__(self) -> None:
+        for name, default in NOT_PORTED_FIELDS.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"FlagshipConfig.{name}={getattr(self, name)!r} is not "
+                    f"ported yet (the port runs one device; only "
+                    f"{name}={default!r} is)"
+                )
         if self.attn_window < 0:
             raise ValueError(
                 f"attn_window must be >= 0, got {self.attn_window}"

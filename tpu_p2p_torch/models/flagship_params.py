@@ -89,6 +89,27 @@ def init_flagship_params(cfg: FlagshipConfig, seed: int = 0, *,
     return out
 
 
+def flagship_host_batch(cfg: FlagshipConfig, rng: np.random.Generator
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One host-side ``(x, target)`` regression batch ``[B, T, Dm]`` in
+    the compute dtype: the reference's two ``standard_normal`` draws
+    from ``rng``, rounded from float64 on the host (CPU tensors)."""
+    shape = (cfg.batch, cfg.seq, cfg.model_dim)
+    dtype = torch_dtype(cfg.dtype)
+    return (torch.from_numpy(rng.standard_normal(shape)).to(dtype),
+            torch.from_numpy(rng.standard_normal(shape)).to(dtype))
+
+
+def flagship_token_batch(cfg: FlagshipConfig, seed: int = 1,
+                         device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random ``(tokens, next-token targets)`` int32 ``[B, T]`` on
+    ``device``, the reference's draws from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (cfg.batch, cfg.seq + 1))
+    return (torch.from_numpy(toks[:, :-1].astype(np.int32)).to(device),
+            torch.from_numpy(toks[:, 1:].astype(np.int32)).to(device))
+
+
 def tensor_from_numpy(a: np.ndarray, device,
                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One host array → a tensor on ``device``, bitwise. A bfloat16

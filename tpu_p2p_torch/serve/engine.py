@@ -37,22 +37,10 @@ from tpu_p2p_torch.models.flagship import FlagshipConfig, init_flagship_params
 from tpu_p2p_torch.serve.batcher import Batcher, Request, percentile
 from tpu_p2p_torch.serve.paged_cache import kv_page_bytes
 from tpu_p2p_torch.serve.resilience import preempt_recover_steps
+from tpu_p2p_torch.utils.device import resolve_device
 
 __all__ = ["run_engine", "synthetic_trace", "shared_prefix_trace",
            "resolve_device", "main"]
-
-
-def resolve_device(name: str) -> torch.device:
-    """``"cuda"`` or ``"cpu"`` → a device; ``"cuda"`` without a card
-    raises rather than running on the CPU."""
-    if name not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda: no CUDA device is available (pass "
-            "--device cpu to run on the CPU)"
-        )
-    return torch.device(name)
 
 
 def sample_request(rng, sc: ServeConfig, rid: int,
