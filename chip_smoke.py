@@ -4,11 +4,14 @@
 Drives the port's serving and training paths on one NVIDIA GPU at the
 full width of the repo's production LM (436 M parameters, Dm 2048, 16
 heads x 128 with GQA 2:1, 8 blocks, dense 4x FFN, vocab 32768,
-bfloat16) and fails on the first phase that goes wrong:
+bfloat16), then the reference program (the all-pairs P2P matrix and the
+8 B latency line) on worlds of ranks that share the card, and fails on
+the first phase that goes wrong:
 
 1. device   — card name and count, ``nvidia-smi`` name and power limit;
-2. build    — ``nvcc`` builds the KV-cache and flash-attention kernels
-   from ``csrc/``, one compiler per source, all started together;
+2. build    — ``nvcc`` builds the KV-cache, flash-attention and
+   peer-push kernels from ``csrc/``, one compiler per source, all
+   started together;
 3. kernels  — each KV-cache kernel against its plain PyTorch version at
    the serving shapes, bitwise (they are copies), timed beside its bytes
    bound, the plain version and one ``index_put_`` call;
@@ -30,7 +33,21 @@ bfloat16) and fails on the first phase that goes wrong:
    and static batching: every request finishes, step counts equal the
    dry ``simulate_schedule``, the page pool drains full, both batching
    modes emit the same tokens, and the paged write kernel ran on every
-   step of every block.
+   step of every block;
+8. p2p      — ``python -m tpu_p2p_torch`` through ``cli.main`` on a world
+   of 1 (defaults: the 1x1 uni/bi matrices at 32 MiB; then the latency
+   line, the self-edge floor); a world of 2 ranks sharing cuda:0
+   (``make_runtime(device="cuda:0")`` each, then what ``cli.main`` runs)
+   with ``pairwise --transport pallas_dma --check`` at the reference's
+   32 MiB x 128 iterations and ``latency --transport pallas_dma``; a
+   world of 4 at 4 MiB x 16 in full and submesh isolation. The
+   peer-push kernel's launches on those runs must equal the count the
+   workloads make; its arrivals must equal the plain version's (gloo, on
+   ``.cpu()`` copies) and ``expected_permute`` bitwise over six edge
+   sets at 136 B and the run's size in int8, a float32 [5, 3] row and
+   one backward pass; then its per-hop time at 32 MiB beside its bound,
+   the plain version and one ``copy_``. Ranks sharing a card run as
+   time-sliced CUDA contexts, so these are not link numbers.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -776,6 +793,297 @@ def serve(cfg, params, TK, card: str) -> dict:
     return {"launches": counts}
 
 
+# ------------------------------------------------------------ phase 8
+
+P2P_MSG, P2P_ITERS = 32 << 20, 128      # the reference's defaults
+P2P4_MSG, P2P4_ITERS = 4 << 20, 16      # the 4-rank world, cut
+HOP_CHAIN = 64                          # hops per timed fused chain
+NVLINK_BYTES_PER_S = 450e9              # H100 NVLink, each way
+EDGE_SETS_8 = {                         # tests/test_pallas_dma.py:101
+    "ring": tuple((i, (i + 1) % 8) for i in range(8)),
+    "shift3": tuple((i, (i + 3) % 8) for i in range(8)),
+    "unidir": ((2, 5),),
+    "bidir": ((1, 6), (6, 1)),
+    "partial": ((0, 1), (3, 2), (6, 4)),
+    "empty": (),
+}
+
+
+def cut_edges(edges, n):
+    """``edges`` on a world of ``n``: ranks mod ``n``, an edge kept only
+    while its source and destination are still unused."""
+    out, srcs, dsts = [], set(), set()
+    for s, d in edges:
+        s, d = s % n, d % n
+        if s not in srcs and d not in dsts:
+            out.append((s, d))
+            srcs.add(s)
+            dsts.add(d)
+    return tuple(out)
+
+
+def pairwise_launches(n: int, rank: int, cfg) -> int:
+    """Kernel launches one rank makes in a serialized pairwise run: per
+    measured cell the warm-up, ``iters`` and the ``--check`` hop, on
+    every rank (full isolation) or on the pair's two ranks (submesh)."""
+    per_cell = cfg.warmup + cfg.iters + int(cfg.check)
+    dirs = {"uni": 1, "bi": 1, "both": 2}[cfg.direction]
+    cells = sum(1 for s in range(n) for d in range(n) if s != d
+                and (cfg.isolation == "full" or rank in (s, d)))
+    return dirs * len(cfg.sizes()) * cells * per_cell
+
+
+def latency_launches(cfg) -> int:
+    """Launches of the latency workload on a pair in full isolation:
+    the serialized loop and the fused chains (warm-up and repeats)."""
+    warm = max(1, cfg.warmup)
+    return warm + cfg.iters + (warm + cfg.fused_repeats) * cfg.iters
+
+
+def p2p_kernel_checks(rt, sizes) -> dict:
+    """The kernel against its plain version on ``.cpu()`` copies (gloo)
+    and against ``expected_permute``, bitwise, over the six edge sets cut
+    to the world: int8 at ``sizes``, a float32 [5, 3] row, and one
+    backward pass against the reverse permute."""
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    mesh, dev = rt.mesh, rt.device
+    bad, worst, made = [], 0.0, 0
+    rng = np.random.default_rng(0)
+    xf_all = rng.standard_normal((rt.world, 5, 3)).astype(np.float32)
+    gf_all = rng.standard_normal((rt.world, 5, 3)).astype(np.float32)
+    for name, edges in ((k, cut_edges(e, rt.world))
+                        for k, e in EDGE_SETS_8.items()):
+        for nbytes in sizes:
+            x = C.make_payload(mesh, nbytes, np.int8)
+            got = C.dma_ppermute(x, mesh, edges).cpu()
+            made += 1
+            plain = PD._dma_ppermute_plain(x.cpu(), mesh, edges)
+            want = C.expected_permute(C.host_payload(mesh, nbytes), edges)
+            worst = max(worst, (got.int() - plain.int()).abs().max().item())
+            if not (torch.equal(got, plain) and np.array_equal(
+                    got.numpy(), want[rt.rank:rt.rank + 1])):
+                bad.append(f"{name} {nbytes} B")
+        xf = torch.from_numpy(xf_all[rt.rank]).to(dev).requires_grad_(True)
+        gf = torch.from_numpy(gf_all[rt.rank])
+        y = C.dma_ppermute(xf, mesh, edges)
+        y.backward(gf.to(dev))
+        made += 2
+        rev = tuple((d, s) for s, d in edges)
+        want_y = C.expected_permute(xf_all, edges)[rt.rank]
+        want_g = C.expected_permute(gf_all, rev)[rt.rank]
+        plain_y = PD._dma_ppermute_plain(xf.detach().cpu(), mesh, edges)
+        worst = max(worst, (y.detach().cpu() - plain_y).abs().max().item())
+        if not (torch.equal(y.detach().cpu(), plain_y)
+                and np.array_equal(y.detach().cpu().numpy(), want_y)
+                and np.array_equal(xf.grad.cpu().numpy(), want_g)):
+            bad.append(f"{name} float32 [5, 3] + backward")
+    return {"bad": bad, "max_abs_err": worst, "launches": made}
+
+
+def p2p_timing(rt) -> dict:
+    """At 32 MiB on the shared card: the kernel's per-hop time (median
+    over 5 fused chains of ``HOP_CHAIN`` ring hops, CUDA events on each
+    rank), the plain version's (host clock, gloo on ``.cpu()`` copies)
+    and one ``copy_`` of 32 MiB on the card (rank 0 alone)."""
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    mesh = rt.mesh
+    ring = C.ring_edges(rt.world)
+    x = C.make_payload(mesh, P2P_MSG, np.int8)
+    chain = C.CollectiveCache().dma_permute_chain(mesh, "d", ring, HOP_CHAIN)
+    chain(x)
+    hops = []
+    for _ in range(5):
+        rt.barrier()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        chain(x)
+        t1.record()
+        t1.synchronize()
+        hops.append(t0.elapsed_time(t1) / HOP_CHAIN)
+    rt.barrier()
+    xc, plain = x.cpu(), []
+    for _ in range(3):
+        rt.barrier()
+        t = time.perf_counter()
+        PD._dma_ppermute_plain(xc, mesh, ring)
+        plain.append((time.perf_counter() - t) * 1e3)
+    library = None
+    if rt.rank == 0:
+        dst = torch.empty_like(x)
+        library = time_eager(lambda: dst.copy_(x), calls=50)
+    rt.barrier()
+    return {"hop_ms": statistics.median(hops), "hop_ms_all": hops,
+            "plain_ms": statistics.median(plain), "library_ms": library}
+
+
+def p2p_rank_case(msg: int, iters: int, isolations, latency: bool,
+                  sizes, timing: bool) -> dict:
+    """One rank of a world that shares cuda:0 (every rank
+    ``make_runtime(device="cuda:0")``), then what ``cli.main`` runs after
+    it builds the runtime: ``pairwise --transport pallas_dma --check`` in
+    each isolation (and ``latency --transport pallas_dma``), launches
+    counted; then the kernel checks and, on request, the timing."""
+    from tpu_p2p_torch.cli import run_benchmark
+    from tpu_p2p_torch.config import BenchConfig
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(device="cuda:0")
+    out = {"rank": rt.rank, "world": rt.world}
+    rt.barrier()
+    PD.reset_launches()
+    t0 = time.perf_counter()
+    expected = 0
+    for iso in isolations:
+        cfg = BenchConfig(pattern="pairwise", msg_size=msg, iters=iters,
+                          transport="pallas_dma", check=True, isolation=iso)
+        run_benchmark(rt, cfg)
+        expected += pairwise_launches(rt.world, rt.rank, cfg)
+    if latency:
+        cfg = BenchConfig(pattern="latency", transport="pallas_dma")
+        run_benchmark(rt, cfg)
+        expected += latency_launches(cfg)
+    rt.barrier()
+    out.update(launches=PD.launches["dma_permute"],
+               expected_launches=expected,
+               main_path_s=time.perf_counter() - t0)
+    PD.reset_launches()
+    out["checks"] = p2p_kernel_checks(rt, sizes)
+    rt.barrier()
+    out["checks"]["counted"] = PD.launches["dma_permute"]
+    if timing:
+        out["timing"] = p2p_timing(rt)
+    rt.close()
+    return out
+
+
+def p2p_world(n: int, card: str, **kw) -> list:
+    """Spawn a world of ``n`` ranks on cuda:0 running
+    :func:`p2p_rank_case`; raise on any failed rank, launch mismatch or
+    kernel disagreement."""
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    res = run_world(n, f"{__file__}:p2p_rank_case", kw, timeout=450)
+    for r in res:
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(
+                f"world of {n}, rank {r['rank']}: dma_permute launched "
+                f"{r['launches']} times on the main path, expected "
+                f"{r['expected_launches']}")
+        c = r["checks"]
+        if c["bad"] or c["counted"] != c["launches"]:
+            raise AssertionError(
+                f"world of {n}, rank {r['rank']}: kernel vs plain/oracle "
+                f"failed for {c['bad']}; launches {c['counted']} vs "
+                f"{c['launches']} made")
+    say(f"p2p world of {n} on cuda:0 ({', '.join(kw['isolations'])} "
+        f"isolation, {kw['msg']} B x {kw['iters']}, pallas_dma, --check"
+        f"{', latency' if kw['latency'] else ''}): main path "
+        f"{res[0]['main_path_s']:.1f} s, dma_permute launches per rank "
+        f"{[r['launches'] for r in res]} (= expected); kernel == plain "
+        f"(gloo) == expected_permute bitwise over 6 edge sets at "
+        f"{list(kw['sizes'])} B int8 + float32 [5, 3] + backward, "
+        f"{res[0]['checks']['launches']} launches a rank | world "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    return res
+
+
+def p2p_self_edge() -> dict:
+    """The kernel with no peer: a world of 1 on cuda:0 pushing 32 MiB
+    into its own window over the self-edge, so no context ever waits for
+    another. → ms per hop of a fused chain (median of 5 chains of
+    ``HOP_CHAIN``, CUDA events), the host's enqueue time per hop over that
+    chain, and the kernel's own device time (median over one chain under
+    ``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(device="cuda:0")
+    x = C.make_payload(rt.mesh, P2P_MSG, np.int8)
+    chain = C.CollectiveCache().dma_permute_chain(rt.mesh, "d", ((0, 0),),
+                                                  HOP_CHAIN)
+    if not torch.equal(chain(x), x):
+        raise AssertionError("self-edge chain changed the payload")
+    hops, enqueue = [], []
+    for _ in range(5):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        t = time.perf_counter()
+        chain(x)
+        enqueue.append((time.perf_counter() - t) * 1e3 / HOP_CHAIN)
+        t1.record()
+        t1.synchronize()
+        hops.append(t0.elapsed_time(t1) / HOP_CHAIN)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chain(x)
+        torch.cuda.synchronize()
+    kernel = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and "dma_permute_kernel" in ev.name]
+    if not kernel:
+        raise AssertionError("the profiler recorded no self-edge kernel")
+    rt.close()
+    return {"chain_ms": statistics.median(hops),
+            "enqueue_ms": statistics.median(enqueue),
+            "kernel_ms": statistics.median(kernel), "profiled": len(kernel)}
+
+
+def p2p(card: str) -> dict:
+    """The reference program on the card: a world of 1 through
+    ``cli.main`` (defaults, then ``--pattern latency``), then worlds of 2
+    and 4 ranks sharing cuda:0 through the peer-push kernel."""
+    from tpu_p2p_torch import cli
+
+    for argv in ([], ["--pattern", "latency"]):
+        rc = cli.main(argv)
+        if rc:
+            raise AssertionError(f"python -m tpu_p2p_torch {argv} "
+                                 f"exited {rc}")
+    alone = p2p_self_edge()
+    w2 = p2p_world(2, card, msg=P2P_MSG, iters=P2P_ITERS,
+                   isolations=("full",), latency=True,
+                   sizes=(136, P2P_MSG), timing=True)
+    w4 = p2p_world(4, card, msg=P2P4_MSG, iters=P2P4_ITERS,
+                   isolations=("full", "submesh"), latency=False,
+                   sizes=(136, P2P4_MSG), timing=False)
+    tm = w2[0]["timing"]
+    bound = 2 * P2P_MSG / HBM_BYTES_PER_S * 1e3
+    say(f"kernel dma_permute @ 32 MiB int8, 2 ranks on one card: per hop "
+        f"{tm['hop_ms']:.4f} ms (median of 5 fused chains of {HOP_CHAIN} "
+        f"ring hops, rank 0; all {[round(v, 4) for v in tm['hop_ms_all']]};"
+        f" rank 1 median {w2[1]['timing']['hop_ms']:.4f}) vs bound "
+        f"{bound:.4f} ms (read + write 32 MiB at 3.35 TB/s; over NVLink "
+        f"it would be {P2P_MSG / NVLINK_BYTES_PER_S * 1e3:.4f} ms at 450 "
+        f"GB/s), plain {tm['plain_ms']:.3f} ms (gloo, host memory), "
+        f"copy_ {tm['library_ms']:.4f} ms (NCCL send/recv cannot form "
+        f"between ranks on one card) | time-sliced contexts, not a link "
+        f"number; the kernel alone (self-edge, world of 1, no peer): "
+        f"{alone['chain_ms']:.4f} ms a hop of a fused chain, host enqueue "
+        f"{alone['enqueue_ms']:.4f} ms a hop, kernel device time "
+        f"{alone['kernel_ms']:.4f} ms (profiler, median of the "
+        f"{alone['profiled']} kernels it recorded of {HOP_CHAIN}) | {card}")
+    return {
+        "name": "dma_permute", "route": "cuda",
+        "source": "tpu_p2p_torch/csrc/p2p_dma.cu",
+        "replaces": "tpu_p2p/parallel/pallas_dma.py:146 "
+                    "(_dma_transport_permute_call; kernel body :166)",
+        "launches": w2[0]["launches"],
+        "max_abs_err": max(r["checks"]["max_abs_err"] for r in w2 + w4),
+        "ms": tm["hop_ms"], "plain_ms": tm["plain_ms"], "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": tm["library_ms"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -796,7 +1104,8 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    for src, info in cuda_build.build(["kvcache", "flash_attention"]).items():
+    for src, info in cuda_build.build(["kvcache", "flash_attention",
+                                       "p2p_dma"]).items():
         say(f"build {src}: {info['cmd'] or 'up to date: ' + str(info['path'])}"
             f" ({info['seconds']:.2f} s)")
     say(f"build: {time.perf_counter() - t0:.2f} s wall, all sources at once")
@@ -838,9 +1147,12 @@ def main() -> int:
         f"{dec['bitwise']} | launches {dec['launches']}")
 
     srv = serve(cfg, params, TK, card)
+    del params
+    torch.cuda.empty_cache()
+    kernels.append(p2p(card))
     launches = {"cache_row_write": dec["launches"]["cache_row_write"],
                 "paged_rows_write": srv["launches"]["paged_rows_write"],
-                **trn["launches"]}
+                "dma_permute": kernels[-1]["launches"], **trn["launches"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

@@ -11,6 +11,8 @@ a GPU host without the reference installed:
 kernels are copies, so every comparison is bitwise.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -213,3 +215,47 @@ def test_flash_kernel_rejects_what_it_cannot_take_on_card(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         TFA._flash_call(q, q, q, *TFA.zero_carry(2, 64, 64, cuda),
                         causal=True, q_heads=2)
+
+
+# ------------------------------------------- peer-push (pallas_dma)
+# A world of 2 ranks, both on cuda:0: each rank's kernel pushes into the
+# other's CUDA IPC window. The rank-side cases live in
+# tests/test_torch_p2p_world.py.
+
+
+def _card_world(case, **kwargs):
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    cases = os.path.join(os.path.dirname(__file__), "test_torch_p2p_world.py")
+    return run_world(2, f"{cases}:{case}", kwargs, timeout=900)
+
+
+@pytest.mark.cuda
+def test_dma_kernel_matches_plain_and_oracle_on_card(cuda):
+    # Six edge sets at 136 B, 4 KiB and 32 MiB int8, a float32 row with
+    # its backward pass, then back-to-back launches with no drain
+    # between them (a 9-hop ring chain and a 12-hop mixed sequence),
+    # each held bitwise against the plain version and expected_permute.
+    for rank, res in enumerate(_card_world("card_checks_case")):
+        assert res["bad"] == [], f"rank {rank}: {res['bad']}"
+        assert res["launches"] == res["expected_launches"], res
+
+
+@pytest.mark.cuda
+def test_dma_kernel_times_out_when_the_peer_never_launches(cuda):
+    got = _card_world("card_timeout_case", timeout_s=0.5)
+    assert got[1] is None
+    assert got[0] is not None and "gave up waiting for rank 1" in got[0]
+
+
+@pytest.mark.cuda
+def test_dma_check_fails_when_the_peer_never_launches(cuda):
+    # The --check hop times out on rank 0 after a good check left the
+    # expected arrival in a freed block: no rank may report it verified,
+    # and a serialized cell whose last hop times out is marked so.
+    (err0, timed_out), (err1, _) = _card_world("card_check_timeout_case",
+                                               timeout_s=0.5)
+    assert err0 is not None and err0[0] == "TransferTimeout", err0
+    assert "gave up waiting for rank 1" in err0[1]
+    assert err1 is not None and err1[0] == "BackendError", err1
+    assert timed_out is True

@@ -1,17 +1,179 @@
-"""Serving configuration — the port's copy of the serve half of
-``tpu_p2p/config.py``.
+"""Configuration — the port's copy of ``tpu_p2p/config.py``.
 
-Only what the serving engine reads: the inclusive range parser behind
-``--prompt-len``/``--gen-len``, the batching modes, the stop rules and
-:class:`ServeConfig`. The disaggregated prefill/decode fields of the
+Two halves. The benchmark half: the size, sweep and range parsers, the
+pattern/mode/isolation/direction/transport names and
+:class:`BenchConfig`, whose defaults are the reference program's
+constants (32 MiB, 128 iterations, int8; ``p2p_matrix.cc:124,132,158``).
+The serve half: the batching modes, the stop rules and
+:class:`ServeConfig`; the disaggregated prefill/decode fields of the
 reference config are not ported yet and are left out (the CLI rejects
 ``--disagg``).
+
+Transports keep the reference's names, so scripts and goldens carry
+over. In the port ``xla`` means "the library collective":
+``torch.distributed`` send/recv, over NCCL on ranks that each have a
+card of their own and over gloo on the CPU. ``pallas_dma`` is the
+hand-written CUDA peer-push kernel over CUDA IPC windows
+(:mod:`tpu_p2p_torch.parallel.pallas_dma`), whose plain version runs
+over gloo on the CPU.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import re
+from dataclasses import dataclass, fields
+from typing import Optional, Tuple
+
+# Reference constants (the defaults contract):
+REF_MSG_SIZE = 32 * 1024 * 1024  # p2p_matrix.cc:124
+REF_ITERS = 128  # p2p_matrix.cc:132
+REF_DTYPE = "int8"  # p2p_matrix.cc:158 (ncclInt8)
+
+_SIZE_RE = re.compile(r"^\s*([0-9]*\.?[0-9]+)\s*([KMGT]i?)?B?\s*$",
+                      re.IGNORECASE)
+_UNIT = {
+    None: 1,
+    "K": 10**3, "M": 10**6, "G": 10**9, "T": 10**12,
+    "KI": 2**10, "MI": 2**20, "GI": 2**30, "TI": 2**40,
+}
+
+
+def parse_size(text) -> int:
+    """Parse ``'32MiB'``, ``'4KB'``, ``'1G'``, ``'8'`` → bytes."""
+    if isinstance(text, int):
+        return text
+    m = _SIZE_RE.match(str(text))
+    if not m:
+        raise ValueError(f"unparseable size {text!r}")
+    num, unit = m.groups()
+    mult = _UNIT[unit.upper() if unit else None]
+    return int(float(num) * mult)
+
+
+def format_size(nbytes: int) -> str:
+    for unit, mult in (("GiB", 2**30), ("MiB", 2**20), ("KiB", 2**10)):
+        if nbytes % mult == 0 and nbytes >= mult:
+            return f"{nbytes // mult}{unit}"
+    return f"{nbytes}B"
+
+
+def parse_edge(text: str) -> Tuple[int, int]:
+    """Parse ``'0:1'`` → the directed edge ``(0, 1)``."""
+    parts = str(text).split(":")
+    try:
+        src, dst = (int(p) for p in parts)
+        if src < 0 or dst < 0:
+            raise ValueError("negative device index")
+    except ValueError:
+        raise ValueError(
+            f"unparseable edge {text!r}; expected SRC:DST with "
+            "non-negative device indices, e.g. 0:1"
+        ) from None
+    return src, dst
+
+
+def parse_sweep(text: str) -> Tuple[int, ...]:
+    """``'1KiB:1GiB'`` → powers-of-two sweep; ``'4KB,32MiB'`` → list."""
+    if ":" in text:
+        lo_s, hi_s = text.split(":", 1)
+        lo, hi = parse_size(lo_s), parse_size(hi_s)
+        sizes = []
+        s = lo
+        while s <= hi:
+            sizes.append(s)
+            s *= 2
+        return tuple(sizes)
+    return tuple(parse_size(p) for p in text.split(","))
+
+
+PATTERNS = (
+    "pairwise",      # all-pairs matrix — the reference program itself
+    "loopback",      # self-edge / same-host copy (BASELINE configs[0])
+    "ring",          # shift-by-1 ppermute (configs[2])
+    "all_to_all",    # configs[3]
+    "torus2d",       # both mesh axes (configs[4])
+    "latency",       # 8B p50 send/recv latency (BASELINE metric)
+    "allreduce",     # psum busbw — the DP gradient transport
+    "reduce_scatter",  # psum_scatter busbw — the ZeRO gradient transport
+    "all_gather",    # tiled all_gather busbw — the ZeRO parameter transport
+    "ring_attention",  # flagship SP workload over the same transport
+    "ulysses_attention",  # all_to_all SP counterpart (configs[3] transport)
+    "flagship_step",  # the composite 5-axis train-step benchmark
+)
+# The reference's whole pattern list, so the CLI parses every name;
+# the port runs those its workload registry holds (the rest exit 2).
+
+MODES = ("serialized", "fused", "differential", "device")
+# serialized = one message in flight, drained each time (the reference's
+# loop); fused = ``iters`` dependent hops launched back to back, drained
+# once; differential = the slope between two chain lengths, which
+# cancels every constant per-call cost; device (not ported yet) = that
+# slope read off the device timeline.
+ISOLATIONS = ("full", "submesh")
+# full = every rank of the world takes part in each pair's transfer
+# (non-participants with no edge); submesh = only the pair, over a
+# process group of its own.
+DIRECTIONS = ("uni", "bi", "both")
+TRANSPORTS = ("xla", "pallas_dma")
+PP_SCHEDULES = ("1f1b", "zb")
+TICK_LOWERINGS = ("masked", "switch")
+
+
+@dataclass
+class BenchConfig:
+    """Everything a benchmark run needs; defaults = the reference's
+    constants. The flagship-step fields of the reference config are
+    parsed by the CLI but not ported, so they are not here."""
+
+    pattern: str = "pairwise"
+    # None = unset; bandwidth patterns then use the reference's 32 MiB
+    # (via sizes()), while latency/loopback substitute their own metric
+    # sizes. An explicit value is always honored verbatim.
+    msg_size: Optional[int] = None
+    iters: int = REF_ITERS
+    warmup: int = 1  # deviation from the reference (0 there)
+    dtype: str = REF_DTYPE
+    direction: str = "both"  # reference runs uni then bi (p2p_matrix.cc:141,196)
+    mode: str = "serialized"  # reference semantics: one message in flight
+    isolation: str = "full"
+    num_devices: Optional[int] = None
+    sweep: Optional[Tuple[int, ...]] = None  # message-size sweep
+    fused_repeats: int = 3
+    timeout_s: Optional[float] = None
+    check: bool = False  # verify payload contents after transfer
+    jsonl: Optional[str] = None  # structured twin of the stdout matrix
+    resume: bool = False  # skip cells already present in jsonl
+    transport: str = "xla"
+
+    def __post_init__(self) -> None:
+        if self.pattern not in PATTERNS:
+            raise ValueError(f"pattern {self.pattern!r} not in {PATTERNS}")
+        if self.mode not in MODES:
+            raise ValueError(f"mode {self.mode!r} not in {MODES}")
+        if self.isolation not in ISOLATIONS:
+            raise ValueError(
+                f"isolation {self.isolation!r} not in {ISOLATIONS}")
+        if self.direction not in DIRECTIONS:
+            raise ValueError(
+                f"direction {self.direction!r} not in {DIRECTIONS}")
+        if self.iters <= 0:
+            raise ValueError("iters must be positive")
+        if self.transport not in TRANSPORTS:
+            raise ValueError(
+                f"unknown transport {self.transport!r}; expected one "
+                f"of {TRANSPORTS}"
+            )
+
+    def sizes(self) -> Tuple[int, ...]:
+        if self.sweep:
+            return self.sweep
+        return (self.msg_size if self.msg_size is not None
+                else REF_MSG_SIZE,)
+
+    def replace(self, **kw) -> "BenchConfig":
+        d = {f.name: getattr(self, f.name) for f in fields(self)}
+        d.update(kw)
+        return BenchConfig(**d)
 
 
 def parse_range(text: str) -> Tuple[int, int]:
