@@ -47,7 +47,28 @@ the first phase that goes wrong:
    sets at 136 B and the run's size in int8, a float32 [5, 3] row and
    one backward pass; then its per-hop time at 32 MiB beside its bound,
    the plain version and one ``copy_``. Ranks sharing a card run as
-   time-sliced CUDA contexts, so these are not link numbers.
+   time-sliced CUDA contexts, so these are not link numbers;
+9. disagg   — ``run_disagg_engine`` (what ``serve --disagg`` runs) at the
+   full width on two in-process ranks sharing cuda:0 (prefill, decode),
+   phase 7's trace, 32 decode + 4 prefill slots, ``--transport
+   pallas_dma --migrate-chunks 4``: every request finishes, steps and
+   migrations equal ``simulate_disagg_schedule``, both pools drain full,
+   ``dma_ship`` and ``dma_permute`` launched exactly migrations x 2
+   tensors x ranks x (chunks - 1) and x 1 times; its streams equal the
+   same run over the library copy, and a run with 32 prefill slots (the
+   colocated batch width) equals phase 7's continuous streams; every
+   token of the 32 + 4 run and of phase 7's streams is teacher-forced
+   through the dense decode step, and its dense logit must lie within
+   2 x 5e-2 of the dense maximum (phase 6 holds the paged step to 5e-2
+   of it), which is what a 4-slot prefill batch's other float32 GEMM
+   rounding may change and a batcher or migration fault would not keep
+   to; then 1 prefill + 3 decode ranks at 2 blocks (dummy edges, shard
+   choice).
+   The fused-ship kernel against its plain version and
+   ``expected_permute`` on 2 and 4 in-process ranks, bitwise, and its
+   time beside a token-chunk GEMM: ship alone, compute alone, fused,
+   and their overlap. In-process ranks run concurrently on the card, so
+   the migration Gbps are on-card copies, not link numbers.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -790,7 +811,7 @@ def serve(cfg, params, TK, card: str) -> dict:
                 if streams["continuous"][r] != streams["static"][r]]
         raise AssertionError(f"continuous vs static streams differ for "
                              f"requests {diff}")
-    return {"launches": counts}
+    return {"launches": counts, "streams": streams["continuous"]}
 
 
 # ------------------------------------------------------------ phase 8
@@ -1084,6 +1105,538 @@ def p2p(card: str) -> dict:
     }
 
 
+# ------------------------------------------------------------ phase 9
+
+MIGRATE_CHUNKS = 4                      # --migrate-chunks of the path
+SHIP_CHUNK = (MODEL["stages"], 1, MODEL["kv_heads"],
+              PAGE_LEN // MIGRATE_CHUNKS,
+              MODEL["head_dim"])        # one page's migration chunk, bf16
+GEMM = (256, 2048, 8192)                # token chunk x the FFN's first matrix
+SHIP_TIMED = 25                         # timed calls a median is taken over
+# How far an emitted token's dense logit may trail the dense maximum:
+# the engine's logits p and the dense step's q differ by at most
+# BF16_TOL (phase 6's limit), so the engine's argmax g has q[g] >=
+# p[g] - BF16_TOL >= p[a] - BF16_TOL >= q[a] - 2 BF16_TOL, a = argmax q.
+WITNESS_TOL = 2 * BF16_TOL
+
+
+def local_meshes(n: int):
+    """``n`` in-process ranks on cuda:0, and the same on the CPU (the
+    plain version's mesh)."""
+    from tpu_p2p_torch.parallel.runtime import LocalMesh
+
+    return LocalMesh([torch.device("cuda", 0)] * n), LocalMesh(["cpu"] * n)
+
+
+def ship_kernel_checks(n: int) -> dict:
+    """``dma_ship_compute`` on ``n`` in-process ranks sharing cuda:0
+    against its plain version (CPU copies) and ``expected_permute``,
+    bitwise, over the six edge sets cut to ``n``: int8 at 136 B and bf16
+    at one migration chunk, each with a float32 compute (``c @ w``) whose
+    ``y`` must equal the same product on the side bitwise; then one
+    backward pass, whose ship gradient must be the reverse hop."""
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    mesh, cpu = local_meshes(n)
+    dev = mesh.devices[0]
+    gen = torch.Generator().manual_seed(n)
+    payloads = {
+        "int8 136 B": [torch.randint(-128, 128, (1, 136), generator=gen,
+                                     dtype=torch.int8) for _ in range(n)],
+        "bf16 " + "x".join(map(str, SHIP_CHUNK)): [
+            torch.randn(SHIP_CHUNK, generator=gen).to(torch.bfloat16)
+            for _ in range(n)],
+    }
+    w = torch.randn((136, 64), generator=gen).to(dev)
+    bad, worst, made = [], 0.0, 0
+    for name, edges in ((k, cut_edges(e, n)) for k, e in EDGE_SETS_8.items()):
+        for what, rows in payloads.items():
+            ops = [r.float().reshape(-1)[:136].reshape(1, 136).to(dev)
+                   for r in rows]
+            arr, y = PD.dma_ship_compute([r.to(dev) for r in rows], mesh,
+                                         edges, lambda a: a @ w, ops)
+            mesh.synchronize()
+            made += n
+            plain, _ = PD.dma_ship_compute(rows, cpu, edges, lambda a: a,
+                                           rows)
+            want = C.expected_permute(
+                np.stack([r.float().numpy() for r in rows]), edges)
+            for i in range(n):
+                got = arr[i].cpu()
+                worst = max(worst, (got.float() - plain[i].float())
+                            .abs().max().item())
+                if not (torch.equal(got, plain[i])
+                        and np.array_equal(got.float().numpy(), want[i])
+                        and torch.equal(y[i], ops[i] @ w)):
+                    bad.append(f"{name} {what} rank {i}")
+    xs = [torch.randn((5, 3), generator=gen).to(dev).requires_grad_(True)
+          for _ in range(n)]
+    edges = cut_edges(EDGE_SETS_8["partial"], n)
+    arr, y = PD.dma_ship_compute(xs, mesh, edges, lambda a: a * 3, xs)
+    sum((a * a).sum() + b.sum() for a, b in zip(arr, y)).backward()
+    mesh.synchronize()
+    made += 2 * n                            # the push, then the reverse hop
+    rev = tuple((d, s) for s, d in edges)
+    back = PD.dma_ppermute([2 * a.detach().cpu() for a in arr], cpu, rev)
+    for i in range(n):
+        if not torch.equal(xs[i].grad.cpu(), back[i] + 3):
+            bad.append(f"backward rank {i}")
+    mesh.close()
+    return {"bad": bad, "max_abs_err": worst, "launches": made}
+
+
+def device_ms(fn, calls: int = SHIP_TIMED) -> list:
+    """Device ms of each of ``calls`` calls: the card first sleeps while
+    the host issues the whole call, so the span between two events on
+    the caller's stream is the call's device time, not its launch
+    cost."""
+    out = []
+    for _ in range(calls + 2):
+        torch.cuda._sleep(4_000_000)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        out.append(t0.elapsed_time(t1))
+    return out[2:]
+
+
+def ship_timing(card: str) -> dict:
+    """The fused ship of one migration chunk (edge (0, 1) on 2 ranks of
+    cuda:0) with a real compute on each rank, a token chunk through the
+    FFN's first matrix: the ship alone, the compute alone, both fused,
+    medians of ``SHIP_TIMED`` calls; the overlap; the plain version
+    (host) and one ``copy_`` of the chunk on the card."""
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    mesh, cpu = local_meshes(2)
+    dev = mesh.devices[0]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ship = [torch.randn(SHIP_CHUNK, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2)]
+    m, k, f = GEMM
+    a = [torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+         for _ in range(2)]
+    b = torch.randn((k, f), generator=gen, device=dev).to(torch.bfloat16)
+    edges = ((0, 1),)
+
+    def ship_alone():
+        PD.dma_ship_compute(ship, mesh, edges, lambda: None)
+
+    def fused():
+        PD.dma_ship_compute(ship, mesh, edges, lambda x: x @ b, a)
+
+    def compute_alone():
+        caller = torch.cuda.current_stream(dev)
+        for i in range(2):
+            mesh.streams[i].wait_stream(caller)
+            with mesh.on(i):
+                a[i] @ b
+        for i in range(2):
+            caller.wait_stream(mesh.streams[i])
+
+    times = {name: statistics.median(device_ms(fn)) for name, fn in
+             (("ship", ship_alone), ("compute", compute_alone),
+              ("fused", fused))}
+    times["overlap"] = ((times["ship"] + times["compute"] - times["fused"])
+                        / min(times["ship"], times["compute"]))
+    rows = [r.cpu() for r in ship]
+    plain = []
+    for _ in range(5):
+        t = time.perf_counter()
+        PD.dma_ship_compute(rows, cpu, edges, lambda: None)
+        plain.append((time.perf_counter() - t) * 1e3)
+    plain_ms = statistics.median(plain)
+    dst = torch.empty_like(ship[0])
+    library = statistics.median(device_ms(lambda: dst.copy_(ship[0])))
+    nbytes = ship[0].numel() * ship[0].element_size()
+    # What the function must move: the real edge's source read once and
+    # every rank's arrival written once (the dummy edge's is zeros).
+    bound = (1 + 2) * nbytes / HBM_BYTES_PER_S * 1e3
+    flops = 2 * m * k * f * 2
+    say(f"kernel dma_ship @ one migration chunk {list(SHIP_CHUNK)} bf16 "
+        f"({nbytes} B), edge (0, 1) on 2 in-process ranks of cuda:0, "
+        f"compute [{m}, {k}] @ [{k}, {f}] bf16 on each rank: ship alone "
+        f"{times['ship']:.4f} ms, compute alone {times['compute']:.4f} ms "
+        f"({flops / times['compute'] / 1e9:.1f} TFLOP/s), fused "
+        f"{times['fused']:.4f} ms, overlap (ship + compute - fused) / "
+        f"min = {times['overlap']:.3f} (medians of {SHIP_TIMED} calls, "
+        f"device time) | bound {bound:.5f} ms (bytes: source read + 2 "
+        f"arrivals written at 3.35 TB/s), plain {plain_ms:.3f} ms (host "
+        f"copies), copy_ {library:.4f} ms | {card}")
+    mesh.close()
+    return {**times, "plain_ms": plain_ms, "library_ms": library,
+            "bound_ms": bound}
+
+
+def short_trace(trace, n: int, max_new: int) -> list:
+    """The first ``n`` requests of ``trace``, arriving at step 0 and
+    generating ``max_new`` tokens: a warm-up or a profiled window of a
+    few steps."""
+    from tpu_p2p_torch.serve.batcher import Request
+
+    return [Request(rid=r.rid, prompt=r.prompt, max_new=max_new)
+            for r in trace[:n]]
+
+
+def disagg_config(cfg, prefill_slots: int, transport: str, **kw):
+    """Phase 7's geometry and trace, disaggregated: ``SLOTS`` decode
+    slots over the decode ranks, ``prefill_slots`` on the prefill rank,
+    the prefill pool sized for its slots and a full migration queue."""
+    from tpu_p2p_torch.config import ServeConfig
+
+    base = dataclasses.asdict(serve_config(cfg))
+    base.update(disagg=True, prefill_tp=1, prefill_slots=prefill_slots,
+                prefill_pages=(prefill_slots + SLOTS) * MAX_BLOCKS + 1,
+                transport=transport, migrate_chunks=MIGRATE_CHUNKS)
+    base.update(kw)
+    return ServeConfig(**base)
+
+
+def disagg_run(mesh, cfg, params, sc, trace, what: str, card: str) -> dict:
+    """``run_disagg_engine`` on ``mesh``; raises unless every request
+    finishes in full, the steps equal ``simulate_disagg_schedule`` and
+    both pools drain full."""
+    from tpu_p2p_torch.serve.disagg import (run_disagg_engine,
+                                            simulate_disagg_schedule)
+
+    sim = simulate_disagg_schedule(
+        trace, slots=sc.slots, prefill_slots=sc.prefill_slots,
+        page_len=sc.page_len, num_pages=sc.num_pages,
+        prefill_pages=sc.prefill_pages, max_blocks=sc.max_blocks,
+        chunk=sc.chunk, n_decode_shards=mesh.size - 1, cfg=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_disagg_engine(mesh, cfg, params, trace, sc=sc)
+    torch.cuda.synchronize()
+    b, fin = out["batcher"], out["finished"]
+    if len(fin) != len(trace) or any(len(r.generated) != r.max_new
+                                      for r in fin):
+        raise AssertionError(f"{what}: {len(fin)}/{len(trace)} requests "
+                             "finished in full")
+    busy = out["steps"] - out["idle_steps"]
+    if (busy, out["idle_steps"]) != (sim["busy_steps"], sim["idle_steps"]) \
+            or out["migrate_events"] != sim["migrate_events"]:
+        raise AssertionError(
+            f"{what}: {busy} busy + {out['idle_steps']} idle steps, the dry "
+            f"schedule says {sim['busy_steps']} + {sim['idle_steps']} (or "
+            "the migrations differ)")
+    if b.pool_p.available(0) != b.pool_p.capacity or any(
+            b.pool_d.available(d) != b.pool_d.capacity
+            for d in range(b.n_dec)):
+        raise AssertionError(f"{what}: page leak")
+    out["streams"] = {r.rid: list(r.generated) for r in fin}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    mib = out["kv_migrate_bytes"] / 2**20
+    step_ms = out["wall_s"] * 1e3 / max(out["steps"], 1)
+    mig_ms = b.migrate_wall_s * 1e3 / max(out["kv_migrated"], 1)
+    say(f"disagg {what}: {out['requests']} requests, {out['prompt_tokens']} "
+        f"prompt + {out['gen_tokens']} generated tokens, {busy} steps "
+        f"(= simulate_disagg_schedule) + {out['idle_steps']} idle | "
+        f"{out['serve_tokens_per_s']} tokens/s ttft p50 "
+        f"{out['serve_ttft_ms_p50']} ms p99 {out['serve_ttft_ms_p99']} ms | "
+        f"per-token p50 {out['serve_tok_ms_p50']} ms p99 "
+        f"{out['serve_tok_ms_p99']} ms | peak memory "
+        f"{out['peak_gib']:.3f} GiB | wall {out['wall_s']} s | "
+        f"kv_migrate: {out['kv_migrated']} migrations, "
+        f"{out['kv_migrate_blocks']} pages ({mib:.2f} MiB, "
+        f"{out['serve_kv_migrate_gbps']} Gbps, on-card copies), wait p50 "
+        f"{out['migrate_wait_steps_p50']} max "
+        f"{out['migrate_wait_steps_max']} steps | a step {step_ms:.1f} ms "
+        f"of wall, a migration {mig_ms:.2f} ms (all migrations "
+        f"{b.migrate_wall_s / out['wall_s']:.3f} of the wall) | {card}")
+    return out
+
+
+def expect_launches(counts: dict, out: dict, ranks: int, chunks: int,
+                    what: str) -> None:
+    """Each migration ships K and V: ``chunks - 1`` fused ships and one
+    last permute each, every call launching once per rank."""
+    mig = out["kv_migrated"]
+    want = {"dma_ship": mig * 2 * (chunks - 1) * ranks,
+            "dma_permute": mig * 2 * ranks}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} "
+                             f"({mig} migrations x 2 tensors x {ranks} "
+                             f"ranks, {chunks} chunks)")
+
+
+def dense_margins(cfg, params, seqs: list) -> list:
+    """Teacher-force each ``(prompt, generated)`` of ``seqs`` (one a row,
+    ``cfg.batch`` rows a pass) through the dense KV-cached decode step
+    (phase 6: bitwise the paged step at chunk 1), independent of the
+    batcher, the page tables and the migration. → per sequence, for
+    each generated token, how far its dense logit trails the dense
+    maximum, and how many tokens of the vocabulary lie within
+    ``WITNESS_TOL`` of that maximum."""
+    from tpu_p2p_torch.models import decode as D
+
+    if len(seqs) > cfg.batch:
+        return (dense_margins(cfg, params, seqs[:cfg.batch])
+                + dense_margins(cfg, params, seqs[cfg.batch:]))
+    dev = params["emb"].device
+    full = [np.concatenate([p, g]).astype(np.int64) for p, g in seqs]
+    steps = max(len(f) for f in full) - 1
+    toks = np.zeros((cfg.batch, steps), np.int64)
+    tgt = np.zeros((cfg.batch, steps), np.int64)
+    emitted = np.zeros((cfg.batch, steps), bool)
+    for r, ((p, g), f) in enumerate(zip(seqs, full)):
+        toks[r, :len(f) - 1] = f[:-1]
+        tgt[r, len(p) - 1:len(f) - 1] = g
+        emitted[r, len(p) - 1:len(f) - 1] = True
+    toks_d, tgt_d = (torch.from_numpy(a).to(dev) for a in (toks, tgt))
+    step = D.make_flagship_lm_decode_step(cfg)
+    cache = D.init_kv_cache(cfg, MAX_BLOCKS * PAGE_LEN, dev)
+    margin = torch.zeros((cfg.batch, steps), device=dev)
+    near = torch.zeros((cfg.batch, steps), device=dev)
+    for t in range(steps):
+        cache, lg = step(params, cache, toks_d[:, t:t + 1], t)
+        lg = lg[:, 0].float()
+        top = lg.max(-1).values
+        margin[:, t] = top - lg.gather(1, tgt_d[:, t:t + 1])[:, 0]
+        near[:, t] = (lg >= (top - WITNESS_TOL)[:, None]).sum(-1)
+    margin, near = margin.cpu().numpy(), near.cpu().numpy()
+    return [(margin[r][emitted[r]], near[r][emitted[r]])
+            for r in range(len(seqs))]
+
+
+def stream_witness(cfg, params, trace, runs: dict, card: str) -> None:
+    """Every token of every stream in ``runs`` (name → {rid: tokens})
+    against the dense decode step: its dense logit within
+    ``WITNESS_TOL`` of the dense maximum, else the phase fails. Where
+    two runs' streams part, both tokens must pass; the line shows the
+    dense gap between them."""
+    names = list(runs)
+    seqs = [(np.asarray(r.prompt), np.asarray(runs[n][r.rid], np.int64))
+            for n in names for r in trace]
+    got = dense_margins(cfg, params, seqs)
+    per = {n: dict(zip([r.rid for r in trace],
+                       got[k * len(trace):(k + 1) * len(trace)]))
+           for k, n in enumerate(names)}
+    bad = [(n, rid, int(j), float(m[j])) for n in names
+           for rid, (m, _) in per[n].items()
+           for j in np.flatnonzero(m > WITNESS_TOL)]
+    parts = []
+    a, b = names[0], names[-1]
+    for r in trace:
+        sa, sb = runs[a][r.rid], runs[b][r.rid]
+        if sa != sb:
+            j = next(k for k, (x, y) in enumerate(zip(sa, sb)) if x != y)
+            gap = abs(float(per[a][r.rid][0][j] - per[b][r.rid][0][j]))
+            parts.append(f"rid {r.rid} at token {j}: {sa[j]} vs {sb[j]}, "
+                         f"dense gap {gap:.3g}")
+    for n in names:
+        m = np.concatenate([v[0] for v in per[n].values()])
+        c = np.concatenate([v[1] for v in per[n].values()])
+        say(f"witness {n}: {m.size} tokens against the dense decode step, "
+            f"dense logit below the max by at most {m.max():.3g} (tol "
+            f"{WITNESS_TOL}), {int((m > 0).sum())} not the dense argmax; "
+            f"tokens within tol of the max: mean {c.mean():.3f}, max "
+            f"{int(c.max())} of {cfg.vocab} | {card}")
+    say(f"witness {a} vs {b}: {len(parts)} streams part: "
+        + ("; ".join(parts) or "none") + f" | {card}")
+    if bad:
+        raise AssertionError(f"tokens whose dense logit trails the max by "
+                             f"more than {WITNESS_TOL}: {bad[:8]}")
+
+
+def gemm_rows(card: str) -> None:
+    """Does a row of the FFN's first product get the same bits in a
+    prefill batch of 4 slots x chunk 8 as in the colocated batch of 32 x
+    8? In float32 (the mixed step's widened FFN and unembed) and bf16."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, k, f = SLOTS * CHUNK, MODEL["heads"] * MODEL["head_dim"], GEMM[2]
+    x = torch.randn((rows, k), generator=gen, device=dev)
+    w = torch.randn((k, f), generator=gen, device=dev)
+    same = {}
+    for name, dt in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        xd, wd = x.to(dt), w.to(dt)
+        full = xd @ wd
+        part = xd[:4 * CHUNK] @ wd
+        same[name] = (torch.equal(part, full[:4 * CHUNK]),
+                      (part.float() - full[:4 * CHUNK].float()).abs()
+                      .max().item())
+    say(f"gemm rows: [{4 * CHUNK}, {k}] @ [{k}, {f}] vs the same rows of "
+        f"[{rows}, {k}] @ [{k}, {f}]: " + ", ".join(
+            f"{n} {'bitwise' if eq else 'differs'} (max abs {d:.3g})"
+            for n, (eq, d) in same.items()) + f" | {card}")
+
+
+def disagg(cfg, params, colocated: dict, card: str) -> dict:
+    """The disaggregated engine through ``run_disagg_engine`` (what
+    ``serve --disagg`` calls once it has its devices) at the full width:
+    1 prefill + 1 decode rank sharing cuda:0, ``pallas_dma`` in
+    ``MIGRATE_CHUNKS`` chunks, the launches counted; its streams against
+    the same geometry over the library copy; then, with as many prefill
+    as decode slots, against phase 7's colocated streams; then 1 prefill
+    + 3 decode ranks at 2 blocks."""
+    from tpu_p2p_torch.models.flagship import (STAGELESS_LEAVES,
+                                               FlagshipConfig)
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.serve.disagg import run_disagg_engine
+    from tpu_p2p_torch.serve.engine import synthetic_trace
+
+    gemm_rows(card)
+    mesh, _ = local_meshes(2)
+    sc = disagg_config(cfg, 4, "pallas_dma")
+    trace = synthetic_trace(sc)
+    run_disagg_engine(mesh, cfg, params, short_trace(trace, 1, 2),
+                      sc=sc)                                 # warm-up
+    torch.cuda.synchronize()
+    PD.reset_launches()
+    run = disagg_run(mesh, cfg, params, sc, trace,
+                     f"1+1 ranks on cuda:0, {SLOTS}+4 slots, pallas_dma "
+                     f"x{MIGRATE_CHUNKS} chunks", card)
+    counts = dict(PD.launches)
+    expect_launches(counts, run, 2, MIGRATE_CHUNKS, "disagg 1+1")
+    lib = disagg_run(mesh, cfg, params,
+                     dataclasses.replace(sc, transport="xla"), trace,
+                     f"1+1, {SLOTS}+4 slots, xla (copy_)", card)
+    if lib["streams"] != run["streams"]:
+        raise AssertionError("disagg streams differ between pallas_dma and "
+                             "the library copy")
+    wide = disagg_run(mesh, cfg, params, disagg_config(cfg, SLOTS,
+                                                       "pallas_dma"),
+                      trace, f"1+1, {SLOTS}+{SLOTS} slots, pallas_dma", card)
+    if wide["streams"] != colocated:
+        diff = [r for r in colocated if wide["streams"].get(r) != colocated[r]]
+        raise AssertionError(f"disagg ({SLOTS}+{SLOTS} slots) vs colocated "
+                             f"streams differ for requests {diff}")
+    same = sum(run["streams"][r] == colocated[r] for r in colocated)
+    mesh.close()
+    stream_witness(cfg, params, trace,
+                   {"colocated": colocated,
+                    f"disagg {SLOTS}+4": run["streams"]}, card)
+    say(f"disagg parity: {SLOTS}+4 slots pallas_dma == xla bitwise "
+        f"({len(trace)}/{len(trace)} streams); {SLOTS}+{SLOTS} slots == "
+        f"colocated continuous bitwise ({len(trace)}/{len(trace)}); "
+        f"{SLOTS}+4 slots == colocated for {same}/{len(trace)} streams "
+        "(a 4-slot prefill batch runs other cuBLAS float32 GEMM kernels "
+        f"than a {SLOTS}-slot one) | launches {counts} (= migrations x 2 "
+        f"x ranks x {MIGRATE_CHUNKS - 1} and x 1) | {card}")
+    # 1 prefill + 3 decode: dummy edges, shard choice; 24 decode slots
+    # (8 a replica) at 2 blocks, 8 requests.
+    cut = FlagshipConfig(**{**dataclasses.asdict(cfg), "stages": 2})
+    cut_params = {k: v if k in STAGELESS_LEAVES else v[:2]
+                  for k, v in params.items()}       # the first 2 blocks
+    mesh4, _ = local_meshes(4)
+    sc4 = disagg_config(cut, 4, "pallas_dma", slots=24, requests=8,
+                        num_pages=3 * (8 * 5 + 1),
+                        prefill_pages=(4 + 24) * MAX_BLOCKS + 1)
+    trace4 = synthetic_trace(sc4)
+    PD.reset_launches()
+    four = disagg_run(mesh4, cut, cut_params, sc4, trace4,
+                      "1+3 ranks on cuda:0 (2 blocks, 24+4 slots), "
+                      f"pallas_dma x{MIGRATE_CHUNKS}", card)
+    counts4 = dict(PD.launches)
+    expect_launches(counts4, four, 4, MIGRATE_CHUNKS, "disagg 1+3")
+    shards = {e["dst_shard"] for e in four["migrate_events"]}
+    lib4 = disagg_run(mesh4, cut, cut_params,
+                      dataclasses.replace(sc4, transport="xla"), trace4,
+                      "1+3, xla (copy_)", card)
+    if lib4["streams"] != four["streams"]:
+        raise AssertionError("1+3 streams differ between pallas_dma and the "
+                             "library copy")
+    mesh4.close()
+    say(f"disagg 1+3: migrations to decode shards {sorted(shards)}, "
+        f"pallas_dma == xla bitwise ({len(trace4)} streams), launches "
+        f"{counts4} | {card}")
+    profile_disagg(cfg, params, card)
+    return {"launches": counts}
+
+
+DISAGG_FAMILIES = (
+    ("ship push", ("dma_ship_push",)),
+    ("ship arrival", ("dma_ship_arrive",)),
+    ("permute", ("dma_permute",)),
+    ("kv write", ("paged_rows",)),
+) + KERNEL_FAMILIES
+
+
+def profile_disagg(cfg, params, card: str) -> None:
+    """A short disagg run under ``torch.profiler`` (phase 7's first 4
+    prompts, 8 tokens each, 32+4 slots, pallas_dma x4): wall and device
+    time a step, kernel time by family, and the device's idle share (the
+    union of the kernels' intervals: two ranks' streams may overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch.serve.disagg import run_disagg_engine
+    from tpu_p2p_torch.serve.engine import synthetic_trace
+
+    mesh, _ = local_meshes(2)
+    sc = disagg_config(cfg, 4, "pallas_dma")
+    trace = short_trace(synthetic_trace(sc), 4, 8)
+    run_disagg_engine(mesh, cfg, params, trace[:1], sc=sc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run_disagg_engine(mesh, cfg, params, trace, sc=sc)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam_ms, spans = {}, []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        tr = ev.time_range
+        spans.append((tr.start, tr.end))
+        family = next((f for f, keys in DISAGG_FAMILIES
+                       if any(k in ev.name for k in keys)), "other")
+        fam_ms[family] = fam_ms.get(family, 0.0) + tr.elapsed_us() / 1e3
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    steps = out["steps"]
+    mesh.close()
+    say(f"profile disagg (4 requests of 8 tokens, 32+4 slots, pallas_dma x"
+        f"{MIGRATE_CHUNKS}, under the profiler): {steps} steps, "
+        f"{out['kv_migrated']} migrations, wall {wall_ms:.1f} ms "
+        f"({wall_ms / steps:.1f} a step), device busy {busy_us / 1e3:.1f} "
+        f"ms ({busy_us / 1e3 / steps:.2f} a step), idle share "
+        f"{1 - busy_us / 1e3 / wall_ms:.3f} | kernel ms by family: "
+        + ", ".join(f"{f} {v:.2f}" for f, v in
+                    sorted(fam_ms.items(), key=lambda kv: -kv[1]))
+        + f" | {card}")
+
+
+def ship(card: str, dis: dict) -> dict:
+    """The kernel checks on 2 and 4 ranks, the timing, and the row of
+    the kernels line."""
+    checks = [ship_kernel_checks(n) for n in (2, 4)]
+    for n, c in zip((2, 4), checks):
+        if c["bad"]:
+            raise AssertionError(f"dma_ship on {n} ranks vs plain/oracle: "
+                                 f"{c['bad']}")
+    say(f"kernel dma_ship: == plain (CPU copies) == expected_permute "
+        f"bitwise on 2 and 4 in-process ranks of cuda:0 over 6 edge sets at "
+        f"136 B int8 and {list(SHIP_CHUNK)} bf16, y == the product on the "
+        f"side, backward == the reverse hop | {card}")
+    tm = ship_timing(card)
+    return {
+        "name": "dma_ship", "route": "cuda",
+        "source": "tpu_p2p_torch/csrc/p2p_dma.cu",
+        "replaces": "tpu_p2p/parallel/pallas_dma.py:280 "
+                    "(_dma_transport_ship_call; kernel body :289)",
+        "launches": dis["launches"]["dma_ship"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": tm["ship"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": "bytes",
+        "library_ms": tm["library_ms"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -1147,12 +1700,18 @@ def main() -> int:
         f"{dec['bitwise']} | launches {dec['launches']}")
 
     srv = serve(cfg, params, TK, card)
-    del params
     torch.cuda.empty_cache()
     kernels.append(p2p(card))
+    t0 = time.perf_counter()
+    dis = disagg(cfg, params, srv["streams"], card)
+    del params
+    torch.cuda.empty_cache()
+    kernels.append(ship(card, dis))
+    say(f"phase 9 (disagg): {time.perf_counter() - t0:.1f} s")
     launches = {"cache_row_write": dec["launches"]["cache_row_write"],
                 "paged_rows_write": srv["launches"]["paged_rows_write"],
-                "dma_permute": kernels[-1]["launches"], **trn["launches"]}
+                "dma_permute": kernels[-2]["launches"],
+                "dma_ship": dis["launches"]["dma_ship"], **trn["launches"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

@@ -259,3 +259,98 @@ def test_dma_check_fails_when_the_peer_never_launches(cuda):
     assert "gave up waiting for rank 1" in err0[1]
     assert err1 is not None and err1[0] == "BackendError", err1
     assert timed_out is True
+
+
+# ------------------------------ fused ship on in-process ranks (LocalMesh)
+# Ranks that live in this process and share cuda:0, each with its own
+# streams: their kernels run concurrently (not time-sliced), so these
+# tests also prove the grids leave room for each other.
+
+_SHIP_EDGES = {   # tests/test_pallas_dma.py:101, cut to the rank count
+    "ring": lambda n: tuple((i, (i + 1) % n) for i in range(n)),
+    "shift3": lambda n: tuple((i, (i + 3) % n) for i in range(n)),
+    "unidir": lambda n: ((n - 1, 0),),
+    "bidir": lambda n: ((0, n - 1), (n - 1, 0)),
+    "partial": lambda n: ((0, 1),) if n == 2 else ((0, 1), (3, 2)),
+    "empty": lambda n: (),
+}
+
+
+def _local(n):
+    from tpu_p2p_torch.parallel.runtime import LocalMesh
+
+    return LocalMesh([torch.device("cuda", 0)] * n), LocalMesh(["cpu"] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ship_kernel_matches_plain_on_local_ranks_on_card(cuda, n):
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    mesh, cpu = _local(n)
+    gen = torch.Generator().manual_seed(n)
+    payloads = {
+        "int8 136 B": [torch.randint(-128, 128, (136,), generator=gen,
+                                     dtype=torch.int8) for _ in range(n)],
+        "bf16 chunk": [torch.randn((8, 1, 8, 8, 128), generator=gen)
+                       .to(torch.bfloat16) for _ in range(n)],
+    }
+    w = torch.randn((136, 24), generator=gen)
+    PD.reset_launches()
+    made = 0
+    for name, mk in _SHIP_EDGES.items():
+        edges = mk(n)
+        for what, rows in payloads.items():
+            dev_rows = [r.to(cuda) for r in rows]
+            ops = [r.float().reshape(-1)[:136].reshape(1, 136).to(cuda)
+                   for r in rows]
+            arr, y = PD.dma_ship_compute(dev_rows, mesh, edges,
+                                         lambda a: a @ w.to(cuda), ops)
+            mesh.synchronize()
+            made += n
+            want, _ = PD.dma_ship_compute(rows, cpu, edges, lambda a: a,
+                                          rows)
+            for i in range(n):
+                assert torch.equal(arr[i].cpu(), want[i]), (name, what, i)
+                assert torch.equal(y[i], ops[i] @ w.to(cuda)), (name, i)
+    assert PD.launches["dma_ship"] == made
+    # Back-to-back waves with changing edge sets, no drain in between:
+    # each wave ships the previous wave's arrivals.
+    seq = [mk(n) for mk in _SHIP_EDGES.values()] * 2
+    x = [torch.randn((3, 1000), generator=gen) for _ in range(n)]
+    got, want = [r.to(cuda) for r in x], list(x)
+    for edges in seq:
+        got, _ = PD.dma_ship_compute(got, mesh, edges, lambda a: a * 2, got)
+        want = PD.dma_ppermute(want, cpu, edges)
+    mesh.synchronize()
+    assert all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want))
+    # The one-shot hop on the same windows, and one backward pass.
+    xs = [r.to(cuda).requires_grad_(True) for r in x]
+    arr, y = PD.dma_ship_compute(xs, mesh, seq[0], lambda a: a * 3, xs)
+    sum((a * a).sum() + b.sum() for a, b in zip(arr, y)).backward()
+    rev = tuple((d, s) for s, d in seq[0])
+    back = PD.dma_ppermute([2 * a.detach().cpu() for a in arr], cpu, rev)
+    for i in range(n):
+        assert torch.equal(xs[i].grad.cpu(), back[i] + 3)
+    mesh.close()
+
+
+@pytest.mark.cuda
+def test_ship_times_out_when_the_peer_never_pushes(cuda):
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.utils.errors import TransferTimeout
+
+    mesh, _ = _local(2)
+    rows = [torch.ones(4096, device=cuda) for _ in range(2)]
+    tables = PD.complete_permutation(((0, 1), (1, 0)), 2)
+    win = PD._begin(mesh, rows)
+    out = torch.empty_like(rows[0])
+    # Rank 0 pushes and waits for its arrival; rank 1 never launches.
+    PD._launch(1, rows[0], None, mesh, win, 0, tables, 0.5,
+               mesh.side_streams[0])
+    PD._launch(2, None, out, mesh, win, 0, tables, 0.5, mesh.streams[0])
+    with pytest.raises(TransferTimeout,
+                       match="rank 0 gave up waiting for rank 1's .* at "
+                             f"epoch {win.epoch}"):
+        mesh.synchronize()
+    PD.close_windows(mesh.windows)

@@ -89,6 +89,36 @@ def cpu_arrivals_case(msg_bytes=136, seed=0):
     return out
 
 
+def cpu_ship_case(sets, ship, w, wave_x, wave_w, wave_edges, chunks):
+    """The fused ship and the chunk wave on a process mesh (this rank's
+    rows of the ``[n, ...]`` inputs, the plain versions over gloo):
+    ``dma_ship_compute`` of ``ship`` with ``c @ w`` over each of
+    ``sets``, its gradient over ``sets["ring"]``, and
+    ``chunked_ppermute_compute`` of ``wave_x`` over both transports →
+    this rank's arrays."""
+    rt = RT.make_runtime(device="cpu")
+    mesh, i = rt.mesh, rt.rank
+    x, wi = torch.from_numpy(ship[i]), torch.from_numpy(w[i])
+    out = {}
+    for name, edges in sets.items():
+        arr, y = PD.dma_ship_compute(x, mesh, edges, lambda a, b: a @ b,
+                                     x * 2, wi)
+        out[name] = (arr.numpy(), y.numpy())
+    xg, wg = x.clone().requires_grad_(True), wi.clone().requires_grad_(True)
+    arr, y = PD.dma_ship_compute(xg, mesh, sets["ring"],
+                                 lambda a, b: a @ b, xg, wg)
+    ((arr * arr * 3).sum() + (y * y).sum()).backward()
+    out["grads"] = (xg.grad.numpy(), wg.grad.numpy())
+    ww = torch.from_numpy(wave_w)
+    for transport in ("pallas_dma", "xla"):
+        out[f"wave_{transport}"] = C.chunked_ppermute_compute(
+            lambda c, k: c @ ww + k, torch.from_numpy(wave_x[i]), mesh,
+            wave_edges, chunk_dim=0, chunks=chunks,
+            transport=transport).numpy()
+    rt.close()
+    return out
+
+
 def _oracle_row(mesh, nbytes, dtype, edges):
     want = C.expected_permute(C.host_payload(mesh, nbytes, dtype), edges)
     return want[mesh.index:mesh.index + 1]
@@ -399,3 +429,32 @@ def test_default_benchmark_needs_a_card(monkeypatch, capsys):
     monkeypatch.delenv("LOCAL_RANK", raising=False)
     assert TCLI.main([]) == 255  # PlacementError, as the reference exits
     assert "0 CUDA device" in capsys.readouterr().err
+
+
+def test_ship_kernel_call_takes_each_mesh_kinds_form(monkeypatch):
+    # The kernel branch of dma_ship_compute (taken for CUDA tensors),
+    # faked here to run without a card: on a LocalMesh it hands the
+    # kernel call the per-rank rows; on a process mesh of cards it is
+    # not ported and raises.
+    seen = []
+
+    def fake_kernel(rows, mesh, tables, compute, timeout_s):
+        seen.append(len(rows))
+        return ([torch.zeros_like(r) for r in rows],
+                [compute(i) for i in mesh.local_ranks])
+
+    monkeypatch.setattr(PD, "_device_type", lambda rows: "cuda")
+    monkeypatch.setattr(PD, "_dma_transport_ship_call", fake_kernel)
+    arr, y = PD.dma_ship_compute([torch.ones(3)] * 2,
+                                 RT.LocalMesh(["cpu"] * 2), ((0, 1),),
+                                 lambda a: a + 1, [torch.ones(3)] * 2)
+    assert len(arr) == len(y) == 2
+    assert torch.equal(y[1], torch.full((3,), 2.0))
+    assert seen == [2]
+    rt = _world1_cpu()
+    try:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            PD.dma_ship_compute(torch.ones(3), rt.mesh, ((0, 0),),
+                                lambda a: a * 2, torch.ones(3))
+    finally:
+        rt.close()

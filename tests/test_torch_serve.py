@@ -456,9 +456,11 @@ def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys):
         TE.resolve_device("cuda")
     assert TE.main(["--requests", "1"]) == 1     # default device: cuda
     assert "no CUDA device" in capsys.readouterr().err
-    for flag in (["--disagg"], ["--chaos"], ["--trace", "t.json"]):
+    for flag in (["--chaos"], ["--trace", "t.json"]):
         assert TE.main(["--device", "cpu", *flag]) == 2
         assert "not ported yet" in capsys.readouterr().err
+    assert TE.main(["--disagg", "--requests", "1"]) == 1  # cuda: no card
+    assert "no CUDA device" in capsys.readouterr().err
     assert TCLI.main(["train"]) == 2
     assert "not ported yet" in capsys.readouterr().err
     assert TE.main(["--device", "cpu", "--reuse"]) == 0

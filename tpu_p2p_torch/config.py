@@ -225,6 +225,17 @@ class ServeConfig:
     deadline_steps: int = 0   # admission deadline in steps (0 = none)
     stop: str = "length"      # one of SERVE_STOPS
     eos_prob: float = 0.1     # stop="eos": per-token stop probability
+    disagg: bool = False      # disaggregated prefill/decode: prefill on
+    # one rank, decode on dp replicas, KV pages migrated between them
+    prefill_tp: int = 0       # prefill submesh tp size == its device
+    # count; 0 = auto, half the devices (only 1 is ported)
+    prefill_slots: int = 4    # prefill-side slot batch
+    prefill_pages: int = 0    # prefill-side page pool (one shard); 0 =
+    # auto, sized by the CLI to the worst-case resident set
+    migrate_chunks: int = 1   # KV-migration ship split into this many
+    # chunk hops (chunked_ppermute_compute's wave; 1 = one-shot)
+    transport: str = "xla"    # migration ship transport, one of
+    # TRANSPORTS (xla = a library copy, pallas_dma = the kernels)
     prefix_cache: bool = False  # copy-on-write prefix page sharing
     spec_k: int = 0           # speculative decoding window (0 = off)
 
@@ -278,9 +289,27 @@ class ServeConfig:
                 f"worst-case request ({need} tokens) overruns the "
                 f"max_blocks*page_len window ({window})"
             )
+        if self.transport not in TRANSPORTS:
+            raise ValueError(
+                f"unknown transport {self.transport!r}; expected one "
+                f"of {TRANSPORTS}"
+            )
+        if self.migrate_chunks < 1:
+            raise ValueError(
+                f"migrate_chunks must be >= 1, got {self.migrate_chunks}"
+            )
         if not 0 <= self.spec_k <= 7:
             raise ValueError(
                 f"spec_k must be in 0..7 (a decode window of 1 + "
                 f"spec_k tokens can never exceed the 8-row write "
                 f"band), got {self.spec_k}"
+            )
+        if self.prefill_tp < 0 or self.prefill_pages < 0:
+            raise ValueError(
+                "prefill_tp and prefill_pages must be >= 0 (0 = auto)"
+            )
+        if self.prefill_slots <= 0:
+            raise ValueError(
+                f"prefill_slots must be positive, got "
+                f"{self.prefill_slots}"
             )

@@ -41,6 +41,32 @@
 // No deadlock inside one launch: CTAs that spin hold their SMs, so the
 // grid is never larger than what is resident at once (occupancy x SMs).
 //
+// The fused ship (dma_ship_compute). The TPU kernel
+// (tpu_p2p/parallel/pallas_dma.py::_dma_transport_ship_call, body
+// ``dma_transport_ship_compute`` :289) starts the remote copy, runs an
+// arbitrary traced compute inside the same kernel body, then waits. A
+// PyTorch compute cannot be fused into a CUDA kernel, so the hop is split
+// at the point where the TPU kernel puts its compute, into two launches
+// on two streams of the rank:
+//   dma_ship_push_kernel    (side stream) the ready handshake and the
+//                           push; the last CTA releases dst's arrived[me];
+//   dma_ship_arrive_kernel  (the rank's own stream, after the compute was
+//                           issued there) waits on arrived[src], copies
+//                           the slab out (or zeros).
+// The caller orders the side stream after everything its own stream
+// issued before (the ship's producer and the previous arrival), so
+// "ready for e" still follows the copy-out of e-1, and joins the side
+// stream back after the arrival. Both launches reuse the permute
+// kernel's two halves below, so flags, epochs and faults are the same.
+//
+// In-process ranks (a LocalMesh: one process drives several ranks, each
+// with its own streams, possibly on one card) run their kernels
+// concurrently, not time-sliced as processes are. A spinning grid that
+// filled the card would keep a peer's kernel from ever starting, so the
+// caller passes ``share``: the grid is at most resident / share CTAs
+// (share = 2 x the ranks on the card: every rank's push and arrival fit
+// at once with room to spare for the compute).
+//
 // What bounds it: bytes. The function moves the buffer once (read x,
 // write the peer's copy: 2 x nbytes over device memory on one card, or
 // nbytes over NVLink between cards). This first version stages through
@@ -164,7 +190,10 @@ __device__ void copy_share(unsigned char* dst, const unsigned char* src,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) dma_permute_kernel(Args a) {
+// First half of a hop: the ready handshake, this CTA's share of the
+// push, and (last CTA) the release of dst's arrived[me]. → whether this
+// CTA gave up waiting (the same value in every thread of the CTA).
+__device__ bool push_half(const Args& a) {
   __shared__ int aborted;
   if (threadIdx.x == 0) {
     aborted = 0;
@@ -189,36 +218,106 @@ __global__ void __launch_bounds__(kThreads) dma_permute_kernel(Args a) {
               &a.self->fault_epoch);
       if (faulted < a.epoch) st_release(&a.to->arrived[a.me], a.epoch);
     }
+  }
+  const bool out = aborted != 0;
+  __syncthreads();
+  return out;
+}
+
+// Second half: wait for src's push into my slab, then copy it out (or
+// zeros for a dummy arrival). Skipped when the first half gave up.
+__device__ void arrive_half(const Args& a, bool aborted) {
+  __shared__ int failed;
+  if (threadIdx.x == 0) {
+    failed = aborted ? 1 : 0;
     if (!aborted &&
         !wait_epoch(&a.self->arrived[a.src], a.epoch, a.timeout_ns)) {
       report(a, 2, a.src_rank);
-      aborted = 1;
+      failed = 1;
     }
   }
   __syncthreads();
-  if (aborted) return;
+  if (failed) return;
   copy_share(a.out, a.has_in ? slab(a.self) : nullptr, a.nbytes, a.vec16,
              false);
 }
 
-int g_grid[64];  // resident CTAs per device, 0 = not asked yet
+__global__ void __launch_bounds__(kThreads) dma_permute_kernel(Args a) {
+  arrive_half(a, push_half(a));
+}
 
-int resident_grid(int* grid) {
+__global__ void __launch_bounds__(kThreads) dma_ship_push_kernel(Args a) {
+  push_half(a);
+}
+
+__global__ void __launch_bounds__(kThreads) dma_ship_arrive_kernel(Args a) {
+  arrive_half(a, false);
+}
+
+enum Kind { kPermute = 0, kPush = 1, kArrive = 2 };
+int g_grid[64][3];  // resident CTAs per device and kernel, 0 = not asked
+
+int resident_grid(Kind kind, int* grid) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!g_grid[dev]) {
+  if (!g_grid[dev][kind]) {
+    static void (*const fns[3])(Args) = {
+        dma_permute_kernel, dma_ship_push_kernel, dma_ship_arrive_kernel};
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dma_permute_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[kind],
+                                                        kThreads, 0);
     if (err != cudaSuccess) return err;
-    g_grid[dev] = sms * (per_sm < 1 ? 1 : per_sm);
+    g_grid[dev][kind] = sms * (per_sm < 1 ? 1 : per_sm);
   }
-  *grid = g_grid[dev];
+  *grid = g_grid[dev][kind];
   return cudaSuccess;
+}
+
+// One launch of ``kind`` on ``stream``: the grid is what the bytes need,
+// at most the resident CTAs / share. Returns cudaGetLastError().
+int launch(Kind kind, const void* x, void* out, unsigned long long nbytes,
+           void* self, void* to, void* from, int me, int dst, int src,
+           int rank, int dst_rank, int src_rank, int has_in, int vec16,
+           unsigned long long epoch, unsigned long long timeout_ns,
+           void* fault, int share, void* stream) {
+  int grid = 0;
+  cudaError_t err = (cudaError_t)resident_grid(kind, &grid);
+  if (err != cudaSuccess) return err;
+  if (share > 1) grid = grid / share > 0 ? grid / share : 1;
+  const unsigned long long per_cta = (unsigned long long)kThreads * 16;
+  const unsigned long long need = (nbytes + per_cta - 1) / per_cta;
+  if (need < (unsigned long long)grid) grid = need ? (int)need : 1;
+  Args a;
+  a.x = static_cast<const unsigned char*>(x);
+  a.out = static_cast<unsigned char*>(out);
+  a.nbytes = nbytes;
+  a.self = static_cast<Header*>(self);
+  a.to = static_cast<Header*>(to);
+  a.from = static_cast<Header*>(from);
+  a.me = me;
+  a.dst = dst;
+  a.src = src;
+  a.rank = rank;
+  a.dst_rank = dst_rank;
+  a.src_rank = src_rank;
+  a.has_in = has_in;
+  a.vec16 = vec16;
+  a.epoch = epoch;
+  a.timeout_ns = timeout_ns;
+  a.fault = static_cast<Fault*>(fault);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kind == kPermute) {
+    dma_permute_kernel<<<grid, kThreads, 0, st>>>(a);
+  } else if (kind == kPush) {
+    dma_ship_push_kernel<<<grid, kThreads, 0, st>>>(a);
+  } else {
+    dma_ship_arrive_kernel<<<grid, kThreads, 0, st>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -256,9 +355,11 @@ int tp_dma_window_close(void* base) { return cudaIpcCloseMemHandle(base); }
 
 int tp_dma_window_free(void* base) { return cudaFree(base); }
 
-// A zeroed host-mapped fault record: its host and device addresses.
+// A zeroed host-mapped fault record: its host and device addresses
+// (portable: kernels on every card of the process write it).
 int tp_dma_fault_alloc(void** host, void** dev) {
-  cudaError_t err = cudaHostAlloc(host, sizeof(Fault), cudaHostAllocMapped);
+  cudaError_t err = cudaHostAlloc(host, sizeof(Fault),
+                                  cudaHostAllocMapped | cudaHostAllocPortable);
   if (err != cudaSuccess) return err;
   memset(*host, 0, sizeof(Fault));
   return cudaHostGetDevicePointer(dev, *host, 0);
@@ -266,40 +367,47 @@ int tp_dma_fault_alloc(void** host, void** dev) {
 
 int tp_dma_fault_bytes(void) { return (int)sizeof(Fault); }
 
-// One hop on ``stream``; returns cudaGetLastError() after the launch.
-int tp_dma_permute(const void* x, void* out, unsigned long long nbytes,
-                   void* self, void* to, void* from, int me, int dst,
-                   int src, int rank, int dst_rank, int src_rank,
-                   int has_in, int vec16, unsigned long long epoch,
-                   unsigned long long timeout_ns, void* fault,
-                   void* stream) {
-  int grid = 0;
-  cudaError_t err = (cudaError_t)resident_grid(&grid);
+// Let ``dev`` read and write ``peer``'s memory (in-process ranks on two
+// cards of one host). Already enabled counts as success.
+int tp_dma_enable_peer(int dev, int peer) {
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return err;
-  const unsigned long long per_cta = (unsigned long long)kThreads * 16;
-  const unsigned long long need = (nbytes + per_cta - 1) / per_cta;
-  if (need < (unsigned long long)grid) grid = need ? (int)need : 1;
-  Args a;
-  a.x = static_cast<const unsigned char*>(x);
-  a.out = static_cast<unsigned char*>(out);
-  a.nbytes = nbytes;
-  a.self = static_cast<Header*>(self);
-  a.to = static_cast<Header*>(to);
-  a.from = static_cast<Header*>(from);
-  a.me = me;
-  a.dst = dst;
-  a.src = src;
-  a.rank = rank;
-  a.dst_rank = dst_rank;
-  a.src_rank = src_rank;
-  a.has_in = has_in;
-  a.vec16 = vec16;
-  a.epoch = epoch;
-  a.timeout_ns = timeout_ns;
-  a.fault = static_cast<Fault*>(fault);
-  dma_permute_kernel<<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  int can = 0;
+  err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return err;
+  if (!can) return cudaErrorPeerAccessUnsupported;
+  err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    err = cudaSuccess;
+  }
+  cudaError_t back = cudaSetDevice(cur);
+  return err != cudaSuccess ? err : back;
 }
+
+// The three launches share one argument list (unused pointers may be
+// null): ``share`` divides the resident grid, 1 for ranks that are
+// processes. Each returns cudaGetLastError() after the launch.
+#define TP_DMA_ARGS                                                        \
+  const void *x, void *out, unsigned long long nbytes, void *self,        \
+      void *to, void *from, int me, int dst, int src, int rank,           \
+      int dst_rank, int src_rank, int has_in, int vec16,                   \
+      unsigned long long epoch, unsigned long long timeout_ns,             \
+      void *fault, int share, void *stream
+#define TP_DMA_PASS                                                        \
+  x, out, nbytes, self, to, from, me, dst, src, rank, dst_rank, src_rank,  \
+      has_in, vec16, epoch, timeout_ns, fault, share, stream
+
+// One hop of a total permutation on ``stream``.
+int tp_dma_permute(TP_DMA_ARGS) { return launch(kPermute, TP_DMA_PASS); }
+
+// The push half of a fused ship (on the rank's side stream).
+int tp_dma_ship_push(TP_DMA_ARGS) { return launch(kPush, TP_DMA_PASS); }
+
+// The arrival half of a fused ship (on the rank's own stream).
+int tp_dma_ship_arrive(TP_DMA_ARGS) { return launch(kArrive, TP_DMA_PASS); }
 
 }  // extern "C"

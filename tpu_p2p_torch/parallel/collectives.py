@@ -12,6 +12,13 @@ of ``tpu_p2p/parallel/collectives.py``.
   ``xla`` transport: the library collective.
 - ``pallas_dma`` → :func:`dma_ppermute`, the hand-written peer-push
   kernel (:mod:`tpu_p2p_torch.parallel.pallas_dma`).
+- the chunk wave :func:`chunked_ppermute_compute` (reference :627): a
+  computed buffer shipped as ``chunks`` hops, each chunk's ship in flight
+  while the next chunk computes, over either transport.
+- On a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh` (every rank in
+  this process) the same functions take and return one tensor per rank;
+  the ``xla`` transport there is a ``Tensor.copy_`` into the destination
+  rank's buffer, on the destination's stream.
 - ``cudaMalloc`` + ``cudaMemset`` buffers (``p2p_matrix.cc:124-130``) →
   :func:`make_payload`, each rank's row of a rank-tagged payload whose
   bytes equal the reference's ``_payload_np`` bit for bit, so transfers
@@ -29,7 +36,7 @@ throttle are not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -144,10 +151,33 @@ def _library_group(mesh, device: torch.device):
     return mesh.device_group
 
 
+def _local_ppermute(xs, mesh, edges: Sequence[Edge]) -> list:
+    """:func:`ppermute` on a ``LocalMesh``: for each edge a copy of the
+    source rank's tensor into the destination rank's buffer, issued on
+    the destination's stream after the source's work; zeros elsewhere.
+    Differentiable (the copy's own backward)."""
+    rows = mesh.rows(xs)
+    PD.check_rows(rows)
+    outs = [torch.zeros_like(r) for r in rows]
+    cuda = mesh.streams[0] is not None
+    mesh.enter()
+    for s, d in _canon_edges(edges, mesh.size):
+        with mesh.on(d):
+            if cuda:
+                mesh.streams[d].wait_stream(mesh.streams[s])
+                rows[s].record_stream(mesh.streams[d])
+            outs[d].copy_(rows[s])
+    mesh.exit()
+    return outs
+
+
 def ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge]) -> torch.Tensor:
     """This rank's arrival of one edge-set transfer over the library
     collective: row ``dst`` gets row ``src`` per edge, zeros where no
-    edge arrives. Members without an edge send nothing."""
+    edge arrives. Members without an edge send nothing. On a
+    ``LocalMesh``, ``x`` and the result are per-rank lists."""
+    if mesh.in_process:
+        return _local_ppermute(x, mesh, edges)
     i = mesh.index
     x = x.contiguous()
     out = torch.zeros_like(x)
@@ -170,6 +200,79 @@ def dma_ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge]):
     """:func:`ppermute` over the peer-push kernel (``pallas_dma``): the
     same contract, every member of the mesh taking part."""
     return PD.dma_ppermute(x, mesh, edges)
+
+
+def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
+                             edges: Sequence[Edge], chunk_dim: int,
+                             chunks: int, *, transport: str = "xla"):
+    """Ship ``compute_chunk(x)`` over ``edges`` as a wave of chunk hops
+    (reference ``collectives.py:627``): ``x`` splits along ``chunk_dim``
+    into ``chunks`` equal chunks, zero-padded when the dim does not
+    divide (padded rows ride the wave and are sliced off after
+    reassembly, so the compute must be zero-inert there);
+    ``compute_chunk(x_c, c)`` must keep ``chunk_dim``'s extent and one
+    shape across chunks. The result is exactly ``ppermute(concat_c(
+    compute_chunk(x_c, c)), edges)``: the same bytes, no extra hops.
+
+    ``transport="xla"`` ships each chunk with :func:`ppermute` the moment
+    its compute is issued. ``"pallas_dma"`` makes ``chunks - 1`` calls
+    to :func:`pallas_dma.dma_ship_compute` (chunk ``c``'s push in flight
+    while chunk ``c + 1`` computes) and ships the last chunk with
+    :func:`dma_ppermute`. ``chunks <= 1`` degrades to one ship of
+    ``compute_chunk(x, 0)``. ``x`` and the result are this rank's tensor
+    on a process mesh and per-rank lists on a ``LocalMesh``, where each
+    rank's compute runs on the rank's own stream.
+    """
+    _check_transport(transport)
+    edges = _canon_edges(edges, mesh.size)
+    rows = mesh.rows(x)
+    pallas = transport == "pallas_dma"
+    hop = PD.dma_ppermute if pallas else ppermute
+
+    def ship(per_rank):
+        return mesh.rows(hop(mesh.unrows(per_rank), mesh, edges))
+
+    def computed(parts, c):
+        out = []
+        for k, i in enumerate(mesh.local_ranks):
+            with mesh.on(i):
+                out.append(compute_chunk(parts[k], c))
+        return out
+
+    size = rows[0].shape[chunk_dim]
+    chunks = max(1, min(int(chunks), max(1, size)))
+    if chunks <= 1:
+        mesh.enter()
+        return mesh.unrows(ship(computed(rows, 0)))
+    ct = -(-size // chunks)
+    pad = ct * chunks - size
+    if pad:
+        widths = [0, 0] * (rows[0].dim() - chunk_dim - 1) + [0, pad]
+        rows = [torch.nn.functional.pad(r, widths) for r in rows]
+
+    def chunk_of(c):
+        return [r.narrow(chunk_dim, c * ct, ct) for r in rows]
+
+    mesh.enter()  # the ranks' computes read the padded rows
+    arrivals = []
+    if pallas:
+        y_prev = computed(chunk_of(0), 0)
+        for c in range(1, chunks):
+            arr, y = PD.dma_ship_compute(
+                mesh.unrows(y_prev), mesh, edges,
+                lambda xc, cc=c: compute_chunk(xc, cc),
+                mesh.unrows(chunk_of(c)))
+            arrivals.append(mesh.rows(arr))
+            y_prev = mesh.rows(y)
+        arrivals.append(ship(y_prev))
+    else:
+        for c in range(chunks):
+            arrivals.append(ship(computed(chunk_of(c), c)))
+    out = []
+    for k in range(len(rows)):
+        o = torch.cat([a[k] for a in arrivals], dim=chunk_dim)
+        out.append(o.narrow(chunk_dim, 0, size) if pad else o)
+    return mesh.unrows(out)
 
 
 class CollectiveCache:

@@ -4,18 +4,39 @@ Port of ``tpu_p2p/parallel/pallas_dma.py`` (same module name, so a
 reader finds the counterpart). On the TPU it is a Pallas kernel of raw
 remote DMAs; here it is a hand-written CUDA kernel
 (``tpu_p2p_torch/csrc/p2p_dma.cu``, built by
-:mod:`tpu_p2p_torch.utils.cuda_build`) that stores into peer-mapped CUDA
-IPC windows. Three forms side by side, as for every kernel of the port:
+:mod:`tpu_p2p_torch.utils.cuda_build`) that stores into peer-mapped
+windows. Two functions, each in three forms side by side, as for every
+kernel of the port:
 
-- the **kernel** (:func:`_dma_transport_permute_call`), launched for
-  CUDA tensors;
-- the **plain version** (:func:`_dma_ppermute_plain`), the same function
-  over ``torch.distributed`` send/recv on the host group, taken for CPU
-  tensors and the kernel's yardstick on the card;
-- the **wrapper** :func:`dma_ppermute`: the ``ppermute(x, edges)``
-  contract — unique sources and destinations, rows with no real arrival
-  become zeros — differentiable, its gradient the same hop over the
-  reversed edges (the reference's custom_vjp, :220-242).
+- :func:`dma_ppermute` — the ``ppermute(x, edges)`` contract (unique
+  sources and destinations, rows with no real arrival become zeros),
+  differentiable, its gradient the same hop over the reversed edges
+  (the reference's custom_vjp, :220-242). Kernel:
+  :func:`_dma_transport_permute_call`; plain version:
+  :func:`_dma_ppermute_plain` (gloo on a process mesh, in-process copies
+  on a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh`).
+- :func:`dma_ship_compute` — the fused per-chunk unit of the chunk
+  waves: the push of ``ship`` is in flight while ``compute_fn`` runs,
+  then the arrival lands (the reference's :364, custom_vjp :331-356).
+  Kernel: :func:`_dma_transport_ship_call`, whose push and arrival are
+  two launches on two streams of the rank (the ``.cu`` file says why);
+  plain version: the compute, then :func:`_dma_ppermute_plain`.
+
+A wrapper takes the plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises.
+
+Two kinds of mesh. A process mesh (``runtime.Mesh``) is one rank per
+process: a function takes and returns this rank's tensor. A
+``LocalMesh`` is every rank in this process, each a (device, stream)
+pair: a function takes a list of per-rank tensors and returns one, the
+rows a ``shard_map`` body sees on each device. Both meshes answer the
+same questions (``rows``/``unrows``, ``local_ranks``, ``on``,
+``stream``, ``share``, ``enter``/``exit``), so the code here does not
+ask which kind it has, apart from the windows and the plain copies. A
+``LocalMesh``'s ranks' kernels run concurrently, so their grids are
+capped to leave room for each other (``share``). The fused ship's kernel
+runs on a ``LocalMesh`` (the disaggregated engine's); on a process mesh
+only its plain version is ported.
 
 Edge sets are completed to a total permutation first
 (:func:`complete_permutation`, copied from the reference with equal
@@ -23,17 +44,19 @@ tables): every rank pushes exactly one buffer and receives exactly one,
 ranks without a real edge over dummy edges whose arrivals are zeroed.
 Every rank of the mesh takes part in every call.
 
-Windows: one per set of ranks and capacity (``Mesh.windows``), made
-collectively the first time a payload needs it — every member allocates
+Windows: one per set of ranks and capacity (``mesh.windows``), made the
+first time a payload needs it. On a process mesh every member allocates
 a slab and flags with ``cudaMalloc``, the 64-byte IPC handles are
-all-gathered over the host group, and each member maps the others'.
-They live until :func:`close_windows` (``Runtime.close``).
+all-gathered over the host group, and each member maps the others'. On
+a ``LocalMesh`` this process allocates one window per rank on the rank's
+card and enables peer access between cards. They live until
+:func:`close_windows`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +68,9 @@ Edge = Tuple[int, int]
 
 # Kernel launches since the last reset — a plain count, so a run can
 # show that its main path went through the kernel. Only a launch counts:
-# the plain version (CPU) adds nothing.
-launches = {"dma_permute": 0}
+# the plain version (CPU) adds nothing. ``dma_ship`` counts push
+# launches of the fused ship, one per rank per call.
+launches = {"dma_permute": 0, "dma_ship": 0}
 
 SPIN_TIMEOUT_S = 10.0  # how long the kernel waits for a peer's flag
 MIN_WINDOW = 1 << 20   # smallest slab a window gets
@@ -92,17 +116,44 @@ def complete_permutation(edges: Sequence[Edge], n: int):
     return dst_table, src_table, has_in
 
 
+# ------------------------------------------------------------ meshes
+
+
+def _device_type(rows) -> str:
+    kinds = {r.device.type for r in rows}
+    if len(kinds) != 1:
+        raise ValueError(f"per-rank tensors on mixed device types {kinds}")
+    kind = kinds.pop()
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {kind}")
+    return kind
+
+
+def check_rows(rows) -> None:
+    """Every rank's tensor of one call has one shape and dtype."""
+    shapes = {(tuple(r.shape), r.dtype) for r in rows}
+    if len(shapes) != 1:
+        raise ValueError(f"per-rank tensors differ in shape or dtype: "
+                         f"{sorted(map(str, shapes))}")
+
+
 # ------------------------------------------------------------ plain
 
 
-def _dma_ppermute_plain(x: torch.Tensor, mesh, edges: Sequence[Edge],
-                        tables=None):
-    """Plain version: the completed permutation over send/recv on the
-    mesh's host group (gloo), a local copy for a self-edge, zeros for a
-    dummy arrival. Same arguments and result as :func:`dma_ppermute`."""
+def _dma_ppermute_plain(x, mesh, edges: Sequence[Edge], tables=None):
+    """Plain version: the completed permutation as copies. On a process
+    mesh, send/recv over its host group (gloo), a local copy for a
+    self-edge; on a ``LocalMesh``, one copy per rank onto the rank's
+    device. Zeros for a dummy arrival. Same arguments and result as
+    :func:`dma_ppermute`."""
     if tables is None:
         tables = complete_permutation(edges, mesh.size)
     dst_t, src_t, has_in = tables
+    if mesh.in_process:
+        rows = [r.contiguous() for r in mesh.rows(x)]
+        return [rows[src_t[i]].to(mesh.devices[i], copy=True)
+                if has_in[i] else torch.zeros_like(rows[i])
+                for i in range(mesh.size)]
     i = mesh.index
     x = x.contiguous()
     if dst_t[i] == i:
@@ -130,6 +181,9 @@ class _FaultRecord(ctypes.Structure):
                 ("epoch", ctypes.c_ulonglong)]
 
 
+_LAUNCHES = ("tp_dma_permute", "tp_dma_ship_push", "tp_dma_ship_arrive")
+
+
 def _lib():
     """The built kernel library, with its C signatures declared."""
     global _LIB
@@ -138,15 +192,16 @@ def _lib():
 
         lib = load("p2p_dma")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+        hop = [p, p, u, p, p, p, i, i, i, i, i, i, i, i, u, u, p, i, p]
         for name, args in (
                 ("tp_dma_window_alloc", [u, ctypes.POINTER(p), p]),
                 ("tp_dma_window_open", [p, ctypes.POINTER(p)]),
                 ("tp_dma_window_close", [p]),
                 ("tp_dma_window_free", [p]),
+                ("tp_dma_enable_peer", [i, i]),
                 ("tp_dma_fault_alloc", [ctypes.POINTER(p),
                                         ctypes.POINTER(p)]),
-                ("tp_dma_permute", [p, p, u, p, p, p, i, i, i, i, i, i, i,
-                                    i, u, u, p, p])):
+                *((name, hop) for name in _LAUNCHES)):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
         for name in ("tp_dma_max_ranks", "tp_dma_fault_bytes"):
@@ -189,17 +244,22 @@ def check_faults() -> None:
         raise TransferTimeout(msg)
 
 
+def _check_members(n: int) -> None:
+    if n > _lib().tp_dma_max_ranks():
+        raise BackendError(
+            f"pallas_dma windows hold at most {_lib().tp_dma_max_ranks()}"
+            f" ranks, the mesh has {n}")
+
+
 class _Window:
-    """One symmetric window: a slab of ``capacity`` bytes and its flags
-    on every member of ``mesh``, mapped into every other member."""
+    """One symmetric window of a process mesh: a slab of ``capacity``
+    bytes and its flags on every member, mapped into every other
+    member."""
 
     def __init__(self, mesh, capacity: int) -> None:
         lib = _lib()
         members = sorted(mesh.ranks)
-        if len(members) > lib.tp_dma_max_ranks():
-            raise BackendError(
-                f"pallas_dma windows hold at most {lib.tp_dma_max_ranks()}"
-                f" ranks, the mesh has {len(members)}")
+        _check_members(len(members))
         self.slot = {r: k for k, r in enumerate(members)}
         self.capacity = capacity
         self.epoch = 0
@@ -236,102 +296,306 @@ class _Window:
         self.bases = {}
 
 
-def _window(mesh, nbytes: int) -> _Window:
+class _LocalWindow:
+    """The windows of a ``LocalMesh``: one slab of ``capacity`` bytes and
+    its flags per rank, all allocated by this process on the ranks' own
+    cards; ranks on different cards reach each other by peer access."""
+
+    def __init__(self, mesh, capacity: int) -> None:
+        lib = _lib()
+        _check_members(mesh.size)
+        cards = sorted({d.index for d in mesh.devices})
+        for a in cards:
+            for b in cards:
+                if a != b:
+                    _cuda_check(lib.tp_dma_enable_peer(a, b),
+                                f"peer access cuda:{a} -> cuda:{b}")
+        self.slot = {r: r for r in range(mesh.size)}
+        self.capacity = capacity
+        self.epoch = 0
+        self.bases = {}
+        handle = ctypes.create_string_buffer(64)  # unused in-process
+        for r, dev in enumerate(mesh.devices):
+            base = ctypes.c_void_p()
+            with torch.cuda.device(dev):
+                _cuda_check(lib.tp_dma_window_alloc(
+                    capacity, ctypes.byref(base),
+                    ctypes.cast(handle, ctypes.c_void_p)),
+                    f"rank {r}'s window of {capacity} bytes on {dev}")
+            self.bases[r] = base.value
+
+    def close(self) -> None:
+        lib = _lib()
+        for b in self.bases.values():
+            lib.tp_dma_window_free(b)
+        self.bases = {}
+
+
+def _window(mesh, nbytes: int):
     """The smallest window of ``mesh``'s rank set that holds ``nbytes``,
-    made (collectively) when none does."""
+    made (collectively, on a process mesh) when none does."""
     fits = [c for c in mesh.windows if c >= nbytes]
     if fits:
         return mesh.windows[min(fits)]
     cap = max(MIN_WINDOW, 1 << max(0, nbytes - 1).bit_length())
-    with torch.cuda.device(mesh.device):
-        win = _Window(mesh, cap)
+    if mesh.in_process:
+        win = _LocalWindow(mesh, cap)
+    else:
+        with torch.cuda.device(mesh.device):
+            win = _Window(mesh, cap)
     mesh.windows[cap] = win
     return win
 
 
 def close_windows(windows: dict) -> None:
-    """Unmap the peers' windows and free this rank's (after a barrier:
-    no kernel may still be pushing)."""
+    """Release a mesh's windows (after a drain: no kernel may still be
+    pushing)."""
     for win in windows.values():
         win.close()
     windows.clear()
 
 
-def _dma_transport_permute_call(x: torch.Tensor, mesh, tables, *,
-                                timeout_s: float = SPIN_TIMEOUT_S):
-    """One total-permutation push on the card: ``x`` into the slab of
-    this rank's destination, then this rank's arrival (or zeros) out.
-    ``tables`` are :func:`complete_permutation`'s for the hop's edges.
-
-    Replaces ``tpu_p2p/parallel/pallas_dma.py::_dma_transport_permute_call``
-    (:146). Launches on the current stream, allocates only the output,
-    and raises when the launch is refused; a peer that never comes
-    surfaces as :class:`TransferTimeout` from :func:`check_faults`."""
+def _launch(which: int, x, out, mesh, win, i: int, tables, timeout_s,
+            stream) -> None:
+    """One launch of ``_LAUNCHES[which]`` for mesh index ``i`` on
+    ``stream``: ``x`` is what the rank pushes (the permute and the
+    push), ``out`` where its arrival lands (the permute and the
+    arrival). Raises when the launch is refused."""
     dst_t, src_t, has_in = tables
-    i = mesh.index
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    nbytes = x.numel() * x.element_size()
-    if nbytes == 0:
-        return out
-    win = _window(mesh, nbytes)
+    me, d, s = mesh.ranks[i], mesh.ranks[dst_t[i]], mesh.ranks[src_t[i]]
+    ref = x if x is not None else out
+    nbytes = ref.numel() * ref.element_size()
+    ptrs = [t.data_ptr() for t in (x, out) if t is not None]
+    vec16 = all(p % 16 == 0 for p in ptrs)
+    share = mesh.share(i)
+    with torch.cuda.device(ref.device):
+        err = getattr(_lib(), _LAUNCHES[which])(
+            x.data_ptr() if x is not None else None,
+            out.data_ptr() if out is not None else None, nbytes,
+            win.bases[me], win.bases[d], win.bases[s], win.slot[me],
+            win.slot[d], win.slot[s], me, d, s, int(has_in[i]), int(vec16),
+            win.epoch, int(timeout_s * 1e9), _fault_record()[1], share,
+            stream.cuda_stream)
+    if err:
+        raise BackendError(
+            f"{_LAUNCHES[which]} kernel launch failed: CUDA error {err} "
+            f"({torch.cuda.get_device_name(ref.device)})")
+
+
+def _begin(mesh, rows):
+    """A fresh epoch on the window that holds ``rows``, after surfacing
+    any earlier fault; the ranks' streams then join the caller's."""
+    win = _window(mesh, rows[0].numel() * rows[0].element_size())
     check_faults()
     win.epoch += 1
-    me, d, s = mesh.rank, mesh.ranks[dst_t[i]], mesh.ranks[src_t[i]]
-    vec16 = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().tp_dma_permute(
-            x.data_ptr(), out.data_ptr(), nbytes, win.bases[me],
-            win.bases[d], win.bases[s], win.slot[me], win.slot[d],
-            win.slot[s], me, d, s, int(has_in[i]), int(vec16), win.epoch,
-            int(timeout_s * 1e9), _fault_record()[1], stream)
-    if err:
-        raise BackendError(f"dma_permute kernel launch failed: CUDA error "
-                           f"{err} ({torch.cuda.get_device_name()})")
-    launches["dma_permute"] += 1
-    return out
+    mesh.enter()
+    return win
+
+
+def _dma_transport_permute_call(x, mesh, tables, *,
+                                timeout_s: float = SPIN_TIMEOUT_S):
+    """One total-permutation push on the card: each rank's ``x`` into the
+    slab of its destination, then its arrival (or zeros) out. ``x`` is
+    this rank's tensor (process mesh) or the per-rank list
+    (``LocalMesh``), and so is the result. ``tables`` are
+    :func:`complete_permutation`'s for the hop's edges.
+
+    Replaces ``tpu_p2p/parallel/pallas_dma.py::_dma_transport_permute_call``
+    (:146). Launches on the rank's stream, allocates only the output,
+    and raises when the launch is refused; a peer that never comes
+    surfaces as :class:`TransferTimeout` from :func:`check_faults`."""
+    rows = [r.contiguous() for r in mesh.rows(x)]
+    check_rows(rows)
+    outs = [torch.empty_like(r) for r in rows]
+    if rows[0].numel():
+        win = _begin(mesh, rows)
+        for k, i in enumerate(mesh.local_ranks):
+            _launch(0, rows[k], outs[k], mesh, win, i, tables, timeout_s,
+                    mesh.stream(i))
+            launches["dma_permute"] += 1
+        mesh.exit()
+    return mesh.unrows(outs)
+
+
+def _dma_transport_ship_call(rows, mesh, tables, compute: Callable,
+                             timeout_s: float = SPIN_TIMEOUT_S):
+    """The fused ship on the cards of a ``LocalMesh``: every rank's push
+    of its row of ``rows`` starts on the rank's side stream, then
+    ``compute(i)`` runs on the rank's own stream while the pushes are in
+    flight, then the arrival kernel (after the compute, on the same
+    stream) copies the rank's arrival out. → ``(arrived, ys)``, per-rank
+    lists, ``ys[i] = compute(i)``.
+
+    Replaces ``tpu_p2p/parallel/pallas_dma.py::_dma_transport_ship_call``
+    (:280; kernel body ``dma_transport_ship_compute`` :289). Every push
+    is launched before any arrival, so a rank's arrival never holds the
+    card while a peer's push waits to start."""
+    caller = [torch.cuda.current_stream(r.device) for r in rows]
+    outs = [torch.empty_like(r) for r in rows]
+    win = _begin(mesh, rows)
+    pushed = []  # holds each push's input until its stream is joined
+    for i in mesh.local_ranks:
+        own, side = mesh.streams[i], mesh.side_streams[i]
+        with torch.cuda.stream(own):
+            x = rows[i].contiguous()
+        # The push follows what the rank's own stream issued before: the
+        # ship's producer, and the copy-out of the previous epoch that
+        # its ready signal vouches for.
+        side.wait_stream(own)
+        _launch(1, x, None, mesh, win, i, tables, timeout_s, side)
+        launches["dma_ship"] += 1
+        pushed.append(x)
+    ys = []
+    for i in mesh.local_ranks:
+        own, side = mesh.streams[i], mesh.side_streams[i]
+        with torch.cuda.stream(own):
+            y = compute(i)
+        for t in _tensors(y):
+            if t.is_cuda and t.device == rows[i].device:
+                t.record_stream(caller[i])
+        ys.append(y)
+        _launch(2, None, outs[i], mesh, win, i, tables, timeout_s, own)
+        # Join the push back: later work on the rank's stream (and the
+        # allocator's reuse of ``pushed[i]``) waits for it.
+        own.wait_stream(side)
+    mesh.exit()
+    return outs, ys
+
+
+def _tensors(y):
+    if isinstance(y, torch.Tensor):
+        return (y,)
+    if isinstance(y, (tuple, list)):
+        return tuple(t for t in y if isinstance(t, torch.Tensor))
+    return ()
 
 
 # ----------------------------------------------------------- wrapper
 
 
 def _dma_ppermute(x, mesh, edges, tables, timeout_s):
+    """:func:`dma_ppermute` without autograd: the plain version for CPU
+    tensors, else the kernel; raises for any other device."""
+    rows = mesh.rows(x)
     if mesh.size == 1 and not edges:
-        return torch.zeros_like(x)
-    if x.device.type == "cpu":
+        return mesh.unrows([torch.zeros_like(r) for r in rows])
+    if _device_type(rows) == "cpu":
         return _dma_ppermute_plain(x, mesh, edges, tables)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     return _dma_transport_permute_call(x, mesh, tables, timeout_s=timeout_s)
+
+
+def _permute_rows(rows, mesh, edges, tables, timeout_s) -> list:
+    return mesh.rows(_dma_ppermute(mesh.unrows(rows), mesh, edges, tables,
+                                   timeout_s))
+
+
+def _reverse_rows(ctx, grads) -> tuple:
+    """The backward of a hop: the same transport over the reversed
+    edges (a permutation's transpose), zeros for an absent cotangent."""
+    rev = tuple((d, s) for s, d in ctx.edges)
+    tables = complete_permutation(rev, ctx.mesh.size)
+    g = [gi if gi is not None else torch.zeros(shape, dtype=dt, device=dev)
+         for gi, (shape, dt, dev) in zip(grads, ctx.meta)]
+    return tuple(_permute_rows(g, ctx.mesh, rev, tables, ctx.timeout_s))
+
+
+def _save(ctx, mesh, edges, timeout_s, rows) -> None:
+    ctx.mesh, ctx.edges, ctx.timeout_s = mesh, edges, timeout_s
+    ctx.meta = [(r.shape, r.dtype, r.device) for r in rows]
 
 
 class _DmaPPermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, edges, tables, timeout_s):
-        ctx.mesh, ctx.edges, ctx.timeout_s = mesh, edges, timeout_s
-        return _dma_ppermute(x, mesh, edges, tables, timeout_s)
+    def forward(ctx, mesh, edges, tables, timeout_s, *rows):
+        _save(ctx, mesh, edges, timeout_s, rows)
+        return tuple(_permute_rows(list(rows), mesh, edges, tables,
+                                   timeout_s))
 
     @staticmethod
-    def backward(ctx, g):
-        # The transpose of a permutation is the reverse-edge permutation.
-        rev = tuple((d, s) for s, d in ctx.edges)
-        tables = complete_permutation(rev, ctx.mesh.size)
-        return (_dma_ppermute(g, ctx.mesh, rev, tables, ctx.timeout_s),
-                None, None, None, None)
+    def backward(ctx, *grads):
+        return (None, None, None, None, *_reverse_rows(ctx, grads))
 
 
-def dma_ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge], *,
-                 tables=None,
-                 timeout_s: float = SPIN_TIMEOUT_S) -> torch.Tensor:
-    """``ppermute(x, edges)`` over the peer-push kernel: this rank's
+class _ShipArrival(torch.autograd.Function):
+    """The arrival half of :func:`dma_ship_compute` as an autograd node:
+    its input is the ship (so the gradient reaches it), its forward
+    hands back the arrivals the kernel already produced (or makes them
+    with the plain version), its backward is the reverse hop."""
+
+    @staticmethod
+    def forward(ctx, mesh, edges, tables, timeout_s, arrived, *rows):
+        _save(ctx, mesh, edges, timeout_s, rows)
+        if arrived is None:
+            arrived = _permute_rows(list(rows), mesh, edges, tables,
+                                    timeout_s)
+        return tuple(arrived)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, None, None, *_reverse_rows(ctx, grads))
+
+
+def dma_ppermute(x, mesh, edges: Sequence[Edge], *, tables=None,
+                 timeout_s: float = SPIN_TIMEOUT_S):
+    """``ppermute(x, edges)`` over the peer-push kernel: each rank's
     arrival over ``edges`` of ``mesh`` (mesh indices), zeros where no
-    real edge arrives. Every member of ``mesh`` must call it with the
-    same edges and a tensor of the same shape and dtype. ``tables``, when
-    given, are ``complete_permutation(edges, mesh.size)`` made once by the
-    caller (a cached hop); else they are made, and the edges validated,
-    here before any traffic."""
+    real edge arrives. ``x`` is this rank's tensor on a process mesh
+    (every member calls with the same edges and a tensor of the same
+    shape and dtype), or the list of every rank's on a ``LocalMesh``;
+    the result has the same form. ``tables``, when given, are
+    ``complete_permutation(edges, mesh.size)`` made once by the caller (a
+    cached hop); else they are made, and the edges validated, here
+    before any traffic."""
     edges = tuple((int(s), int(d)) for s, d in edges)
     if tables is None:
         tables = complete_permutation(edges, mesh.size)
-    return _DmaPPermute.apply(x, mesh, edges, tables, timeout_s)
+    rows = mesh.rows(x)
+    check_rows(rows)
+    _device_type(rows)
+    return mesh.unrows(_DmaPPermute.apply(mesh, edges, tables, timeout_s,
+                                          *rows))
+
+
+def dma_ship_compute(ship, mesh, edges: Sequence[Edge],
+                     compute_fn: Callable, *operands, tables=None,
+                     timeout_s: float = SPIN_TIMEOUT_S):
+    """Start the push of ``ship`` over ``edges``, run
+    ``compute_fn(*operands)`` while it is in flight, and return
+    ``(arrived, y)``: ``arrived`` is :func:`dma_ppermute`'s result for
+    ``ship``, ``y`` the compute's.
+
+    On a ``LocalMesh``, ``ship`` and every operand are per-rank lists,
+    ``compute_fn`` runs once per rank on that rank's operands and
+    stream, and both results are per-rank lists. Differentiable: the
+    ship's cotangent is the reverse-edge :func:`dma_ppermute`, the
+    compute's is its own autograd graph (the reference's custom_vjp,
+    :345-356). For CUDA tensors on a ``LocalMesh`` the push and the
+    compute overlap on the card; for CPU tensors the plain version runs
+    the compute, then the copies. CUDA tensors on a process mesh raise:
+    no entry point ships over one, so that kernel path is not ported."""
+    edges = tuple((int(s), int(d)) for s, d in edges)
+    if tables is None:
+        tables = complete_permutation(edges, mesh.size)
+    rows = mesh.rows(ship, "ship")
+    check_rows(rows)
+    ops = [mesh.rows(op, "operand") for op in operands]
+    ranks = mesh.local_ranks
+
+    def compute(k):
+        return compute_fn(*(op[k] for op in ops))
+
+    arrived = None
+    if _device_type(rows) == "cuda" and not (mesh.size == 1 and not edges):
+        if not mesh.in_process:
+            raise NotImplementedError(
+                "dma_ship_compute on a process mesh of cards is not ported "
+                "yet: its kernel runs on a LocalMesh")
+        arrived, ys = _dma_transport_ship_call(
+            [r.detach() for r in rows], mesh, tables, compute, timeout_s)
+    else:
+        ys = []
+        for k, i in enumerate(ranks):
+            with mesh.on(i):
+                ys.append(compute(k))
+    out = _ShipArrival.apply(mesh, edges, tables, timeout_s, arrived, *rows)
+    return mesh.unrows(out), mesh.unrows(ys)

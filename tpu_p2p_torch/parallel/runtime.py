@@ -19,14 +19,20 @@ One process per rank, as in the reference program (``mpirun -n N``,
   ``rt.submesh([a, b])``.
 - :meth:`Mesh.barrier` is a stream sync on the card, then a barrier of
   the host group: ``MPI_Barrier`` (``p2p_matrix.cc:146,201``).
+- :class:`LocalMesh` is the in-process counterpart of a 1-D
+  ``jax.sharding.Mesh`` that one controller drives whole, as the
+  reference's disaggregated engine drives its ``mig`` mesh: each rank is
+  a (device, stream) pair of this process, the same card may repeat, and
+  a collective takes one tensor per rank and returns one per rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import ClassVar, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -87,6 +93,43 @@ class Mesh:
         """This rank's mesh index (its payload row)."""
         return self.ranks.index(self.rank)
 
+    # The mesh-kind interface shared with :class:`LocalMesh`: what a
+    # collective needs to take either kind. Here this process drives its
+    # own rank alone, on its current stream.
+    in_process: ClassVar[bool] = False
+
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        """The mesh indices this process drives: its own."""
+        return (self.index,)
+
+    def rows(self, x, what: str = "x") -> list:
+        """A collective's argument as per-rank tensors: this rank's."""
+        return [x]
+
+    def unrows(self, rows: list):
+        """A collective's result from per-rank tensors: this rank's."""
+        return rows[0]
+
+    def on(self, i: int):
+        """Work of this rank is issued on the current stream."""
+        return contextlib.nullcontext()
+
+    def stream(self, i: int):
+        """The stream this rank's kernels launch on: the current one."""
+        return torch.cuda.current_stream(self.device)
+
+    def share(self, i: int) -> int:
+        """Divisor of a spinning kernel's resident grid: 1, since ranks
+        of separate processes time-slice a shared card."""
+        return 1
+
+    def enter(self) -> None:
+        """Nothing to join: this rank's work is on the caller's stream."""
+
+    def exit(self) -> None:
+        """Nothing to join: this rank's work is on the caller's stream."""
+
     def barrier(self) -> None:
         """Drain this rank's stream on the card, surface a fault of the
         peer-push kernel, then meet the other members."""
@@ -94,6 +137,120 @@ class Mesh:
             torch.cuda.current_stream(self.device).synchronize()
             pallas_dma.check_faults()
         dist.barrier(group=self.host_group)
+
+
+@dataclass(eq=False)
+class LocalMesh:
+    """A 1-D mesh whose ranks all live in this process: rank ``i`` is
+    ``devices[i]`` with its own CUDA stream (and a side stream for the
+    fused ship's push), or a CPU rank with neither. Ranks may share a
+    card; their kernels then run concurrently. Collectives over it take
+    and return one tensor per rank (``tpu_p2p_torch.parallel.pallas_dma``
+    and ``collectives``)."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = (MESH_AXIS,)
+    windows: Dict = field(default_factory=dict)  # pallas_dma windows,
+    # by capacity, one slab per rank
+    streams: Tuple = field(init=False)
+    side_streams: Tuple = field(init=False)
+    in_process: ClassVar[bool] = True
+
+    def __post_init__(self) -> None:
+        devs = []
+        for d in self.devices:
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                d = torch.device("cuda", 0)
+            check(d.type in ("cpu", "cuda"),
+                  f"LocalMesh ranks live on cpu or cuda, not {d}")
+            devs.append(d)
+        check(len(devs) >= 1, "a LocalMesh needs at least one rank")
+        check(len({d.type for d in devs}) == 1,
+              f"LocalMesh ranks on mixed device types {devs}")
+        self.devices = tuple(devs)
+        cuda = devs[0].type == "cuda"
+        self.streams = tuple(torch.cuda.Stream(device=d) if cuda else None
+                             for d in devs)
+        self.side_streams = tuple(
+            torch.cuda.Stream(device=d) if cuda else None for d in devs)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """Mesh indices double as ranks: the edge numbering."""
+        return tuple(range(self.size))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis_names[0]: self.size}
+
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        """The mesh indices this process drives: all of them."""
+        return self.ranks
+
+    def rows(self, x, what: str = "x") -> list:
+        """A collective's argument as per-rank tensors: one a rank."""
+        rows = list(x)
+        if len(rows) != self.size:
+            raise ValueError(f"{what}: a LocalMesh of {self.size} ranks "
+                             f"takes {self.size} per-rank tensors, got "
+                             f"{len(rows)}")
+        return rows
+
+    def unrows(self, rows: list) -> list:
+        """A collective's result: the per-rank list."""
+        return list(rows)
+
+    def on(self, i: int):
+        """Context in which work is issued as rank ``i``: its card's
+        stream (nothing on the CPU)."""
+        s = self.streams[i]
+        return torch.cuda.stream(s) if s is not None \
+            else contextlib.nullcontext()
+
+    def stream(self, i: int):
+        """The stream rank ``i``'s kernels launch on: its own."""
+        return self.streams[i]
+
+    def share(self, i: int) -> int:
+        """Divisor of a spinning kernel's resident grid for rank ``i``:
+        twice the ranks on its card, so every rank's push and arrival
+        fit on the card at once with room for the compute beside them."""
+        return 2 * sum(1 for d in self.devices if d == self.devices[i])
+
+    def enter(self) -> None:
+        """On cards, each rank's stream waits for the caller's: a
+        collective's inputs and outputs are made there."""
+        if self.streams[0] is not None:
+            for s, d in zip(self.streams, self.devices):
+                s.wait_stream(torch.cuda.current_stream(d))
+
+    def exit(self) -> None:
+        """On cards, the caller's stream waits for every rank's, so what
+        it issues next sees a collective's results (and the caching
+        allocator may reuse what the ranks read)."""
+        if self.streams[0] is not None:
+            for s, d in zip(self.streams, self.devices):
+                torch.cuda.current_stream(d).wait_stream(s)
+
+    def synchronize(self) -> None:
+        """Drain every rank's streams, then surface a fault of the
+        peer-push kernels."""
+        for s in self.streams + self.side_streams:
+            if s is not None:
+                s.synchronize()
+        if self.devices[0].type == "cuda":
+            pallas_dma.check_faults()
+
+    def close(self) -> None:
+        """Drain, then release the peer-push windows."""
+        self.synchronize()
+        pallas_dma.close_windows(self.windows)
 
 
 @dataclass(eq=False)

@@ -88,7 +88,14 @@ class Request:
     preempt_recover_steps: List[int] = dataclasses.field(
         default_factory=list)
     pending_preempt_step: Optional[int] = None
-    pool: str = "kv"
+    pool: str = "kv"            # the page pool holding the request's KV:
+    # "kv" colocated, "prefill" / "decode" under disaggregation
+    prefill_done_step: Optional[int] = None
+    migrate_step: Optional[int] = None
+    migrate_wait_steps: Optional[int] = None  # worst episode
+    decode_shard: Optional[int] = None
+    migrated_blocks: int = 0
+    migrations: int = 0
     prefix_pages: int = 0
     prefix_tokens: int = 0
     spec_drafted: int = 0

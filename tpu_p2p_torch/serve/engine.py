@@ -8,16 +8,21 @@ step in a host loop on one device, and reports aggregate tokens/s
 p50/p99. ``--obs-jsonl`` appends one ``{"obs": "request"}`` span record
 per request plus one ``{"obs": "serve_summary"}`` record.
 ``--batching both`` runs continuous and static batching on the same
-trace.
+trace. ``--disagg`` serves the trace disaggregated (prefill on one rank,
+decode on the others, KV pages migrated between them,
+:mod:`tpu_p2p_torch.serve.disagg`), then runs the colocated continuous
+twin and exits nonzero unless every token stream is bitwise the twin's.
 
-Runs on ``--device cuda`` (the default; raises when no card is
-present) or ``--device cpu``. Not ported yet, and rejected:
-``--disagg``, ``--chaos``, ``--trace``.
+Runs on ``--device cuda`` (the default; every visible card, and raises
+when there is none) or ``--device cpu`` (``--cpu-mesh N``: N CPU
+ranks). Not ported yet, and rejected: ``--chaos``, ``--trace``,
+``--prefill-tp`` above 1, and colocated serving on more than one rank.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -30,6 +35,7 @@ import torch
 from tpu_p2p_torch.config import (
     BATCHING,
     SERVE_STOPS,
+    TRANSPORTS,
     ServeConfig,
     parse_range,
 )
@@ -114,6 +120,15 @@ def _request_record(r: Request) -> dict:
         "preemptions": r.preemptions,
         "pool": r.pool,
     }
+    if r.migrate_step is not None or r.migrations:
+        rec.update({
+            "prefill_done_step": r.prefill_done_step,
+            "migrate_step": r.migrate_step,
+            "migrate_wait_steps": r.migrate_wait_steps,
+            "decode_shard": r.decode_shard,
+            "migrations": r.migrations,
+            "migrated_blocks": r.migrated_blocks,
+        })
     if r.prefix_pages or r.spec_drafted:
         rec.update({
             "prefix_pages": r.prefix_pages,
@@ -276,26 +291,74 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--obs-jsonl", default=None, metavar="PATH",
                    help="append per-request span records + the serve "
                         "summary to this JSONL timeline")
-    for flag in ("--disagg", "--chaos"):
-        p.add_argument(flag, action="store_true",
-                       help="not ported yet (rejected)")
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated prefill/decode: prefill on the "
+                        "first rank, decode replicas on the others, "
+                        "each request's KV pages migrated across; also "
+                        "runs the colocated continuous twin and checks "
+                        "token-stream parity")
+    p.add_argument("--prefill-tp", type=int, default=0,
+                   help="--disagg: prefill submesh tp size == its "
+                        "device count (0 = half the devices; only 1 is "
+                        "ported)")
+    p.add_argument("--prefill-slots", type=int, default=4,
+                   help="--disagg: prefill-side slot batch")
+    p.add_argument("--migrate-chunks", type=int, default=1,
+                   help="--disagg: split each KV-migration ship into "
+                        "this many chunk hops (the ppermute wave)")
+    p.add_argument("--transport", default="xla", choices=TRANSPORTS,
+                   help="--disagg: migration ship transport (xla = a "
+                        "library copy; pallas_dma = the peer-push and "
+                        "fused-ship kernels)")
+    p.add_argument("--chaos", action="store_true",
+                   help="not ported yet (rejected)")
     p.add_argument("--trace", default=None, metavar="PATH",
                    help="not ported yet (rejected)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="device to serve on (default cuda; raises "
-                        "without a card)")
+                   help="device to serve on (default cuda: every visible "
+                        "card; raises without one)")
+    p.add_argument("--cpu-mesh", type=int, default=None, metavar="N",
+                   help="testing: serve on N CPU ranks (with --device "
+                        "cpu)")
     return p
+
+
+def _serve_devices(args) -> List[torch.device]:
+    """The ranks' devices: every visible card for ``--device cuda``
+    (raising without one), one CPU rank, or ``--cpu-mesh N`` of them."""
+    if args.cpu_mesh is not None:
+        if args.device != "cpu":
+            raise ValueError("--cpu-mesh N serves on N CPU ranks: pass "
+                             "--device cpu with it")
+        if args.cpu_mesh < 1:
+            raise ValueError(f"--cpu-mesh needs N >= 1, got "
+                             f"{args.cpu_mesh}")
+        return [torch.device("cpu")] * args.cpu_mesh
+    device = resolve_device(args.device)
+    if device.type == "cpu":
+        return [device]
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = _build_parser().parse_args(
         list(sys.argv[1:] if argv is None else argv))
-    for flag in ("disagg", "chaos", "trace"):
+    for flag in ("chaos", "trace"):
         if getattr(args, flag):
             print(f"serve --{flag}: not ported yet", file=sys.stderr)
             return 2
+    if args.disagg and args.batching != "both":
+        # The disagg engine is continuous by construction and runs its
+        # own A/B against the colocated twin.
+        raise SystemExit("--disagg runs continuous batching against the "
+                         "colocated twin; drop --batching")
+    if (args.cpu_mesh or 1) > 1 and not args.disagg and not args.reuse:
+        print("serve --cpu-mesh N > 1 without --disagg: colocated serving "
+              "over several ranks is not ported yet", file=sys.stderr)
+        return 2
     try:
-        device = resolve_device(args.device)
+        devices = _serve_devices(args)
         if args.reuse:
             # The reference grades prefix sharing per pool shard and
             # prints NULL below two shards; one device is one shard.
@@ -303,14 +366,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   "per-shard, a single-shard TTFT ratio grades nothing; "
                   "need >= 2 devices (no fake numbers)")
             return 0
+        n_dec = 1
+        if args.disagg:
+            from tpu_p2p_torch.serve.disagg import build_disagg_meshes
+
+            try:
+                _, dec_devs, mig = build_disagg_meshes(args.prefill_tp,
+                                                       devices)
+            except NotImplementedError as e:
+                print(f"serve --disagg: {e}", file=sys.stderr)
+                return 2
+            n_dec = len(dec_devs)
         prompt_rng = parse_range(args.prompt_len)
         gen_rng = parse_range(args.gen_len)
         max_blocks = -(-(prompt_rng[1] + gen_rng[1]) // args.page_len)
         pages = args.pages
         if pages is None:
-            # Every slot serving a max-length request, plus the trash
-            # page.
-            pages = args.slots * max_blocks + 1
+            # Every slot serving a max-length request, plus each pool
+            # shard's trash page.
+            pages = args.slots * max_blocks + n_dec
+            pages += (-pages) % n_dec
         sc = ServeConfig(
             slots=args.slots, page_len=args.page_len, num_pages=pages,
             max_blocks=max_blocks, chunk=args.chunk,
@@ -319,24 +394,40 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             gen_len=gen_rng, vocab=args.vocab, dtype=args.dtype,
             queue_depth=args.queue_depth,
             deadline_steps=args.deadline_steps, stop=args.stop,
-            eos_prob=args.eos_prob, prefix_cache=args.prefix_cache,
-            spec_k=args.spec_k,
+            eos_prob=args.eos_prob, disagg=args.disagg,
+            prefill_tp=1 if args.disagg else 0,
+            prefill_slots=args.prefill_slots,
+            # The prefill pool holds active prefills plus the
+            # migration queue's residents waiting on decode capacity.
+            prefill_pages=((args.prefill_slots + args.slots)
+                           * max_blocks + 1) if args.disagg else 0,
+            migrate_chunks=args.migrate_chunks, transport=args.transport,
+            prefix_cache=args.prefix_cache, spec_k=args.spec_k,
         )
         cfg = _engine_model(sc)
-        params = init_flagship_params(cfg, device=device)
+        params = init_flagship_params(cfg, device=devices[0])
         trace = synthetic_trace(sc)
         reuse_tag = ((" prefix_cache=on" if sc.prefix_cache else "")
                      + (f" spec_k={sc.spec_k}" if sc.spec_k else ""))
-        print(f"serve device {device.type}: slots={sc.slots} "
-              f"page_len={sc.page_len} pages={sc.num_pages} "
-              f"window={sc.max_blocks * sc.page_len} "
-              f"chunk={sc.chunk} "
-              f"vocab={sc.vocab} {sc.dtype}{reuse_tag}")
+        kind = devices[0].type
+        if sc.disagg:
+            print(f"serve device {kind} disagg prefill {{'dp': 1, 'tp': 1}}"
+                  f" + decode {{'dp': {n_dec}}}: slots={sc.slots}"
+                  f"(+{sc.prefill_slots} prefill) "
+                  f"page_len={sc.page_len} "
+                  f"pages={sc.num_pages}+{sc.prefill_pages} "
+                  f"window={sc.max_blocks * sc.page_len} "
+                  f"chunk={sc.chunk} transport={sc.transport} "
+                  f"vocab={sc.vocab} {sc.dtype}{reuse_tag}")
+        else:
+            print(f"serve device {kind}: slots={sc.slots} "
+                  f"page_len={sc.page_len} pages={sc.num_pages} "
+                  f"window={sc.max_blocks * sc.page_len} "
+                  f"chunk={sc.chunk} "
+                  f"vocab={sc.vocab} {sc.dtype}{reuse_tag}")
         print(f"trace: {sc.requests} requests seed={sc.seed} "
               f"rate={sc.rate}/step prompt {prompt_rng[0]}-"
               f"{prompt_rng[1]} gen {gen_rng[0]}-{gen_rng[1]}")
-        modes = (("continuous", "static") if args.batching == "both"
-                 else (args.batching,))
         fh = open(args.obs_jsonl, "a") if args.obs_jsonl else None
         try:
             emit = None
@@ -344,6 +435,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 def emit(rec):
                     fh.write(json.dumps(rec) + "\n")
                     fh.flush()
+            if sc.disagg:
+                try:
+                    return _disagg_cli(mig, cfg, params, trace, sc, emit)
+                finally:
+                    mig.close()
+            modes = (("continuous", "static") if args.batching == "both"
+                     else (args.batching,))
             summaries = {}
             for mode in modes:
                 s = run_engine(cfg, params, trace, sc=sc, mode=mode,
@@ -368,6 +466,59 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"Failed: {type(e).__name__} '{e}'", file=sys.stderr)
         traceback.print_exception(e, file=sys.stderr)
         return 1
+
+
+def _disagg_cli(mig, cfg, params, trace, sc: ServeConfig, emit) -> int:
+    """The ``serve --disagg`` run: the disaggregated engine on the
+    ``mig`` ranks, then the colocated continuous twin on the first rank's
+    device for the A/B and the bitwise token-stream parity check; → 0
+    only when every stream matches."""
+    from tpu_p2p_torch.serve.disagg import run_disagg_engine
+
+    s = run_disagg_engine(mig, cfg, params, trace, sc=sc, emit=emit)
+    print(f"disagg: {s['requests']} requests, "
+          f"{s['prompt_tokens']} prompt + "
+          f"{s['gen_tokens']} generated tokens in "
+          f"{s['steps']} steps ({s['idle_steps']} idle)")
+    print(f"  {s['serve_tokens_per_s']:,.0f} tokens/s  "
+          f"ttft p50 {_f(s['serve_ttft_ms_p50'])}ms "
+          f"p99 {_f(s['serve_ttft_ms_p99'])}ms  "
+          f"tok p50 {_f(s['serve_tok_ms_p50'])}ms "
+          f"p99 {_f(s['serve_tok_ms_p99'])}ms")
+    mib = s["kv_migrate_bytes"] / 2**20
+    print(f"  kv_migrate: {s['kv_migrated']} migrations, "
+          f"{s['kv_migrate_blocks']} pages ({mib:.2f} MiB, "
+          f"{_f(s['serve_kv_migrate_gbps'])} Gbps)  wait p50 "
+          f"{int(s['migrate_wait_steps_p50'] or 0)} max "
+          f"{int(s['migrate_wait_steps_max'] or 0)} steps")
+    if s["shed"] or s["preemptions"]:
+        print(f"  shed={s['shed']} (frac {s['shed_frac']:.2f})  "
+              f"preemptions={s['preemptions']} recover_steps="
+              f"{s['preempt_recover_steps']}")
+    if sc.prefix_cache or sc.spec_k:
+        print(f"  reuse: prefix_hits={s['prefix_hits']} "
+              f"pages_shared={s['prefix_pages_shared']} "
+              f"tokens_saved={s['prefix_tokens_saved']} "
+              f"({s['prefix_saved_bytes']} B) "
+              f"forks={s['cow_forks']}  spec "
+              f"{s['spec_decode_tokens']}/"
+              f"{s['spec_decode_steps']} tok/step="
+              f"{_f(s['serve_spec_accept_rate'])}")
+    # The colocated continuous twin on the same trace and params, one
+    # pool on the first rank's device.
+    sc_co = dataclasses.replace(
+        sc, disagg=False, num_pages=sc.slots * sc.max_blocks + 1,
+        prefill_pages=0)
+    co = run_engine(cfg, params, trace, sc=sc_co, mode="continuous")
+    want = {r.rid: list(r.generated) for r in co["finished"]}
+    got = {r.rid: list(r.generated) for r in s["finished"]}
+    matched = sum(1 for rid, toks in got.items() if want.get(rid) == toks)
+    parity = "OK" if (matched == len(got) == len(want)
+                      and len(got) > 0) else "FAIL"
+    print(f"colocated twin: {co['requests']} requests in "
+          f"{co['steps']} steps ({co['idle_steps']} idle)  "
+          f"token parity {parity} ({matched}/{len(got)} bitwise)")
+    return 0 if parity == "OK" else 1
 
 
 def _print_summary(s: dict, sc: ServeConfig) -> None:
