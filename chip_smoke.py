@@ -11,16 +11,23 @@ the first phase that goes wrong:
 1. device   — card name and count, ``nvidia-smi`` name and power limit;
 2. build    — ``nvcc`` builds the KV-cache, flash-attention and
    peer-push kernels from ``csrc/``, one compiler per source, all
-   started together;
+   started together; ``cuobjdump`` reads the flash library back: the
+   bf16 tensor-core kernels (forward, dK/dV) must hold HGMMA (wgmma)
+   instructions and no bf16 SIMT forward or dK/dV may be left; their
+   registers, spills, shared memory and CTAs an SM are printed;
 3. kernels  — each KV-cache kernel against its plain PyTorch version at
    the serving shapes, bitwise (they are copies), timed beside its bytes
    bound, the plain version and one ``index_put_`` call;
 4. flash    — the three flash kernels against their plain versions at
    the training shape (B 4, 16 heads over 8 KV heads, T 4096, D 128,
-   bf16, causal; normalised L-inf <= 2e-2), there with a window of 1024
-   (the banded sweep), and at T 512 in float32 with
-   a window of 96, q_off != k_off and a random carry (atol = rtol =
-   1e-4), each timed beside its bound, its plain version and SDPA;
+   bf16, causal; normalised L-inf <= 2e-2; bf16 forward and dK/dV on
+   the tensor cores, dq on the SIMT kernel), there with a window of
+   1024 (the banded sweep, beside the live blocks each kernel loops
+   over), on ragged bf16 edge cases (D 32/64/128, GQA 1/2/4, offsets,
+   fully masked rows, a random carry; two launches bitwise equal), and
+   at T 512 in float32 (the SIMT kernels) with a window of 96, q_off !=
+   k_off and a random carry (atol = rtol = 1e-4), each timed beside its
+   bound, its plain version and SDPA;
 5. train    — ``run_training`` at the full width and depth (B 4 x T
    4096, SGD lr 1e-2, 4 steps, seed 0): finite losses, the first near
    ln(vocab), every flash kernel launched once per block per step; then
@@ -81,6 +88,8 @@ import dataclasses
 import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -101,7 +110,7 @@ TRAIN = dict(batch=4, seq=4096, heads=16, kv_heads=8, head_dim=128,
              vocab=32768, rope=True, norm=True, use_flash=True,
              dtype="bfloat16")     # flagship_large, bench.py:545-550
 TRAIN_STEPS = 4
-TILE = 64                        # the flash kernels' q and k tile rows
+WG_ROWS = 64                     # rows of a tensor-core kernel's warpgroup
 MODEL = dict(heads=16, kv_heads=8, head_dim=128, stages=8,
              dense_ffn=True, moe_mult=4, vocab=32768, rope=True,
              norm=True, dtype="bfloat16", microbatches=1)
@@ -166,6 +175,68 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and torch.equal(
         a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
         b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+# ------------------------------------------------------------ phase 2
+
+
+TC_KERNELS = ("flash_fwd_kernel_wgmma", "flash_bwd_dkdv_kernel_wgmma")
+# The SIMT kernels' bf16 instances, which the tensor-core kernels retired.
+RETIRED = ("flash_fwd_kernelI13__nv_bfloat16",
+           "flash_bwd_dkdv_kernelI13__nv_bfloat16")
+
+
+def cuobjdump(*args) -> str:
+    from tpu_p2p_torch.utils.cuda_build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, *args], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
+def sass_check(TFA, info: dict, card: str) -> None:
+    """The built flash library read back with ``cuobjdump``: every
+    instance of the tensor-core kernels holds HGMMA (wgmma) instructions
+    and no bf16 instance of the SIMT forward or dK/dV is left; prints
+    each tensor-core kernel's registers, stack and local bytes
+    (``-res-usage``), ptxas's spill bytes (the build's log, when this
+    run built it), dynamic shared memory and CTAs an SM."""
+    from tpu_p2p_torch.utils.cuda_build import ptxas_usage
+
+    path = str(info["path"])
+    hgmma, name = {}, None
+    for line in cuobjdump("-sass", path).splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            hgmma[name] = 0
+        elif name and "HGMMA" in line:
+            hgmma[name] += 1
+    tc = {n: c for n, c in hgmma.items() if any(k in n for k in TC_KERNELS)}
+    if len(tc) != 2 * len(TFA.KERNEL_HEAD_DIMS) or not all(tc.values()):
+        raise AssertionError(f"HGMMA instructions per tensor-core kernel: "
+                             f"{tc}")
+    left = [n for n in hgmma if any(k in n for k in RETIRED)]
+    if left:
+        raise AssertionError(f"bf16 SIMT kernels still built: {left}")
+    usage = {m.group(1): m.group(2, 3, 5) for m in re.finditer(
+        r"Function (\S+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) "
+        r"LOCAL:(\d+)", cuobjdump("-res-usage", path))}
+    for n in sorted(tc):
+        kernel = next(k for k in TC_KERNELS if k in n)
+        d = int(re.search(kernel + r"ILi(\d+)E", n).group(1))
+        cfg = TFA.kernel_config("flash_fwd" if "fwd" in kernel
+                                else "flash_bwd_dkdv", torch.bfloat16, d)
+        reg, stack, local = usage.get(n, ("?", "?", "?"))
+        spill = ptxas_usage(info["log"], f"{kernel}ILi{d}E")
+        say(f"sass {kernel} D{d}: {tc[n]} HGMMA | {reg} registers, stack "
+            f"{stack} B, local {local} B, ptxas spill stores / loads "
+            f"{spill['spill_stores']} / {spill['spill_loads']} B | tiles "
+            f"{cfg['bq']} x {cfg['bk']}, {cfg['threads']} threads, "
+            f"{cfg['smem']} B dynamic shared, {cfg['ctas_per_sm']} CTAs an "
+            f"SM | {card}")
+    say(f"sass: no bf16 SIMT forward or dK/dV left ({len(hgmma)} "
+        f"kernels in the library)")
 
 
 # ------------------------------------------------------------ phase 3
@@ -286,20 +357,43 @@ def kernel_cache_row(TK, dev, gen) -> dict:
 
 
 def live_tile_pairs(tq: int, tk: int, q_off: int, k_off: int, causal: bool,
-                    window) -> int:
-    """(q tile, k tile) pairs the flash kernels compute for one row,
-    from the kernels' own loop bounds (csrc/flash_attention.cu)."""
-    n_q, n_k = -(-tq // TILE), -(-tk // TILE)
+                    window, bq: int, bk: int, by_key: bool = False) -> int:
+    """(q block, k block) pairs a flash kernel computes for one row, from
+    its own loop bounds (csrc/flash_attention.cu): ``bq``-row q blocks
+    each against the ``bk``-row KV tiles it loops over (the forward and
+    dq), or, ``by_key``, ``bk``-row key blocks each against the
+    ``bq``-row q tiles it loops over (dK/dV)."""
+    n_q, n_k = -(-tq // bq), -(-tk // bk)
     pairs = 0
-    for qt in range(n_q):
-        lo, hi = 0, n_k - 1
-        if causal:
-            q_first = q_off + qt * TILE
-            hi = min(hi, (q_first + TILE - 1 - k_off) // TILE)
+    for t in range(n_k if by_key else n_q):
+        lo, hi = 0, (n_q if by_key else n_k) - 1
+        if causal and by_key:
+            k_first = k_off + t * bk
+            lo = max(0, (k_first - q_off) // bq)
             if window:
-                lo = max(0, (q_first - (window - 1) - k_off) // TILE)
+                hi = min(hi, (k_first + bk - 1 + window - 1 - q_off) // bq)
+        elif causal:
+            q_first = q_off + t * bq
+            hi = min(hi, (q_first + bq - 1 - k_off) // bk)
+            if window:
+                lo = max(0, (q_first - (window - 1) - k_off) // bk)
         pairs += max(0, hi - lo + 1)
     return pairs
+
+
+def kernel_blocks(TFA, dtype) -> dict:
+    """Per flash kernel, the blocks ``live_tile_pairs`` counts: a
+    tensor-core kernel's warpgroup (64 rows) against its other tile, a
+    SIMT kernel's two tiles."""
+    out = {}
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        cfg = TFA.kernel_config(name, dtype, TRAIN["head_dim"])
+        tc = cfg["entry"].endswith("_wgmma")
+        by_key = name == "flash_bwd_dkdv"
+        bq = cfg["bq"] if by_key or not tc else WG_ROWS
+        bk = WG_ROWS if by_key and tc else cfg["bk"]
+        out[name] = dict(bq=bq, bk=bk, by_key=by_key)
+    return out
 
 
 def visible_pairs(tq: int, tk: int, q_off: int, k_off: int, causal: bool,
@@ -468,7 +562,10 @@ def flash_train_shape(TFA, dev, gen, card) -> list:
             f"{bd['bytes'] / 1e9:.3f} GB; "
             f"{bd['ops'] / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
             f"SDPA {'fwd' if name == 'flash_fwd' else 'fwd+bwd'} "
-            f"{lib:.3f} ms | {card}")
+            f"{lib:.3f} ms"
+            + ("" if name == "flash_fwd" else
+               f" (bwd alone, fwd+bwd - fwd: {lib_fb - lib_fwd:.3f} ms)")
+            + f" | {card}")
     return rows
 
 
@@ -479,16 +576,73 @@ def flash_train_windowed(TFA, dev, gen, card) -> None:
     c = flash_bf16_check(TFA, dev, gen, window)
     times = {n: time_eager(fn, calls=10) for n, (fn, _) in c["calls"].items()}
     bounds = c["bounds"]
+    blocks = kernel_blocks(TFA, torch.bfloat16)
+    live = {n: (live_tile_pairs(t, t, 0, 0, True, window, **blocks[n]),
+                live_tile_pairs(t, t, 0, 0, True, None, **blocks[n]))
+            for n in times}
     say(f"flash bf16 @ B{TRAIN['batch']} H{TRAIN['heads']}/"
         f"{TRAIN['kv_heads']} T{t} D{TRAIN['head_dim']} window {window}: "
         f"normalised L-inf vs plain {c['errs']} (tol {FLASH_BF16_TOL}) | "
-        f"{live_tile_pairs(t, t, 0, 0, True, window)} live tile pairs, "
         f"{visible_pairs(t, t, 0, 0, True, window)} visible (query, key) "
-        f"pairs a row (causal: {live_tile_pairs(t, t, 0, 0, True, None)}, "
-        f"{visible_pairs(t, t, 0, 0, True, None)}) | ms "
+        f"pairs a row (causal: {visible_pairs(t, t, 0, 0, True, None)}) | "
+        "live blocks a row, window / causal: "
+        + ", ".join(f"{n} {live[n][0]} / {live[n][1]} "
+                    f"({blocks[n]['bq']} x {blocks[n]['bk']})" for n in live)
+        + " | ms "
         + ", ".join(f"{n} {times[n]:.3f} (bound {bounds[n]['bound_ms']:.3f}"
                     f" {bounds[n]['bound_by']})" for n in times)
         + f" | {card}")
+
+
+# (head dim, Hq, Hkv, Tq, Tk, q_off, k_off, window, random carry): GQA
+# groups 1, 2 and 4; Tq != Tk, neither a tile multiple; q_off < k_off
+# with a window, so the first queries see no key (fully masked rows).
+FLASH_EDGES = ((32, 4, 4, 100, 150, 0, 0, None, False),
+               (64, 4, 2, 200, 264, 37, 5, 100, True),
+               (128, 8, 2, 130, 190, 3, 70, 96, True))
+
+
+def flash_bf16_edges(TFA, dev, gen, card) -> None:
+    """The bf16 kernels on ragged shapes against their plain versions
+    (normalised L-inf <= FLASH_BF16_TOL), each launched twice: the two
+    results must be bitwise equal (no atomics, a fixed order of sums)."""
+    errs = {}
+    for d, hq, hkv, tq, tk, q_off, k_off, window, rand in FLASH_EDGES:
+        rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+        q3, do3 = (rnd(2 * hq, tq, d).bfloat16() for _ in range(2))
+        k3, v3 = (rnd(2 * hkv, tk, d).bfloat16() for _ in range(2))
+        carry = ((rnd(2 * hq, tq, d), rnd(2 * hq, tq),
+                  torch.rand((2 * hq, tq), generator=gen, device=dev))
+                 if rand else TFA.zero_carry(2 * hq, tq, d, dev))
+        kw = dict(causal=True, q_heads=hq, window=window)
+        fargs = (q3, k3, v3, *carry, q_off, k_off)
+        want = TFA._flash_call_plain(*fargs, **kw)
+        o, m, l = want
+        live = l > 0
+        L = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), 1e30)
+        delta = (do3.float() * (o / torch.where(live, l, 1.0)[..., None])
+                 ).sum(-1)
+        bargs = (q3, k3, v3, do3, L, delta, q_off, k_off)
+        want += TFA._flash_bwd_dkdv_plain(*bargs, **kw)
+        runs = [TFA._flash_call(*fargs, **kw) + TFA._flash_bwd_dkdv(*bargs,
+                                                                     **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        case = f"D{d} H{hq}/{hkv} T{tq}/{tk} off {q_off}/{k_off} w{window}"
+        errs[case] = {n: norm_err(g, w) for n, g, w in
+                      zip(("o", "m", "l", "dk", "dv"), runs[0], want)}
+        bad = {n: e for n, e in errs[case].items() if not e <= FLASH_BF16_TOL}
+        if bad:
+            raise AssertionError(f"flash bf16 edge case {case}: normalised "
+                                 f"L-inf {bad} > {FLASH_BF16_TOL}")
+        if not all(bits_equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"flash bf16 edge case {case}: two launches "
+                                 "differ")
+    say("flash bf16 edge cases (random carry where marked), normalised "
+        f"L-inf vs plain (tol {FLASH_BF16_TOL}), two launches bitwise "
+        "equal: " + "; ".join(
+            f"{c}: " + ", ".join(f"{n} {e:.1e}" for n, e in v.items())
+            for c, v in errs.items()) + f" | {card}")
 
 
 def flash_f32_window(TFA, dev, gen, card) -> None:
@@ -1657,11 +1811,12 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    for src, info in cuda_build.build(["kvcache", "flash_attention",
-                                       "p2p_dma"]).items():
+    built = cuda_build.build(["kvcache", "flash_attention", "p2p_dma"])
+    for src, info in built.items():
         say(f"build {src}: {info['cmd'] or 'up to date: ' + str(info['path'])}"
             f" ({info['seconds']:.2f} s)")
     say(f"build: {time.perf_counter() - t0:.2f} s wall, all sources at once")
+    sass_check(TFA, built["flash_attention"], card)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [kernel_paged(TK, dev, gen), kernel_cache_row(TK, dev, gen)]
@@ -1674,6 +1829,7 @@ def main() -> int:
     kernels += flash_train_shape(TFA, dev, gen, card)
     torch.cuda.empty_cache()
     flash_train_windowed(TFA, dev, gen, card)
+    flash_bf16_edges(TFA, dev, gen, card)
     flash_f32_window(TFA, dev, gen, card)
     torch.cuda.empty_cache()
 

@@ -184,6 +184,66 @@ def test_flash_kernels_match_plain_on_card_bf16(cuda):
         assert _norm_err(g_, w_) <= 2e-2
 
 
+# bf16 on the tensor-core kernels (forward, dk/dv) and the SIMT dq:
+# (head dim, causal, window, q_off, k_off, Tq, Tk, Hq, Hkv, random
+# carry). Head dims 32/64/128; GQA groups 1, 2 and 4; Tq != Tk, neither a
+# multiple of any tile; q_off < k_off with a window, where the first
+# queries see no key (fully masked rows keep their carry).
+_BF16_CASES = [(32, True, None, 0, 0, 100, 150, 4, 4, True),
+               (64, True, 100, 37, 5, 200, 264, 4, 2, True),
+               (128, True, 96, 3, 70, 130, 190, 8, 2, True),
+               (128, True, 40, 50, 0, 333, 77, 4, 1, False),
+               (64, False, None, 0, 0, 65, 129, 8, 2, True),
+               (32, True, 17, 64, 100, 129, 190, 4, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _BF16_CASES,
+                         ids=[f"d{c[0]}_{'causal' if c[1] else 'dense'}"
+                              f"_w{c[2]}_off{c[3]}-{c[4]}_t{c[5]}-{c[6]}"
+                              f"_gqa{c[7] // c[8]}" for c in _BF16_CASES])
+def test_flash_bf16_kernels_match_plain_on_ragged_shapes_on_card(cuda, case):
+    d, causal, window, q_off, k_off, tq, tk, hq, hkv, rand = case
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, do = (torch.randn((2 * hq, tq, d), generator=g).bfloat16().to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((2 * hkv, tk, d), generator=g).bfloat16().to(cuda)
+            for _ in range(2))
+    carry = ((torch.randn((2 * hq, tq, d), generator=g).to(cuda),
+              torch.randn((2 * hq, tq), generator=g).to(cuda),
+              torch.rand((2 * hq, tq), generator=g).to(cuda))
+             if rand else TFA.zero_carry(2 * hq, tq, d, cuda))
+    kw = dict(causal=causal, q_heads=hq, window=window)
+    fargs = (q, k, v, *carry, q_off, k_off)
+    want = TFA._flash_call_plain(*fargs, **kw)
+    o, m, l = want
+    live = l > 0
+    L = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), 1e30)
+    delta = (do.float() * (o / torch.where(live, l, 1.0)[..., None])).sum(-1)
+    bargs = (q, k, v, do, L, delta, q_off, k_off)
+    want += _bwd_plain(*bargs, **kw)
+    before = dict(TFA.launches)
+    runs = [TFA._flash_call(*fargs, **kw) + TFA._flash_bwd_call(*bargs, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {k_: TFA.launches[k_] - before[k_] for k_ in before} == {
+        "flash_fwd": 2, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2}
+    for name, g_, w_ in zip(("o", "m", "l", "dq", "dk", "dv"), runs[0], want):
+        assert _norm_err(g_, w_) <= 2e-2, name
+    for a, b in zip(*runs):  # no atomics: the same bits every launch
+        assert torch.equal(a, b)
+    # Rows that see no key keep their carry bit for bit.
+    blind = torch.zeros(tq, dtype=torch.bool, device=cuda)
+    if causal:
+        q_pos = q_off + torch.arange(tq, device=cuda)
+        lo = q_pos - (window - 1) if window else torch.full_like(q_pos, -2**30)
+        blind = (q_pos < k_off) | (lo > k_off + tk - 1)
+    if blind.any():
+        o_k, _, l_k = runs[0][:3]
+        assert torch.equal(o_k[:, blind], carry[0][:, blind])
+        assert torch.equal(l_k[:, blind], carry[2][:, blind])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [None, 100])
 def test_flash_attention_grads_match_dense_on_card(cuda, window):

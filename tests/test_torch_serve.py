@@ -472,7 +472,8 @@ def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "tpu_p2p_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "serve_profile.py"]
+    files += [REPO / "chip_smoke.py", REPO / "serve_profile.py",
+              REPO / "flash_tiles.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -1,36 +1,44 @@
 // Flash attention for Hopper (sm_90a): the hand-written port of the five
 // Pallas flash kernels in tpu_p2p/ops/flash_attention.py.
 //
-//   tp_flash_fwd       replaces _kernel (:101, the rectangular/banded
-//     sweep) and _kernel_flat (:208, the live-cell causal sweep): one
-//     online-softmax accumulate of q tiles over KV tiles against an
-//     (o, m, l) carry, with global offsets, causal, sliding window and
-//     GQA (the narrow KV row of _kv_row_map :339).
-//   tp_flash_bwd_dkdv  replaces _bwd_dkdv_kernel (:717) and the GQA group
-//     sum after it (_flash_bwd :1310-1314): dK, dV from the saved
-//     logsumexp, written straight into the narrow [B*Hkv, Tk, D] rows.
-//   tp_flash_bwd_dq    replaces _bwd_dq_kernel (:826) and, for the fused
-//     causal form, _dq_reduce_kernel (:693) with its partial-dq slabs.
+//   tp_flash_fwd (float32) and tp_flash_fwd_wgmma (bfloat16) replace
+//     _kernel (:101, the rectangular/banded sweep) and _kernel_flat
+//     (:208, the live-cell causal sweep): one online-softmax accumulate
+//     of q tiles over KV tiles against an (o, m, l) carry, with global
+//     offsets, causal, sliding window and GQA (the narrow KV row of
+//     _kv_row_map :339).
+//   tp_flash_bwd_dkdv (float32) and tp_flash_bwd_dkdv_wgmma (bfloat16)
+//     replace _bwd_dkdv_kernel (:717) and the GQA group sum after it
+//     (_flash_bwd :1310-1314): dK, dV from the saved logsumexp, written
+//     straight into the narrow [B*Hkv, Tk, D] rows.
+//   tp_flash_bwd_dq (both dtypes) replaces _bwd_dq_kernel (:826) and,
+//     for the fused causal form, _dq_reduce_kernel (:693) with its
+//     partial-dq slabs.
 //
 // What bounds them: at the training shape (T 4096, D 128) the work is
 // O(T^2 D) multiply-adds over O(T D) bytes, so operations, not bytes.
-// These kernels do their products as float32 FMAs over shared-memory
-// tiles (bf16 inputs are widened on load, which makes every product exact
-// as in the reference's preferred_element_type=float32), so their ceiling
-// is the card's float32 rate, not its bf16 tensor-core rate; moving the
-// products onto wgmma is a later change.
-//
+// Two families:
+//   - SIMT (flash_fwd_kernel, flash_bwd_dkdv_kernel for float32;
+//     flash_bwd_dq_kernel for both): float32 FMAs over shared-memory
+//     tiles, bf16 widened on load, so their ceiling is the card's float32
+//     rate. Float32 stays here: tensor cores would mean TF32.
+//   - Tensor cores (flash_fwd_kernel_wgmma, flash_bwd_dkdv_kernel_wgmma,
+//     bfloat16 only): bf16 tiles in swizzled shared memory, filled by a
+//     cp.async ring, products on wgmma (section "bf16 on the tensor
+//     cores" below; building blocks in sm90.cuh), so their ceiling is the
+//     bf16 tensor-core rate.
+
 // Design. Pallas carries the (o, m, l) and dK/dV/dQ accumulators across a
 // sequential grid and revisits output blocks; Hopper runs blocks in
 // parallel with nothing carried between them, so the innermost grid
 // dimension becomes a loop inside one CTA that keeps its accumulators in
 // registers:
-//   - fwd and dq: one CTA per (B*Hq row, 64-row q tile), looping over the
+//   - fwd and dq: one CTA per (B*Hq row, q tile), looping over the
 //     live KV tiles only: causal ends the loop at the diagonal tile (all
 //     that the flat live-cell grid bought on the TPU), a window starts it
 //     at the band's first tile (what the banded index map bought). Heavy
 //     q tiles (late in a causal sweep) are launched first.
-//   - dkdv: one CTA per (B*Hkv row, 64-row k tile), looping over the
+//   - dkdv: one CTA per (B*Hkv row, k tile), looping over the
 //     group's query heads and their live q tiles; a k tile with no live
 //     q tile writes zeros.
 //   - dq is its own pass (FlashAttention-2): no atomics, so dq is the
@@ -47,7 +55,7 @@
 // exact 0, also for rows with L = +1e30. p is rounded to v's dtype before
 // P.V and dV; ds to q's (k's) dtype before dK (dQ).
 //
-// Layout: 256 threads as a 16 x 16 grid (ty, tx). A thread owns rows
+// SIMT layout: 256 threads as a 16 x 16 grid (ty, tx). A thread owns rows
 // ty + 16 i (i < 4) of every 64-row tile and columns tx + 16 j of every
 // 64-column score tile or D-wide accumulator, so a row's 16 owners sit in
 // one half-warp and reduce with xor-shuffles. Tiles sit in shared memory
@@ -61,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -125,16 +135,23 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
-// True when the (q tile, k tile) pair needs no mask: every key in range,
-// and (causal) every key at or before every query and none behind the
-// window. Positions are global (offsets included).
+// True when queries [q_first, q_first + nq) and keys [k_first, k_first +
+// nk) (global positions; the keys from local row k0) need no mask: every
+// key in range, and (causal) every key at or before every query and none
+// behind the window.
+__device__ __forceinline__ bool block_full(int q_first, int nq, int k_first,
+                                           int k0, int nk, int tk, int causal,
+                                           int window) {
+  if (k0 + nk > tk) return false;
+  if (!causal) return true;
+  return k_first + nk - 1 <= q_first &&
+         (window <= 0 || q_first + nq - 1 - k_first < window);
+}
+
+// The same for a SIMT kernel's (BQ-row q tile, BK-row k tile) pair.
 __device__ __forceinline__ bool tile_full(int q_first, int k_first, int k0,
                                           int tk, int causal, int window) {
-  if (k0 + BK > tk) return false;
-  if (!causal) return true;
-  const int q_last = q_first + BQ - 1;
-  const int k_last = k_first + BK - 1;
-  return k_last <= q_first && (window <= 0 || q_last - k_first < window);
+  return block_full(q_first, BQ, k_first, k0, BK, tk, causal, window);
 }
 
 __device__ __forceinline__ bool visible(int qp, int kp, int causal,
@@ -499,6 +516,459 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ------------------------------------------- bf16 on the tensor cores
+//
+// The bf16 forward and dK/dV kernels. Every product of the function is
+// bf16 x bf16 summed in float32 (q folded and rounded on load, p rounded
+// to v's dtype, ds to q's), which is what wgmma .f32.bf16.bf16 computes,
+// so these kernels keep the SIMT kernels' function and change only the
+// order of float32 sums. Tiles stay bf16 in shared memory in the
+// swizzled layout of sm90.cuh; KV (forward) or Q/dO/L/delta (dK/dV)
+// tiles come through a two-stage cp.async ring, the next tile's copy in
+// flight while the current one computes; products run on wgmma with the
+// float32 accumulators in registers, and a result that feeds the next
+// product (P, dS^T) goes from accumulator to A operand without leaving
+// registers. One warpgroup owns 64 rows (queries in the forward, keys
+// in dK/dV) and skips, with a uniform branch, a tile its rows see none
+// of. Tile sizes are compile-time (TP_FWD_*, TP_BWD_*, measured by
+// flash_tiles.py).
+
+#ifndef TP_FWD_WG
+#define TP_FWD_WG 2     // forward warpgroups: BQ = 64 x TP_FWD_WG q rows
+#endif
+#ifndef TP_FWD_BK
+#define TP_FWD_BK 64    // forward KV tile rows
+#endif
+// Forward CTAs an SM asked of ptxas: at D 128 a cap of 128 registers
+// (a few bytes of spill), faster than one CTA with 148 registers.
+#ifndef TP_FWD_MINB
+#define TP_FWD_MINB 2
+#endif
+#ifndef TP_BWD_WG
+#define TP_BWD_WG 2     // dK/dV warpgroups: BK = 64 x TP_BWD_WG key rows
+#endif
+#ifndef TP_BWD_BQ
+#define TP_BWD_BQ 64    // dK/dV q tile rows
+#endif
+#ifndef TP_BWD_MINB
+#define TP_BWD_MINB 1
+#endif
+
+using bf16 = __nv_bfloat16;
+
+// Dynamic shared memory from its first 1024-byte boundary (the launch
+// asks for 1024 bytes more than the tiles need).
+__device__ __forceinline__ uint8_t* smem_1024() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t a = sm90::smem_u32(smem_raw);
+  return smem_raw + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// Rows [row0, row0 + R) of a row-major [n_rows, D] bf16 matrix into a
+// swizzled tile, 16 bytes a cp.async; rows past n_rows are zeros.
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_tile_async(uint8_t* dst, const bf16* src,
+                                                int row0, int n_rows) {
+  using TL = sm90::Tile<R, D>;
+  constexpr int CH = D / 8;
+  const uint32_t base = sm90::smem_u32(dst);
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const bool in = row0 + r < n_rows;
+    const bf16* s = src + static_cast<int64_t>(in ? row0 + r : 0) * D + c * 8;
+    sm90::cp_async16(base + TL::chunk(r, c), s, in ? 16 : 0);
+  }
+}
+
+// 8 bf16 times fold, each rounded back to bf16.
+__device__ __forceinline__ uint4 fold8(uint4 x, float fold) {
+  bf16* e = reinterpret_cast<bf16*>(&x);
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    e[u] = __float2bfloat16_rn(__bfloat162float(e[u]) * fold);
+  return x;
+}
+
+template <int D, int WG, int BK, int MINB>
+__global__ void __launch_bounds__(128 * WG, MINB)
+    flash_fwd_kernel_wgmma(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const float* __restrict__ o0,
+                           const float* __restrict__ m0,
+                           const float* __restrict__ l0,
+                           float* __restrict__ o, float* __restrict__ m,
+                           float* __restrict__ l, int tq, int tk,
+                           int q_heads, int group, int q_off, int k_off,
+                           int causal, int window, float fold) {
+  constexpr int NT = 128 * WG;
+  constexpr int BQT = 64 * WG;
+  using QT = sm90::Tile<BQT, D>;
+  using KT = sm90::Tile<BK, D>;
+  uint8_t* qs = smem_1024();              // folded q
+  uint8_t* kvs = qs + QT::BYTES;          // stage s: K, then V
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy (late) tiles first
+  const int row = blockIdx.y;
+  const int kv_row =
+      (row / q_heads) * (q_heads / group) + (row % q_heads) / group;
+  const int q0 = qt * BQT;
+  const int q_first = q_off + q0;
+  const bf16* qh = q + static_cast<int64_t>(row) * tq * D;
+  const bf16* kh = k + static_cast<int64_t>(kv_row) * tk * D;
+  const bf16* vh = v + static_cast<int64_t>(kv_row) * tk * D;
+
+  // The CTA's live KV tiles: the band's first for its first row to the
+  // diagonal of its last.
+  const int n_k = (tk + BK - 1) / BK;
+  int kt_lo = 0, kt_hi = n_k - 1;
+  if (causal) {
+    kt_hi = min(kt_hi, floor_div(q_first + BQT - 1 - k_off, BK));
+    if (window > 0)
+      kt_lo = max(0, floor_div(q_first - (window - 1) - k_off, BK));
+  }
+  auto load_kv = [&](int kt, int stage) {
+    uint8_t* ks = kvs + 2 * stage * KT::BYTES;
+    load_tile_async<BK, D, NT>(ks, kh, kt * BK, tk);
+    load_tile_async<BK, D, NT>(ks + KT::BYTES, vh, kt * BK, tk);
+    sm90::cp_async_commit();
+  };
+  if (kt_lo <= kt_hi) load_kv(kt_lo, 0);
+
+  // q, folded and rounded once, while the first KV tile is in flight.
+  for (int i = threadIdx.x; i < BQT * D / 8; i += NT) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < tq)
+      x = fold8(*reinterpret_cast<const uint4*>(
+                    qh + static_cast<int64_t>(q0 + r) * D + c * 8),
+                fold);
+    *reinterpret_cast<uint4*>(qs + QT::chunk(r, c)) = x;
+  }
+  sm90::fence_async_smem();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int wq_first = q_off + wq0;
+  int w_lo = 0, w_hi = n_k - 1;  // and its live tiles
+  if (causal) {
+    w_hi = min(w_hi, floor_div(wq_first + 63 - k_off, BK));
+    if (window > 0)
+      w_lo = max(0, floor_div(wq_first - (window - 1) - k_off, BK));
+  }
+  if (wq0 >= tq) w_hi = -1;
+
+  // The carry, in the accumulator layout; m in log2 units. l is a
+  // per-thread partial row sum (the quad's t == 0 starts from l0),
+  // reduced over the quad at the end.
+  float acc[D / 2], mrow[2], lrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wq0 + 16 * w + g + 8 * h;
+    const bool in = r < tq;
+    const int64_t rr = static_cast<int64_t>(row) * tq + r;
+    mrow[h] = in ? m0[rr] * LOG2E_F : 0.f;
+    lrow[h] = in && t == 0 ? l0[rr] : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      float2 x = make_float2(0.f, 0.f);
+      if (in) x = *reinterpret_cast<const float2*>(o0 + rr * D + 8 * j + 2 * t);
+      acc[4 * j + 2 * h] = x.x;
+      acc[4 * j + 2 * h + 1] = x.y;
+    }
+  }
+
+  const uint32_t qb = sm90::smem_u32(qs);
+  int stage = 0;
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    if (kt < kt_hi) {
+      load_kv(kt + 1, stage ^ 1);
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    sm90::fence_async_smem();
+    __syncthreads();  // tile kt (and q) visible to every warpgroup
+    if (kt >= w_lo && kt <= w_hi) {
+      const uint32_t kb = sm90::smem_u32(kvs + 2 * stage * KT::BYTES);
+      const uint32_t vb = kb + KT::BYTES;
+      const int k0 = kt * BK;
+      // S = Qf . K^T (log2 units)
+      float s[BK / 2];
+      sm90::wgmma_fence();
+      sm90::wgmma_ss_init<BK>(s, QT::desc_k(qb, 64 * wg, 0),
+                              KT::desc_k(kb, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BK>(s, QT::desc_k(qb, 64 * wg, kk),
+                           KT::desc_k(kb, 0, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      if (!block_full(wq_first, 64, k_off + k0, k0, BK, tk, causal, window)) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kj = k0 + 8 * j + 2 * t + e;
+              if (kj >= tk || !visible(wq_first + 16 * w + g + 8 * h,
+                                       k_off + kj, causal, window))
+                s[4 * j + 2 * h + e] = -INFINITY;
+            }
+      }
+      // Online softmax on the fragment: a row's 16 values sit in the 4
+      // threads of a quad.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(mrow[h], mx);
+        const float alpha = exp2f(mrow[h] - m_new);
+        mrow[h] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[4 * j + 2 * h + e] - m_new);
+            s[4 * j + 2 * h + e] = p;
+            rs += p;
+          }
+        lrow[h] = lrow[h] * alpha + rs;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 2 * h] *= alpha;
+          acc[4 * j + 2 * h + 1] *= alpha;
+        }
+      }
+      // O += P . V, P rounded to bf16 in registers
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) sm90::acc_to_a(pa[kk], s, kk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::wgmma_rs<D>(acc, pa[kk], KT::desc_mn(vb, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+    __syncthreads();  // every read of this stage done before its refill
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 1);
+    lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 2);
+    const int r = wq0 + 16 * w + g + 8 * h;
+    if (r >= tq) continue;
+    const int64_t rr = static_cast<int64_t>(row) * tq + r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + rr * D + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    if (t == 0) {
+      m[rr] = mrow[h] * LN2_F;
+      l[rr] = lrow[h];
+    }
+  }
+}
+
+// dK/dV, transposed so every product is a wgmma with the keys as M:
+//   S^T = K . Qf^T and dP^T = V . dO^T   (A: K or V rows, B: Qf or dO,
+//                                          both K-major over D)
+//   P^T = exp2(S^T - L log2e), dS^T = P^T o (dP^T - delta) scale
+//   dV += P^T . dO and dK += dS^T . Q    (A: registers, B: dO or Q
+//                                          MN-major)
+// L and delta vary along the columns and come from shared memory. The
+// unfolded q tile lands by cp.async; a pass folds it into a second tile.
+template <int D, int WG, int BQ, int MINB>
+__global__ void __launch_bounds__(128 * WG, MINB)
+    flash_bwd_dkdv_kernel_wgmma(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ dout,
+                                const float* __restrict__ L,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int tq, int tk,
+                                int q_heads, int group, int q_off, int k_off,
+                                int causal, int window, float fold,
+                                float scale) {
+  constexpr int NT = 128 * WG;
+  constexpr int BKT = 64 * WG;
+  using KT = sm90::Tile<BKT, D>;
+  using QT = sm90::Tile<BQ, D>;
+  uint8_t* ks = smem_1024();
+  uint8_t* vs = ks + KT::BYTES;
+  uint8_t* qfs = vs + KT::BYTES;          // folded q of the current tile
+  uint8_t* qs = qfs + QT::BYTES;          // stage s: q at qs + 2 s QT::BYTES,
+                                          // dO after it
+  float* ls = reinterpret_cast<float*>(qs + 4 * QT::BYTES);  // [2][BQ]
+  float* dls = ls + 2 * BQ;                                   // [2][BQ]
+
+  const int kt = blockIdx.x;
+  const int kv_row = blockIdx.y;
+  const int h_kv = q_heads / group;
+  const int b = kv_row / h_kv;
+  const int hk = kv_row % h_kv;
+  const int k0 = kt * BKT;
+  const int k_first = k_off + k0;
+  const int64_t kv_base = static_cast<int64_t>(kv_row) * tk * D;
+  load_tile_async<BKT, D, NT>(ks, k + kv_base, k0, tk);
+  load_tile_async<BKT, D, NT>(vs, v + kv_base, k0, tk);
+
+  // The CTA's live q tiles: from the diagonal of its first key to the
+  // band's end for its last.
+  const int n_q = (tq + BQ - 1) / BQ;
+  int qt_lo = 0, qt_hi = n_q - 1;
+  if (causal) {
+    qt_lo = max(0, floor_div(k_first - q_off, BQ));
+    if (window > 0)
+      qt_hi = min(qt_hi, floor_div(k_first + BKT - 1 + window - 1 - q_off, BQ));
+  }
+  const int n_live = max(0, qt_hi - qt_lo + 1);
+  const int items = group * n_live;  // (query head of the group, q tile)
+  auto load_item = [&](int it, int stage) {
+    const int row = b * q_heads + hk * group + it / n_live;
+    const int q0 = (qt_lo + it % n_live) * BQ;
+    const int64_t rb = static_cast<int64_t>(row) * tq;
+    uint8_t* qst = qs + 2 * stage * QT::BYTES;
+    load_tile_async<BQ, D, NT>(qst, q + rb * D, q0, tq);
+    load_tile_async<BQ, D, NT>(qst + QT::BYTES, dout + rb * D, q0, tq);
+    for (int i = threadIdx.x; i < BQ; i += NT) {
+      const bool in = q0 + i < tq;
+      const int64_t at = rb + (in ? q0 + i : 0);
+      sm90::cp_async4(sm90::smem_u32(ls + stage * BQ + i), L + at, in ? 4 : 0);
+      sm90::cp_async4(sm90::smem_u32(dls + stage * BQ + i), delta + at,
+                      in ? 4 : 0);
+    }
+  };
+  if (items > 0) load_item(0, 0);
+  sm90::cp_async_commit();  // K, V and the first q tile
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wk0 = k0 + 64 * wg;  // this warpgroup's first key
+  const int wk_first = k_off + wk0;
+  int w_lo = 0, w_hi = n_q - 1;  // and its live q tiles
+  if (causal) {
+    w_lo = max(0, floor_div(wk_first - q_off, BQ));
+    if (window > 0)
+      w_hi = min(w_hi, floor_div(wk_first + 63 + window - 1 - q_off, BQ));
+  }
+  if (wk0 >= tk) w_hi = -1;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint32_t kb = sm90::smem_u32(ks), vb = sm90::smem_u32(vs);
+  const uint32_t qfb = sm90::smem_u32(qfs);
+  int stage = 0;
+  for (int it = 0; it < items; ++it) {
+    if (it + 1 < items) {
+      load_item(it + 1, stage ^ 1);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();  // this stage's q tile visible to every thread
+    uint8_t* qst = qs + 2 * stage * QT::BYTES;
+    for (int i = threadIdx.x; i < BQ * D / 8; i += NT) {
+      const int off = QT::chunk(i / (D / 8), i % (D / 8));
+      *reinterpret_cast<uint4*>(qfs + off) =
+          fold8(*reinterpret_cast<const uint4*>(qst + off), fold);
+    }
+    sm90::fence_async_smem();
+    __syncthreads();  // the folded tile, and every cp.async, visible to wgmma
+    const int qt = qt_lo + it % n_live;
+    if (qt >= w_lo && qt <= w_hi) {
+      const uint32_t qb = sm90::smem_u32(qst), dob = qb + QT::BYTES;
+      const int q_first = q_off + qt * BQ;
+      float st[BQ / 2], dpt[BQ / 2];
+      sm90::wgmma_fence();
+      sm90::wgmma_ss_init<BQ>(st, KT::desc_k(kb, 64 * wg, 0),
+                              QT::desc_k(qfb, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BQ>(st, KT::desc_k(kb, 64 * wg, kk),
+                           QT::desc_k(qfb, 0, kk), 1);
+      sm90::wgmma_ss_init<BQ>(dpt, KT::desc_k(vb, 64 * wg, 0),
+                              QT::desc_k(dob, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BQ>(dpt, KT::desc_k(vb, 64 * wg, kk),
+                           QT::desc_k(dob, 0, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      const bool full =
+          block_full(q_first, BQ, wk_first, wk0, 64, tk, causal, window);
+      const float* lst = ls + stage * BQ;
+      const float* dlst = dls + stage * BQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;  // q column
+          const float l2 = lst[c] * LOG2E_F, dl = dlst[c];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            const int kj = wk0 + 16 * w + g + 8 * h;  // key row
+            float sv = st[i];
+            if (!full && (kj >= tk || !visible(q_first + c, k_off + kj,
+                                               causal, window)))
+              sv = NEG_INF_F;
+            const float p = exp2f(sv - l2);
+            st[i] = p;
+            dpt[i] = p * (dpt[i] - dl) * scale;
+          }
+        }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        sm90::acc_to_a(pa[kk], st, kk);
+        sm90::acc_to_a(da[kk], dpt, kk);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        sm90::wgmma_rs<D>(dv_acc, pa[kk], QT::desc_mn(dob, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        sm90::wgmma_rs<D>(dk_acc, da[kk], QT::desc_mn(qb, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+    __syncthreads();  // every read of this stage done before its refill
+    stage ^= 1;
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kj = wk0 + 16 * w + g + 8 * h;
+    if (kj >= tk) continue;
+    const int64_t rr = (static_cast<int64_t>(kv_row) * tk + kj) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + rr + 8 * j + 2 * t) =
+          make_float2(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + rr + 8 * j + 2 * t) =
+          make_float2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 // -------------------------------------------------------------- launches
 
 template <int D>
@@ -574,21 +1044,95 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 float32, 1 bfloat16; d: 32, 64 or 128.
-template <template <typename, int> class L>
+template <int D>
+constexpr int fwd_tc_smem() {
+  return 1024 + sm90::Tile<64 * TP_FWD_WG, D>::BYTES +
+         4 * sm90::Tile<TP_FWD_BK, D>::BYTES;
+}
+template <int D>
+constexpr int dkdv_tc_smem() {
+  return 1024 + 2 * sm90::Tile<64 * TP_BWD_WG, D>::BYTES +
+         5 * sm90::Tile<TP_BWD_BQ, D>::BYTES + 4 * TP_BWD_BQ * 4;
+}
+
+template <int D>
+int launch_fwd_tc(const Args& a) {
+  auto* kern = flash_fwd_kernel_wgmma<D, TP_FWD_WG, TP_FWD_BK, TP_FWD_MINB>;
+  constexpr int smem = fwd_tc_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bq = 64 * TP_FWD_WG;
+  const dim3 grid((a.tq + bq - 1) / bq, a.rows);
+  kern<<<grid, 128 * TP_FWD_WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const float*>(a.x),
+      static_cast<const float*>(a.y), static_cast<const float*>(a.z),
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1),
+      static_cast<float*>(a.out2), a.tq, a.tk, a.q_heads, a.group, a.q_off,
+      a.k_off, a.causal, a.window, a.fold);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkdv_tc(const Args& a) {
+  auto* kern =
+      flash_bwd_dkdv_kernel_wgmma<D, TP_BWD_WG, TP_BWD_BQ, TP_BWD_MINB>;
+  constexpr int smem = dkdv_tc_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bk = 64 * TP_BWD_WG;
+  const dim3 grid((a.tk + bk - 1) / bk, a.rows);
+  kern<<<grid, 128 * TP_BWD_WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.x),
+      static_cast<const float*>(a.y), static_cast<const float*>(a.z),
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.tq, a.tk,
+      a.q_heads, a.group, a.q_off, a.k_off, a.causal, a.window, a.fold,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool args_ok(const Args& a) {
+  return a.rows >= 1 && a.tq >= 1 && a.tk >= 1 && a.q_heads >= 1 &&
+         a.group >= 1 && a.q_heads % a.group == 0;
+}
+
+// dtype: 0 float32, 1 bfloat16 (only where BF16); d: 32, 64 or 128.
+template <template <typename, int> class L, bool BF16>
 int dispatch(const Args& a, int d, int dtype) {
-  if (a.rows < 1 || a.tq < 1 || a.tk < 1 || a.q_heads < 1 || a.group < 1 ||
-      a.q_heads % a.group)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     if (d == 32) return L<float, 32>::run(a);
     if (d == 64) return L<float, 64>::run(a);
     if (d == 128) return L<float, 128>::run(a);
-  } else if (dtype == 1) {
-    if (d == 32) return L<__nv_bfloat16, 32>::run(a);
-    if (d == 64) return L<__nv_bfloat16, 64>::run(a);
-    if (d == 128) return L<__nv_bfloat16, 128>::run(a);
   }
+  if constexpr (BF16) {
+    if (dtype == 1) {
+      if (d == 32) return L<__nv_bfloat16, 32>::run(a);
+      if (d == 64) return L<__nv_bfloat16, 64>::run(a);
+      if (d == 128) return L<__nv_bfloat16, 128>::run(a);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
+}
+
+// The tensor-core kernels: bfloat16 only (dtype 1), operands on 16-byte
+// (bf16) and 8-byte (float32) boundaries.
+template <template <int> class L>
+int dispatch_tc(const Args& a, int d, int dtype) {
+  if (!args_ok(a) || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned(a.q, 16) || !aligned(a.k, 16) || !aligned(a.v, 16) ||
+      !aligned(a.out0, 8) || !aligned(a.out1, 8))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (d == 32) return L<32>::run(a);
+  if (d == 64) return L<64>::run(a);
+  if (d == 128) return L<128>::run(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -604,6 +1148,54 @@ template <typename T, int D>
 struct Dq {
   static int run(const Args& a) { return launch_dq<T, D>(a); }
 };
+template <int D>
+struct FwdTc {
+  static int run(const Args& a) { return launch_fwd_tc<D>(a); }
+};
+template <int D>
+struct DkdvTc {
+  static int run(const Args& a) { return launch_dkdv_tc<D>(a); }
+};
+
+// CTAs of kern resident on one SM at this launch's threads and shared
+// memory (0 when the card refuses the configuration).
+template <typename K>
+int ctas_per_sm(K* kern, int threads, int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads, smem) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int D>
+int config_d(int fn, int dtype, int* out) {
+  if (fn == 0 && dtype == 1) {
+    out[0] = 64 * TP_FWD_WG, out[1] = TP_FWD_BK, out[2] = 128 * TP_FWD_WG;
+    out[3] = fwd_tc_smem<D>();
+    out[4] = ctas_per_sm(
+        flash_fwd_kernel_wgmma<D, TP_FWD_WG, TP_FWD_BK, TP_FWD_MINB>, out[2],
+        out[3]);
+  } else if (fn == 1 && dtype == 1) {
+    out[0] = TP_BWD_BQ, out[1] = 64 * TP_BWD_WG, out[2] = 128 * TP_BWD_WG;
+    out[3] = dkdv_tc_smem<D>();
+    out[4] = ctas_per_sm(
+        flash_bwd_dkdv_kernel_wgmma<D, TP_BWD_WG, TP_BWD_BQ, TP_BWD_MINB>,
+        out[2], out[3]);
+  } else {  // the SIMT kernels
+    out[0] = BQ, out[1] = BK, out[2] = NT;
+    out[3] = static_cast<int>(fn == 0 ? fwd_smem<D>() : bwd_smem<D>());
+    if (fn == 0) out[4] = ctas_per_sm(flash_fwd_kernel<float, D>, NT, out[3]);
+    if (fn == 1)
+      out[4] = ctas_per_sm(flash_bwd_dkdv_kernel<float, D>, NT, out[3]);
+    if (fn == 2)
+      out[4] = dtype ? ctas_per_sm(flash_bwd_dq_kernel<bf16, D>, NT, out[3])
+                     : ctas_per_sm(flash_bwd_dq_kernel<float, D>, NT, out[3]);
+  }
+  return 0;
+}
 
 }  // namespace
 
@@ -617,7 +1209,21 @@ extern "C" int tp_flash_fwd(const void* q, const void* k, const void* v,
                m,  l,     rows,   tq,    tk,     q_heads, group,
                q_off, k_off, causal, window, fold, 0.f,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Fwd>(a, d, dtype);
+  return dispatch<Fwd, false>(a, d, dtype);
+}
+
+extern "C" int tp_flash_fwd_wgmma(const void* q, const void* k, const void* v,
+                                  const void* o0, const void* m0,
+                                  const void* l0, void* o, void* m, void* l,
+                                  int rows, int tq, int tk, int d,
+                                  int q_heads, int group, int q_off,
+                                  int k_off, int causal, int window,
+                                  int dtype, float fold, void* stream) {
+  const Args a{q,  k,     v,      o0,    m0,     l0,     o,
+               m,  l,     rows,   tq,    tk,     q_heads, group,
+               q_off, k_off, causal, window, fold, 0.f,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch_tc<FwdTc>(a, d, dtype);
 }
 
 extern "C" int tp_flash_bwd_dkdv(const void* q, const void* k, const void* v,
@@ -631,7 +1237,20 @@ extern "C" int tp_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                dv, nullptr, rows, tq,    tk,     q_heads, group,
                q_off, k_off, causal, window, fold, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Dkdv>(a, d, dtype);
+  return dispatch<Dkdv, false>(a, d, dtype);
+}
+
+extern "C" int tp_flash_bwd_dkdv_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* L, const void* delta, void* dk, void* dv, int rows, int tq,
+    int tk, int d, int q_heads, int group, int q_off, int k_off, int causal,
+    int window, int dtype, float fold, float scale, void* stream) {
+  const Args a{q,  k,     v,      dout,  L,      delta,  dk,
+               dv, nullptr, rows, tq,    tk,     q_heads, group,
+               q_off, k_off, causal, window, fold, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (!aligned(dout, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return dispatch_tc<DkdvTc>(a, d, dtype);
 }
 
 extern "C" int tp_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -645,5 +1264,18 @@ extern "C" int tp_flash_bwd_dq(const void* q, const void* k, const void* v,
                nullptr, nullptr, rows, tq,    tk,     q_heads, group,
                q_off,   k_off,   causal, window, fold, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Dq>(a, d, dtype);
+  return dispatch<Dq, true>(a, d, dtype);
+}
+
+// How a kernel is launched: fn 0 the forward, 1 dK/dV, 2 dq; dtype 0
+// float32, 1 bfloat16; d the head dim. out[5] = {q tile rows, k tile
+// rows, threads a CTA, dynamic shared bytes a CTA, CTAs resident on an
+// SM}. Returns cudaErrorInvalidValue for a combination no kernel takes.
+extern "C" int tp_flash_config(int fn, int dtype, int d, int* out) {
+  if (fn < 0 || fn > 2 || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 32) return config_d<32>(fn, dtype, out);
+  if (d == 64) return config_d<64>(fn, dtype, out);
+  if (d == 128) return config_d<128>(fn, dtype, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,11 @@ reference's contracts, and each has three forms side by side:
 
 - the **kernel**, hand-written CUDA C++ for Hopper
   (``tpu_p2p_torch/csrc/flash_attention.cu``, built by
-  :mod:`tpu_p2p_torch.utils.cuda_build`), launched for CUDA tensors;
+  :mod:`tpu_p2p_torch.utils.cuda_build`), launched for CUDA tensors:
+  bfloat16 forward and dk/dv on the tensor cores (``wgmma``, entry
+  points ``tp_flash_fwd_wgmma`` and ``tp_flash_bwd_dkdv_wgmma``),
+  float32 and every dq on the SIMT kernels (``tp_flash_fwd``,
+  ``tp_flash_bwd_dkdv``, ``tp_flash_bwd_dq``);
 - the **plain version** (``*_plain``), whole-row PyTorch with the
   kernel's own math, used for CPU tensors and as the kernel's
   yardstick on the card;
@@ -41,6 +45,7 @@ backward recompute, whose ``exp2`` underflows to exactly 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -65,27 +70,62 @@ def reset_launches() -> None:
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_argtypes_set = False
+_LIB = None  # the bound library, once built
+
+
+def declare(lib):
+    """Declare the C signatures of a built ``flash_attention`` library
+    (the default build's, or one built with other tile macros); →
+    ``lib``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ints = [i] * 11  # rows tq tk d q_heads group q_off k_off causal
+    # window dtype
+    for name, sig in (("tp_flash_fwd", [p] * 9 + ints + [f, p]),
+                      ("tp_flash_fwd_wgmma", [p] * 9 + ints + [f, p]),
+                      ("tp_flash_bwd_dkdv", [p] * 8 + ints + [f, f, p]),
+                      ("tp_flash_bwd_dkdv_wgmma", [p] * 8 + ints + [f, f, p]),
+                      ("tp_flash_bwd_dq", [p] * 7 + ints + [f, f, p]),
+                      ("tp_flash_config", [i, i, i, p])):
+        getattr(lib, name).argtypes = sig
+        getattr(lib, name).restype = i
+    return lib
 
 
 def _lib():
     """The built kernel library, with its C signatures declared."""
-    global _argtypes_set
-    from tpu_p2p_torch.utils.cuda_build import load
+    global _LIB
+    if _LIB is None:
+        from tpu_p2p_torch.utils.cuda_build import load
 
-    lib = load("flash_attention")
-    if not _argtypes_set:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        ints = [i] * 11  # rows tq tk d q_heads group q_off k_off causal
-        # window dtype
-        lib.tp_flash_fwd.argtypes = [p] * 9 + ints + [f, p]
-        lib.tp_flash_fwd.restype = i
-        lib.tp_flash_bwd_dkdv.argtypes = [p] * 8 + ints + [f, f, p]
-        lib.tp_flash_bwd_dkdv.restype = i
-        lib.tp_flash_bwd_dq.argtypes = [p] * 7 + ints + [f, f, p]
-        lib.tp_flash_bwd_dq.restype = i
-        _argtypes_set = True
-    return lib
+        _LIB = declare(load("flash_attention"))
+    return _LIB
+
+
+# The C entry point of each kernel by dtype: bfloat16 forward and dk/dv
+# run on the tensor cores, float32 (and every dq) on the SIMT kernels.
+ENTRY = {
+    ("flash_fwd", torch.float32): "tp_flash_fwd",
+    ("flash_fwd", torch.bfloat16): "tp_flash_fwd_wgmma",
+    ("flash_bwd_dkdv", torch.float32): "tp_flash_bwd_dkdv",
+    ("flash_bwd_dkdv", torch.bfloat16): "tp_flash_bwd_dkdv_wgmma",
+    ("flash_bwd_dq", torch.float32): "tp_flash_bwd_dq",
+    ("flash_bwd_dq", torch.bfloat16): "tp_flash_bwd_dq",
+}
+_KERNEL_CODE = {"flash_fwd": 0, "flash_bwd_dkdv": 1, "flash_bwd_dq": 2}
+
+
+def kernel_config(kernel: str, dtype: torch.dtype, d: int) -> dict:
+    """How the built library launches ``kernel`` for ``dtype`` and head
+    dim ``d`` (``tp_flash_config``, on the current card): its entry
+    point, q and k tile rows, threads and dynamic shared bytes a CTA,
+    CTAs resident on an SM."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().tp_flash_config(_KERNEL_CODE[kernel], _DTYPE_CODE[dtype],
+                                 d, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"no {kernel} kernel for {dtype}, head dim {d}")
+    return {"entry": ENTRY[(kernel, dtype)], "bq": out[0], "bk": out[1],
+            "threads": out[2], "smem": out[3], "ctas_per_sm": out[4]}
 
 
 def _fold(d: int) -> float:
@@ -176,6 +216,16 @@ def _check_rows(name: str, t: torch.Tensor, shape) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other
+    device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
 def _route(q3: torch.Tensor, *others: torch.Tensor) -> bool:
     """True: launch the kernel (every operand on one CUDA device, a
     dtype and head dim the kernel takes). False: CPU tensors, the plain
@@ -183,10 +233,8 @@ def _route(q3: torch.Tensor, *others: torch.Tensor) -> bool:
     for t in others:
         if t.device != q3.device:
             raise ValueError(f"operand on {t.device}, q on {q3.device}")
-    if q3.device.type == "cpu":
+    if not _on_card(q3):
         return False
-    if q3.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q3.device}")
     if q3.dtype not in _DTYPE_CODE:
         raise ValueError(f"the flash kernels take float32 or bfloat16, "
                          f"got {q3.dtype}")
@@ -208,6 +256,25 @@ def _check_launch(err: int, what: str) -> None:
 
 def _ptrs(*tensors: torch.Tensor):
     return [t.data_ptr() for t in tensors]
+
+
+def _operands(*tensors: torch.Tensor):
+    """Contiguous, each on a 16-byte boundary (the tensor-core kernels
+    copy tiles 16 bytes at a time): a tensor that starts elsewhere, a
+    view at an odd offset, is copied."""
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return out
+
+
+@contextlib.contextmanager
+def _card_stream(device: torch.device):
+    """``device`` made the current card for a launch; yields the handle
+    of its current stream."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream().cuda_stream
 
 
 # ------------------------------------------------------------ forward
@@ -263,12 +330,10 @@ def _flash_call(q3, k3, v3, o0, m0, l0, q_off: int = 0, k_off: int = 0, *,
                                  causal=causal, q_heads=q_heads,
                                  window=window)
     group = _gqa_group(bh, k3.shape[0], q_heads)
-    q3, k3, v3, o0, m0, l0 = (t.contiguous()
-                              for t in (q3, k3, v3, o0, m0, l0))
+    q3, k3, v3, o0, m0, l0 = _operands(q3, k3, v3, o0, m0, l0)
     o, m, l = torch.empty_like(o0), torch.empty_like(m0), torch.empty_like(l0)
-    with torch.cuda.device(q3.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().tp_flash_fwd(
+    with _card_stream(q3.device) as stream:
+        err = getattr(_lib(), ENTRY[("flash_fwd", q3.dtype)])(
             *_ptrs(q3, k3, v3, o0, m0, l0, o, m, l),
             bh, tq, k3.shape[1], d, q_heads, group, q_off, k_off,
             int(causal), window or 0, _DTYPE_CODE[q3.dtype], _fold(d),
@@ -334,20 +399,17 @@ def _check_bwd(q3, k3, v3, do3, L, delta, causal, q_heads, window):
     return _route(q3, k3, v3, do3, L, delta)
 
 
-def _bwd_launch(fn: str, q3, k3, v3, do3, L, delta, outs, rows, q_off,
+def _bwd_launch(kernel: str, q3, k3, v3, do3, L, delta, outs, rows, q_off,
                 k_off, causal, q_heads, window):
     bh, tq, d = q3.shape
     group = _gqa_group(bh, k3.shape[0], q_heads)
-    q3, k3, v3, do3, L, delta = (t.contiguous()
-                                 for t in (q3, k3, v3, do3, L, delta))
-    with torch.cuda.device(q3.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), fn)(
+    q3, k3, v3, do3, L, delta = _operands(q3, k3, v3, do3, L, delta)
+    with _card_stream(q3.device) as stream:
+        return getattr(_lib(), ENTRY[(kernel, q3.dtype)])(
             *_ptrs(q3, k3, v3, do3, L, delta, *outs),
             rows, tq, k3.shape[1], d, q_heads, group, int(q_off),
             int(k_off), int(causal), window or 0, _DTYPE_CODE[q3.dtype],
             _fold(d), 1.0 / (d ** 0.5), stream)
-    return err
 
 
 def _flash_bwd_dkdv(q3, k3, v3, do3, L, delta, q_off: int = 0,
@@ -366,7 +428,7 @@ def _flash_bwd_dkdv(q3, k3, v3, do3, L, delta, q_off: int = 0,
                                      window=window)
     dk = torch.empty(k3.shape, dtype=torch.float32, device=k3.device)
     dv = torch.empty_like(dk)
-    err = _bwd_launch("tp_flash_bwd_dkdv", q3, k3, v3, do3, L, delta,
+    err = _bwd_launch("flash_bwd_dkdv", q3, k3, v3, do3, L, delta,
                       (dk, dv), k3.shape[0], q_off, k_off, causal, q_heads,
                       window)
     _check_launch(err, "flash_bwd_dkdv")
@@ -389,7 +451,7 @@ def _flash_bwd_dq(q3, k3, v3, do3, L, delta, q_off: int = 0,
                                    causal=causal, q_heads=q_heads,
                                    window=window)
     dq = torch.empty(q3.shape, dtype=torch.float32, device=q3.device)
-    err = _bwd_launch("tp_flash_bwd_dq", q3, k3, v3, do3, L, delta, (dq,),
+    err = _bwd_launch("flash_bwd_dq", q3, k3, v3, do3, L, delta, (dq,),
                       q3.shape[0], q_off, k_off, causal, q_heads, window)
     _check_launch(err, "flash_bwd_dq")
     launches["flash_bwd_dq"] += 1
