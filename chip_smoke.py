@@ -12,22 +12,23 @@ the first phase that goes wrong:
 2. build    — ``nvcc`` builds the KV-cache, flash-attention and
    peer-push kernels from ``csrc/``, one compiler per source, all
    started together; ``cuobjdump`` reads the flash library back: the
-   bf16 tensor-core kernels (forward, dK/dV) must hold HGMMA (wgmma)
-   instructions and no bf16 SIMT forward or dK/dV may be left; their
-   registers, spills, shared memory and CTAs an SM are printed;
+   bf16 tensor-core kernels (forward, dK/dV, dq) must hold HGMMA (wgmma)
+   instructions at every head dim and no bf16 SIMT flash kernel may be
+   left; their registers, spills, shared memory and CTAs an SM are
+   printed;
 3. kernels  — each KV-cache kernel against its plain PyTorch version at
    the serving shapes, bitwise (they are copies), timed beside its bytes
    bound, the plain version and one ``index_put_`` call;
 4. flash    — the three flash kernels against their plain versions at
    the training shape (B 4, 16 heads over 8 KV heads, T 4096, D 128,
-   bf16, causal; normalised L-inf <= 2e-2; bf16 forward and dK/dV on
-   the tensor cores, dq on the SIMT kernel), there with a window of
-   1024 (the banded sweep, beside the live blocks each kernel loops
-   over), on ragged bf16 edge cases (D 32/64/128, GQA 1/2/4, offsets,
-   fully masked rows, a random carry; two launches bitwise equal), and
-   at T 512 in float32 (the SIMT kernels) with a window of 96, q_off !=
-   k_off and a random carry (atol = rtol = 1e-4), each timed beside its
-   bound, its plain version and SDPA;
+   bf16, causal; normalised L-inf <= 2e-2; all three bf16 kernels on
+   the tensor cores; two dq launches bitwise equal), there with a
+   window of 1024 (the banded sweep, beside the live blocks each kernel
+   loops over), on ragged bf16 edge cases (D 32/64/128, GQA 1/2/4,
+   offsets, fully masked rows with an exact-zero dq, a random carry; two
+   launches bitwise equal), and at T 512 in float32 (the SIMT kernels)
+   with a window of 96, q_off != k_off and a random carry (atol = rtol
+   = 1e-4), each timed beside its bound, its plain version and SDPA;
 5. train    — ``run_training`` at the full width and depth (B 4 x T
    4096, SGD lr 1e-2, 4 steps, seed 0): finite losses, the first near
    ln(vocab), every flash kernel launched once per block per step; then
@@ -180,10 +181,14 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 # ------------------------------------------------------------ phase 2
 
 
-TC_KERNELS = ("flash_fwd_kernel_wgmma", "flash_bwd_dkdv_kernel_wgmma")
+# The tensor-core kernels and the wrapper (``launches`` key) of each.
+TC_KERNELS = {"flash_fwd_kernel_wgmma": "flash_fwd",
+              "flash_bwd_dkdv_kernel_wgmma": "flash_bwd_dkdv",
+              "flash_bwd_dq_kernel_wgmma": "flash_bwd_dq"}
 # The SIMT kernels' bf16 instances, which the tensor-core kernels retired.
 RETIRED = ("flash_fwd_kernelI13__nv_bfloat16",
-           "flash_bwd_dkdv_kernelI13__nv_bfloat16")
+           "flash_bwd_dkdv_kernelI13__nv_bfloat16",
+           "flash_bwd_dq_kernelI13__nv_bfloat16")
 
 
 def cuobjdump(*args) -> str:
@@ -197,7 +202,7 @@ def cuobjdump(*args) -> str:
 def sass_check(TFA, info: dict, card: str) -> None:
     """The built flash library read back with ``cuobjdump``: every
     instance of the tensor-core kernels holds HGMMA (wgmma) instructions
-    and no bf16 instance of the SIMT forward or dK/dV is left; prints
+    and no bf16 instance of a SIMT flash kernel is left; prints
     each tensor-core kernel's registers, stack and local bytes
     (``-res-usage``), ptxas's spill bytes (the build's log, when this
     run built it), dynamic shared memory and CTAs an SM."""
@@ -213,7 +218,8 @@ def sass_check(TFA, info: dict, card: str) -> None:
         elif name and "HGMMA" in line:
             hgmma[name] += 1
     tc = {n: c for n, c in hgmma.items() if any(k in n for k in TC_KERNELS)}
-    if len(tc) != 2 * len(TFA.KERNEL_HEAD_DIMS) or not all(tc.values()):
+    if (len(tc) != len(TC_KERNELS) * len(TFA.KERNEL_HEAD_DIMS)
+            or not all(tc.values())):
         raise AssertionError(f"HGMMA instructions per tensor-core kernel: "
                              f"{tc}")
     left = [n for n in hgmma if any(k in n for k in RETIRED)]
@@ -225,8 +231,7 @@ def sass_check(TFA, info: dict, card: str) -> None:
     for n in sorted(tc):
         kernel = next(k for k in TC_KERNELS if k in n)
         d = int(re.search(kernel + r"ILi(\d+)E", n).group(1))
-        cfg = TFA.kernel_config("flash_fwd" if "fwd" in kernel
-                                else "flash_bwd_dkdv", torch.bfloat16, d)
+        cfg = TFA.kernel_config(TC_KERNELS[kernel], torch.bfloat16, d)
         reg, stack, local = usage.get(n, ("?", "?", "?"))
         spill = ptxas_usage(info["log"], f"{kernel}ILi{d}E")
         say(f"sass {kernel} D{d}: {tc[n]} HGMMA | {reg} registers, stack "
@@ -235,8 +240,8 @@ def sass_check(TFA, info: dict, card: str) -> None:
             f"{cfg['bq']} x {cfg['bk']}, {cfg['threads']} threads, "
             f"{cfg['smem']} B dynamic shared, {cfg['ctas_per_sm']} CTAs an "
             f"SM | {card}")
-    say(f"sass: no bf16 SIMT forward or dK/dV left ({len(hgmma)} "
-        f"kernels in the library)")
+    say(f"sass: no bf16 SIMT flash kernel left ({len(hgmma)} kernels in "
+        f"the library)")
 
 
 # ------------------------------------------------------------ phase 3
@@ -486,6 +491,7 @@ def flash_bf16_check(TFA, dev, gen, window) -> dict:
                                                                  **kw),)
     want += by_batch(TFA._flash_bwd_dkdv_plain, b, *bargs, **kw) + (
         by_batch(TFA._flash_bwd_dq_plain, b, *bargs, **kw),)
+    dq_again = TFA._flash_bwd_dq(*bargs, **kw)
     torch.cuda.synchronize()
     names = ("o", "m", "l", "dk", "dv", "dq")
     errs = {n: norm_err(g, w) for n, g, w in zip(names, got, want)}
@@ -493,6 +499,9 @@ def flash_bf16_check(TFA, dev, gen, window) -> dict:
     if bad:
         raise AssertionError(f"flash kernels vs plain (window {window}): "
                              f"normalised L-inf {bad} > {FLASH_BF16_TOL}")
+    if not bits_equal(got[5], dq_again):
+        raise AssertionError(f"flash dq (window {window}): two launches "
+                             "differ")
     abs_err = {n: (g - w).abs().max().item()
                for n, g, w in zip(names, got, want)}
     calls = {
@@ -605,8 +614,9 @@ FLASH_EDGES = ((32, 4, 4, 100, 150, 0, 0, None, False),
 def flash_bf16_edges(TFA, dev, gen, card) -> None:
     """The bf16 kernels on ragged shapes against their plain versions
     (normalised L-inf <= FLASH_BF16_TOL), each launched twice: the two
-    results must be bitwise equal (no atomics, a fixed order of sums)."""
-    errs = {}
+    results must be bitwise equal (no atomics, a fixed order of sums);
+    rows that see no key get an exact-zero dq."""
+    errs, blind_rows = {}, 0
     for d, hq, hkv, tq, tk, q_off, k_off, window, rand in FLASH_EDGES:
         rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
         q3, do3 = (rnd(2 * hq, tq, d).bfloat16() for _ in range(2))
@@ -623,14 +633,15 @@ def flash_bf16_edges(TFA, dev, gen, card) -> None:
         delta = (do3.float() * (o / torch.where(live, l, 1.0)[..., None])
                  ).sum(-1)
         bargs = (q3, k3, v3, do3, L, delta, q_off, k_off)
-        want += TFA._flash_bwd_dkdv_plain(*bargs, **kw)
-        runs = [TFA._flash_call(*fargs, **kw) + TFA._flash_bwd_dkdv(*bargs,
-                                                                     **kw)
-                for _ in range(2)]
+        want += TFA._flash_bwd_dkdv_plain(*bargs, **kw) + (
+            TFA._flash_bwd_dq_plain(*bargs, **kw),)
+        runs = [TFA._flash_call(*fargs, **kw)
+                + TFA._flash_bwd_dkdv(*bargs, **kw)
+                + (TFA._flash_bwd_dq(*bargs, **kw),) for _ in range(2)]
         torch.cuda.synchronize()
         case = f"D{d} H{hq}/{hkv} T{tq}/{tk} off {q_off}/{k_off} w{window}"
         errs[case] = {n: norm_err(g, w) for n, g, w in
-                      zip(("o", "m", "l", "dk", "dv"), runs[0], want)}
+                      zip(("o", "m", "l", "dk", "dv", "dq"), runs[0], want)}
         bad = {n: e for n, e in errs[case].items() if not e <= FLASH_BF16_TOL}
         if bad:
             raise AssertionError(f"flash bf16 edge case {case}: normalised "
@@ -638,9 +649,18 @@ def flash_bf16_edges(TFA, dev, gen, card) -> None:
         if not all(bits_equal(a, b) for a, b in zip(*runs)):
             raise AssertionError(f"flash bf16 edge case {case}: two launches "
                                  "differ")
+        q_pos = q_off + torch.arange(tq, device=dev)
+        blind = q_pos < k_off
+        if window:
+            blind |= q_pos - (window - 1) > k_off + tk - 1
+        if runs[0][5][:, blind].any():
+            raise AssertionError(f"flash bf16 edge case {case}: dq of rows "
+                                 "that see no key is not zero")
+        blind_rows += int(blind.sum())
     say("flash bf16 edge cases (random carry where marked), normalised "
         f"L-inf vs plain (tol {FLASH_BF16_TOL}), two launches bitwise "
-        "equal: " + "; ".join(
+        f"equal, dq exactly 0 on {blind_rows} rows that see no key: "
+        + "; ".join(
             f"{c}: " + ", ".join(f"{n} {e:.1e}" for n, e in v.items())
             for c, v in errs.items()) + f" | {card}")
 

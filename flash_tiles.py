@@ -3,10 +3,11 @@
 ``python3 flash_tiles.py``.
 
 Builds ``tpu_p2p_torch/csrc/flash_attention.cu`` once for each tile
-variant below (its ``TP_FWD_*`` / ``TP_BWD_*`` macros; every build at
-once), then, at the training shape of ``chip_smoke.py`` (B 4, 16 query
-heads over 8 KV heads, T 4096, D 128, bf16, causal), for each variant of
-``flash_fwd_kernel_wgmma`` and ``flash_bwd_dkdv_kernel_wgmma``:
+variant below (its ``TP_FWD_*`` / ``TP_BWD_*`` / ``TP_DQ_*`` macros;
+every build at once), then, at the training shape of ``chip_smoke.py``
+(B 4, 16 query heads over 8 KV heads, T 4096, D 128, bf16, causal), for
+each variant of ``flash_fwd_kernel_wgmma``, ``flash_bwd_dkdv_kernel_wgmma``
+and ``flash_bwd_dq_kernel_wgmma``:
 
 - ptxas's registers and spill bytes at D 128 (the build's ``-v`` log);
 - the tiles, threads, dynamic shared memory and resident CTAs an SM
@@ -31,10 +32,11 @@ import torch
 
 B, HQ, HKV, T, D = 4, 16, 8, 4096, 128
 DEFAULT = {"TP_FWD_WG": 2, "TP_FWD_BK": 64, "TP_FWD_MINB": 2,
-           "TP_BWD_WG": 2, "TP_BWD_BQ": 64, "TP_BWD_MINB": 1}
-# (kernel, macros changed from DEFAULT): BQ = 64 x TP_FWD_WG q rows and
-# BK = 64 x TP_BWD_WG key rows, one warpgroup per 64 rows; MINB asks
-# ptxas for that many resident CTAs an SM (a register cap).
+           "TP_BWD_WG": 2, "TP_BWD_BQ": 64, "TP_BWD_MINB": 1,
+           "TP_DQ_WG": 2, "TP_DQ_BK": 64, "TP_DQ_MINB": 1}
+# (kernel, macros changed from DEFAULT): BQ = 64 x TP_FWD_WG (TP_DQ_WG)
+# q rows and BK = 64 x TP_BWD_WG key rows, one warpgroup per 64 rows;
+# MINB asks ptxas for that many resident CTAs an SM (a register cap).
 VARIANTS = [
     ("flash_fwd", {}),
     ("flash_fwd", {"TP_FWD_MINB": 1}),
@@ -45,9 +47,18 @@ VARIANTS = [
     ("flash_bwd_dkdv", {"TP_BWD_BQ": 32}),
     ("flash_bwd_dkdv", {"TP_BWD_WG": 1}),
     ("flash_bwd_dkdv", {"TP_BWD_WG": 1, "TP_BWD_BQ": 32}),
+    # dq at D 128: BQ 64 x BK 64 (97 KiB) is the one tiling whose shared
+    # memory lets 2 CTAs share an SM; the other three hold 1.
+    ("flash_bwd_dq", {}),
+    ("flash_bwd_dq", {"TP_DQ_BK": 128}),
+    ("flash_bwd_dq", {"TP_DQ_WG": 1, "TP_DQ_MINB": 2}),
+    ("flash_bwd_dq", {"TP_DQ_WG": 1, "TP_DQ_BK": 128}),
 ]
 KERNEL = {"flash_fwd": "flash_fwd_kernel_wgmma",
-          "flash_bwd_dkdv": "flash_bwd_dkdv_kernel_wgmma"}
+          "flash_bwd_dkdv": "flash_bwd_dkdv_kernel_wgmma",
+          "flash_bwd_dq": "flash_bwd_dq_kernel_wgmma"}
+PREFIX = {"flash_fwd": "TP_FWD", "flash_bwd_dkdv": "TP_BWD",
+          "flash_bwd_dq": "TP_DQ"}
 
 
 def card_line() -> str:
@@ -112,6 +123,7 @@ def main() -> int:
     calls = {
         "flash_fwd": lambda: TFA._flash_call(q3, k3, v3, *carry, **kw),
         "flash_bwd_dkdv": lambda: TFA._flash_bwd_dkdv(*bargs, **kw),
+        "flash_bwd_dq": lambda: (TFA._flash_bwd_dq(*bargs, **kw),),
     }
     TFA._LIB = TFA.declare(cuda_build.load("flash_attention",
                                            defines({})))
@@ -130,8 +142,7 @@ def main() -> int:
         err = max(norm_err(g, w) for g, w in zip(got, want[kernel]))
         row = {"kernel": kernel,
                "macros": {k: v for k, v in {**DEFAULT, **changes}.items()
-                          if k.startswith("TP_FWD" if kernel == "flash_fwd"
-                                          else "TP_BWD")},
+                          if k.startswith(PREFIX[kernel])},
                "bq": cfg["bq"], "bk": cfg["bk"], "threads": cfg["threads"],
                "smem": cfg["smem"], "ctas_per_sm": cfg["ctas_per_sm"],
                **cuda_build.ptxas_usage(built[macros]["log"],
@@ -139,8 +150,7 @@ def main() -> int:
                "ms": device_ms(calls[kernel]),
                "err_vs_default": err}
         rows.append(row)
-        minb = {**DEFAULT, **changes}["TP_FWD_MINB" if kernel == "flash_fwd"
-                                      else "TP_BWD_MINB"]
+        minb = {**DEFAULT, **changes}[PREFIX[kernel] + "_MINB"]
         print(f"{kernel} BQ {row['bq']} BK {row['bk']} threads "
               f"{row['threads']} MINB {minb}: "
               f"{row['ms']:.4f} ms | {row['registers']} registers, spill "

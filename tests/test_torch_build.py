@@ -49,6 +49,15 @@ def test_library_path_follows_source_flags_and_macros(csrc, monkeypatch):
     assert cuda_build.library_path("k") != source
 
 
+@pytest.mark.parametrize("macro", ["TP_DQ_WG=1", "TP_DQ_BK=128",
+                                   "TP_DQ_MINB=2"])
+def test_library_path_follows_the_dq_tile_macros(csrc, macro):
+    base = cuda_build.library_path("k")
+    tiled = cuda_build.library_path("k", (macro,))
+    assert tiled != base
+    assert tiled == cuda_build.library_path("k", (macro,))
+
+
 def test_a_cached_library_is_not_rebuilt(csrc):
     out = cuda_build.library_path("k", ("X=1",))
     out.parent.mkdir(parents=True)

@@ -184,7 +184,7 @@ def test_flash_kernels_match_plain_on_card_bf16(cuda):
         assert _norm_err(g_, w_) <= 2e-2
 
 
-# bf16 on the tensor-core kernels (forward, dk/dv) and the SIMT dq:
+# bf16 on the tensor-core kernels (forward, dk/dv, dq):
 # (head dim, causal, window, q_off, k_off, Tq, Tk, Hq, Hkv, random
 # carry). Head dims 32/64/128; GQA groups 1, 2 and 4; Tq != Tk, neither a
 # multiple of any tile; q_off < k_off with a window, where the first
@@ -242,6 +242,75 @@ def test_flash_bf16_kernels_match_plain_on_ragged_shapes_on_card(cuda, case):
         o_k, _, l_k = runs[0][:3]
         assert torch.equal(o_k[:, blind], carry[0][:, blind])
         assert torch.equal(l_k[:, blind], carry[2][:, blind])
+
+
+@pytest.mark.cuda
+def test_flash_bf16_dq_at_the_training_shape_windowed_on_card(cuda):
+    # The training shape (B 4, Hq 16 over Hkv 8, T 4096, D 128) with
+    # window 1024: dq alone against its plain version, one batch element
+    # at a time, and two launches bitwise equal.
+    b, hq, hkv, t, d, window = 4, 16, 8, 4096, 128, 1024
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, do = (torch.randn((b * hq, t, d), generator=g, device=cuda).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((b * hkv, t, d), generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=True, q_heads=hq, window=window)
+    o, m, l = TFA._flash_call(q, k, v, *TFA.zero_carry(b * hq, t, d, cuda),
+                              **kw)
+    L = m + torch.log(l)
+    delta = (do.float() * (o / l[..., None])).sum(-1)
+    args = (q, k, v, do, L, delta)
+    before = TFA.launches["flash_bwd_dq"]
+    runs = [TFA._flash_bwd_dq(*args, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert TFA.launches["flash_bwd_dq"] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    want = torch.cat([TFA._flash_bwd_dq_plain(*(x.chunk(b)[i] for x in args),
+                                              **kw) for i in range(b)])
+    assert _norm_err(runs[0], want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bf16_dq_of_a_row_that_sees_no_key_is_zero_on_card(cuda, d):
+    # q_off < k_off with a window: queries 0..k_off - q_off - 1 see no key,
+    # so their L is +1e30, P underflows to 0 and dq is exactly 0.
+    hq, hkv, tq, tk, q_off, k_off, window = 4, 2, 200, 150, 0, 90, 64
+    g = torch.Generator(device="cpu").manual_seed(13)
+    q, do = (torch.randn((2 * hq, tq, d), generator=g).bfloat16().to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn((2 * hkv, tk, d), generator=g).bfloat16().to(cuda)
+            for _ in range(2))
+    kw = dict(causal=True, q_heads=hq, window=window)
+    o, m, l = TFA._flash_call_plain(
+        q, k, v, *TFA.zero_carry(2 * hq, tq, d, cuda), q_off, k_off, **kw)
+    live = l > 0
+    L = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), 1e30)
+    delta = (do.float() * (o / torch.where(live, l, 1.0)[..., None])).sum(-1)
+    args = (q, k, v, do, L, delta, q_off, k_off)
+    dq = TFA._flash_bwd_dq(*args, **kw)
+    want = TFA._flash_bwd_dq_plain(*args, **kw)
+    torch.cuda.synchronize()
+    blind = ~live[0]
+    assert blind.sum() == k_off - q_off
+    assert not dq[:, blind].any()
+    assert _norm_err(dq, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_bf16_dq_config_reports_the_wgmma_kernel_on_card(cuda, d):
+    cfg = TFA.kernel_config("flash_bwd_dq", torch.bfloat16, d)
+    bq, bk = cfg["bq"], cfg["bk"]
+    assert cfg["entry"] == "tp_flash_bwd_dq_wgmma"
+    assert bq % 64 == 0 and bk % 64 == 0
+    assert cfg["threads"] == 128 * (bq // 64)  # a warpgroup per 64 q rows
+    # 1 KiB of alignment slack, the q and dO tiles, a two-stage K/V ring.
+    assert cfg["smem"] == 1024 + 2 * bq * d * 2 + 4 * bk * d * 2
+    assert cfg["ctas_per_sm"] >= 1
+    f32 = TFA.kernel_config("flash_bwd_dq", torch.float32, d)
+    assert f32["entry"] == "tp_flash_bwd_dq" and f32["ctas_per_sm"] >= 1
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """The flash wrappers' launch path on the CPU, against a fake library.
 
-``tpu_p2p_torch/ops/flash_attention.py`` sends bfloat16 forward and
-dk/dv to the tensor-core kernels (``tp_flash_fwd_wgmma``,
-``tp_flash_bwd_dkdv_wgmma``), float32 to the SIMT kernels and every dq
-to ``tp_flash_bwd_dq``. A CPU host cannot launch them, so these tests
+``tpu_p2p_torch/ops/flash_attention.py`` sends bfloat16 to the
+tensor-core kernels (``tp_flash_fwd_wgmma``, ``tp_flash_bwd_dkdv_wgmma``,
+``tp_flash_bwd_dq_wgmma``) and float32 to the SIMT kernels
+(``tp_flash_fwd``, ``tp_flash_bwd_dkdv``, ``tp_flash_bwd_dq``). A CPU
+host cannot launch them, so these tests
 stand a recording fake in for the built library and let CPU tensors
 take the kernel path: which entry point each dtype reaches, the
 arguments in the C order, the launch counts, and that what the kernels
@@ -13,6 +14,7 @@ against their plain versions on the card (``tests/test_torch_cuda.py``,
 """
 
 import contextlib
+import ctypes
 
 import pytest
 import torch
@@ -68,20 +70,22 @@ def _inputs(dtype, d=D, tq=TQ, tk=TK):
     return q, k, v, do, (o0, m0, l0), L, delta
 
 
-@pytest.mark.parametrize("dtype,fwd,dkdv", [
-    (torch.bfloat16, "tp_flash_fwd_wgmma", "tp_flash_bwd_dkdv_wgmma"),
-    (torch.float32, "tp_flash_fwd", "tp_flash_bwd_dkdv"),
+@pytest.mark.parametrize("dtype,fwd,dkdv,dq", [
+    (torch.bfloat16, "tp_flash_fwd_wgmma", "tp_flash_bwd_dkdv_wgmma",
+     "tp_flash_bwd_dq_wgmma"),
+    (torch.float32, "tp_flash_fwd", "tp_flash_bwd_dkdv", "tp_flash_bwd_dq"),
 ], ids=["bf16_tensor_cores", "f32_simt"])
-def test_dtype_picks_the_entry_points(fake, dtype, fwd, dkdv):
+def test_dtype_picks_the_entry_points(fake, dtype, fwd, dkdv, dq):
     q, k, v, do, carry, L, delta = _inputs(dtype)
     before = dict(TFA.launches)
     TFA._flash_call(q, k, v, *carry, causal=True, q_heads=HQ)
     TFA._flash_bwd_call(q, k, v, do, L, delta, causal=True, q_heads=HQ)
-    assert [name for name, _ in fake.calls] == [fwd, dkdv, "tp_flash_bwd_dq"]
+    assert [name for name, _ in fake.calls] == [fwd, dkdv, dq]
     assert {n: TFA.launches[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}
     assert TFA.ENTRY[("flash_fwd", dtype)] == fwd
     assert TFA.ENTRY[("flash_bwd_dkdv", dtype)] == dkdv
+    assert TFA.ENTRY[("flash_bwd_dq", dtype)] == dq
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -117,6 +121,56 @@ def test_backward_passes_its_arguments_in_c_order(fake, dtype):
         assert a[2] == 77
     assert dk.shape == dv.shape == k.shape and dq.shape == q.shape
     assert dq.dtype == dk.dtype == torch.float32
+
+
+def test_bf16_dq_passes_the_arguments_of_the_f32_entry(fake):
+    # tp_flash_bwd_dq_wgmma keeps tp_flash_bwd_dq's C signature: the
+    # same pointers, ints and floats in the same order; only the dtype
+    # code and the entry point differ.
+    calls = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, _, L, delta = _inputs(dtype)
+        dq = TFA._flash_bwd_dq(q, k, v, do, L, delta, 9, 4, causal=True,
+                               q_heads=HQ, window=6)
+        (name, args), = fake.calls
+        fake.calls.clear()
+        assert list(args[:7]) == [t.data_ptr()
+                                  for t in (q, k, v, do, L, delta, dq)]
+        calls[dtype] = (name, args[7:])
+    (n32, a32), (n16, a16) = calls[torch.float32], calls[torch.bfloat16]
+    assert (n32, n16) == ("tp_flash_bwd_dq", "tp_flash_bwd_dq_wgmma")
+    assert list(a16[:11]) == [B * HQ, TQ, TK, D, HQ, HQ // HKV, 9, 4, 1, 6,
+                              TFA._DTYPE_CODE[torch.bfloat16]]
+    assert a16[:10] == a32[:10] and a16[11:] == a32[11:]
+    assert (a16[10], a32[10]) == (1, 0)
+
+
+def test_declare_gives_the_dq_entries_one_signature():
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = TFA.declare(Lib())
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    want = [p] * 7 + [i] * 11 + [f, f, p]
+    assert lib.tp_flash_bwd_dq_wgmma.argtypes == want
+    assert lib.tp_flash_bwd_dq.argtypes == want
+    assert lib.tp_flash_bwd_dq_wgmma.restype is i
+
+
+def test_a_misaligned_bf16_do3_reaches_the_dq_launch_aligned(fake):
+    q, k, v, do, _, L, delta = _inputs(torch.bfloat16)
+    store = torch.empty(do.numel() + 1, dtype=do.dtype)
+    store[1:] = do.reshape(-1)
+    do_odd = store[1:].view(do.shape)
+    assert do_odd.is_contiguous() and do_odd.data_ptr() % 16
+    TFA._flash_bwd_dq(q, k, v, do_odd, L, delta, causal=True, q_heads=HQ)
+    (name, args), = fake.calls
+    assert name == "tp_flash_bwd_dq_wgmma"
+    assert all(ptr % 16 == 0 for ptr in args[:7])
+    assert args[3] != do_odd.data_ptr()
 
 
 def test_operands_off_a_16_byte_boundary_are_copied(fake):

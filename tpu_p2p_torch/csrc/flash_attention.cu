@@ -11,22 +11,22 @@
 //     replace _bwd_dkdv_kernel (:717) and the GQA group sum after it
 //     (_flash_bwd :1310-1314): dK, dV from the saved logsumexp, written
 //     straight into the narrow [B*Hkv, Tk, D] rows.
-//   tp_flash_bwd_dq (both dtypes) replaces _bwd_dq_kernel (:826) and,
-//     for the fused causal form, _dq_reduce_kernel (:693) with its
-//     partial-dq slabs.
+//   tp_flash_bwd_dq (float32) and tp_flash_bwd_dq_wgmma (bfloat16)
+//     replace _bwd_dq_kernel (:826) and, for the fused causal form,
+//     _dq_reduce_kernel (:693) with its partial-dq slabs.
 //
 // What bounds them: at the training shape (T 4096, D 128) the work is
 // O(T^2 D) multiply-adds over O(T D) bytes, so operations, not bytes.
 // Two families:
-//   - SIMT (flash_fwd_kernel, flash_bwd_dkdv_kernel for float32;
-//     flash_bwd_dq_kernel for both): float32 FMAs over shared-memory
-//     tiles, bf16 widened on load, so their ceiling is the card's float32
-//     rate. Float32 stays here: tensor cores would mean TF32.
+//   - SIMT (flash_fwd_kernel, flash_bwd_dkdv_kernel, flash_bwd_dq_kernel;
+//     float32 only): float32 FMAs over shared-memory tiles, so their
+//     ceiling is the card's float32 rate. Float32 stays here: tensor
+//     cores would mean TF32.
 //   - Tensor cores (flash_fwd_kernel_wgmma, flash_bwd_dkdv_kernel_wgmma,
-//     bfloat16 only): bf16 tiles in swizzled shared memory, filled by a
-//     cp.async ring, products on wgmma (section "bf16 on the tensor
-//     cores" below; building blocks in sm90.cuh), so their ceiling is the
-//     bf16 tensor-core rate.
+//     flash_bwd_dq_kernel_wgmma; bfloat16 only): bf16 tiles in swizzled
+//     shared memory, filled by a cp.async ring, products on wgmma
+//     (section "bf16 on the tensor cores" below; building blocks in
+//     sm90.cuh), so their ceiling is the bf16 tensor-core rate.
 
 // Design. Pallas carries the (o, m, l) and dK/dV/dQ accumulators across a
 // sequential grid and revisits output blocks; Hopper runs blocks in
@@ -60,7 +60,9 @@
 // 64-column score tile or D-wide accumulator, so a row's 16 owners sit in
 // one half-warp and reduce with xor-shuffles. Tiles sit in shared memory
 // as float with a row stride of D + 1 (no bank conflicts on the column
-// walks). Rows past Tq or Tk load as zeros; keys past Tk are masked.
+// walks). Rows past Tq or Tk load as zeros; keys past Tk are masked. The
+// SIMT kernels stay templates on the element type but are built for
+// float32 only (dispatch).
 //
 // Every entry point runs on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the caller can raise on a refused launch.
@@ -83,20 +85,14 @@ constexpr float LN2_F = 0.6931471805599453f;
 constexpr float NEG_INF_F = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
-// x rounded to T and widened back: the reference's .astype(T) on an f32.
+// x rounded to T and widened back: the reference's .astype(T) on an f32
+// (float32 only: no bf16 SIMT kernel is built).
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
 template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ int floor_div(int a, int b) {
@@ -157,6 +153,21 @@ __device__ __forceinline__ bool tile_full(int q_first, int k_first, int k0,
 __device__ __forceinline__ bool visible(int qp, int kp, int causal,
                                         int window) {
   return !causal || (qp >= kp && (window <= 0 || qp - kp < window));
+}
+
+// The KV tiles (bk rows each) that queries [q_first, q_first + nq) may
+// see, as [x, y]: the band's first tile for the first query to the
+// diagonal tile of the last (every tile without causal); x > y when none.
+__device__ __forceinline__ int2 live_kv_tiles(int q_first, int nq, int tk,
+                                              int bk, int k_off, int causal,
+                                              int window) {
+  int lo = 0, hi = (tk + bk - 1) / bk - 1;
+  if (causal) {
+    hi = min(hi, floor_div(q_first + nq - 1 - k_off, bk));
+    if (window > 0)
+      lo = max(0, floor_div(q_first - (window - 1) - k_off, bk));
+  }
+  return make_int2(lo, hi);
 }
 
 // s[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two
@@ -255,14 +266,8 @@ __global__ void __launch_bounds__(NT)
       acc[i][jd] = in ? o0[rr * D + tx + 16 * jd] : 0.f;
   }
 
-  const int n_k = (tk + BK - 1) / BK;
-  int kt_lo = 0, kt_hi = n_k - 1;
-  if (causal) {
-    kt_hi = min(kt_hi, floor_div(q_first + BQ - 1 - k_off, BK));
-    if (window > 0)
-      kt_lo = max(0, floor_div(q_first - (window - 1) - k_off, BK));
-  }
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+  const int2 live = live_kv_tiles(q_first, BQ, tk, BK, k_off, causal, window);
+  for (int kt = live.x; kt <= live.y; ++kt) {
     const int k0 = kt * BK;
     const bool full = tile_full(q_first, k_off + k0, k0, tk, causal, window);
     __syncthreads();  // the previous tile's reads of kvs and ps are done
@@ -485,14 +490,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = 0.f;
 
-  const int n_k = (tk + BK - 1) / BK;
-  int kt_lo = 0, kt_hi = n_k - 1;
-  if (causal) {
-    kt_hi = min(kt_hi, floor_div(q_first + BQ - 1 - k_off, BK));
-    if (window > 0)
-      kt_lo = max(0, floor_div(q_first - (window - 1) - k_off, BK));
-  }
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+  const int2 live = live_kv_tiles(q_first, BQ, tk, BK, k_off, causal, window);
+  for (int kt = live.x; kt <= live.y; ++kt) {
     const int k0 = kt * BK;
     const int k_first = k_off + k0;
     const bool full = tile_full(q_first, k_first, k0, tk, causal, window);
@@ -518,20 +517,20 @@ __global__ void __launch_bounds__(NT)
 
 // ------------------------------------------- bf16 on the tensor cores
 //
-// The bf16 forward and dK/dV kernels. Every product of the function is
-// bf16 x bf16 summed in float32 (q folded and rounded on load, p rounded
-// to v's dtype, ds to q's), which is what wgmma .f32.bf16.bf16 computes,
-// so these kernels keep the SIMT kernels' function and change only the
-// order of float32 sums. Tiles stay bf16 in shared memory in the
-// swizzled layout of sm90.cuh; KV (forward) or Q/dO/L/delta (dK/dV)
-// tiles come through a two-stage cp.async ring, the next tile's copy in
-// flight while the current one computes; products run on wgmma with the
-// float32 accumulators in registers, and a result that feeds the next
-// product (P, dS^T) goes from accumulator to A operand without leaving
-// registers. One warpgroup owns 64 rows (queries in the forward, keys
-// in dK/dV) and skips, with a uniform branch, a tile its rows see none
-// of. Tile sizes are compile-time (TP_FWD_*, TP_BWD_*, measured by
-// flash_tiles.py).
+// The bf16 forward, dK/dV and dq kernels. Every product of the function
+// is bf16 x bf16 summed in float32 (q folded and rounded on load, p
+// rounded to v's dtype, ds to q's or k's), which is what wgmma
+// .f32.bf16.bf16 computes, so these kernels keep the plain versions'
+// function and change only the order of float32 sums. Tiles stay bf16 in
+// shared memory in the swizzled layout of sm90.cuh; KV (forward, dq) or
+// Q/dO/L/delta (dK/dV) tiles come through a two-stage cp.async ring, the
+// next tile's copy in flight while the current one computes; products
+// run on wgmma with the float32 accumulators in registers, and a result
+// that feeds the next product (P, dS, dS^T) goes from accumulator to A
+// operand without leaving registers. One warpgroup owns 64 rows (queries
+// in the forward and dq, keys in dK/dV) and skips, with a uniform
+// branch, a tile its rows see none of. Tile sizes are compile-time
+// (TP_FWD_*, TP_BWD_*, TP_DQ_*, measured by flash_tiles.py).
 
 #ifndef TP_FWD_WG
 #define TP_FWD_WG 2     // forward warpgroups: BQ = 64 x TP_FWD_WG q rows
@@ -552,6 +551,15 @@ __global__ void __launch_bounds__(NT)
 #endif
 #ifndef TP_BWD_MINB
 #define TP_BWD_MINB 1
+#endif
+#ifndef TP_DQ_WG
+#define TP_DQ_WG 2      // dq warpgroups: BQ = 64 x TP_DQ_WG q rows
+#endif
+#ifndef TP_DQ_BK
+#define TP_DQ_BK 64     // dq KV tile rows
+#endif
+#ifndef TP_DQ_MINB
+#define TP_DQ_MINB 1
 #endif
 
 using bf16 = __nv_bfloat16;
@@ -589,6 +597,24 @@ __device__ __forceinline__ uint4 fold8(uint4 x, float fold) {
   return x;
 }
 
+// Rows [q0, q0 + R) of a row-major [tq, D] bf16 q into a swizzled tile,
+// each value times fold and rounded back to bf16 (plain loads and
+// stores); rows past tq are zeros.
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_q_folded(uint8_t* dst, const bf16* qh,
+                                              int q0, int tq, float fold) {
+  using TL = sm90::Tile<R, D>;
+  for (int i = threadIdx.x; i < R * D / 8; i += NT) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < tq)
+      x = fold8(*reinterpret_cast<const uint4*>(
+                    qh + static_cast<int64_t>(q0 + r) * D + c * 8),
+                fold);
+    *reinterpret_cast<uint4*>(dst + TL::chunk(r, c)) = x;
+  }
+}
+
 template <int D, int WG, int BK, int MINB>
 __global__ void __launch_bounds__(128 * WG, MINB)
     flash_fwd_kernel_wgmma(const bf16* __restrict__ q,
@@ -618,15 +644,8 @@ __global__ void __launch_bounds__(128 * WG, MINB)
   const bf16* kh = k + static_cast<int64_t>(kv_row) * tk * D;
   const bf16* vh = v + static_cast<int64_t>(kv_row) * tk * D;
 
-  // The CTA's live KV tiles: the band's first for its first row to the
-  // diagonal of its last.
-  const int n_k = (tk + BK - 1) / BK;
-  int kt_lo = 0, kt_hi = n_k - 1;
-  if (causal) {
-    kt_hi = min(kt_hi, floor_div(q_first + BQT - 1 - k_off, BK));
-    if (window > 0)
-      kt_lo = max(0, floor_div(q_first - (window - 1) - k_off, BK));
-  }
+  const int2 cta = live_kv_tiles(q_first, BQT, tk, BK, k_off, causal, window);
+  const int kt_lo = cta.x, kt_hi = cta.y;  // the CTA's live KV tiles
   auto load_kv = [&](int kt, int stage) {
     uint8_t* ks = kvs + 2 * stage * KT::BYTES;
     load_tile_async<BK, D, NT>(ks, kh, kt * BK, tk);
@@ -636,15 +655,7 @@ __global__ void __launch_bounds__(128 * WG, MINB)
   if (kt_lo <= kt_hi) load_kv(kt_lo, 0);
 
   // q, folded and rounded once, while the first KV tile is in flight.
-  for (int i = threadIdx.x; i < BQT * D / 8; i += NT) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < tq)
-      x = fold8(*reinterpret_cast<const uint4*>(
-                    qh + static_cast<int64_t>(q0 + r) * D + c * 8),
-                fold);
-    *reinterpret_cast<uint4*>(qs + QT::chunk(r, c)) = x;
-  }
+  load_q_folded<BQT, D, NT>(qs, qh, q0, tq, fold);
   sm90::fence_async_smem();
 
   const int wg = threadIdx.x / 128;
@@ -652,13 +663,8 @@ __global__ void __launch_bounds__(128 * WG, MINB)
   const int g = lane / 4, t = lane % 4;
   const int wq0 = q0 + 64 * wg;  // this warpgroup's first row
   const int wq_first = q_off + wq0;
-  int w_lo = 0, w_hi = n_k - 1;  // and its live tiles
-  if (causal) {
-    w_hi = min(w_hi, floor_div(wq_first + 63 - k_off, BK));
-    if (window > 0)
-      w_lo = max(0, floor_div(wq_first - (window - 1) - k_off, BK));
-  }
-  if (wq0 >= tq) w_hi = -1;
+  const int2 wl = live_kv_tiles(wq_first, 64, tk, BK, k_off, causal, window);
+  const int w_lo = wl.x, w_hi = wq0 < tq ? wl.y : -1;  // and its live tiles
 
   // The carry, in the accumulator layout; m in log2 units. l is a
   // per-thread partial row sum (the quad's t == 0 starts from l0),
@@ -969,6 +975,160 @@ __global__ void __launch_bounds__(128 * WG, MINB)
   }
 }
 
+// dq, the forward's shape with the backward's elementwise step between
+// its two products (FlashAttention-2's dq pass). The folded q tile and
+// the dO tile stay resident; K/V tiles come through the ring.
+//   S = Qf . K^T and dP = dO . V^T   (A: Qf or dO rows, B: K or V, both
+//                                     K-major over D)
+//   P = exp2(S - L log2e), dS = P o (dP - delta) scale
+//   dQ += dS . K                      (A: registers, B: the same K tile
+//                                     read MN-major)
+// Queries are M, so L and delta vary along the fragment's rows: each
+// thread holds its two rows' values in registers.
+template <int D, int WG, int BK, int MINB>
+__global__ void __launch_bounds__(128 * WG, MINB)
+    flash_bwd_dq_kernel_wgmma(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ L,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq, int tq, int tk,
+                              int q_heads, int group, int q_off, int k_off,
+                              int causal, int window, float fold,
+                              float scale) {
+  constexpr int NT = 128 * WG;
+  constexpr int BQT = 64 * WG;
+  using QT = sm90::Tile<BQT, D>;
+  using KT = sm90::Tile<BK, D>;
+  uint8_t* qs = smem_1024();              // folded q
+  uint8_t* dos = qs + QT::BYTES;          // dO
+  uint8_t* kvs = dos + QT::BYTES;         // stage s: K, then V
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heavy (late) tiles first
+  const int row = blockIdx.y;
+  const int kv_row =
+      (row / q_heads) * (q_heads / group) + (row % q_heads) / group;
+  const int q0 = qt * BQT;
+  const int q_first = q_off + q0;
+  const int64_t row_base = static_cast<int64_t>(row) * tq;
+  const bf16* qh = q + row_base * D;
+  const bf16* kh = k + static_cast<int64_t>(kv_row) * tk * D;
+  const bf16* vh = v + static_cast<int64_t>(kv_row) * tk * D;
+
+  const int2 cta = live_kv_tiles(q_first, BQT, tk, BK, k_off, causal, window);
+  const int kt_lo = cta.x, kt_hi = cta.y;  // the CTA's live KV tiles
+  auto load_kv = [&](int kt, int stage) {
+    uint8_t* ks = kvs + 2 * stage * KT::BYTES;
+    load_tile_async<BK, D, NT>(ks, kh, kt * BK, tk);
+    load_tile_async<BK, D, NT>(ks + KT::BYTES, vh, kt * BK, tk);
+    sm90::cp_async_commit();
+  };
+  if (kt_lo <= kt_hi) {  // dO lands with the first KV tile
+    load_tile_async<BQT, D, NT>(dos, dout + row_base * D, q0, tq);
+    load_kv(kt_lo, 0);
+  }
+
+  // q, folded and rounded once, while the first tiles are in flight.
+  load_q_folded<BQT, D, NT>(qs, qh, q0, tq, fold);
+  sm90::fence_async_smem();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32, w = (threadIdx.x % 128) / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wq0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int wq_first = q_off + wq0;
+  const int2 wl = live_kv_tiles(wq_first, 64, tk, BK, k_off, causal, window);
+  const int w_lo = wl.x, w_hi = wq0 < tq ? wl.y : -1;  // and its live tiles
+
+  // This thread's rows 16 w + g and 16 w + g + 8: L (log2 units) and
+  // delta; rows past Tq read 0 (computed, never written).
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wq0 + 16 * w + g + 8 * h;
+    const bool in = r < tq;
+    l2[h] = in ? L[row_base + r] * LOG2E_F : 0.f;
+    dl[h] = in ? delta[row_base + r] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t qb = sm90::smem_u32(qs), dob = sm90::smem_u32(dos);
+  int stage = 0;
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    if (kt < kt_hi) {
+      load_kv(kt + 1, stage ^ 1);
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    sm90::fence_async_smem();
+    __syncthreads();  // tile kt (and q, dO) visible to every warpgroup
+    if (kt >= w_lo && kt <= w_hi) {
+      const uint32_t kb = sm90::smem_u32(kvs + 2 * stage * KT::BYTES);
+      const uint32_t vb = kb + KT::BYTES;
+      const int k0 = kt * BK;
+      float s[BK / 2], dp[BK / 2];
+      sm90::wgmma_fence();
+      sm90::wgmma_ss_init<BK>(s, QT::desc_k(qb, 64 * wg, 0),
+                              KT::desc_k(kb, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BK>(s, QT::desc_k(qb, 64 * wg, kk),
+                           KT::desc_k(kb, 0, kk), 1);
+      sm90::wgmma_ss_init<BK>(dp, QT::desc_k(dob, 64 * wg, 0),
+                              KT::desc_k(vb, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        sm90::wgmma_ss<BK>(dp, QT::desc_k(dob, 64 * wg, kk),
+                           KT::desc_k(vb, 0, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      const bool full =
+          block_full(wq_first, 64, k_off + k0, k0, BK, tk, causal, window);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const int kj = k0 + 8 * j + 2 * t + e;  // key row
+            float sv = s[i];
+            if (!full && (kj >= tk || !visible(wq_first + 16 * w + g + 8 * h,
+                                               k_off + kj, causal, window)))
+              sv = NEG_INF_F;
+            s[i] = exp2f(sv - l2[h]) * (dp[i] - dl[h]) * scale;  // dS
+          }
+      // dQ += dS . K, dS rounded to bf16 in registers
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) sm90::acc_to_a(da[kk], s, kk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::wgmma_rs<D>(acc, da[kk], KT::desc_mn(kb, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+    __syncthreads();  // every read of this stage done before its refill
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wq0 + 16 * w + g + 8 * h;
+    if (r >= tq) continue;
+    const int64_t rr = (row_base + r) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dq + rr + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
 // -------------------------------------------------------------- launches
 
 template <int D>
@@ -1054,6 +1214,11 @@ constexpr int dkdv_tc_smem() {
   return 1024 + 2 * sm90::Tile<64 * TP_BWD_WG, D>::BYTES +
          5 * sm90::Tile<TP_BWD_BQ, D>::BYTES + 4 * TP_BWD_BQ * 4;
 }
+template <int D>
+constexpr int dq_tc_smem() {
+  return 1024 + 2 * sm90::Tile<64 * TP_DQ_WG, D>::BYTES +
+         4 * sm90::Tile<TP_DQ_BK, D>::BYTES;
+}
 
 template <int D>
 int launch_fwd_tc(const Args& a) {
@@ -1094,27 +1259,36 @@ int launch_dkdv_tc(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dq_tc(const Args& a) {
+  auto* kern = flash_bwd_dq_kernel_wgmma<D, TP_DQ_WG, TP_DQ_BK, TP_DQ_MINB>;
+  constexpr int smem = dq_tc_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bq = 64 * TP_DQ_WG;
+  const dim3 grid((a.tq + bq - 1) / bq, a.rows);
+  kern<<<grid, 128 * TP_DQ_WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.x),
+      static_cast<const float*>(a.y), static_cast<const float*>(a.z),
+      static_cast<float*>(a.out0), a.tq, a.tk, a.q_heads, a.group, a.q_off,
+      a.k_off, a.causal, a.window, a.fold, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool args_ok(const Args& a) {
   return a.rows >= 1 && a.tq >= 1 && a.tk >= 1 && a.q_heads >= 1 &&
          a.group >= 1 && a.q_heads % a.group == 0;
 }
 
-// dtype: 0 float32, 1 bfloat16 (only where BF16); d: 32, 64 or 128.
-template <template <typename, int> class L, bool BF16>
+// The SIMT kernels: float32 only (dtype 0); d: 32, 64 or 128.
+template <template <typename, int> class L>
 int dispatch(const Args& a, int d, int dtype) {
-  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    if (d == 32) return L<float, 32>::run(a);
-    if (d == 64) return L<float, 64>::run(a);
-    if (d == 128) return L<float, 128>::run(a);
-  }
-  if constexpr (BF16) {
-    if (dtype == 1) {
-      if (d == 32) return L<__nv_bfloat16, 32>::run(a);
-      if (d == 64) return L<__nv_bfloat16, 64>::run(a);
-      if (d == 128) return L<__nv_bfloat16, 128>::run(a);
-    }
-  }
+  if (!args_ok(a) || dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 32) return L<float, 32>::run(a);
+  if (d == 64) return L<float, 64>::run(a);
+  if (d == 128) return L<float, 128>::run(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1156,6 +1330,10 @@ template <int D>
 struct DkdvTc {
   static int run(const Args& a) { return launch_dkdv_tc<D>(a); }
 };
+template <int D>
+struct DqTc {
+  static int run(const Args& a) { return launch_dq_tc<D>(a); }
+};
 
 // CTAs of kern resident on one SM at this launch's threads and shared
 // memory (0 when the card refuses the configuration).
@@ -1184,15 +1362,20 @@ int config_d(int fn, int dtype, int* out) {
     out[4] = ctas_per_sm(
         flash_bwd_dkdv_kernel_wgmma<D, TP_BWD_WG, TP_BWD_BQ, TP_BWD_MINB>,
         out[2], out[3]);
-  } else {  // the SIMT kernels
+  } else if (dtype == 1) {  // fn 2
+    out[0] = 64 * TP_DQ_WG, out[1] = TP_DQ_BK, out[2] = 128 * TP_DQ_WG;
+    out[3] = dq_tc_smem<D>();
+    out[4] = ctas_per_sm(
+        flash_bwd_dq_kernel_wgmma<D, TP_DQ_WG, TP_DQ_BK, TP_DQ_MINB>, out[2],
+        out[3]);
+  } else {  // the SIMT kernels, float32
     out[0] = BQ, out[1] = BK, out[2] = NT;
     out[3] = static_cast<int>(fn == 0 ? fwd_smem<D>() : bwd_smem<D>());
     if (fn == 0) out[4] = ctas_per_sm(flash_fwd_kernel<float, D>, NT, out[3]);
     if (fn == 1)
       out[4] = ctas_per_sm(flash_bwd_dkdv_kernel<float, D>, NT, out[3]);
     if (fn == 2)
-      out[4] = dtype ? ctas_per_sm(flash_bwd_dq_kernel<bf16, D>, NT, out[3])
-                     : ctas_per_sm(flash_bwd_dq_kernel<float, D>, NT, out[3]);
+      out[4] = ctas_per_sm(flash_bwd_dq_kernel<float, D>, NT, out[3]);
   }
   return 0;
 }
@@ -1209,7 +1392,7 @@ extern "C" int tp_flash_fwd(const void* q, const void* k, const void* v,
                m,  l,     rows,   tq,    tk,     q_heads, group,
                q_off, k_off, causal, window, fold, 0.f,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Fwd, false>(a, d, dtype);
+  return dispatch<Fwd>(a, d, dtype);
 }
 
 extern "C" int tp_flash_fwd_wgmma(const void* q, const void* k, const void* v,
@@ -1237,7 +1420,7 @@ extern "C" int tp_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                dv, nullptr, rows, tq,    tk,     q_heads, group,
                q_off, k_off, causal, window, fold, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Dkdv, false>(a, d, dtype);
+  return dispatch<Dkdv>(a, d, dtype);
 }
 
 extern "C" int tp_flash_bwd_dkdv_wgmma(
@@ -1264,7 +1447,20 @@ extern "C" int tp_flash_bwd_dq(const void* q, const void* k, const void* v,
                nullptr, nullptr, rows, tq,    tk,     q_heads, group,
                q_off,   k_off,   causal, window, fold, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Dq, true>(a, d, dtype);
+  return dispatch<Dq>(a, d, dtype);
+}
+
+extern "C" int tp_flash_bwd_dq_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* L, const void* delta, void* dq, int rows, int tq, int tk,
+    int d, int q_heads, int group, int q_off, int k_off, int causal,
+    int window, int dtype, float fold, float scale, void* stream) {
+  const Args a{q,       k,       v,    dout,  L,      delta,  dq,
+               nullptr, nullptr, rows, tq,    tk,     q_heads, group,
+               q_off,   k_off,   causal, window, fold, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (!aligned(dout, 16)) return static_cast<int>(cudaErrorMisalignedAddress);
+  return dispatch_tc<DqTc>(a, d, dtype);
 }
 
 // How a kernel is launched: fn 0 the forward, 1 dK/dV, 2 dq; dtype 0

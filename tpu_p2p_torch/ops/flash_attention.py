@@ -6,10 +6,10 @@ reference's contracts, and each has three forms side by side:
 - the **kernel**, hand-written CUDA C++ for Hopper
   (``tpu_p2p_torch/csrc/flash_attention.cu``, built by
   :mod:`tpu_p2p_torch.utils.cuda_build`), launched for CUDA tensors:
-  bfloat16 forward and dk/dv on the tensor cores (``wgmma``, entry
-  points ``tp_flash_fwd_wgmma`` and ``tp_flash_bwd_dkdv_wgmma``),
-  float32 and every dq on the SIMT kernels (``tp_flash_fwd``,
-  ``tp_flash_bwd_dkdv``, ``tp_flash_bwd_dq``);
+  bfloat16 on the tensor cores (``wgmma``, entry points
+  ``tp_flash_fwd_wgmma``, ``tp_flash_bwd_dkdv_wgmma`` and
+  ``tp_flash_bwd_dq_wgmma``), float32 on the SIMT kernels
+  (``tp_flash_fwd``, ``tp_flash_bwd_dkdv``, ``tp_flash_bwd_dq``);
 - the **plain version** (``*_plain``), whole-row PyTorch with the
   kernel's own math, used for CPU tensors and as the kernel's
   yardstick on the card;
@@ -85,6 +85,7 @@ def declare(lib):
                       ("tp_flash_bwd_dkdv", [p] * 8 + ints + [f, f, p]),
                       ("tp_flash_bwd_dkdv_wgmma", [p] * 8 + ints + [f, f, p]),
                       ("tp_flash_bwd_dq", [p] * 7 + ints + [f, f, p]),
+                      ("tp_flash_bwd_dq_wgmma", [p] * 7 + ints + [f, f, p]),
                       ("tp_flash_config", [i, i, i, p])):
         getattr(lib, name).argtypes = sig
         getattr(lib, name).restype = i
@@ -101,15 +102,15 @@ def _lib():
     return _LIB
 
 
-# The C entry point of each kernel by dtype: bfloat16 forward and dk/dv
-# run on the tensor cores, float32 (and every dq) on the SIMT kernels.
+# The C entry point of each kernel by dtype: bfloat16 runs on the tensor
+# cores, float32 on the SIMT kernels.
 ENTRY = {
     ("flash_fwd", torch.float32): "tp_flash_fwd",
     ("flash_fwd", torch.bfloat16): "tp_flash_fwd_wgmma",
     ("flash_bwd_dkdv", torch.float32): "tp_flash_bwd_dkdv",
     ("flash_bwd_dkdv", torch.bfloat16): "tp_flash_bwd_dkdv_wgmma",
     ("flash_bwd_dq", torch.float32): "tp_flash_bwd_dq",
-    ("flash_bwd_dq", torch.bfloat16): "tp_flash_bwd_dq",
+    ("flash_bwd_dq", torch.bfloat16): "tp_flash_bwd_dq_wgmma",
 }
 _KERNEL_CODE = {"flash_fwd": 0, "flash_bwd_dkdv": 1, "flash_bwd_dq": 2}
 
