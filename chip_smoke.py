@@ -15,7 +15,8 @@ the first phase that goes wrong:
    bf16 tensor-core kernels (forward, dK/dV, dq) must hold HGMMA (wgmma)
    instructions at every head dim and no bf16 SIMT flash kernel may be
    left; their registers, spills, shared memory and CTAs an SM are
-   printed;
+   printed, and the three peer-push kernels' registers, spills and
+   shared memory;
 3. kernels  — each KV-cache kernel against its plain PyTorch version at
    the serving shapes, bitwise (they are copies), timed beside its bytes
    bound, the plain version and one ``index_put_`` call;
@@ -55,7 +56,9 @@ the first phase that goes wrong:
    sets at 136 B and the run's size in int8, a float32 [5, 3] row and
    one backward pass; then its per-hop time at 32 MiB beside its bound,
    the plain version and one ``copy_``. Ranks sharing a card run as
-   time-sliced CUDA contexts, so these are not link numbers;
+   time-sliced CUDA contexts, so these are not link numbers; the kernel
+   alone (a world of 1, the 32 MiB self-edge, stored straight into the
+   output) beside one ``copy_`` of the same bytes, both device time;
 9. disagg   — ``run_disagg_engine`` (what ``serve --disagg`` runs) at the
    full width on two in-process ranks sharing cuda:0 (prefill, decode),
    phase 7's trace, 32 decode + 4 prefill slots, ``--transport
@@ -75,8 +78,10 @@ the first phase that goes wrong:
    The fused-ship kernel against its plain version and
    ``expected_permute`` on 2 and 4 in-process ranks, bitwise, and its
    time beside a token-chunk GEMM: ship alone, compute alone, fused,
-   and their overlap. In-process ranks run concurrently on the card, so
-   the migration Gbps are on-card copies, not link numbers.
+   and their overlap; then one ship alone and one fused under
+   ``torch.profiler``, split into push, arrival, spin and idle time.
+   In-process ranks run concurrently on the card, so the migration Gbps
+   are on-card copies, not link numbers.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -242,6 +247,32 @@ def sass_check(TFA, info: dict, card: str) -> None:
             f"SM | {card}")
     say(f"sass: no bf16 SIMT flash kernel left ({len(hgmma)} kernels in "
         f"the library)")
+
+
+# The peer-push kernels (csrc/p2p_dma.cu).
+P2P_KERNELS = ("dma_permute_kernel", "dma_ship_push_kernel",
+               "dma_ship_arrive_kernel")
+
+
+def p2p_resources(info: dict, card: str) -> None:
+    """The built peer-push library read back with ``cuobjdump
+    -res-usage``: each kernel's registers, static shared memory and local
+    bytes, with ptxas's spill bytes (the build's log, when this run built
+    it)."""
+    from tpu_p2p_torch.utils.cuda_build import ptxas_usage
+
+    usage = {m.group(1): m.group(2, 3, 4) for m in re.finditer(
+        r"Function (\S+):\s*REG:(\d+) STACK:\d+ SHARED:(\d+) "
+        r"LOCAL:(\d+)", cuobjdump("-res-usage", str(info["path"])))}
+    for kernel in P2P_KERNELS:
+        name = next((n for n in usage if kernel in n), None)
+        if name is None:
+            raise AssertionError(f"{kernel} not in the p2p_dma library")
+        reg, shared, local = usage[name]
+        spill = ptxas_usage(info["log"], kernel)
+        say(f"resources {kernel}: {reg} registers, {shared} B static "
+            f"shared, local {local} B, ptxas spill stores / loads "
+            f"{spill['spill_stores']} / {spill['spill_loads']} B | {card}")
 
 
 # ------------------------------------------------------------ phase 3
@@ -1191,10 +1222,11 @@ def p2p_world(n: int, card: str, **kw) -> list:
 
 def p2p_self_edge() -> dict:
     """The kernel with no peer: a world of 1 on cuda:0 pushing 32 MiB
-    into its own window over the self-edge, so no context ever waits for
-    another. → ms per hop of a fused chain (median of 5 chains of
-    ``HOP_CHAIN``, CUDA events), the host's enqueue time per hop over that
-    chain, and the kernel's own device time (median over one chain under
+    over the self-edge, straight into its own output, so no context ever
+    waits for another. → ms per hop of a fused chain (median of 5 chains
+    of ``HOP_CHAIN``, CUDA events), the host's enqueue time per hop over
+    that chain, and the device times of the kernel and of one ``copy_``
+    of the same 32 MiB (medians over one chain of each under
     ``torch.profiler``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1219,18 +1251,27 @@ def p2p_self_edge() -> dict:
         t1.record()
         t1.synchronize()
         hops.append(t0.elapsed_time(t1) / HOP_CHAIN)
+    dst = torch.empty_like(x)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         chain(x)
+        torch.cuda.synchronize()
+        for _ in range(HOP_CHAIN):
+            dst.copy_(x)
         torch.cuda.synchronize()
     kernel = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
               if ev.device_type == DeviceType.CUDA
               and "dma_permute_kernel" in ev.name]
-    if not kernel:
-        raise AssertionError("the profiler recorded no self-edge kernel")
+    copies = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and "dma_permute_kernel" not in ev.name]
+    if not kernel or not copies:
+        raise AssertionError("the profiler recorded no self-edge kernel "
+                             "or copy_")
     rt.close()
     return {"chain_ms": statistics.median(hops),
             "enqueue_ms": statistics.median(enqueue),
-            "kernel_ms": statistics.median(kernel), "profiled": len(kernel)}
+            "kernel_ms": statistics.median(kernel), "profiled": len(kernel),
+            "copy_ms": statistics.median(copies)}
 
 
 def p2p(card: str) -> dict:
@@ -1266,7 +1307,10 @@ def p2p(card: str) -> dict:
         f"{alone['chain_ms']:.4f} ms a hop of a fused chain, host enqueue "
         f"{alone['enqueue_ms']:.4f} ms a hop, kernel device time "
         f"{alone['kernel_ms']:.4f} ms (profiler, median of the "
-        f"{alone['profiled']} kernels it recorded of {HOP_CHAIN}) | {card}")
+        f"{alone['profiled']} kernels it recorded of {HOP_CHAIN}; "
+        f"{bound / alone['kernel_ms']:.3f} of the bound) beside copy_ "
+        f"{alone['copy_ms']:.4f} ms of device time on the same 32 MiB "
+        f"({alone['kernel_ms'] / alone['copy_ms']:.3f}x) | {card}")
     return {
         "name": "dma_permute", "route": "cuda",
         "source": "tpu_p2p_torch/csrc/p2p_dma.cu",
@@ -1378,12 +1422,11 @@ def device_ms(fn, calls: int = SHIP_TIMED) -> list:
     return out[2:]
 
 
-def ship_timing(card: str) -> dict:
+def ship_cases():
     """The fused ship of one migration chunk (edge (0, 1) on 2 ranks of
     cuda:0) with a real compute on each rank, a token chunk through the
-    FFN's first matrix: the ship alone, the compute alone, both fused,
-    medians of ``SHIP_TIMED`` calls; the overlap; the plain version
-    (host) and one ``copy_`` of the chunk on the card."""
+    FFN's first matrix. → the two meshes, the ship's rows, and the three
+    calls: the ship alone, the compute alone, both fused."""
     from tpu_p2p_torch.parallel import pallas_dma as PD
 
     mesh, cpu = local_meshes(2)
@@ -1412,9 +1455,21 @@ def ship_timing(card: str) -> dict:
         for i in range(2):
             caller.wait_stream(mesh.streams[i])
 
-    times = {name: statistics.median(device_ms(fn)) for name, fn in
-             (("ship", ship_alone), ("compute", compute_alone),
-              ("fused", fused))}
+    return mesh, cpu, ship, {"ship": ship_alone, "compute": compute_alone,
+                             "fused": fused}
+
+
+def ship_timing(card: str) -> dict:
+    """:func:`ship_cases`' three calls, medians of ``SHIP_TIMED`` calls
+    of device time; the overlap; the plain version (host) and one
+    ``copy_`` of the chunk on the card."""
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    mesh, cpu, ship, calls = ship_cases()
+    edges = ((0, 1),)
+    m, k, f = GEMM
+    times = {name: statistics.median(device_ms(fn))
+             for name, fn in calls.items()}
     times["overlap"] = ((times["ship"] + times["compute"] - times["fused"])
                         / min(times["ship"], times["compute"]))
     rows = [r.cpu() for r in ship]
@@ -1444,6 +1499,109 @@ def ship_timing(card: str) -> dict:
     mesh.close()
     return {**times, "plain_ms": plain_ms, "library_ms": library,
             "bound_ms": bound}
+
+
+SHIP_PROFILED = 7                       # calls of each kind under the profiler
+
+
+def calls_after_sleeps(prof, sleep=("spin", "sleep")) -> list:
+    """The profiled device kernels as one list per call, each call being
+    what ran after one ``torch.cuda._sleep`` and before the next:
+    ``(name, start_us, end_us)`` sorted by start."""
+    from torch.autograd import DeviceType
+
+    evs = sorted(((ev.name, ev.time_range.start, ev.time_range.end)
+                  for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA),
+                 key=lambda e: e[1])
+    calls = []
+    for e in evs:
+        if any(k in e[0] for k in sleep):
+            calls.append([])
+        elif calls:
+            calls[-1].append(e)
+    return calls
+
+
+def union_us(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def ship_split(group) -> dict:
+    """One profiled ship call (its kernels) split into µs: its device
+    span (first kernel start to last kernel end), the time some push,
+    arrival or compute kernel ran (each the union of its kernels'
+    intervals), the idle time inside the span (no kernel at all), and
+    the arrivals' spin: the part of each arrival kernel spent before the
+    last push ended (it cannot end before the bytes it waits for)."""
+    t0 = min(e[1] for e in group)
+    kind = {"push": [], "arrive": [], "compute": []}
+    for name, a, b in group:
+        k = ("push" if "dma_ship_push" in name else
+             "arrive" if "dma_ship_arrive" in name else "compute")
+        kind[k].append((a - t0, b - t0))
+    span = max(e[2] for e in group) - t0
+    last_push = max((b for _, b in kind["push"]), default=0.0)
+    out = {"span": span, "idle": span - union_us(
+        [(a - t0, b - t0) for _, a, b in group])}
+    out.update({k: union_us(v) for k, v in kind.items()})
+    out["spin"] = sum(max(0.0, min(b, last_push) - a)
+                      for a, b in kind["arrive"])
+    out["timeline"] = " ".join(
+        f"{k}@{a:.1f}-{b:.1f}" for k, v in kind.items() for a, b in sorted(v))
+    return out
+
+
+def ship_profile(card: str) -> dict:
+    """``SHIP_PROFILED`` calls of :func:`ship_cases`' ship alone and fused
+    under ``torch.profiler``, each issued whole while the card sleeps, so
+    the gaps between its kernels are the card's own: per kind, the
+    medians of :func:`ship_split`'s parts over the calls whose two pushes
+    the profiler recorded, and the kernels of the call with the median
+    span (µs from its first kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh, _, _, calls = ship_cases()
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    res = {}
+    for name in ("ship", "fused"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SHIP_PROFILED):
+                torch.cuda._sleep(8_000_000)
+                calls[name]()
+                torch.cuda.synchronize()
+        splits = [ship_split(c) for c in calls_after_sleeps(prof)
+                  if sum("dma_ship_push" in k[0] for k in c) == 2]
+        if 2 * len(splits) < SHIP_PROFILED:
+            raise AssertionError(f"the profiler recorded both pushes of "
+                                 f"{len(splits)} of {SHIP_PROFILED} {name} "
+                                 "calls")
+        splits.sort(key=lambda s: s["span"])
+        med = {k: statistics.median(s[k] for s in splits)
+               for k in ("span", "push", "arrive", "compute", "idle",
+                         "spin")}
+        med["timeline"] = splits[len(splits) // 2]["timeline"]
+        res[name] = med
+        say(f"profile ship {name} (median of {len(splits)} calls, µs, "
+            f"device time under torch.profiler): span {med['span']:.1f} = "
+            f"kernels busy {med['span'] - med['idle']:.1f} + idle "
+            f"{med['idle']:.1f} | push {med['push']:.1f}, arrival "
+            f"{med['arrive']:.1f} (of it spinning before the last push "
+            f"ended {med['spin']:.1f}), compute {med['compute']:.1f} | "
+            f"median call: {med['timeline']} | {card}")
+    mesh.close()
+    return res
 
 
 def short_trace(trace, n: int, max_new: int) -> list:
@@ -1764,14 +1922,7 @@ def profile_disagg(cfg, params, card: str) -> None:
         fam_ms[family] = fam_ms.get(family, 0.0) + tr.elapsed_us() / 1e3
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
-    busy_us, end = 0.0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            busy_us += b - a
-            end = b
-        elif b > end:
-            busy_us += b - end
-            end = b
+    busy_us = union_us(spans)
     steps = out["steps"]
     mesh.close()
     say(f"profile disagg (4 requests of 8 tokens, 32+4 slots, pallas_dma x"
@@ -1798,6 +1949,7 @@ def ship(card: str, dis: dict) -> dict:
         f"136 B int8 and {list(SHIP_CHUNK)} bf16, y == the product on the "
         f"side, backward == the reverse hop | {card}")
     tm = ship_timing(card)
+    ship_profile(card)
     return {
         "name": "dma_ship", "route": "cuda",
         "source": "tpu_p2p_torch/csrc/p2p_dma.cu",
@@ -1837,6 +1989,7 @@ def main() -> int:
             f" ({info['seconds']:.2f} s)")
     say(f"build: {time.perf_counter() - t0:.2f} s wall, all sources at once")
     sass_check(TFA, built["flash_attention"], card)
+    p2p_resources(built["p2p_dma"], card)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = [kernel_paged(TK, dev, gen), kernel_cache_row(TK, dev, gen)]

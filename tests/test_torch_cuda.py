@@ -473,13 +473,58 @@ def test_ship_times_out_when_the_peer_never_pushes(cuda):
     rows = [torch.ones(4096, device=cuda) for _ in range(2)]
     tables = PD.complete_permutation(((0, 1), (1, 0)), 2)
     win = PD._begin(mesh, rows)
-    out = torch.empty_like(rows[0])
+    outs = [torch.empty_like(r) for r in rows]
+    hop = PD._plan(mesh, win, tables, outs)[0]
     # Rank 0 pushes and waits for its arrival; rank 1 never launches.
-    PD._launch(1, rows[0], None, mesh, win, 0, tables, 0.5,
-               mesh.side_streams[0])
-    PD._launch(2, None, out, mesh, win, 0, tables, 0.5, mesh.streams[0])
+    PD._launch("tp_dma_ship_push", hop, rows[0], outs[0], mesh, win, 0,
+               tables, 0.5, mesh.side_streams[0])
+    PD._launch("tp_dma_ship_arrive", hop, None, outs[0], mesh, win, 0,
+               tables, 0.5, mesh.streams[0])
     with pytest.raises(TransferTimeout,
                        match="rank 0 gave up waiting for rank 1's .* at "
                              f"epoch {win.epoch}"):
         mesh.synchronize()
     PD.close_windows(mesh.windows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_back_to_back_hops_survive_allocator_reuse_on_card(cuda, n):
+    # Pushes store straight into the receivers' outputs. Between waves,
+    # with no drain, the caller copies the arrivals and frees the
+    # outputs, and blocks of their size are freed again with a fill still
+    # pending behind a sleep on the caller's stream: the next wave's
+    # outputs take those blocks, and no push may land before the fill.
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    mesh, cpu = _local(n)
+    gen = torch.Generator().manual_seed(n + 10)
+    x = [torch.randn((3, 1000), generator=gen) for _ in range(n)]
+    got, want = [r.to(cuda) for r in x], list(x)
+    seq = [mk(n) for mk in _SHIP_EDGES.values()] * 2
+    for k, edges in enumerate(seq):
+        if k % 2:
+            got = PD.dma_ppermute(got, mesh, edges)
+        else:
+            got, _ = PD.dma_ship_compute(got, mesh, edges,
+                                         lambda a: a * 2, got)
+        want = PD.dma_ppermute(want, cpu, edges)
+        got = [g.clone() for g in got]
+        torch.cuda._sleep(200_000)
+        junk = [torch.full_like(g, 7.0) for g in got]
+        del junk
+    mesh.synchronize()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    mesh.close()
+
+
+@pytest.mark.cuda
+def test_dma_slab_segments_landing_out_of_order_on_card(cuda):
+    # A 32 MiB hop between two processes goes through the receiver's slab
+    # in 1024 segments; this build pushes them last first, so each lands
+    # in the opposite order to the one the arrival copies them out in.
+    for rank, res in enumerate(_card_world("card_reversed_segments_case")):
+        assert res["bad"] == [], f"rank {rank}: {res['bad']}"
+        assert res["launches"] == res["expected_launches"], res

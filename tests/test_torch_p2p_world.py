@@ -187,6 +187,43 @@ def card_checks_case(sizes=(136, 4096, 32 << 20), device="cuda:0",
     return {"bad": bad, "launches": launches, "expected_launches": made}
 
 
+def card_reversed_segments_case(nbytes=32 << 20, device="cuda:0"):
+    """The kernel built to push a slab's segments last first
+    (``-DTP_DMA_REVERSE_SEGMENTS=1``): each edge set at ``nbytes`` int8
+    against ``expected_permute``, bitwise, then a 3-hop ring chain with no
+    drain. → per-rank verdicts and the launch count."""
+    from tpu_p2p_torch.utils import cuda_build
+
+    build = cuda_build.load
+    cuda_build.load = lambda name, defines=(): build(
+        name, ("TP_DMA_REVERSE_SEGMENTS=1",))
+    PD._LIB = None
+    rt = RT.make_runtime(device=device)
+    mesh = rt.mesh
+    PD.reset_launches()
+    bad, made = [], 0
+    for name, edges in edge_sets(rt.world).items():
+        got = C.dma_ppermute(C.make_payload(mesh, nbytes, np.int8), mesh,
+                             edges)
+        made += 1
+        if not np.array_equal(got.cpu().numpy(),
+                              _oracle_row(mesh, nbytes, np.int8, edges)):
+            bad.append(name)
+    ring = C.ring_edges(rt.world)
+    y = C.make_payload(mesh, nbytes, np.int8)
+    want = C.host_payload(mesh, nbytes, np.int8)
+    for _ in range(3):
+        y = C.dma_ppermute(y, mesh, ring)
+        want = C.expected_permute(want, ring)
+        made += 1
+    if not np.array_equal(y.cpu().numpy(), want[rt.rank:rt.rank + 1]):
+        bad.append("ring chain")
+    rt.barrier()
+    launches = PD.launches["dma_permute"]
+    rt.close()
+    return {"bad": bad, "launches": launches, "expected_launches": made}
+
+
 def card_timeout_case(device="cuda:0", timeout_s=0.5):
     """Rank 0 launches a hop that rank 1 never joins: its kernel must
     give up past ``timeout_s`` and the wrapper raise TransferTimeout."""

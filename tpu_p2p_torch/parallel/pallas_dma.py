@@ -18,9 +18,16 @@ kernel of the port:
 - :func:`dma_ship_compute` — the fused per-chunk unit of the chunk
   waves: the push of ``ship`` is in flight while ``compute_fn`` runs,
   then the arrival lands (the reference's :364, custom_vjp :331-356).
-  Kernel: :func:`_dma_transport_ship_call`, whose push and arrival are
-  two launches on two streams of the rank (the ``.cu`` file says why);
-  plain version: the compute, then :func:`_dma_ppermute_plain`.
+  Kernel: :func:`_dma_transport_ship_call`, whose push and arrival (a
+  wait for the peer's flag) are two launches on two streams of the rank
+  (the ``.cu`` file says why); plain version: the compute, then
+  :func:`_dma_ppermute_plain`.
+
+Where each rank's push lands is decided per hop by :func:`plan_hop`:
+straight into the receiver's output wherever this process can address
+it (every edge of a ``LocalMesh``, a self-edge on any mesh), else into
+the receiver's IPC-mapped slab; a push toward a dummy arrival moves no
+bytes, and that receiver zero-fills its own output.
 
 A wrapper takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
@@ -48,15 +55,15 @@ Windows: one per set of ranks and capacity (``mesh.windows``), made the
 first time a payload needs it. On a process mesh every member allocates
 a slab and flags with ``cudaMalloc``, the 64-byte IPC handles are
 all-gathered over the host group, and each member maps the others'. On
-a ``LocalMesh`` this process allocates one window per rank on the rank's
-card and enables peer access between cards. They live until
-:func:`close_windows`.
+a ``LocalMesh`` this process allocates one header of flags per rank on
+the rank's card (no slab: every push lands in an output) and enables
+peer access between cards. They live until :func:`close_windows`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +121,54 @@ def complete_permutation(edges: Sequence[Edge], n: int):
     src_table = np.empty(n, np.int32)
     src_table[dst_table] = np.arange(n, dtype=np.int32)
     return dst_table, src_table, has_in
+
+
+# Codes of the kernel's Push and Arrival enums (csrc/p2p_dma.cu).
+PUSH = {"none": 0, "out": 1, "slab": 2}
+ARRIVAL = {"none": 0, "wait": 1, "copy": 2, "zero": 3}
+
+
+class Hop(NamedTuple):
+    """What one rank's launch of a hop does.
+
+    ``push``: ``"out"`` stores straight into the receiver's output,
+    ``"slab"`` into the receiver's receive slab, ``"none"`` moves no
+    bytes (the receiver's arrival is a dummy edge). ``arrival``:
+    ``"none"`` (the rank's own push wrote its output: a self-edge),
+    ``"wait"`` (a peer stores into the output: wait for its flag),
+    ``"copy"`` (copy each slab segment out as it lands), ``"zero"`` (a
+    dummy arrival: zero-fill). ``dest``: the address the push stores to,
+    None when it moves no bytes."""
+
+    push: str
+    arrival: str
+    dest: Optional[int]
+
+
+def plan_hop(in_process: bool, i: int, tables, outs: Dict[int, int],
+             slabs: Dict[int, int]) -> Hop:
+    """The launch of mesh index ``i`` for one hop of
+    :func:`complete_permutation`'s ``tables``. ``outs`` maps the mesh
+    indices whose outputs this process holds to their addresses (every
+    rank on a ``LocalMesh``, its own on a process mesh), ``slabs`` every
+    mesh index to its window's slab address. A push goes straight into
+    the receiver's output wherever this process holds it, into its slab
+    otherwise, and nowhere when the receiver's arrival is a dummy."""
+    dst_t, src_t, has_in = tables
+    d, s = int(dst_t[i]), int(src_t[i])
+    if not has_in[d]:
+        push, dest = "none", None
+    elif in_process or d == i:
+        push, dest = "out", outs[d]
+    else:
+        push, dest = "slab", slabs[d]
+    if not has_in[i]:
+        arrival = "zero"
+    elif s == i:
+        arrival = "none"
+    else:
+        arrival = "wait" if in_process else "copy"
+    return Hop(push, arrival, dest)
 
 
 # ------------------------------------------------------------ meshes
@@ -192,7 +247,8 @@ def _lib():
 
         lib = load("p2p_dma")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-        hop = [p, p, u, p, p, p, i, i, i, i, i, i, i, i, u, u, p, i, p]
+        hop = [p, p, p, u, p, p, p, i, i, i, i, i, i, i, i, i, u, u, p, i,
+               p]
         for name, args in (
                 ("tp_dma_window_alloc", [u, ctypes.POINTER(p), p]),
                 ("tp_dma_window_open", [p, ctypes.POINTER(p)]),
@@ -204,7 +260,8 @@ def _lib():
                 *((name, hop) for name in _LAUNCHES)):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
-        for name in ("tp_dma_max_ranks", "tp_dma_fault_bytes"):
+        for name in ("tp_dma_max_ranks", "tp_dma_fault_bytes",
+                     "tp_dma_header_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         if lib.tp_dma_fault_bytes() != ctypes.sizeof(_FaultRecord):
@@ -286,6 +343,11 @@ class _Window:
                     f"(CUDA error {err}): the pallas_dma transport needs "
                     "every rank of the mesh on one host")
             self.bases[r] = peer.value
+        header = lib.tp_dma_header_bytes()
+        # By global rank: both orders of a pair share the window.
+        self.slabs = {r: b + header for r, b in self.bases.items()}
+
+    sys_scope = True  # peers are other processes
 
     def close(self) -> None:
         lib = _lib()
@@ -297,21 +359,23 @@ class _Window:
 
 
 class _LocalWindow:
-    """The windows of a ``LocalMesh``: one slab of ``capacity`` bytes and
-    its flags per rank, all allocated by this process on the ranks' own
-    cards; ranks on different cards reach each other by peer access."""
+    """The windows of a ``LocalMesh``: a header of flags per rank, all
+    allocated by this process on the ranks' own cards (no slab: every
+    push lands in an output this process holds); ranks on different
+    cards reach each other by peer access."""
 
-    def __init__(self, mesh, capacity: int) -> None:
+    def __init__(self, mesh) -> None:
         lib = _lib()
         _check_members(mesh.size)
         cards = sorted({d.index for d in mesh.devices})
+        self.sys_scope = len(cards) > 1  # else flags at the card's scope
+        self.slabs = {}
         for a in cards:
             for b in cards:
                 if a != b:
                     _cuda_check(lib.tp_dma_enable_peer(a, b),
                                 f"peer access cuda:{a} -> cuda:{b}")
         self.slot = {r: r for r in range(mesh.size)}
-        self.capacity = capacity
         self.epoch = 0
         self.bases = {}
         handle = ctypes.create_string_buffer(64)  # unused in-process
@@ -319,9 +383,9 @@ class _LocalWindow:
             base = ctypes.c_void_p()
             with torch.cuda.device(dev):
                 _cuda_check(lib.tp_dma_window_alloc(
-                    capacity, ctypes.byref(base),
+                    0, ctypes.byref(base),
                     ctypes.cast(handle, ctypes.c_void_p)),
-                    f"rank {r}'s window of {capacity} bytes on {dev}")
+                    f"rank {r}'s flags on {dev}")
             self.bases[r] = base.value
 
     def close(self) -> None:
@@ -332,17 +396,19 @@ class _LocalWindow:
 
 
 def _window(mesh, nbytes: int):
-    """The smallest window of ``mesh``'s rank set that holds ``nbytes``,
-    made (collectively, on a process mesh) when none does."""
+    """The window of ``mesh``'s rank set for a payload of ``nbytes``: a
+    ``LocalMesh``'s one set of flags, or a process mesh's smallest
+    window that holds ``nbytes``, made (collectively) when none does."""
+    if mesh.in_process:
+        if 0 not in mesh.windows:
+            mesh.windows[0] = _LocalWindow(mesh)
+        return mesh.windows[0]
     fits = [c for c in mesh.windows if c >= nbytes]
     if fits:
         return mesh.windows[min(fits)]
     cap = max(MIN_WINDOW, 1 << max(0, nbytes - 1).bit_length())
-    if mesh.in_process:
-        win = _LocalWindow(mesh, cap)
-    else:
-        with torch.cuda.device(mesh.device):
-            win = _Window(mesh, cap)
+    with torch.cuda.device(mesh.device):
+        win = _Window(mesh, cap)
     mesh.windows[cap] = win
     return win
 
@@ -355,31 +421,38 @@ def close_windows(windows: dict) -> None:
     windows.clear()
 
 
-def _launch(which: int, x, out, mesh, win, i: int, tables, timeout_s,
-            stream) -> None:
-    """One launch of ``_LAUNCHES[which]`` for mesh index ``i`` on
-    ``stream``: ``x`` is what the rank pushes (the permute and the
-    push), ``out`` where its arrival lands (the permute and the
-    arrival). Raises when the launch is refused."""
-    dst_t, src_t, has_in = tables
+def _plan(mesh, win, tables, outs) -> Dict[int, Hop]:
+    """:func:`plan_hop` for every rank this process drives, ``outs``
+    being their outputs in ``mesh.local_ranks`` order."""
+    held = {i: o.data_ptr() for i, o in zip(mesh.local_ranks, outs)}
+    slabs = {k: win.slabs[r] for k, r in enumerate(mesh.ranks)
+             if r in win.slabs}
+    return {i: plan_hop(mesh.in_process, i, tables, held, slabs)
+            for i in mesh.local_ranks}
+
+
+def _launch(entry: str, hop: Hop, x, out, mesh, win, i: int, tables,
+            timeout_s, stream) -> None:
+    """One launch of the library's ``entry`` for mesh index ``i`` on
+    ``stream``: ``x`` is what the rank pushes (None for the ship's
+    arrival), ``out`` where its arrival lands, ``hop`` what
+    :func:`plan_hop` decided. Raises when the launch is refused."""
+    dst_t, src_t, _ = tables
     me, d, s = mesh.ranks[i], mesh.ranks[dst_t[i]], mesh.ranks[src_t[i]]
-    ref = x if x is not None else out
-    nbytes = ref.numel() * ref.element_size()
-    ptrs = [t.data_ptr() for t in (x, out) if t is not None]
-    vec16 = all(p % 16 == 0 for p in ptrs)
-    share = mesh.share(i)
-    with torch.cuda.device(ref.device):
-        err = getattr(_lib(), _LAUNCHES[which])(
-            x.data_ptr() if x is not None else None,
-            out.data_ptr() if out is not None else None, nbytes,
-            win.bases[me], win.bases[d], win.bases[s], win.slot[me],
-            win.slot[d], win.slot[s], me, d, s, int(has_in[i]), int(vec16),
-            win.epoch, int(timeout_s * 1e9), _fault_record()[1], share,
+    with torch.cuda.device(out.device):
+        err = getattr(_lib(), entry)(
+            x.data_ptr() if x is not None else None, out.data_ptr(),
+            hop.dest if x is not None else None,
+            out.numel() * out.element_size(), win.bases[me], win.bases[d],
+            win.bases[s], win.slot[me], win.slot[d], win.slot[s], me, d, s,
+            PUSH[hop.push], ARRIVAL[hop.arrival], int(win.sys_scope),
+            win.epoch,
+            int(timeout_s * 1e9), _fault_record()[1], mesh.share(i),
             stream.cuda_stream)
     if err:
         raise BackendError(
-            f"{_LAUNCHES[which]} kernel launch failed: CUDA error {err} "
-            f"({torch.cuda.get_device_name(ref.device)})")
+            f"{entry} kernel launch failed: CUDA error {err} "
+            f"({torch.cuda.get_device_name(out.device)})")
 
 
 def _begin(mesh, rows):
@@ -394,9 +467,10 @@ def _begin(mesh, rows):
 
 def _dma_transport_permute_call(x, mesh, tables, *,
                                 timeout_s: float = SPIN_TIMEOUT_S):
-    """One total-permutation push on the card: each rank's ``x`` into the
-    slab of its destination, then its arrival (or zeros) out. ``x`` is
-    this rank's tensor (process mesh) or the per-rank list
+    """One total-permutation push on the card: each rank's ``x`` into
+    its destination's output (or slab, :func:`plan_hop`), then its
+    arrival (a wait, a segment-wise copy out of the slab, or zeros).
+    ``x`` is this rank's tensor (process mesh) or the per-rank list
     (``LocalMesh``), and so is the result. ``tables`` are
     :func:`complete_permutation`'s for the hop's edges.
 
@@ -409,9 +483,10 @@ def _dma_transport_permute_call(x, mesh, tables, *,
     outs = [torch.empty_like(r) for r in rows]
     if rows[0].numel():
         win = _begin(mesh, rows)
+        hops = _plan(mesh, win, tables, outs)
         for k, i in enumerate(mesh.local_ranks):
-            _launch(0, rows[k], outs[k], mesh, win, i, tables, timeout_s,
-                    mesh.stream(i))
+            _launch("tp_dma_permute", hops[i], rows[k], outs[k], mesh, win,
+                    i, tables, timeout_s, mesh.stream(i))
             launches["dma_permute"] += 1
         mesh.exit()
     return mesh.unrows(outs)
@@ -420,11 +495,13 @@ def _dma_transport_permute_call(x, mesh, tables, *,
 def _dma_transport_ship_call(rows, mesh, tables, compute: Callable,
                              timeout_s: float = SPIN_TIMEOUT_S):
     """The fused ship on the cards of a ``LocalMesh``: every rank's push
-    of its row of ``rows`` starts on the rank's side stream, then
-    ``compute(i)`` runs on the rank's own stream while the pushes are in
-    flight, then the arrival kernel (after the compute, on the same
-    stream) copies the rank's arrival out. → ``(arrived, ys)``, per-rank
-    lists, ``ys[i] = compute(i)``.
+    of its row of ``rows`` straight into its destination's output (a
+    dummy arrival's zeros with it) starts on the rank's side stream,
+    then ``compute(i)`` runs on the rank's own stream while the pushes
+    are in flight, then, where a peer writes the rank's output, the
+    arrival kernel (after the compute, on the same stream) waits for
+    that peer's flag. → ``(arrived, ys)``, per-rank lists, ``ys[i] =
+    compute(i)``.
 
     Replaces ``tpu_p2p/parallel/pallas_dma.py::_dma_transport_ship_call``
     (:280; kernel body ``dma_transport_ship_compute`` :289). Every push
@@ -433,18 +510,20 @@ def _dma_transport_ship_call(rows, mesh, tables, compute: Callable,
     caller = [torch.cuda.current_stream(r.device) for r in rows]
     outs = [torch.empty_like(r) for r in rows]
     win = _begin(mesh, rows)
-    pushed = []  # holds each push's input until its stream is joined
+    hops = _plan(mesh, win, tables, outs)
     for i in mesh.local_ranks:
         own, side = mesh.streams[i], mesh.side_streams[i]
         with torch.cuda.stream(own):
             x = rows[i].contiguous()
         # The push follows what the rank's own stream issued before: the
-        # ship's producer, and the copy-out of the previous epoch that
-        # its ready signal vouches for.
+        # ship's producer, and the previous epoch's arrival that its
+        # ready signal vouches for.
         side.wait_stream(own)
-        _launch(1, x, None, mesh, win, i, tables, timeout_s, side)
+        _launch("tp_dma_ship_push", hops[i], x, outs[i], mesh, win, i,
+                tables, timeout_s, side)
         launches["dma_ship"] += 1
-        pushed.append(x)
+        if x.is_cuda:
+            x.record_stream(side)  # the allocator's reuse waits for it
     ys = []
     for i in mesh.local_ranks:
         own, side = mesh.streams[i], mesh.side_streams[i]
@@ -454,11 +533,14 @@ def _dma_transport_ship_call(rows, mesh, tables, compute: Callable,
             if t.is_cuda and t.device == rows[i].device:
                 t.record_stream(caller[i])
         ys.append(y)
-        _launch(2, None, outs[i], mesh, win, i, tables, timeout_s, own)
-        # Join the push back: later work on the rank's stream (and the
-        # allocator's reuse of ``pushed[i]``) waits for it.
-        own.wait_stream(side)
+        if hops[i].arrival == "wait":
+            _launch("tp_dma_ship_arrive", hops[i], None, outs[i], mesh,
+                    win, i, tables, timeout_s, own)
     mesh.exit()
+    # The caller joins each push itself, beside its arrival: the pushes
+    # wrote the outputs, which are the caller's to free.
+    for i in mesh.local_ranks:
+        caller[i].wait_stream(mesh.side_streams[i])
     return outs, ys
 
 
