@@ -17,9 +17,13 @@ the first phase that goes wrong:
    left; their registers, spills, shared memory and CTAs an SM are
    printed, and the three peer-push kernels' registers, spills and
    shared memory;
-3. kernels  — each KV-cache kernel against its plain PyTorch version at
-   the serving shapes, bitwise (they are copies), timed beside its bytes
-   bound, the plain version and one ``index_put_`` call;
+3. kernels  — the KV-cache write kernel at the serving shapes, K and V
+   in one launch from the projections as the mixed step and the decode
+   step make them, against its plain PyTorch version, bitwise (it
+   copies), and its single-destination forms (a band image, one slab)
+   likewise; timed on graph replay beside its bytes bound, an empty
+   kernel over the same grid (the launch floor), the plain version, two
+   ``index_put_`` calls and the wrapper's host loop;
 4. flash    — the three flash kernels against their plain versions at
    the training shape (B 4, 16 heads over 8 KV heads, T 4096, D 128,
    bf16, causal; normalised L-inf <= 2e-2; all three bf16 kernels on
@@ -37,12 +41,13 @@ the first phase that goes wrong:
    batch 1), 2 windowed steps (window 1024, 2 blocks), and one step
    under ``torch.profiler`` (kernel time by family, device idle share);
 6. decode   — teacher-forced paged logits (chunk 1) against the dense
-   KV-cached decode step, which writes through ``cache_row_write``;
+   KV-cached decode step, which writes through ``cache_kv_write``, each
+   step launching its fused write once per block;
 7. serve    — ``run_engine`` on a seeded 16-request trace in continuous
    and static batching: every request finishes, step counts equal the
    dry ``simulate_schedule``, the page pool drains full, both batching
-   modes emit the same tokens, and the paged write kernel ran on every
-   step of every block;
+   modes emit the same tokens, and the fused paged write ran once on
+   every busy step of every block (K and V together) and nothing else;
 8. p2p      — ``python -m tpu_p2p_torch`` through ``cli.main`` on a world
    of 1 (defaults: the 1x1 uni/bi matrices at 32 MiB; then the latency
    line, the self-edge floor); a world of 2 ranks sharing cuda:0
@@ -278,114 +283,160 @@ def p2p_resources(info: dict, card: str) -> None:
 # ------------------------------------------------------------ phase 3
 
 
+def projections(dev, gen, chunk: int, pos):
+    """A layer's K and V rows as the mixed step makes them: the einsum
+    of a ``[SLOTS, chunk, Dm]`` bf16 activation with ``[H_kv, Dm, Dh]``
+    weights, K roped at ``pos[:, None] + arange(chunk)``; in the layouts
+    those ops return."""
+    from tpu_p2p_torch.ops.rope import apply_rope
+
+    H, Dh = MODEL["kv_heads"], MODEL["head_dim"]
+    dm = MODEL["heads"] * Dh
+    x = torch.randn((SLOTS, chunk, dm), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    wk, wv = (torch.randn((H, dm, Dh), generator=gen, device=dev)
+              .mul(dm ** -0.5).to(torch.bfloat16) for _ in range(2))
+    k = torch.einsum("btm,hmd->bhtd", x, wk)
+    v = torch.einsum("btm,hmd->bhtd", x, wv)
+    qpos = pos[:, None] + torch.arange(chunk, device=dev)[None, :]
+    return apply_rope(k, qpos), v
+
+
+def write_timings(write, plain, library, empty) -> dict:
+    """The fused write's device time on graph replay, the empty kernel's
+    over the same grid (the launch floor), the plain version's and the
+    two ``index_put_`` calls' times, and the wrapper's host loop."""
+    return {"ms": time_graph(write), "floor_ms": time_graph(empty),
+            "plain_ms": time_eager(plain, calls=20),
+            "library_ms": time_graph(library),
+            "host_loop_ms": time_eager(write)}
+
+
 def kernel_paged(TK, dev, gen) -> dict:
-    """``paged_rows_write`` on the serving pool: 161 pages, 32 slots,
-    n in {0, 1, 8} at every in-band offset."""
+    """``paged_kv_write`` on the serving pools (161 pages, 32 slots,
+    chunk 8) from the projections as the mixed step makes them, n in
+    {0, 1, 8} at every in-band offset; then the band-image form
+    ``paged_rows_write``, bitwise."""
     S, H, Dh = MODEL["stages"], MODEL["kv_heads"], MODEL["head_dim"]
-    pool = torch.randn((S, NUM_PAGES, H, PAGE_LEN, Dh), generator=gen,
-                       device=dev).to(torch.bfloat16)
-    slab8 = torch.randn((SLOTS, H, 8, Dh), generator=gen,
-                        device=dev).to(torch.bfloat16)
+    pools = [torch.randn((S, NUM_PAGES, H, PAGE_LEN, Dh), generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2)]
     b = torch.arange(SLOTS, device=dev)
     n = torch.tensor([(0, 1, 8)[i % 3] for i in range(SLOTS)],
                      dtype=torch.int32, device=dev)
     r0 = torch.where(n == 8, 0, b % 8).to(torch.int32)
     page = torch.where(n > 0, 1 + 5 * b, 0).to(torch.int32)
     band = (b % (PAGE_LEN // 8)).to(torch.int32)
+    rows = projections(dev, gen, CHUNK, band.long() * 8 + r0.long())
     stage = 3
-    want = TK.paged_rows_write_plain(pool.clone(), slab8, page, band, r0,
-                                     n, stage)
-    got = pool.clone()
-    TK.paged_rows_write(got, slab8, page, band, r0, n, stage)
+    args = (*rows, page, band, r0, n, stage)
+    want = TK.paged_kv_write_plain(*(p.clone() for p in pools), *args)
+    got = [p.clone() for p in pools]
+    TK.paged_kv_write(*got, *args)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not bits_equal(got, want):
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(
-            f"paged_rows_write differs from its plain version "
+            f"paged_kv_write differs from its plain version "
             f"(max abs err {err})")
-    # One PyTorch call for the same scatter: index_put_ of the live
-    # rows, indices and row values gathered beforehand.
-    live = [(i, r) for i in range(SLOTS)
-            for r in range(int(r0[i]), int(r0[i]) + int(n[i]))]
+    slab8 = torch.randn((SLOTS, H, 8, Dh), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    one = pools[0].clone()
+    TK.paged_rows_write(one, slab8, page, band, r0, n, stage)
+    if not bits_equal(one, TK.paged_rows_write_plain(
+            pools[0].clone(), slab8, page, band, r0, n, stage)):
+        raise AssertionError("paged_rows_write (band image) differs from "
+                             "its plain version")
+    # The library yardstick: one index_put_ a projection (two calls) of
+    # the live rows, indices and row values gathered beforehand.
+    live = [(i, r) for i in range(SLOTS) for r in range(int(n[i]))]
     bi = torch.tensor([i for i, _ in live], device=dev)
     ri = torch.tensor([r for _, r in live], device=dev)
     pg = page.long()[bi][:, None]
-    row = (band.long()[bi] * 8 + ri)[:, None]
+    row = (band.long()[bi] * 8 + r0.long()[bi] + ri)[:, None]
     hi = torch.arange(H, device=dev)[None, :]
-    vals = slab8[bi, :, ri]                           # [rows, H, Dh]
-    dst = pool.clone()
-    dst_s = dst[stage]
+    vals = [t[bi, :, ri] for t in rows]                # [rows, H, Dh]
+    dst = [p.clone() for p in pools]
+    dst_s = [d[stage] for d in dst]
 
     def library():
-        dst_s.index_put_((pg, hi, row), vals)
+        dst_s[0].index_put_((pg, hi, row), vals[0])
+        dst_s[1].index_put_((pg, hi, row), vals[1])
 
     library()
-    if not bits_equal(dst, want):
+    if not all(bits_equal(d, w) for d, w in zip(dst, want)):
         raise AssertionError("index_put_ yardstick disagrees")
-    rows = len(live)
     row_bytes = H * Dh * 2
-    nbytes = 2 * rows * row_bytes + 4 * SLOTS * 4    # rows in+out, idx
-    args = (slab8, page, band, r0, n, stage)
+    nbytes = 2 * (2 * len(live) * row_bytes) + 4 * SLOTS * 4
+    threads = TK._threads(CHUNK, Dh * 2, 16)
     return {
-        "name": "paged_rows_write", "route": "cuda",
+        "name": "paged_kv_write", "route": "cuda",
         "source": "tpu_p2p_torch/csrc/kvcache.cu",
-        "replaces": "tpu_p2p/ops/kvcache.py:89",
+        "replaces": "tpu_p2p/ops/kvcache.py:89 (_paged_band_kernel)",
         "max_abs_err": err,
-        "ms": time_graph(lambda: TK.paged_rows_write(got, *args)),
-        "plain_ms": time_eager(
-            lambda: TK.paged_rows_write_plain(got, *args), calls=20),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": time_graph(library),
-        "host_loop_ms": time_eager(lambda: TK.paged_rows_write(got, *args)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "layout": f"k strides {rows[0].stride()}, v {rows[1].stride()}",
+        **write_timings(
+            lambda: TK.paged_kv_write(*got, *args),
+            lambda: TK.paged_kv_write_plain(*got, *args), library,
+            lambda: TK.launch_empty(got[0], SLOTS, H, 2, threads)),
     }
 
 
-def kernel_cache_row(TK, dev, gen) -> dict:
-    """``cache_row_write`` on the dense cache ``[8, 32, 8, 256, 128]``."""
+def kernel_cache_kv(TK, dev, gen) -> dict:
+    """``cache_kv_write`` on the dense caches ``[8, 32, 8, 256, 128]``
+    from one token's projections; then the single-destination form
+    ``cache_row_write``, bitwise."""
     S, H, Dh = MODEL["stages"], MODEL["kv_heads"], MODEL["head_dim"]
     T = MAX_BLOCKS * PAGE_LEN
-    cache = torch.randn((S, SLOTS, H, T, Dh), generator=gen,
-                        device=dev).to(torch.bfloat16)
-    slab = torch.randn((SLOTS, H, 1, Dh), generator=gen,
-                       device=dev).to(torch.bfloat16)
+    caches = [torch.randn((S, SLOTS, H, T, Dh), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2)]
     pos, stage = 37, 5
-    want = TK.cache_row_write_plain(cache.clone(), slab, pos, stage)
-    got = cache.clone()
-    TK.cache_row_write(got, slab, pos, stage)
+    rows = projections(dev, gen, 1,
+                       torch.full((SLOTS,), pos, device=dev))
+    args = (*rows, pos, stage)
+    want = TK.cache_kv_write_plain(*(c.clone() for c in caches), *args)
+    got = [c.clone() for c in caches]
+    TK.cache_kv_write(*got, *args)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not bits_equal(got, want):
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(
-            f"cache_row_write differs from its plain version "
+            f"cache_kv_write differs from its plain version "
             f"(max abs err {err})")
+    one = caches[0].clone()
+    TK.cache_row_write(one, rows[0], pos, stage)
+    if not bits_equal(one, want[0]):
+        raise AssertionError("cache_row_write differs from its plain "
+                             "version")
     bi = torch.arange(SLOTS, device=dev)[:, None]
     hi = torch.arange(H, device=dev)[None, :]
     ti = torch.tensor(pos, device=dev)
-    vals = slab[:, :, 0]
-    dst = cache.clone()
-    dst_s = dst[stage]
+    vals = [t[:, :, 0] for t in rows]
+    dst = [c.clone() for c in caches]
+    dst_s = [d[stage] for d in dst]
 
     def library():
-        dst_s.index_put_((bi, hi, ti), vals)
+        dst_s[0].index_put_((bi, hi, ti), vals[0])
+        dst_s[1].index_put_((bi, hi, ti), vals[1])
 
     library()
-    if not bits_equal(dst, want):
+    if not all(bits_equal(d, w) for d, w in zip(dst, want)):
         raise AssertionError("index_put_ yardstick disagrees")
-    nbytes = 2 * SLOTS * H * Dh * 2
+    nbytes = 2 * (2 * SLOTS * H * Dh * 2)
     return {
-        "name": "cache_row_write", "route": "cuda",
+        "name": "cache_kv_write", "route": "cuda",
         "source": "tpu_p2p_torch/csrc/kvcache.cu",
-        "replaces": "tpu_p2p/ops/kvcache.py:25",
+        "replaces": "tpu_p2p/ops/kvcache.py:25 (_cache_row_kernel)",
         "max_abs_err": err,
-        "ms": time_graph(lambda: TK.cache_row_write(got, slab, pos, stage)),
-        "plain_ms": time_eager(
-            lambda: TK.cache_row_write_plain(got, slab, pos, stage)),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": time_graph(library),
-        "host_loop_ms": time_eager(
-            lambda: TK.cache_row_write(got, slab, pos, stage)),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "layout": f"k strides {rows[0].stride()}, v {rows[1].stride()}",
+        **write_timings(
+            lambda: TK.cache_kv_write(*got, *args),
+            lambda: TK.cache_kv_write_plain(*got, *args), library,
+            lambda: TK.launch_empty(got[0], SLOTS, H, 2,
+                                    TK._threads(1, Dh * 2, 16))),
     }
 
 
@@ -937,11 +988,12 @@ def decode_parity(cfg, params, dev, TK) -> dict:
         bitwise &= torch.equal(dense, paged)
     torch.cuda.synchronize()
     counts = dict(TK.launches)
-    want = 2 * cfg.stages * DECODE_POSITIONS
-    if counts["cache_row_write"] != want \
-            or counts["paged_rows_write"] != want:
+    want = cfg.stages * DECODE_POSITIONS
+    if counts != {"cache_kv_write": want, "paged_kv_write": want,
+                  "cache_row_write": 0, "paged_rows_write": 0}:
         raise AssertionError(f"decode launches {counts}, expected {want} "
-                             "of each kernel")
+                             "of each fused write (stages x positions) "
+                             "and none of the single-destination ones")
     if worst > BF16_TOL:
         raise AssertionError(f"paged vs dense max abs diff {worst} > "
                              f"{BF16_TOL}")
@@ -1006,11 +1058,12 @@ def serve(cfg, params, TK, card: str) -> dict:
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
             f"wall {out['wall_s']} s | {card}")
     counts = dict(TK.launches)
-    want = 2 * cfg.stages * busy_total
-    if counts["paged_rows_write"] != want:
-        raise AssertionError(f"serve launched paged_rows_write "
-                             f"{counts['paged_rows_write']} times, "
-                             f"expected {want}")
+    want = cfg.stages * busy_total
+    if counts != {"paged_kv_write": want, "cache_kv_write": 0,
+                  "paged_rows_write": 0, "cache_row_write": 0}:
+        raise AssertionError(f"serve launches {counts}, expected "
+                             f"paged_kv_write {want} times (stages x busy "
+                             "steps) and nothing else")
     if streams["continuous"] != streams["static"]:
         diff = [r for r in streams["continuous"]
                 if streams["continuous"][r] != streams["static"][r]]
@@ -1567,8 +1620,10 @@ def ship_profile(card: str) -> dict:
     the gaps between its kernels are the card's own: per kind, the
     medians of :func:`ship_split`'s parts over the calls whose two pushes
     the profiler recorded, and the kernels of the call with the median
-    span (µs from its first kernel)."""
-    from torch.profiler import ProfilerActivity, profile
+    span (µs from its first kernel). The same calls run once first as
+    the profiler's warm-up cycle: the first events after tracing starts
+    can be lost (a lost sleep merges or drops a call)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     mesh, _, _, calls = ship_cases()
     for fn in calls.values():
@@ -1576,11 +1631,15 @@ def ship_profile(card: str) -> dict:
     torch.cuda.synchronize()
     res = {}
     for name in ("ship", "fused"):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(SHIP_PROFILED):
-                torch.cuda._sleep(8_000_000)
-                calls[name]()
-                torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):                  # warm-up, then recorded
+                for _ in range(SHIP_PROFILED):
+                    torch.cuda._sleep(8_000_000)
+                    calls[name]()
+                    torch.cuda.synchronize()
+                prof.step()
         splits = [ship_split(c) for c in calls_after_sleeps(prof)
                   if sum("dma_ship_push" in k[0] for k in c) == 2]
         if 2 * len(splits) < SHIP_PROFILED:
@@ -1885,7 +1944,7 @@ DISAGG_FAMILIES = (
     ("ship push", ("dma_ship_push",)),
     ("ship arrival", ("dma_ship_arrive",)),
     ("permute", ("dma_permute",)),
-    ("kv write", ("paged_rows",)),
+    ("kv write", ("kv_rows",)),
 ) + KERNEL_FAMILIES
 
 
@@ -1992,12 +2051,16 @@ def main() -> int:
     p2p_resources(built["p2p_dma"], card)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [kernel_paged(TK, dev, gen), kernel_cache_row(TK, dev, gen)]
+    kernels = [kernel_paged(TK, dev, gen), kernel_cache_kv(TK, dev, gen)]
     for k in kernels:
-        say(f"kernel {k['name']}: bitwise == plain | {k['ms']:.5f} ms "
-            f"(graph replay) vs bound {k['bound_ms']:.5f} ms, plain "
-            f"{k['plain_ms']:.5f} ms, index_put_ {k['library_ms']:.5f} ms, "
-            f"host loop {k['host_loop_ms']:.5f} ms | {card}")
+        say(f"kernel {k['name']} (K and V in one launch; {k['layout']}): "
+            f"bitwise == plain, the single-destination form bitwise == "
+            f"plain | {k['ms']:.5f} ms (graph replay) vs bound "
+            f"{k['bound_ms']:.6f} ms, empty-kernel floor "
+            f"{k['floor_ms']:.5f} ms (same grid, graph replay), plain "
+            f"{k['plain_ms']:.5f} ms, index_put_ x2 (two calls) "
+            f"{k['library_ms']:.5f} ms, host loop {k['host_loop_ms']:.5f} "
+            f"ms | {card}")
 
     kernels += flash_train_shape(TFA, dev, gen, card)
     torch.cuda.empty_cache()
@@ -2037,8 +2100,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(ship(card, dis))
     say(f"phase 9 (disagg): {time.perf_counter() - t0:.1f} s")
-    launches = {"cache_row_write": dec["launches"]["cache_row_write"],
-                "paged_rows_write": srv["launches"]["paged_rows_write"],
+    launches = {"cache_kv_write": dec["launches"]["cache_kv_write"],
+                "paged_kv_write": srv["launches"]["paged_kv_write"],
                 "dma_permute": kernels[-2]["launches"],
                 "dma_ship": dis["launches"]["dma_ship"], **trn["launches"]}
     for k in kernels:

@@ -92,6 +92,93 @@ def test_kernel_rejects_a_non_contiguous_pool_on_card(cuda):
                             z, z, z, z, 0)
 
 
+def _fused_case(S, P, H, L, Dh, B, C, dt, seed):
+    """Pools, K rows as an einsum gives them (the permuted view of a
+    [B, C, H, Dh] tensor), V rows as a slice out of wider rows, and
+    every in-band offset over n in {0, 1, C}."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pools = [torch.randn((S, P, H, L, Dh), generator=g).to(dt)
+             for _ in range(2)]
+    k = torch.randn((B, C, H, Dh), generator=g).to(dt).permute(0, 2, 1, 3)
+    v = torch.randn((B, H, C + 2, Dh), generator=g).to(dt)[:, :, 1:1 + C]
+    n = torch.tensor([(0, 1, C)[b % 3] for b in range(B)], dtype=torch.int32)
+    r0 = torch.where(n == C, 8 - C, torch.arange(B) % 8).to(torch.int32)
+    page = torch.where(n > 0, torch.arange(B) + 1, 0).to(torch.int32)
+    band = (torch.arange(B) % (L // 8)).to(torch.int32)
+    return pools, (k, v), (page, band, r0, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kv_kernels_match_plain_on_card(cuda, dtype):
+    # The serving width (32 slots, Hkv 8, page_len 32, Dh 128, chunk 8)
+    # from strided projections, then the dense cache.
+    dt = getattr(torch, dtype)
+    pools, rows, idx = _fused_case(2, 33, 8, 32, 128, 32, 8, dt, 2)
+    want = TK.paged_kv_write_plain(*(p.clone() for p in pools), *rows,
+                                   *idx, 1)
+    got = [p.to(cuda) for p in pools]
+    before = dict(TK.launches)
+    TK.paged_kv_write(*got, *(r.to(cuda) for r in rows),
+                      *(v.to(cuda) for v in idx), 1)
+    torch.cuda.synchronize()
+    assert TK.launches["paged_kv_write"] == before["paged_kv_write"] + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    g = torch.Generator(device="cpu").manual_seed(3)
+    caches = [torch.randn((2, 8, 8, 64, 128), generator=g).to(dt)
+              for _ in range(2)]
+    k = torch.randn((8, 1, 8, 128), generator=g).to(dt).permute(0, 2, 1, 3)
+    v = torch.randn((8, 8, 3, 128), generator=g).to(dt)[:, :, 2:]
+    want = TK.cache_kv_write_plain(*(c.clone() for c in caches), k, v, 37, 1)
+    got = [c.to(cuda) for c in caches]
+    TK.cache_kv_write(*got, k.to(cuda), v.to(cuda), 37, 1)
+    torch.cuda.synchronize()
+    assert TK.launches["cache_kv_write"] == before["cache_kv_write"] + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,vec", [("float32", 6, 8),
+                                          ("float32", 3, 4),
+                                          ("bfloat16", 3, 2)])
+def test_fused_kv_kernel_takes_narrow_rows_on_card(cuda, dtype, dh, vec):
+    dt = getattr(torch, dtype)
+    pools, rows, idx = _fused_case(1, 7, 2, 16, dh, 6, 4, dt, 4)
+    want = TK.paged_kv_write_plain(*(p.clone() for p in pools), *rows,
+                                   *idx, 0)
+    got = [p.to(cuda) for p in pools]
+    rows_c = [r.to(cuda) for r in rows]
+    assert TK._vec_bytes(dh * got[0].element_size(), *got, *rows_c) == vec
+    TK.paged_kv_write(*got, *rows_c, *(v.to(cuda) for v in idx), 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_fused_kv_kernel_rejects_what_it_cannot_take_on_card(cuda):
+    pool = torch.zeros((1, 3, 2, 16, 8), device=cuda)
+    rows = torch.zeros((2, 2, 4, 8), device=cuda)
+    z = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    before = dict(TK.launches)
+    with pytest.raises(ValueError, match="unit stride on Dh"):
+        TK.paged_kv_write(pool, pool.clone(), rows,
+                          torch.zeros((2, 2, 4, 16), device=cuda)[..., ::2],
+                          z, z, z, z, 0)
+    with pytest.raises(ValueError, match="K and V pools differ"):
+        TK.paged_kv_write(pool, torch.zeros((1, 3, 2, 8, 8), device=cuda),
+                          rows, rows, z, z, z, z, 0)
+    with pytest.raises(ValueError, match="K and V pools differ"):
+        TK.paged_kv_write(pool, pool.to(torch.bfloat16), rows, rows,
+                          z, z, z, z, 0)
+    with pytest.raises(ValueError, match="K and V pools differ"):
+        TK.cache_kv_write(pool, pool.cpu(), rows[:, :, :1], rows[:, :, :1],
+                          0, 0)
+    assert TK.launches == before
+
+
 # ------------------------------------------------------ flash kernels
 
 from tpu_p2p_torch.ops import flash_attention as TFA  # noqa: E402

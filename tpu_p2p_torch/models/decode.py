@@ -1,12 +1,13 @@
 """Incremental decoding — the dense KV-cached LM step and the
 speculative-decoding helpers. Port of ``tpu_p2p/models/decode.py``.
 
-The dense cache ``[stages, B, H_kv, max_len, Dh]`` is written in place
-by the hand-written row-write kernel (:func:`tpu_p2p_torch.ops.kvcache.
-cache_row_write`) where the reference donates the buffer; callers treat
-the cache they pass as updated. The per-layer attention/FFN tail
-(:func:`_attend_ffn`) is ONE definition shared with the paged serving
-step, which is what makes paged-vs-dense parity bitwise.
+The dense cache ``[stages, B, H_kv, max_len, Dh]`` is written in place,
+K and V in one launch of the hand-written row-write kernel
+(:func:`tpu_p2p_torch.ops.kvcache.cache_kv_write`), where the reference
+donates the buffer; callers treat the cache they pass as updated. The
+per-layer attention/FFN tail (:func:`_attend_ffn`) is ONE definition
+shared with the paged serving step, which is what makes paged-vs-dense
+parity bitwise.
 
 Single device: the reference's dp/tp/ep ``shard_map`` maps onto one
 device here, so there is no join inside the block. The dense-FFN model
@@ -27,7 +28,7 @@ from tpu_p2p_torch.models.flagship import (
     _unembed,
     torch_dtype,
 )
-from tpu_p2p_torch.ops.kvcache import cache_row_write
+from tpu_p2p_torch.ops.kvcache import cache_kv_write
 from tpu_p2p_torch.ops.rope import apply_rope
 
 Cache = Dict[str, torch.Tensor]
@@ -133,8 +134,7 @@ def _decode_stack(params, cache: Cache, x, pos: int, cfg: FlagshipConfig):
         v_t = torch.einsum("btm,hmd->bhtd", h, sub["wv"])
         if cfg.rope:
             k_t = apply_rope(k_t, pos_rows)  # the cache stores roped K
-        cache_row_write(k_all, k_t, pos, s)
-        cache_row_write(v_all, v_t, pos, s)
+        cache_kv_write(k_all, v_all, k_t, v_t, pos, s)
         x = _decode_sub_block(sub, x, h, k_all[s], v_all[s], pos, pos_rows,
                               cfg)
     return cache, x

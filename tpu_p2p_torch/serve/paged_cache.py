@@ -12,8 +12,9 @@ mixed step. Port of ``tpu_p2p/serve/paged_cache.py``.
   (:class:`PrefixIndex`): host-side, refcounted, per shard.
 - **The mixed step** (:func:`make_paged_lm_step`): every slot
   processes ``n_active ∈ [0, chunk]`` tokens, writes their K/V rows
-  into its pages through the hand-written band-write kernel
-  (:func:`tpu_p2p_torch.ops.kvcache.paged_rows_write`, in place) and
+  into its pages straight from the projections, K and V in one launch
+  of the hand-written kernel
+  (:func:`tpu_p2p_torch.ops.kvcache.paged_kv_write`, in place), and
   attends over its page-gathered KV through the same
   :func:`~tpu_p2p_torch.models.decode._attend_ffn` the dense step runs.
 
@@ -43,7 +44,7 @@ from tpu_p2p_torch.models.flagship import (
     _rms_norm,
     torch_dtype,
 )
-from tpu_p2p_torch.ops.kvcache import paged_rows_write
+from tpu_p2p_torch.ops.kvcache import paged_kv_write
 from tpu_p2p_torch.ops.rope import apply_rope
 
 Pool = Dict[str, torch.Tensor]
@@ -304,16 +305,6 @@ def _gather_pages(pool_s, table):
     return g.permute(0, 2, 1, 3, 4).reshape(b, h, mb * l, dh)
 
 
-def _place_band_rows(t, r0):
-    """``t [B, H, C, Dh]`` (C ≤ 8 rows) → the ``[B, H, 8, Dh]`` band
-    image with row ``i`` at band row ``r0[b] + i``; rows outside the
-    placed range hold clipped copies the write ignores."""
-    b, h, c, dh = t.shape
-    rows = torch.arange(8, device=t.device)
-    idx = torch.clamp(rows[None, :] - r0[:, None], 0, c - 1)   # [B, 8]
-    return torch.gather(t, 2, idx[:, None, :, None].expand(b, h, 8, dh))
-
-
 def make_paged_lm_step(cfg: FlagshipConfig, *, page_len: int,
                        max_blocks: int, chunk: int):
     """The mixed prefill/decode step over a fixed-width slot batch:
@@ -378,10 +369,7 @@ def make_paged_lm_step(cfg: FlagshipConfig, *, page_len: int,
             v_t = torch.einsum("btm,hmd->bhtd", h, sub["wv"])
             if cfg.rope:
                 k_t = apply_rope(k_t, qpos)
-            paged_rows_write(k_pool, _place_band_rows(k_t, r0), page, band,
-                             r0, n32, s)
-            paged_rows_write(v_pool, _place_band_rows(v_t, r0), page, band,
-                             r0, n32, s)
+            paged_kv_write(k_pool, v_pool, k_t, v_t, page, band, r0, n32, s)
             kb = _gather_pages(k_pool[s], table)
             vb = _gather_pages(v_pool[s], table)
             q = torch.einsum("btm,hmd->bhtd", h, sub["wq"])
