@@ -50,20 +50,36 @@ the first phase that goes wrong:
    every busy step of every block (K and V together) and nothing else;
 8. p2p      — ``python -m tpu_p2p_torch`` through ``cli.main`` on a world
    of 1 (defaults: the 1x1 uni/bi matrices at 32 MiB; then the latency
-   line, the self-edge floor); a world of 2 ranks sharing cuda:0
-   (``make_runtime(device="cuda:0")`` each, then what ``cli.main`` runs)
-   with ``pairwise --transport pallas_dma --check`` at the reference's
-   32 MiB x 128 iterations and ``latency --transport pallas_dma``; a
-   world of 4 at 4 MiB x 16 in full and submesh isolation. The
-   peer-push kernel's launches on those runs must equal the count the
-   workloads make; its arrivals must equal the plain version's (gloo, on
-   ``.cpu()`` copies) and ``expected_permute`` bitwise over six edge
-   sets at 136 B and the run's size in int8, a float32 [5, 3] row and
-   one backward pass; then its per-hop time at 32 MiB beside its bound,
-   the plain version and one ``copy_``. Ranks sharing a card run as
-   time-sliced CUDA contexts, so these are not link numbers; the kernel
-   alone (a world of 1, the 32 MiB self-edge, stored straight into the
-   output) beside one ``copy_`` of the same bytes, both device time;
+   line, the self-edge floor; ``ring``, ``all_to_all``, ``allreduce``,
+   ``reduce_scatter`` and ``all_gather --check`` at 32 MiB x 16 over a
+   one-rank NCCL communicator; ``--mode device`` on ``latency`` and
+   ``all_gather``, published from the card's clock, and on
+   ``allreduce``, which must refuse: an in-place sum over one rank puts
+   nothing on the card; ``--validate-timing`` on the 32 MiB loopback,
+   which must say OK; ``--profile-dir``, whose trace must hold kernels);
+   the card's clock read two ways on the same chains (the profiler's
+   busy-time slope that ``--mode device`` publishes against CUDA-graph
+   replays timed by events, within 25 %); a world of 2 ranks sharing
+   cuda:0 (``make_runtime(device="cuda:0")`` each, then what
+   ``cli.main`` runs) with ``pairwise --transport pallas_dma --check``
+   at the reference's 32 MiB x 128 iterations, ``latency --transport
+   pallas_dma``, and ``ring --transport pallas_dma`` at 32 MiB x 16
+   with ``--check`` and in ``--mode device``; a world of 4 at 4 MiB x 16
+   in full and submesh isolation and ``ring --check``; in both, an
+   ``allreduce`` must raise ``BackendError`` before any traffic (NCCL
+   needs a card a rank); a world of 4 laid out 2x2 with ``torus2d
+   --transport pallas_dma --check`` at 4 MiB x 16, each axis line with
+   its own windows, all closed at the end. The peer-push kernel's
+   launches on those runs must equal the count the workloads make; its
+   arrivals must equal the plain version's (gloo, on ``.cpu()`` copies)
+   and ``expected_permute`` bitwise over six edge sets at 136 B and the
+   run's size in int8, a float32 [5, 3] row and one backward pass, and
+   on the 2x2 mesh's per-axis rings; then its per-hop time at 32 MiB
+   beside its bound, the plain version and one ``copy_``. Ranks sharing
+   a card run as time-sliced CUDA contexts, so these are not link
+   numbers; the kernel alone (a world of 1, the 32 MiB self-edge, stored
+   straight into the output) beside one ``copy_`` of the same bytes,
+   both device time;
 9. disagg   — ``run_disagg_engine`` (what ``serve --disagg`` runs) at the
    full width on two in-process ranks sharing cuda:0 (prefill, decode),
    phase 7's trace, 32 decode + 4 prefill slots, ``--transport
@@ -1076,6 +1092,9 @@ def serve(cfg, params, TK, card: str) -> dict:
 
 P2P_MSG, P2P_ITERS = 32 << 20, 128      # the reference's defaults
 P2P4_MSG, P2P4_ITERS = 4 << 20, 16      # the 4-rank world, cut
+RING_ITERS = 16                         # ring / torus2d / NCCL cells, cut
+NCCL_PATTERNS = ("ring", "all_to_all", "allreduce", "reduce_scatter",
+                 "all_gather")
 HOP_CHAIN = 64                          # hops per timed fused chain
 NVLINK_BYTES_PER_S = 450e9              # H100 NVLink, each way
 EDGE_SETS_8 = {                         # tests/test_pallas_dma.py:101
@@ -1117,6 +1136,29 @@ def latency_launches(cfg) -> int:
     the serialized loop and the fused chains (warm-up and repeats)."""
     warm = max(1, cfg.warmup)
     return warm + cfg.iters + (warm + cfg.fused_repeats) * cfg.iters
+
+
+def device_mode_launches(cfg) -> tuple:
+    """Hops of one ``--mode device`` cell (``measure_headline``): both
+    chains warmed and timed ``fused_repeats`` times on the host clock,
+    then run twice in the profiler's warm-up cycle and twice recorded —
+    once, or twice over where the two clocks disagreed and rank 0 chose
+    to measure again."""
+    short = max(1, cfg.iters // 8)
+    once = (1 + cfg.fused_repeats + 4) * (short + max(cfg.iters, short + 1))
+    return once, 2 * once
+
+
+def ring_launches(cfg, axes: int = 1) -> tuple:
+    """Launches one rank makes in a ``ring`` (``axes=1``) or ``torus2d``
+    run over the peer-push kernel: per axis the serialized loop (warm-up
+    and ``iters``) or the device-mode chains, and the ``--check`` hop —
+    every rank of a ring or an axis line takes part in every hop. → the
+    counts the run may make (two where a re-measure can happen)."""
+    check = int(cfg.check)
+    if cfg.mode == "device":
+        return tuple(axes * (n + check) for n in device_mode_launches(cfg))
+    return (axes * (cfg.warmup + cfg.iters + check),)
 
 
 def p2p_kernel_checks(rt, sizes) -> dict:
@@ -1201,36 +1243,58 @@ def p2p_timing(rt) -> dict:
 
 
 def p2p_rank_case(msg: int, iters: int, isolations, latency: bool,
-                  sizes, timing: bool) -> dict:
+                  sizes, timing: bool, ring_msg: int = 0,
+                  ring_modes=()) -> dict:
     """One rank of a world that shares cuda:0 (every rank
     ``make_runtime(device="cuda:0")``), then what ``cli.main`` runs after
     it builds the runtime: ``pairwise --transport pallas_dma --check`` in
-    each isolation (and ``latency --transport pallas_dma``), launches
-    counted; then the kernel checks and, on request, the timing."""
+    each isolation (and ``latency --transport pallas_dma``), then ``ring
+    --transport pallas_dma`` at ``ring_msg`` x ``RING_ITERS`` in each of
+    ``ring_modes`` (``--check`` with serialized), launches counted; an
+    ``allreduce`` must raise ``BackendError`` before any traffic (NCCL
+    cannot form on one card); then the kernel checks and, on request,
+    the timing."""
     from tpu_p2p_torch.cli import run_benchmark
     from tpu_p2p_torch.config import BenchConfig
     from tpu_p2p_torch.parallel import pallas_dma as PD
     from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.utils.errors import BackendError
 
     rt = make_runtime(device="cuda:0")
     out = {"rank": rt.rank, "world": rt.world}
     rt.barrier()
     PD.reset_launches()
     t0 = time.perf_counter()
-    expected = 0
+    expected = [0]
     for iso in isolations:
         cfg = BenchConfig(pattern="pairwise", msg_size=msg, iters=iters,
                           transport="pallas_dma", check=True, isolation=iso)
         run_benchmark(rt, cfg)
-        expected += pairwise_launches(rt.world, rt.rank, cfg)
+        expected = [e + pairwise_launches(rt.world, rt.rank, cfg)
+                    for e in expected]
     if latency:
         cfg = BenchConfig(pattern="latency", transport="pallas_dma")
         run_benchmark(rt, cfg)
-        expected += latency_launches(cfg)
+        expected = [e + latency_launches(cfg) for e in expected]
+    for mode in ring_modes:
+        cfg = BenchConfig(pattern="ring", msg_size=ring_msg,
+                          iters=RING_ITERS, transport="pallas_dma",
+                          mode=mode, check=mode == "serialized")
+        run_benchmark(rt, cfg)
+        expected = [e + n for e in expected for n in ring_launches(cfg)]
     rt.barrier()
     out.update(launches=PD.launches["dma_permute"],
                expected_launches=expected,
                main_path_s=time.perf_counter() - t0)
+    if ring_modes:
+        try:
+            run_benchmark(rt, BenchConfig(pattern="allreduce",
+                                          msg_size=ring_msg, iters=2))
+            out["allreduce"] = "ran"
+        except BackendError as e:
+            out["allreduce"] = str(e)
+        out["allreduce_launches"] = PD.launches["dma_permute"] - \
+            out["launches"]
     PD.reset_launches()
     out["checks"] = p2p_kernel_checks(rt, sizes)
     rt.barrier()
@@ -1250,20 +1314,34 @@ def p2p_world(n: int, card: str, **kw) -> list:
     t0 = time.perf_counter()
     res = run_world(n, f"{__file__}:p2p_rank_case", kw, timeout=450)
     for r in res:
-        if r["launches"] != r["expected_launches"]:
+        if r["launches"] not in r["expected_launches"] or \
+                r["launches"] != res[0]["launches"]:
             raise AssertionError(
                 f"world of {n}, rank {r['rank']}: dma_permute launched "
-                f"{r['launches']} times on the main path, expected "
-                f"{r['expected_launches']}")
+                f"{r['launches']} times on the main path, expected one "
+                f"of {r['expected_launches']} (the same on every rank)")
+        if kw.get("ring_modes") and (
+                "NCCL collective" not in r["allreduce"]
+                or r["allreduce_launches"]):
+            raise AssertionError(
+                f"world of {n}, rank {r['rank']}: allreduce on ranks "
+                f"sharing a card must raise BackendError before any "
+                f"traffic; got {r['allreduce']!r}, "
+                f"{r['allreduce_launches']} launches")
         c = r["checks"]
         if c["bad"] or c["counted"] != c["launches"]:
             raise AssertionError(
                 f"world of {n}, rank {r['rank']}: kernel vs plain/oracle "
                 f"failed for {c['bad']}; launches {c['counted']} vs "
                 f"{c['launches']} made")
+    rings = ""
+    if kw.get("ring_modes"):
+        rings = (f", ring {'/'.join(kw['ring_modes'])} at {kw['ring_msg']} B"
+                 f" x {RING_ITERS}; allreduce refused: "
+                 f"{res[0]['allreduce']}")
     say(f"p2p world of {n} on cuda:0 ({', '.join(kw['isolations'])} "
         f"isolation, {kw['msg']} B x {kw['iters']}, pallas_dma, --check"
-        f"{', latency' if kw['latency'] else ''}): main path "
+        f"{', latency' if kw['latency'] else ''}{rings}): main path "
         f"{res[0]['main_path_s']:.1f} s, dma_permute launches per rank "
         f"{[r['launches'] for r in res]} (= expected); kernel == plain "
         f"(gloo) == expected_permute bitwise over 6 edge sets at "
@@ -1271,6 +1349,228 @@ def p2p_world(n: int, card: str, **kw) -> list:
         f"{res[0]['checks']['launches']} launches a rank | world "
         f"{time.perf_counter() - t0:.1f} s | {card}")
     return res
+
+
+def torus_rank_case(msg: int, sizes) -> dict:
+    """One rank of a world of 4 sharing cuda:0, laid out 2x2 (``make_
+    runtime(device="cuda:0", mesh_shape=(2, 2))``): ``torus2d --transport
+    pallas_dma --check`` at ``msg`` x ``RING_ITERS``, launches counted;
+    then the kernel on each axis's ring (a full permutation of the
+    rank's line) against its plain version (gloo over the line, on
+    ``.cpu()`` copies) and ``expected_permute(axis=)``, bitwise, at
+    ``sizes``; and the peer-push windows, one set a line."""
+    from tpu_p2p_torch.cli import run_benchmark
+    from tpu_p2p_torch.config import BenchConfig
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(device="cuda:0", mesh_shape=(2, 2))
+    mesh = rt.mesh
+    out = {"rank": rt.rank}
+    rt.barrier()
+    PD.reset_launches()
+    t0 = time.perf_counter()
+    cfg = BenchConfig(pattern="torus2d", msg_size=msg, iters=RING_ITERS,
+                      transport="pallas_dma", check=True, mesh_shape=(2, 2))
+    run_benchmark(rt, cfg)
+    rt.barrier()
+    out.update(launches=PD.launches["dma_permute"],
+               expected_launches=ring_launches(cfg, axes=2),
+               main_path_s=time.perf_counter() - t0)
+    PD.reset_launches()
+    bad, worst, made = [], 0, 0
+    for a, axis in enumerate(mesh.axis_names):
+        line, ring = mesh.line(axis), C.ring_edges(mesh.shape[axis])
+        for nbytes in sizes:
+            x = C.make_payload(mesh, nbytes, np.int8)
+            got = C.dma_ppermute(x, line, ring).cpu()
+            made += 1
+            plain = PD._dma_ppermute_plain(x.cpu(), line, ring)
+            want = C.expected_permute(C.host_payload(mesh, nbytes), ring,
+                                      axis=a)
+            worst = max(worst, (got.int() - plain.int()).abs().max().item())
+            if not (torch.equal(got, plain)
+                    and C.verify_against(got, want, mesh)):
+                bad.append(f"axis {axis} ring {nbytes} B")
+    rt.barrier()
+    lines = [mesh.line(a) for a in mesh.axis_names]
+    out["checks"] = {"bad": bad, "max_abs_err": worst, "launches": made,
+                     "counted": PD.launches["dma_permute"]}
+    out["windows"] = {
+        "lines": [sorted(m.windows) for m in lines],
+        "world": sorted(mesh.windows),
+        "distinct": len({id(m.windows) for m in lines}
+                        | {id(mesh.windows)}) == 3,
+    }
+    rt.close()
+    out["windows"]["left"] = sum(len(m.windows) for m in lines)
+    return out
+
+
+def torus_world(card: str) -> list:
+    """Spawn the 2x2 world of :func:`torus_rank_case`; raise on a failed
+    rank, a launch mismatch, a kernel disagreement, or windows shared
+    between lines or left open."""
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    res = run_world(4, f"{__file__}:torus_rank_case",
+                    {"msg": P2P4_MSG, "sizes": (136, P2P4_MSG)}, timeout=450)
+    for r in res:
+        c, w = r["checks"], r["windows"]
+        if r["launches"] not in r["expected_launches"]:
+            raise AssertionError(
+                f"torus 2x2, rank {r['rank']}: dma_permute launched "
+                f"{r['launches']} times, expected {r['expected_launches']}")
+        if c["bad"] or c["counted"] != c["launches"]:
+            raise AssertionError(
+                f"torus 2x2, rank {r['rank']}: kernel vs plain/oracle "
+                f"failed for {c['bad']}; launches {c['counted']} vs "
+                f"{c['launches']} made")
+        if not (w["distinct"] and all(w["lines"]) and not w["world"]
+                and not w["left"]):
+            raise AssertionError(f"torus 2x2, rank {r['rank']}: windows "
+                                 f"{w} (one set a line, none left open)")
+    say(f"torus2d world of 4 on cuda:0 (2x2, {P2P4_MSG} B x {RING_ITERS}, "
+        f"pallas_dma, --check): main path {res[0]['main_path_s']:.1f} s, "
+        f"dma_permute launches per rank {[r['launches'] for r in res]} (= "
+        f"expected); kernel == plain (gloo over the line) == "
+        f"expected_permute(axis=) bitwise on both axes' rings at 136 B and "
+        f"{P2P4_MSG} B; windows one set a line "
+        f"{res[0]['windows']['lines']}, none on the world, all closed | "
+        f"world {time.perf_counter() - t0:.1f} s | {card}")
+    return res
+
+
+def cli_cell(argv, rc: int = 0) -> tuple:
+    """``cli.main(argv)`` in this process (a world of 1), its output
+    echoed → (stdout, stderr); raises unless it exits ``rc``."""
+    import contextlib
+
+    from tpu_p2p_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        got = cli.main(argv)
+    sys.stdout.write(out.getvalue())
+    if got != rc:
+        raise AssertionError(f"python -m tpu_p2p_torch {argv} exited {got}, "
+                             f"expected {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def nccl_world1(card: str) -> None:
+    """The new patterns in a world of 1 through ``cli.main``: the NCCL
+    ones with ``--check`` at 32 MiB x ``RING_ITERS``; ``--mode device``
+    on ``latency`` and ``all_gather`` (published from the card's clock)
+    and on ``allreduce``, which must refuse (an in-place sum over one
+    rank puts nothing on the card); ``--validate-timing`` on the 32 MiB
+    loopback, which must say OK; ``--profile-dir``, whose trace must
+    hold the card's kernels."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    for pattern in NCCL_PATTERNS:
+        cli_cell(["--pattern", pattern, "--check", "--iters",
+                  str(RING_ITERS)])
+    with tempfile.TemporaryDirectory(prefix="smoke_p2p_") as td:
+        log = os.path.join(td, "cells.jsonl")
+        out, _ = cli_cell(["--pattern", "latency", "--mode", "device"])
+        if "(device_trace)" not in out:
+            raise AssertionError(f"latency --mode device: {out!r}")
+        cli_cell(["--pattern", "all_gather", "--mode", "device", "--iters",
+                  str(RING_ITERS), "--jsonl", log])
+        with open(log) as fh:
+            rec = json.loads(fh.readline())
+        if rec.get("source") != "device_trace" or not rec["mean_s"] > 0:
+            raise AssertionError(f"all_gather --mode device record {rec}")
+        _, err = cli_cell(["--pattern", "allreduce", "--mode", "device",
+                           "--iters", str(RING_ITERS)], rc=1)
+        if "launch no device work" not in err:
+            raise AssertionError(f"allreduce --mode device: {err!r}")
+        out, _ = cli_cell(["--pattern", "loopback", "--msg-size", "32MiB",
+                           "--iters", str(RING_ITERS), "--validate-timing"])
+        if "timing-validation[OK]" not in out:
+            raise AssertionError(f"--validate-timing did not say OK: {out!r}")
+        prof = os.path.join(td, "prof")
+        cli_cell(["--pattern", "latency", "--profile-dir", prof])
+        with open(os.path.join(prof, "rank0.trace.json")) as fh:
+            kernels = sum(1 for e in json.load(fh)["traceEvents"]
+                          if e.get("cat") == "kernel")
+        if not kernels:
+            raise AssertionError("--profile-dir trace holds no kernel")
+    say(f"p2p world of 1 (NCCL): {', '.join(NCCL_PATTERNS)} --check at "
+        f"32 MiB x {RING_ITERS}; --mode device on latency and all_gather "
+        f"(source device_trace), allreduce refused (no device work over one "
+        f"rank); --validate-timing OK; --profile-dir trace with {kernels} "
+        f"kernels | {time.perf_counter() - t0:.1f} s | {card}")
+
+
+def graph_slope(make_chain, x, short: int, long: int, reps: int = 5):
+    """Per-op device time as the slope between two chain lengths, each
+    chain captured once in a CUDA graph and replayed ``reps`` times
+    between two events: the card's clock with no host issue in the
+    way."""
+    ms = {}
+    for k in (short, long):
+        fn = make_chain(k)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn(x)
+        g.replay()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            g.replay()
+        t1.record()
+        t1.synchronize()
+        ms[k] = t0.elapsed_time(t1) / reps
+    return (ms[long] - ms[short]) / (long - short) * 1e-3
+
+
+def device_clock_check(card: str) -> dict:
+    """The two ways to read a chain's time on the card, on the same
+    chains of a world of 1 at 32 MiB: the busy-time slope of a
+    ``torch.profiler`` trace (what ``--mode device`` publishes) against
+    CUDA-graph replays timed by events, and the host slope beside them;
+    the two device readings must agree within 25 %. → the loopback cell's
+    numbers."""
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.utils.profiling import measure_headline
+
+    rt = make_runtime(device="cuda:0")
+    cache = C.CollectiveCache()
+    x = C.make_payload(rt.mesh, P2P_MSG, np.int8)
+    cells = {
+        "loopback rewrite": lambda k: cache.loopback_chain(rt.mesh, k),
+        "all_gather (NCCL, one rank)":
+            lambda k: cache.ag_chain(rt.mesh, "d", k),
+    }
+    out = {}
+    for name, chain in cells.items():
+        m = measure_headline(chain, x, HOP_CHAIN, group=rt.mesh.host_group)
+        g = graph_slope(chain, x, m.n_short, m.n_long)
+        if m.source != "device_trace" or not 0.8 <= m.per_op_s / g <= 1.25:
+            raise AssertionError(
+                f"{name}: profiler slope {m.per_op_s} s/op ({m.source}, "
+                f"{m.note}) vs graph slope {g} s/op")
+        out[name] = (m.per_op_s, g, m.host_per_op_s)
+        say(f"device clock, {name} 32 MiB (chains {m.n_short}/{m.n_long}): "
+            f"profiler busy-time slope {m.per_op_s * 1e6:.3f} us/op, "
+            f"CUDA-graph slope {g * 1e6:.3f} us/op (ratio "
+            f"{m.per_op_s / g:.3f}), host slope "
+            f"{m.host_per_op_s * 1e6:.3f} us/op | {card}")
+    rt.close()
+    return out
 
 
 def p2p_self_edge() -> dict:
@@ -1331,20 +1631,20 @@ def p2p(card: str) -> dict:
     """The reference program on the card: a world of 1 through
     ``cli.main`` (defaults, then ``--pattern latency``), then worlds of 2
     and 4 ranks sharing cuda:0 through the peer-push kernel."""
-    from tpu_p2p_torch import cli
-
     for argv in ([], ["--pattern", "latency"]):
-        rc = cli.main(argv)
-        if rc:
-            raise AssertionError(f"python -m tpu_p2p_torch {argv} "
-                                 f"exited {rc}")
+        cli_cell(argv)
+    nccl_world1(card)
+    device_clock_check(card)
     alone = p2p_self_edge()
     w2 = p2p_world(2, card, msg=P2P_MSG, iters=P2P_ITERS,
                    isolations=("full",), latency=True,
-                   sizes=(136, P2P_MSG), timing=True)
+                   sizes=(136, P2P_MSG), timing=True, ring_msg=P2P_MSG,
+                   ring_modes=("serialized", "device"))
     w4 = p2p_world(4, card, msg=P2P4_MSG, iters=P2P4_ITERS,
                    isolations=("full", "submesh"), latency=False,
-                   sizes=(136, P2P4_MSG), timing=False)
+                   sizes=(136, P2P4_MSG), timing=False, ring_msg=P2P4_MSG,
+                   ring_modes=("serialized",))
+    t4 = torus_world(card)
     tm = w2[0]["timing"]
     bound = 2 * P2P_MSG / HBM_BYTES_PER_S * 1e3
     say(f"kernel dma_permute @ 32 MiB int8, 2 ranks on one card: per hop "
@@ -1370,7 +1670,11 @@ def p2p(card: str) -> dict:
         "replaces": "tpu_p2p/parallel/pallas_dma.py:146 "
                     "(_dma_transport_permute_call; kernel body :166)",
         "launches": w2[0]["launches"],
-        "max_abs_err": max(r["checks"]["max_abs_err"] for r in w2 + w4),
+        "edge_sets": "the six edge sets of tests/test_pallas_dma.py:101 "
+                     "cut to 2 and 4 ranks (pairs, partial sets, empty, "
+                     "full rings), 2x2 torus lines (full per-axis rings)",
+        "max_abs_err": max(r["checks"]["max_abs_err"]
+                           for r in w2 + w4 + t4),
         "ms": tm["hop_ms"], "plain_ms": tm["plain_ms"], "bound_ms": bound,
         "bound_by": "bytes", "library_ms": tm["library_ms"],
     }
@@ -2111,8 +2415,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    say(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                for k in kernels]}))
+    say(json.dumps({"kernels": [
+        {key: k[key] for key in keys + ("edge_sets",) if key in k}
+        for k in kernels]}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

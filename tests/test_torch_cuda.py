@@ -615,3 +615,58 @@ def test_dma_slab_segments_landing_out_of_order_on_card(cuda):
     for rank, res in enumerate(_card_world("card_reversed_segments_case")):
         assert res["bad"] == [], f"rank {rank}: {res['bad']}"
         assert res["launches"] == res["expected_launches"], res
+
+
+# ------------------------------------------ collectives (NCCL, 2-D mesh)
+# The rank-side cases live in tests/torch_collectives_world.py.
+
+
+def _collective_world(n, case, **kwargs):
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    cases = os.path.join(os.path.dirname(__file__),
+                         "torch_collectives_world.py")
+    return run_world(n, f"{cases}:{case}", kwargs, timeout=900)
+
+
+@pytest.mark.cuda
+def test_nccl_builders_in_a_world_of_1_equal_the_oracles(cuda):
+    # Every reduction builder, single and 3-chained, over a real NCCL
+    # communicator of one rank, int8 and small-integer float32, bitwise.
+    assert _collective_world(1, "card_collectives_case") == [[]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, shape", [(2, None), (4, None), (4, (2, 2))],
+                         ids=["ring2", "ring4", "torus2x2"])
+def test_axis_rings_over_the_kernel_equal_expected_permute(cuda, n, shape):
+    # Ranks sharing cuda:0: full-permutation rings (every rank sends and
+    # receives, no dummy edge) along each axis, one hop and 3 hops, each
+    # launch counted.
+    for rank, res in enumerate(_collective_world(n, "card_permute_case",
+                                                 shape=shape)):
+        assert res["bad"] == [], f"rank {rank}: {res['bad']}"
+        assert res["launches"] == res["made"], res
+
+
+@pytest.mark.cuda
+def test_device_mode_slope_is_positive_and_near_the_host_slope(cuda):
+    # The 32 MiB self-edge floor (the loopback rewrite chain, a world of
+    # 1): the card's busy-time slope must exist, be positive, and sit
+    # within 2x of the host slope, which the card's time dominates here.
+    import numpy as np
+
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.utils.profiling import measure_headline
+
+    rt = make_runtime(device=cuda)
+    try:
+        cache = C.CollectiveCache()
+        x = C.make_payload(rt.mesh, 32 << 20, np.int8)
+        m = measure_headline(lambda k: cache.loopback_chain(rt.mesh, k), x,
+                             64, group=rt.mesh.host_group)
+        assert m.source == "device_trace" and m.per_op_s > 0, m
+        assert m.ok is True, m
+    finally:
+        rt.close()

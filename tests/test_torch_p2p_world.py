@@ -451,9 +451,10 @@ def test_cli_sweep_fused_jsonl_resume_and_num_devices(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mode", "device"], ["--validate-timing"], ["--profile-dir", "d"],
-    ["--hybrid"], ["--mesh-shape", "4x2"], ["--pattern", "ring"],
-    ["--pattern", "allreduce"], ["--pattern", "flagship_step"],
+    ["--pattern", "ring_attention"], ["--pattern", "ulysses_attention"],
+    ["--zero-dp"], ["--hybrid"], ["--attn-window", "8"],
+    ["--overlap", "prefetch"], ["--ep-overlap", "ring"],
+    ["--pattern", "flagship_step"],
     ["--flash"], ["--tp-overlap", "ring"], ["obs"], ["topo"], ["zb"],
 ])
 def test_unported_flags_exit_2(argv, capsys):

@@ -9,9 +9,16 @@ default the uni- then bi-directional all-pairs Gbps matrix at 32 MiB ×
 
 ``--cpu-mesh N`` spawns the N ranks itself (the counterpart of the
 reference's N simulated devices); rank 0 alone prints, and the command
-exits with the worst rank's code. ``serve`` runs the serving engine and
-``train`` the training loop. The reference's other flags and
-subcommands parse and exit 2 with "not ported yet".
+exits with the worst rank's code. ``--pattern`` runs the reference's
+transfer patterns (pairwise, latency, loopback, ring, torus2d over
+``--mesh-shape AxB``, all_to_all, allreduce, reduce_scatter,
+all_gather); ``--mode device`` publishes the card's clock,
+``--validate-timing`` cross-checks it against the host clock after the
+run, ``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run.
+``serve`` runs the serving engine and ``train`` the training loop. The
+reference's flags and subcommands the port does not run yet (the
+model-step patterns and their knobs, ``--hybrid``, ``obs``, ``topo``,
+``zb``) parse and exit 2 with "not ported yet".
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ from tpu_p2p_torch.config import (
 )
 from tpu_p2p_torch.utils.errors import fail_fast
 
-PORTED_PATTERNS = ("pairwise", "latency", "loopback")
+PORTED_PATTERNS = ("pairwise", "latency", "loopback", "ring", "torus2d",
+                   "all_to_all", "allreduce", "reduce_scatter",
+                   "all_gather")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="tpu_p2p_torch",
         description=(
             "Interconnect microbenchmarks on NVIDIA GPUs: the all-pairs "
-            "P2P bandwidth matrices (the reference workload) and "
+            "P2P bandwidth matrices (the reference workload), ring / "
+            "2-D torus shifts, all_to_all and the NCCL reductions, and "
             "small-message latency, over NCCL or the hand-written "
             "peer-push kernel."
         ),
@@ -70,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serialized = one message in flight (reference "
                         "semantics); fused = dependent hops launched back "
                         "to back, drained once; differential = slope "
-                        "between two chain lengths (device: not ported)")
+                        "between two chain lengths; device = that slope "
+                        "on the card's clock (kernel spans of a "
+                        "torch.profiler trace)")
     p.add_argument("--transport", choices=TRANSPORTS, default="xla",
                    help="xla = the library collective (NCCL send/recv; "
                         "gloo on the CPU); pallas_dma = the hand-written "
@@ -81,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-devices", type=int, default=None,
                    help="use N devices (with --cpu-mesh: a world of N)")
     p.add_argument("--mesh-shape", default=None, metavar="AxB",
-                   help="2D mesh (not ported yet)")
+                   help="2D rank mesh, e.g. 4x2 (required for torus2d)")
     p.add_argument("--hybrid", action="store_true",
                    help="multi-slice mesh (not ported yet)")
     p.add_argument("--fused-repeats", type=int, default=3,
@@ -96,9 +108,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="skip cells already recorded in --jsonl")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
-                   help="profiler trace of the run (not ported yet)")
+                   help="write a torch.profiler trace of the run into DIR "
+                        "(one Chrome-trace file a rank)")
     p.add_argument("--validate-timing", action="store_true",
-                   help="host vs device timeline check (not ported yet)")
+                   help="after the run, cross-check the host differential "
+                        "slope against the card's clock on a canonical "
+                        "chain (loopback on 1 rank, ring otherwise); "
+                        "MISMATCH exits nonzero")
     p.add_argument("--flash", action="store_true",
                    help="ring_attention flash kernel (not ported yet)")
     p.add_argument("--attn-window", type=int, default=0, metavar="W",
@@ -130,11 +146,8 @@ def unported(args: argparse.Namespace) -> Optional[str]:
     does not run yet, or None."""
     if args.pattern not in PORTED_PATTERNS:
         return f"--pattern {args.pattern}"
-    if args.mode == "device":
-        return "--mode device"
     defaults = build_parser().parse_args([])
-    for flag in ("mesh_shape", "hybrid", "profile_dir", "validate_timing",
-                 "flash", "attn_window", "zero_dp", "overlap",
+    for flag in ("hybrid", "flash", "attn_window", "zero_dp", "overlap",
                  "tp_overlap", "ep_overlap", "pp_overlap", "pp_schedule",
                  "tick_lowering"):
         if getattr(args, flag) != getattr(defaults, flag):
@@ -143,6 +156,15 @@ def unported(args: argparse.Namespace) -> Optional[str]:
 
 
 def config_from_args(args: argparse.Namespace) -> BenchConfig:
+    mesh_shape = None
+    if args.mesh_shape:
+        try:
+            mesh_shape = tuple(int(d)
+                               for d in args.mesh_shape.lower().split("x"))
+        except ValueError:
+            raise SystemExit(
+                f"--mesh-shape must look like 4x2, got {args.mesh_shape!r}"
+            )
     return BenchConfig(
         pattern=args.pattern,
         msg_size=(parse_size(args.msg_size) if args.msg_size is not None
@@ -155,12 +177,14 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         isolation=args.isolation,
         transport=args.transport,
         num_devices=args.num_devices,
+        mesh_shape=mesh_shape,
         sweep=parse_sweep(args.sweep) if args.sweep else None,
         fused_repeats=args.fused_repeats,
         timeout_s=args.timeout,
         check=args.check,
         jsonl=args.jsonl,
         resume=args.resume,
+        profile_dir=args.profile_dir,
     )
 
 
@@ -180,9 +204,63 @@ def _print_devices(rt) -> None:
               f"local={rt.placement.local_ids[i]}")
 
 
+def _validate_timing(rt, cfg: BenchConfig) -> int:
+    """Cross-check the host differential slope against the card's clock
+    on one canonical chain of this mesh (reference ``cli.py:224``): a
+    ring along the first axis over ``cfg.transport`` on 2 or more ranks,
+    the loopback rewrite on 1. Rank 0 prints one line; a MISMATCH exits
+    1 on the rank that saw it."""
+    import numpy as np
+
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.utils import timing
+    from tpu_p2p_torch.utils.profiling import validate_differential
+
+    cache = C.CollectiveCache()
+    msg = cfg.msg_size or 4 * 1024 * 1024
+    x = C.make_payload(rt.mesh, msg, dtype=np.dtype(cfg.dtype))
+    n = rt.num_devices
+    if n >= 2:
+        axis = rt.mesh.axis_names[0]
+        edges = C.ring_edges(rt.mesh.shape[axis])
+        chain_of = lambda k: cache.permute_chain(  # noqa: E731
+            rt.mesh, axis, edges, k, transport=cfg.transport)
+        label = f"ring ppermute x{n}"
+    else:
+        chain_of = lambda k: cache.loopback_chain(rt.mesh, k)  # noqa: E731
+        label = "loopback rewrite"
+    # 128-op chains: the long-short difference must clear the host
+    # clock's jitter for the host slope to mean anything.
+    v = validate_differential(chain_of, x, max(128, cfg.iters),
+                              timing=timing, repeats=5,
+                              timeout_s=cfg.timeout_s, barrier=rt.barrier)
+    if rt.rank == 0:
+        print(f"# {v.describe()}  [{label}, {msg} B]", flush=True)
+    return 0 if v.ok in (True, None) else 1
+
+
+def _profiled(rt, cfg: BenchConfig, run) -> None:
+    """``run()`` under ``torch.profiler`` (the card's kernels too on a
+    card), the trace written to ``cfg.profile_dir`` as
+    ``rank{R}.trace.json``."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if rt.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        run()
+    prof.export_chrome_trace(
+        os.path.join(cfg.profile_dir, f"rank{rt.rank}.trace.json"))
+
+
 def run_benchmark(rt, cfg: BenchConfig) -> None:
     """What ``main`` runs once the world exists: the configured pattern
-    on every rank, rank 0 printing. Library callers that build their own
+    on every rank, rank 0 printing, under the profiler when
+    ``cfg.profile_dir`` is set. Library callers that build their own
     runtime (``make_runtime(device=...)``) call this."""
     from tpu_p2p_torch.utils.report import JsonlWriter, load_done_cells
     from tpu_p2p_torch.workloads import WORKLOADS
@@ -199,7 +277,10 @@ def run_benchmark(rt, cfg: BenchConfig) -> None:
             "ranks disagree on the --resume done-cell set; put the "
             "--jsonl log on a filesystem shared by every process")
     try:
-        WORKLOADS[cfg.pattern](ctx)
+        if cfg.profile_dir:
+            _profiled(rt, cfg, lambda: WORKLOADS[cfg.pattern](ctx))
+        else:
+            WORKLOADS[cfg.pattern](ctx)
     finally:
         if ctx.jsonl is not None:
             ctx.jsonl.close()
@@ -214,6 +295,10 @@ def bench_main(argv: Sequence[str]) -> int:
         print(f"python -m tpu_p2p_torch: {what} is not ported yet",
               file=sys.stderr)
         return 2
+    try:
+        cfg = config_from_args(args)
+    except ValueError as e:
+        return fail_fast(e)
     if args.cpu_mesh and "RANK" not in os.environ:
         n = args.cpu_mesh
         if args.num_devices is not None:
@@ -226,17 +311,20 @@ def bench_main(argv: Sequence[str]) -> int:
 
         return max(spawn(n, ["-m", "tpu_p2p_torch", *argv]))
     try:
-        cfg = config_from_args(args)
         from tpu_p2p_torch.parallel.runtime import make_runtime
 
         rt = make_runtime(num_devices=cfg.num_devices,
-                          device="cpu" if args.cpu_mesh else None)
+                          device="cpu" if args.cpu_mesh else None,
+                          mesh_shape=cfg.mesh_shape)
+        rc = 0
         if args.list_devices:
             _print_devices(rt)
         else:
             run_benchmark(rt, cfg)
+            if args.validate_timing:
+                rc = _validate_timing(rt, cfg)
         rt.close()
-        return 0
+        return rc
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
         return 130
@@ -244,6 +332,13 @@ def bench_main(argv: Sequence[str]) -> int:
         raise
     except BaseException as e:  # noqa: BLE001 — single fail-fast handler
         return fail_fast(e)
+    finally:
+        # A failed rank leaves the world too, so its groups' threads end
+        # before the interpreter does.
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

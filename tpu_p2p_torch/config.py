@@ -107,8 +107,10 @@ MODES = ("serialized", "fused", "differential", "device")
 # serialized = one message in flight, drained each time (the reference's
 # loop); fused = ``iters`` dependent hops launched back to back, drained
 # once; differential = the slope between two chain lengths, which
-# cancels every constant per-call cost; device (not ported yet) = that
-# slope read off the device timeline.
+# cancels every constant per-call cost; device = that slope read off the
+# card's own clock (the kernel spans of a ``torch.profiler`` trace), with
+# the host slope beside it as the diagnostic; on the CPU, where no device
+# track exists, the host slope, labelled as such.
 ISOLATIONS = ("full", "submesh")
 # full = every rank of the world takes part in each pair's transfer
 # (non-participants with no edge); submesh = only the pair, over a
@@ -137,12 +139,15 @@ class BenchConfig:
     mode: str = "serialized"  # reference semantics: one message in flight
     isolation: str = "full"
     num_devices: Optional[int] = None
+    mesh_shape: Optional[Tuple[int, ...]] = None  # e.g. (4, 2): a 2-D
+    # rank mesh over axes ("x", "y") in row-major rank order
     sweep: Optional[Tuple[int, ...]] = None  # message-size sweep
     fused_repeats: int = 3
     timeout_s: Optional[float] = None
     check: bool = False  # verify payload contents after transfer
     jsonl: Optional[str] = None  # structured twin of the stdout matrix
     resume: bool = False  # skip cells already present in jsonl
+    profile_dir: Optional[str] = None  # torch.profiler trace output
     transport: str = "xla"
 
     def __post_init__(self) -> None:

@@ -1,5 +1,5 @@
-"""Edge-set transfers over a mesh — the port's copy of the benchmark half
-of ``tpu_p2p/parallel/collectives.py``.
+"""Collectives over a mesh — the port's copy of the benchmark half of
+``tpu_p2p/parallel/collectives.py``.
 
 - ``ncclSend``/``ncclRecv`` of ``ncclInt8`` (``p2p_matrix.cc:156-171``)
   → :func:`ppermute`: an ordered-edge list applied with
@@ -12,26 +12,41 @@ of ``tpu_p2p/parallel/collectives.py``.
   ``xla`` transport: the library collective.
 - ``pallas_dma`` → :func:`dma_ppermute`, the hand-written peer-push
   kernel (:mod:`tpu_p2p_torch.parallel.pallas_dma`).
+- The reductions and the all-to-all (the reference's ``psum`` :748,
+  ``all_to_all`` :846 and the :class:`CollectiveCache` builders
+  :1080-1290) → NCCL's ``all_reduce``, ``reduce_scatter_tensor``,
+  ``all_gather_into_tensor`` and ``all_to_all_single`` over the device
+  group, gloo's over the host group on the CPU. They are library calls
+  on every transport, as the reference's are XLA collectives. On ranks
+  that share a card there is no device group, and they raise
+  :class:`BackendError` before any traffic: NCCL needs a card a rank,
+  and gloo never runs on card tensors.
+- Along an axis of a 2-D mesh every collective runs on this rank's
+  line (``mesh.line(axis)``): an axis edge set is the same edges in
+  every line of the other axis, as a ``ppermute`` over one axis of a
+  2-D ``shard_map`` is (:func:`expected_permute` with ``axis=``).
 - the chunk wave :func:`chunked_ppermute_compute` (reference :627): a
   computed buffer shipped as ``chunks`` hops, each chunk's ship in flight
   while the next chunk computes, over either transport.
 - On a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh` (every rank in
-  this process) the same functions take and return one tensor per rank;
-  the ``xla`` transport there is a ``Tensor.copy_`` into the destination
+  this process) the permutes take and return one tensor per rank; the
+  ``xla`` transport there is a ``Tensor.copy_`` into the destination
   rank's buffer, on the destination's stream.
 - ``cudaMalloc`` + ``cudaMemset`` buffers (``p2p_matrix.cc:124-130``) →
   :func:`make_payload`, each rank's row of a rank-tagged payload whose
   bytes equal the reference's ``_payload_np`` bit for bit, so transfers
-  are verifiable against :func:`expected_permute`.
+  are verifiable against the host oracles (:func:`expected_permute`,
+  :func:`expected_all_reduce` and the rest).
 
 Each function works on the calling rank's own row ``[1, elems]`` (a
 ``shard_map`` block in the reference); the host-side oracles
-(:func:`host_payload`, :func:`expected_permute`) hold the whole mesh.
-:class:`CollectiveCache` keeps what the reference caches — canonical
-edge sets and one callable per (mesh, edges, chain length, transport),
-with a ``pallas_dma`` hop's completed permutation made once; there is
-nothing to compile. The reference's ledger hooks and fault
-throttle are not ported yet.
+(:func:`host_payload`, the ``expected_*`` functions) hold the whole
+mesh. :class:`CollectiveCache` keeps what the reference caches —
+canonical edge sets and one callable per (mesh, axis, edges, chain
+length, transport), with a ``pallas_dma`` hop's completed permutation
+made once; there is nothing to compile. A chain is ``k`` data-dependent
+calls launched back to back and drained once. The reference's ledger
+hooks and fault throttle are not ported yet.
 """
 
 from __future__ import annotations
@@ -93,9 +108,11 @@ def _payload_row(r: int, elems: int, dtype) -> np.ndarray:
 
 
 def host_payload(mesh, msg_bytes: int, dtype=np.int8) -> np.ndarray:
-    """The whole mesh's payload ``[n, elems]`` on the host: the oracle
-    every rank can rebuild without a gather."""
-    return _payload_np((mesh.size,), elems_for(msg_bytes, dtype), dtype)
+    """The whole mesh's payload ``[*dims, elems]`` on the host (``[n,
+    elems]`` on a 1-D mesh): the oracle every rank can rebuild without a
+    gather."""
+    dims = tuple(getattr(mesh, "dims", ()) or (mesh.size,))
+    return _payload_np(dims, elems_for(msg_bytes, dtype), dtype)
 
 
 def make_payload(mesh, msg_bytes: int, dtype=np.int8) -> torch.Tensor:
@@ -105,9 +122,11 @@ def make_payload(mesh, msg_bytes: int, dtype=np.int8) -> torch.Tensor:
 
 
 def verify_against(got: torch.Tensor, want: np.ndarray, mesh) -> bool:
-    """This rank's row of a transfer against the host oracle's."""
+    """This rank's row of a collective against the host oracle's (rows
+    in mesh order, whatever the oracle's leading dims)."""
+    rows = want.reshape(mesh.size, -1)
     return bool(np.array_equal(got.cpu().numpy(),
-                               want[mesh.index:mesh.index + 1]))
+                               rows[mesh.index:mesh.index + 1]))
 
 
 def expected_permute(x: np.ndarray, edges: Sequence[Edge],
@@ -139,16 +158,79 @@ def _canon_edges(edges: Sequence[Edge], axis_size: int) -> Tuple[Edge, ...]:
     return canon
 
 
-def _library_group(mesh, device: torch.device):
-    """The group the library collective runs over on ``device``."""
+def _library_group(mesh, device: torch.device, what: str = ""):
+    """The group the library collective runs over on ``device``: the
+    host group (gloo) on the CPU, the device group (NCCL) on a card;
+    raises when the card has none (its ranks share it). ``what`` names a
+    collective that no other transport runs (a reduction); without it
+    the error points at the peer-push transport."""
     if device.type == "cpu":
         return mesh.host_group
     if mesh.device_group is None:
+        if what:
+            raise BackendError(
+                f"{what} is an NCCL collective, which needs one card per "
+                f"rank; the ranks of this mesh share {mesh.device}")
         raise BackendError(
             "transport 'xla' is NCCL send/recv, which needs one card per "
             f"rank; the ranks of this mesh share {mesh.device} — use "
             "--transport pallas_dma")
     return mesh.device_group
+
+
+def _reduction_group(mesh, what: str):
+    """:func:`_library_group` of a process mesh whose members are in
+    ascending rank order, so mesh index and group rank agree (the chunk
+    order of a gather, a scatter and an all-to-all)."""
+    if mesh.in_process:
+        raise ValueError(f"{what} runs on a process mesh, not a LocalMesh")
+    if list(mesh.ranks) != sorted(mesh.ranks):
+        raise ValueError(f"{what} needs a mesh in rank order, got "
+                         f"{mesh.ranks}")
+    return _library_group(mesh, mesh.device, what)
+
+
+def psum(x: torch.Tensor, mesh, *, group=None, inplace: bool = False):
+    """The sum of every member's ``x`` (reference :748): a new tensor
+    unless ``inplace``; integers wrap in two's complement, as XLA's and
+    numpy's do."""
+    group = group or _reduction_group(mesh, "all_reduce")
+    y = x if inplace else x.clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def all_to_all(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
+    """Tiled all-to-all along the payload dim (reference :846): the last
+    dim splits into ``mesh.size`` chunks and chunk ``j`` goes to member
+    ``j``, whose result holds the chunks in member order."""
+    group = group or _reduction_group(mesh, "all_to_all")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out.view(-1), x.view(-1), group=group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
+    """Tiled reduce-scatter along the payload dim: member ``j`` keeps
+    chunk ``j`` of the sum, ``[..., elems / n]``."""
+    group = group or _reduction_group(mesh, "reduce_scatter")
+    x = x.contiguous()
+    out = x.new_empty(x.shape[:-1] + (x.shape[-1] // mesh.size,))
+    dist.reduce_scatter_tensor(out.view(-1), x.view(-1), group=group)
+    return out
+
+
+def all_gather_own(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
+    """The reference's slice-own-chunk + tiled all-gather: member ``i``
+    contributes chunk ``i`` of its ``x`` (``[..., i*c:(i+1)*c]``,
+    contiguous), and every member gets the chunks in member order."""
+    group = group or _reduction_group(mesh, "all_gather")
+    c = x.shape[-1] // mesh.size
+    own = x[..., mesh.index * c:(mesh.index + 1) * c].contiguous()
+    out = x.new_empty(x.shape[:-1] + (c * mesh.size,))
+    dist.all_gather_into_tensor(out.view(-1), own.view(-1), group=group)
+    return out
 
 
 def _local_ppermute(xs, mesh, edges: Sequence[Edge]) -> list:
@@ -303,7 +385,7 @@ class CollectiveCache:
         _check_transport(transport)
         if axis not in mesh.axis_names:
             raise ValueError(f"axis {axis!r} not in {mesh.axis_names}")
-        return _canon_edges(edges, mesh.size)
+        return _canon_edges(edges, mesh.shape[axis])
 
     @staticmethod
     def _hop(mesh, edges: Tuple[Edge, ...], transport: str):
@@ -321,7 +403,8 @@ class CollectiveCache:
         (``:211-251``)."""
         edges = self._canon(mesh, axis, edges, transport)
         return self._get(("permute", mesh, axis, edges, transport),
-                         lambda: self._hop(mesh, edges, transport))
+                         lambda: self._hop(mesh.line(axis), edges,
+                                           transport))
 
     def permute_chain(self, mesh, axis: str, edges: Sequence[Edge],
                       count: int, transport: str = "xla"):
@@ -331,7 +414,7 @@ class CollectiveCache:
         edges = self._canon(mesh, axis, edges, transport)
 
         def build():
-            hop = self._hop(mesh, edges, transport)
+            hop = self._hop(mesh.line(axis), edges, transport)
 
             def chain(x):
                 for _ in range(count):
@@ -365,8 +448,142 @@ class CollectiveCache:
 
         return self._get(("loopback", mesh, count), build)
 
+    # -- all-to-all and reductions (library collectives) ----------------
+
+    def _collective(self, name: str, mesh, axis: str, count: int, what: str,
+                    step, first=None):
+        """A cached callable of ``count`` data-dependent ``step(x, line,
+        group)`` calls along ``axis`` (``first`` for the first, when it
+        differs); the line's group is found, or refused, when it is
+        built."""
+        if axis not in mesh.axis_names:
+            raise ValueError(f"axis {axis!r} not in {mesh.axis_names}")
+
+        def build():
+            line = mesh.line(axis)
+            group = _reduction_group(line, what)
+            head = first or step
+
+            def chain(x):
+                x = head(x, line, group)
+                for _ in range(count - 1):
+                    x = step(x, line, group)
+                return x
+
+            return chain
+
+        return self._get((name, mesh, axis, count), build)
+
+    def all_to_all(self, mesh, axis: str):
+        """One tiled all-to-all along ``axis`` over the payload dim
+        (reference :1080): chunk ``j`` of each member's row goes to
+        member ``j``."""
+        return self._collective(
+            "a2a", mesh, axis, 1, "all_to_all",
+            lambda x, m, g: all_to_all(x, m, group=g))
+
+    def all_reduce(self, mesh, axis: str):
+        """One sum of the payload over ``axis`` (reference :1111), into a
+        new tensor: the one-hop :meth:`psum_chain`."""
+        return self.psum_chain(mesh, axis, 1)
+
+    def psum_chain(self, mesh, axis: str, count: int):
+        """``count`` data-dependent sums (reference :1134): one copy of
+        the payload, then ``count`` in-place all-reduces of it, so every
+        hop after the copy is the collective alone (integers wrap)."""
+        return self._collective(
+            "psum_chain", mesh, axis, count, "all_reduce",
+            lambda x, m, g: psum(x, m, group=g, inplace=True),
+            first=lambda x, m, g: psum(x, m, group=g))
+
+    def reduce_scatter(self, mesh, axis: str):
+        """One tiled reduce-scatter along the payload dim (reference
+        :1163): member ``j`` keeps chunk ``j`` of the sum."""
+        return self._collective(
+            "rs", mesh, axis, 1, "reduce_scatter",
+            lambda x, m, g: reduce_scatter(x, m, group=g))
+
+    def rs_ag_chain(self, mesh, axis: str, count: int):
+        """``count`` hops of reduce-scatter + tiled all-gather (reference
+        :1188): shape-preserving, one ring-decomposed allreduce a hop."""
+        def step(x, m, g):
+            rs = reduce_scatter(x, m, group=g)
+            out = x.new_empty(x.shape)
+            dist.all_gather_into_tensor(out.view(-1), rs.view(-1), group=g)
+            return out
+
+        return self._collective("rs_ag_chain", mesh, axis, count,
+                                "reduce_scatter", step)
+
+    def all_gather(self, mesh, axis: str):
+        """One slice-own-chunk + tiled all-gather (reference :1225): the
+        payload is the gathered buffer, ``(n-1)/n`` of it moves; the
+        one-hop :meth:`ag_chain`."""
+        return self.ag_chain(mesh, axis, 1)
+
+    def ag_chain(self, mesh, axis: str, count: int):
+        """``count`` data-dependent slice-own-chunk + all-gather hops
+        (reference :1259)."""
+        return self._collective(
+            "ag_chain", mesh, axis, count, "all_gather",
+            lambda x, m, g: all_gather_own(x, m, group=g))
+
     def __len__(self) -> int:
         return len(self._cache)
+
+
+def _check_divides(elems: int, n: int) -> None:
+    if elems % n:
+        raise ValueError(f"{elems} payload elements do not split into "
+                         f"{n} chunks")
+
+
+def expected_all_reduce(x: np.ndarray) -> np.ndarray:
+    """Host semantics of the payload psum: every row becomes the
+    elementwise sum over rows, with native integer wraparound."""
+    out = x[0].copy()
+    for r in range(1, x.shape[0]):
+        out = out + x[r]  # stepwise, preserving the dtype's wraparound
+    return np.broadcast_to(out, x.shape).copy()
+
+
+def expected_reduce_scatter(x: np.ndarray) -> np.ndarray:
+    """Host semantics of the tiled reduce-scatter over a flat-mesh
+    payload ``[n, elems]``: row ``j`` holds chunk ``j`` of the summed
+    payload (elems/n each)."""
+    if x.ndim != 2:
+        raise ValueError(f"expected a [devices, elems] payload, got "
+                         f"{x.shape}")
+    n, elems = x.shape
+    _check_divides(elems, n)
+    return expected_all_reduce(x)[0].reshape(n, elems // n)
+
+
+def expected_all_gather(x: np.ndarray) -> np.ndarray:
+    """Host semantics of the slice-own-chunk + tiled all-gather over a
+    flat-mesh payload ``[n, elems]``: every row becomes the diagonal
+    concatenation — chunk ``j`` of the result is row ``j``'s own chunk
+    ``j``."""
+    if x.ndim != 2:
+        raise ValueError(f"expected a [devices, elems] payload, got "
+                         f"{x.shape}")
+    n, elems = x.shape
+    _check_divides(elems, n)
+    c = elems // n
+    diag = np.concatenate([x[j, j * c:(j + 1) * c] for j in range(n)])
+    return np.broadcast_to(diag, x.shape).copy()
+
+
+def expected_all_to_all(x: np.ndarray, axis_size: int) -> np.ndarray:
+    """Host semantics of the tiled all-to-all: with rows as devices and
+    the payload dim split into ``axis_size`` chunks, output[i] chunk j ==
+    input[j] chunk i."""
+    n = axis_size
+    if x.shape[0] != n:
+        raise ValueError(f"expected {n} rows, got {x.shape}")
+    _check_divides(x.shape[-1], n)
+    chunks = x.reshape(n, n, x.shape[-1] // n)  # [device, chunk, elems/n]
+    return np.swapaxes(chunks, 0, 1).reshape(x.shape)
 
 
 def unidir_edges(src: int, dst: int) -> Tuple[Edge, ...]:

@@ -14,9 +14,14 @@ One process per rank, as in the reference program (``mpirun -n N``,
   check, ``p2p_matrix.cc:68-100``), a **host group** (gloo) for barriers,
   all-gathers and the IPC handle exchange, and a **device group** (NCCL)
   only when every rank has a card of its own.
-- :class:`Mesh` is the port's counterpart of a 1-D ``jax.sharding.Mesh``
-  over axis ``"d"``: the whole world (``rt.mesh``) or the pair of
-  ``rt.submesh([a, b])``.
+- :class:`Mesh` is the port's counterpart of a ``jax.sharding.Mesh``:
+  1-D over axis ``"d"`` (the whole world, ``rt.mesh``, or the pair of
+  ``rt.submesh([a, b])``), or 2-D over axes ``("x", "y")`` when
+  ``make_runtime(mesh_shape=(A, B))`` lays the world out row-major
+  (rank ``r`` at ``(r // B, r % B)``). Each line of a 2-D mesh along an
+  axis (the ranks that differ only in that coordinate) is a 1-D mesh of
+  its own, with its own groups and peer-push windows
+  (:meth:`Mesh.line`): a collective along an axis runs on the lines.
 - :meth:`Mesh.barrier` is a stream sync on the card, then a barrier of
   the host group: ``MPI_Barrier`` (``p2p_matrix.cc:146,201``).
 - :class:`LocalMesh` is the in-process counterpart of a 1-D
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import os
 from dataclasses import dataclass, field
 from typing import ClassVar, Dict, Optional, Sequence, Tuple
@@ -40,7 +46,8 @@ import torch.distributed as dist
 from tpu_p2p_torch.parallel import pallas_dma, topology
 from tpu_p2p_torch.utils.errors import PlacementError, check
 
-MESH_AXIS = "d"  # the one axis of the benchmark's meshes
+MESH_AXIS = "d"  # the one axis of the benchmark's 1-D meshes
+MESH_AXES_2D = ("x", "y")  # the axes of a 2-D mesh (--mesh-shape AxB)
 PG_TIMEOUT = datetime.timedelta(seconds=600)  # a collective waits this
 # long for a peer before failing, instead of gloo's half hour
 
@@ -62,9 +69,9 @@ def init_distributed() -> bool:
 
 @dataclass(eq=False)
 class Mesh:
-    """A 1-D group of ranks, in mesh order (``ranks[i]`` is the global
-    rank at mesh index ``i``), seen from one rank of the world. Only
-    members may use its groups."""
+    """A group of ranks, in mesh order (``ranks[i]`` is the global rank
+    at mesh index ``i``, row-major over ``dims``), seen from one rank of
+    the world. Only members may use its groups."""
 
     ranks: Tuple[int, ...]
     rank: int                      # this process's global rank
@@ -75,6 +82,13 @@ class Mesh:
     windows: Dict = field(default_factory=dict)  # pallas_dma windows of
     # this set of ranks, by capacity (shared by both orders of a pair)
     axis_names: Tuple[str, ...] = (MESH_AXIS,)
+    dims: Tuple[int, ...] = ()     # extent per axis; () = (size,)
+    lines: Dict[str, "Mesh"] = field(default_factory=dict)  # of a 2-D
+    # mesh: this rank's line along each axis
+
+    def __post_init__(self) -> None:
+        if not self.dims:
+            self.dims = (len(self.ranks),)
 
     @property
     def size(self) -> int:
@@ -82,7 +96,17 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {MESH_AXIS: self.size}
+        return dict(zip(self.axis_names, self.dims))
+
+    def line(self, axis: str) -> "Mesh":
+        """This rank's line along ``axis``: the 1-D mesh of the members
+        that differ from it only in that coordinate (the mesh itself when
+        it is 1-D)."""
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} not in {self.axis_names}")
+        if len(self.axis_names) == 1:
+            return self
+        return self.lines[axis]
 
     @property
     def is_member(self) -> bool:
@@ -137,6 +161,12 @@ class Mesh:
             torch.cuda.current_stream(self.device).synchronize()
             pallas_dma.check_faults()
         dist.barrier(group=self.host_group)
+
+    def all_true(self, flag: bool) -> bool:
+        """True on every member when ``flag`` is true on every member."""
+        t = torch.tensor([0 if flag else 1], dtype=torch.int32)
+        dist.all_reduce(t, group=self.host_group)
+        return int(t.item()) == 0
 
 
 @dataclass(eq=False)
@@ -273,20 +303,17 @@ class Runtime:
     def host_group(self):
         return self.mesh.host_group
 
-    def submesh(self, device_ids: Sequence[int]) -> Mesh:
-        """The mesh over ``device_ids`` (pair isolation). Every rank of
-        the world must call it, members or not, in the same order:
-        ``new_group`` is collective over the world. Groups are made once
-        per set of ranks and cached."""
-        ranks = tuple(int(i) for i in device_ids)
-        mesh = self._meshes.get(ranks)
-        if mesh is not None:
-            return mesh
-        key = tuple(sorted(set(ranks)))
+    def groups(self, ranks: Sequence[int]) -> tuple:
+        """(host group, device group or None, windows) of a set of
+        ranks, made once per set and cached, so two meshes over the same
+        ranks share their groups and peer-push windows. Every rank of the
+        world must call it, members or not, in the same order:
+        ``new_group`` is collective over the world."""
+        key = tuple(sorted(set(int(r) for r in ranks)))
         check(len(key) == len(ranks) and all(0 <= r < self.world
                                              for r in key),
-              f"submesh ranks {ranks} are not distinct ranks of a world "
-              f"of {self.world}")
+              f"submesh ranks {tuple(ranks)} are not distinct ranks of a "
+              f"world of {self.world}")
         groups = self._groups.get(key)
         if groups is None:
             host = dist.new_group(list(key))
@@ -295,9 +322,18 @@ class Runtime:
                 dev = dist.new_group(list(key), backend="nccl")
             groups = (host, dev, {})
             self._groups[key] = groups
+        return groups
+
+    def submesh(self, device_ids: Sequence[int]) -> Mesh:
+        """The 1-D mesh over ``device_ids`` (pair isolation), made with
+        :meth:`groups` (so every rank calls it, in the same order)."""
+        ranks = tuple(int(i) for i in device_ids)
+        mesh = self._meshes.get(ranks)
+        if mesh is not None:
+            return mesh
+        host, dev, windows = self.groups(ranks)
         mesh = Mesh(ranks=ranks, rank=self.rank, device=self.device,
-                    host_group=groups[0], device_group=groups[1],
-                    windows=groups[2])
+                    host_group=host, device_group=dev, windows=windows)
         self._meshes[ranks] = mesh
         return mesh
 
@@ -313,9 +349,7 @@ class Runtime:
 
     def all_true(self, flag: bool) -> bool:
         """True on every rank when ``flag`` is true on every rank."""
-        t = torch.tensor([0 if flag else 1], dtype=torch.int32)
-        dist.all_reduce(t, group=self.host_group)
-        return int(t.item()) == 0
+        return self.mesh.all_true(flag)
 
     def gather(self, obj) -> list:
         """Every rank's ``obj``, in rank order, on every rank."""
@@ -330,7 +364,7 @@ class Runtime:
         if self.device.type == "cuda":
             for windows in [self.mesh.windows] + [
                     g[2] for g in self._groups.values()]:
-                pallas_dma.close_windows(windows)
+                pallas_dma.close_windows(windows)  # idempotent
         dist.destroy_process_group()
 
 
@@ -361,14 +395,32 @@ def _nccl_possible(keys: Sequence[Tuple[int, str]]) -> bool:
         and len(set(keys)) == len(keys)
 
 
+def _lines(dims: Tuple[int, ...], axis: int):
+    """The lines of a row-major mesh of ``dims`` along ``axis``: for each
+    setting of the other coordinates (row-major), the ranks that vary
+    along ``axis``, in axis order."""
+    grid = torch.arange(math.prod(dims)).reshape(dims).movedim(axis, -1)
+    return [tuple(line.tolist()) for line in grid.reshape(-1, dims[axis])]
+
+
 def make_runtime(num_devices: Optional[int] = None,
-                 device=None) -> Runtime:
+                 device=None,
+                 mesh_shape: Optional[Sequence[int]] = None,
+                 axis_names: Optional[Sequence[str]] = None) -> Runtime:
     """Bootstrap → device → placement check → groups (the setup block
     of ``p2p_matrix.cc:105-122``).
 
     ``num_devices`` must equal the world size when given: a launcher
     starts one rank per device, so the way to use N devices is a world
-    of N (``--cpu-mesh N`` spawns exactly that many)."""
+    of N (``--cpu-mesh N`` spawns exactly that many).
+
+    ``mesh_shape`` (e.g. ``(4, 2)``) lays the world out as a 2-D mesh
+    over ``axis_names`` (default ``("x", "y")``) in row-major rank
+    order, and makes the groups of every line of every axis, axis by
+    axis, line by line (the same order on every rank). Without it the
+    mesh is 1-D over ``("d",)`` in rank order. The reference reorders a
+    1-D world of more than 2 devices by a measured ring order; that
+    relabelling changes no value and comes with the topology module."""
     device = pick_device(device)
     init_distributed()
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -389,7 +441,34 @@ def make_runtime(num_devices: Optional[int] = None,
         # Form the communicator with every rank now: a later
         # batch_isend_irecv over a pair must not be its first call.
         dist.all_reduce(torch.zeros(1, device=device), group=device_group)
+    if mesh_shape is None:
+        dims = (world,)
+        names = tuple(axis_names or (MESH_AXIS,))
+    else:
+        dims = tuple(int(d) for d in mesh_shape)
+        check(math.prod(dims) == world,
+              f"mesh shape {dims} != {world} devices")
+        names = tuple(axis_names or MESH_AXES_2D[:len(dims)])
+    check(len(names) == len(dims) and len(dims) in (1, 2),
+          f"mesh shape {dims} over axes {names}: the port's meshes are "
+          "1-D or 2-D, one name per axis")
     mesh = Mesh(ranks=tuple(range(world)), rank=rank, device=device,
-                host_group=dist.group.WORLD, device_group=device_group)
-    return Runtime(rank=rank, world=world, device=device,
-                   placement=placement, mesh=mesh)
+                host_group=dist.group.WORLD, device_group=device_group,
+                axis_names=names, dims=dims)
+    rt = Runtime(rank=rank, world=world, device=device,
+                 placement=placement, mesh=mesh)
+    rt._groups[mesh.ranks] = (mesh.host_group, device_group, mesh.windows)
+    if len(dims) == 2:
+        for a, name in enumerate(names):
+            for line in _lines(dims, a):
+                host, dev, windows = rt.groups(line)
+                if rank in line:
+                    mesh.lines[name] = Mesh(
+                        ranks=line, rank=rank, device=device,
+                        host_group=host, device_group=dev,
+                        windows=windows, axis_names=(name,))
+        if device_group is not None:
+            for name in names:  # every rank: its x line, then its y line
+                dist.all_reduce(torch.zeros(1, device=device),
+                                group=mesh.lines[name].device_group)
+    return rt

@@ -130,6 +130,15 @@ def _block(value, timeout_s: Optional[float],
         raise err[0]
 
 
+def run_fenced(value, timeout_s: Optional[float] = None,
+               fence: Callable = drain) -> None:
+    """``fence(value)`` under the watchdog contract (reference
+    ``timing.py:266``): past ``timeout_s`` a wedged transfer raises
+    :class:`TransferTimeout` instead of hanging. The device-clock capture
+    fences each chain run with it."""
+    _block(value, timeout_s, fence)
+
+
 def measure_serialized(
     fn: Callable,
     x,

@@ -26,8 +26,10 @@ WORKLOADS: Dict[str, Callable] = {}
 
 # The workloads whose transfers select cfg.transport; loopback counts
 # via its intra-host pair (its self-edge floor is excluded by the
-# src != dst guard where the record is stamped).
-TRANSPORT_WORKLOADS = frozenset({"pairwise", "latency", "loopback"})
+# src != dst guard where the record is stamped). The reductions and the
+# all-to-all are library collectives under either flag.
+TRANSPORT_WORKLOADS = frozenset({"pairwise", "latency", "loopback",
+                                 "ring", "torus2d"})
 
 
 def workload(name: str):
@@ -97,7 +99,9 @@ def measure_edges(
     ``serialized`` is the reference's one-message-in-flight loop
     (p2p_matrix.cc:154-171); ``fused`` launches ``iters`` dependent hops
     and drains once; ``differential`` takes the slope between two chain
-    lengths. The transfers honour ``cfg.transport``."""
+    lengths, ``device`` that slope on the card's clock. The transfers
+    honour ``cfg.transport``; along an axis of a 2-D mesh they run on
+    this rank's line."""
     if not mesh.is_member:
         return math.nan, timing.Samples()
     x = ctx.payloads.get(mesh, msg_bytes, np.dtype(ctx.cfg.dtype))
@@ -125,7 +129,11 @@ def measure_collective(
     directions: int = 1,
 ) -> tuple:
     """Mode dispatch → (gbps, Samples): ``single_fn`` is one transfer,
-    ``chain_builder(k)`` a chain of ``k``; the barriers are the mesh's."""
+    ``chain_builder(k)`` a chain of ``k``; the barriers are the mesh's.
+    ``device`` publishes the card's slope (the host's on a CPU world,
+    ``source`` says which); on a card, a device read that gave no slope
+    fails the cell on every member instead of publishing the host
+    slope."""
     cfg = ctx.cfg
     barrier = mesh.barrier
     if cfg.mode == "serialized":
@@ -139,6 +147,20 @@ def measure_collective(
             repeats=cfg.fused_repeats, warmup=cfg.warmup,
             timeout_s=cfg.timeout_s, barrier=barrier,
         )
+    elif cfg.mode == "device":
+        from tpu_p2p_torch.utils.profiling import measure_headline
+
+        s = measure_headline(
+            chain_builder, x, cfg.iters, repeats=cfg.fused_repeats,
+            timing=timing, timeout_s=cfg.timeout_s, barrier=barrier,
+            group=mesh.host_group,
+        ).as_samples()
+        failed = s.source == "none" and s.note is not None \
+            and not s.timed_out
+        if not mesh.all_true(not failed):
+            raise BackendError(
+                "--mode device: no slope on the card's clock"
+                + (f" ({s.note})" if failed else " on another rank"))
     else:  # differential
         s = timing.measure_differential(
             chain_builder, x, cfg.iters, repeats=cfg.fused_repeats,
@@ -163,7 +185,8 @@ def verify_edges(ctx: WorkloadContext, mesh, axis: str, edges,
         got = ctx.cache.permute(mesh, axis, edges,
                                 transport=ctx.cfg.transport)(x)
         want = C.expected_permute(C.host_payload(mesh, msg_bytes, dtype),
-                                  edges)
+                                  edges,
+                                  axis=mesh.axis_names.index(axis))
         try:
             timing.drain(got)
         except TransferTimeout as e:
@@ -175,6 +198,17 @@ def verify_edges(ctx: WorkloadContext, mesh, axis: str, edges,
         raise BackendError(
             f"payload verification failed for edges {tuple(edges)} at "
             f"{msg_bytes}B")
+
+
+def verify_collective(ctx: WorkloadContext, fn, x, want: np.ndarray,
+                      what: str) -> None:
+    """``--check`` of a collective: every rank's result must equal its
+    row of the host oracle ``want`` (bitwise, NaN unequal to itself); all
+    ranks agree on the verdict."""
+    got = fn(x)
+    timing.drain(got)
+    if not ctx.rt.all_true(C.verify_against(got, want, ctx.rt.mesh)):
+        raise BackendError(f"payload verification failed for {what}")
 
 
 def cell_record(
@@ -189,6 +223,10 @@ def cell_record(
     samples,
     **extra,
 ) -> CellRecord:
+    # Device mode stamps which timeline the value came from.
+    source = getattr(samples, "source", None)
+    if source is not None:
+        extra = {**extra, "source": source}
     # Which transport measured the cell — part of the resume key, and
     # stamped only where cfg.transport selects the transfer.
     if workload in TRANSPORT_WORKLOADS and src != dst:

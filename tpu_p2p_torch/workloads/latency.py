@@ -3,7 +3,8 @@
 
 - ``latency``: p50/p99 send/recv latency at 8 B between ranks 0 and 1,
   serialized (launch + drain included), beside a fused-chain per-hop
-  estimate that removes the per-message drain.
+  estimate that removes the per-message drain (``--mode device``: that
+  per-hop slope on the card's clock).
 - ``loopback``: the 4 KiB exchange with the first rank on rank 0's host;
   with one rank, an honest whole-buffer rewrite chain on the device.
 """
@@ -15,7 +16,12 @@ import sys
 from tpu_p2p_torch.config import format_size
 from tpu_p2p_torch.parallel import collectives as C
 from tpu_p2p_torch.utils import timing
-from tpu_p2p_torch.workloads.base import WorkloadContext, cell_record, workload
+from tpu_p2p_torch.workloads.base import (
+    WorkloadContext,
+    cell_record,
+    measure_collective,
+    workload,
+)
 
 LATENCY_BYTES = 8  # BASELINE.json "p50 send/recv latency @ 8B"
 LOOPBACK_BYTES = 4 * 1024  # configs[0] "2-rank 4KB send/recv loopback"
@@ -47,6 +53,18 @@ def _measure_pair_latency(ctx: WorkloadContext, src: int, dst: int,
         fn, x, cfg.iters, warmup=max(1, cfg.warmup),
         timeout_s=cfg.timeout_s, barrier=mesh.barrier,
     )
+    if cfg.mode == "device":
+        # The per-hop time on the card's clock (the host slope on a CPU
+        # world); the serialized numbers keep their dispatch-inclusive
+        # meaning in every mode.
+        if src == dst:
+            chain_of = lambda k: ctx.cache.loopback_chain(mesh, k)  # noqa: E731
+        else:
+            chain_of = lambda k: ctx.cache.permute_chain(  # noqa: E731
+                mesh, axis, edges, k, transport=cfg.transport)
+        fused = measure_collective(ctx, mesh, fn, chain_of, x,
+                                   bytes_per_device=nbytes)[1]
+        return ser, fused
     fused = timing.measure_fused(
         chain, x, cfg.iters, repeats=cfg.fused_repeats,
         warmup=max(1, cfg.warmup), timeout_s=cfg.timeout_s,
@@ -71,7 +89,8 @@ def run_latency(ctx: WorkloadContext) -> dict:
             f"latency {format_size(nbytes)}{via} {src}->{dst}: "
             f"p50 {ser.p50 * 1e6:.2f}us  p99 {ser.p99 * 1e6:.2f}us  "
             f"min {ser.min * 1e6:.2f}us (serialized, dispatch-inclusive); "
-            f"per-hop {fused.mean * 1e6:.2f}us (fused device chain)\n"
+            f"per-hop {fused.mean * 1e6:.2f}us "
+            f"({getattr(fused, 'source', 'fused device chain')})\n"
         )
         sys.stdout.flush()
     ctx.record(
@@ -79,6 +98,9 @@ def run_latency(ctx: WorkloadContext) -> dict:
             ctx, workload="latency", direction="uni", src=src, dst=dst,
             msg_bytes=nbytes, gbps_val=timing.gbps(nbytes, ser.mean_region),
             samples=ser, fused_hop_s=fused.mean,
+            # Device mode: which timeline fused_hop_s came from.
+            **({"source": fused.source} if hasattr(fused, "source")
+               else {}),
         )
     )
     return {
