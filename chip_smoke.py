@@ -102,7 +102,23 @@ the first phase that goes wrong:
    and their overlap; then one ship alone and one fused under
    ``torch.profiler``, split into push, arrival, spin and idle time.
    In-process ranks run concurrently on the card, so the migration Gbps
-   are on-card copies, not link numbers.
+   are on-card copies, not link numbers;
+10. mesh    — (run right after phase 5) the training step's
+   sequence-parallel ring on one card:
+   every rank of rings of 2 and 4 (T_local 2048 and 1024 of phase 4's
+   shape), each rank's forward folds and backward steps through
+   ``ring_flash``'s per-hop functions in this process, each hop's block
+   handed to the next rank's call, contiguous and zigzag, causal, with
+   and without a window of 1024: the assembled output and dq/dk/dv
+   (un-permuted from zigzag) within 2e-2 (normalised L-inf) of the
+   full-sequence flash kernels and of the plain versions of the same hop
+   calls, and each kernel launched as often as the ring makes it calls
+   (live hops x four under zigzag); then ``run_training`` through the
+   mesh code on a world of one (the five axes of size 1) at the full
+   width for 2 steps, with phase 5's gates, and one profiled step in
+   which the card runs no NCCL kernel. Ranks sharing a card have no
+   NCCL, so the multi-rank step runs across cards by hand
+   (``flagship_cards.py``).
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -811,10 +827,11 @@ def flash_f32_window(TFA, dev, gen, card) -> None:
 # ------------------------------------------------------------ phase 5
 
 
-def run_train(cfg, steps: int, TFA, dev) -> dict:
-    """``run_training`` with a record every step; → records, launches,
-    per-step ms (from the records' wall clock, each read after the
-    step's loss reached the host) and peak memory."""
+def run_train(cfg, steps: int, TFA, dev, mesh=None) -> dict:
+    """``run_training`` with a record every step (on ``mesh`` when
+    given); → records, launches, per-step ms (from the records' wall
+    clock, each read after the step's loss reached the host) and peak
+    memory."""
     from tpu_p2p_torch.train import run_training
 
     buf = io.StringIO()
@@ -822,7 +839,7 @@ def run_train(cfg, steps: int, TFA, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     TFA.reset_launches()
     out = run_training(cfg, steps=steps, lr=1e-2, seed=0, log_every=1,
-                       log_stream=buf, device=dev)
+                       log_stream=buf, device=dev, mesh=mesh)
     torch.cuda.synchronize()
     launches = dict(TFA.launches)
     recs = [json.loads(s) for s in buf.getvalue().splitlines()]
@@ -1487,7 +1504,10 @@ def nccl_world1(card: str) -> None:
             raise AssertionError(f"all_gather --mode device record {rec}")
         _, err = cli_cell(["--pattern", "allreduce", "--mode", "device",
                            "--iters", str(RING_ITERS)], rc=1)
-        if "launch no device work" not in err:
+        # Refused for lack of device work either way: the long chain put
+        # no more on the card than the short one, or the trace held no
+        # device event of the short chain (the tracer can lose a run's).
+        if "no device work" not in err:
             raise AssertionError(f"allreduce --mode device: {err!r}")
         out, _ = cli_cell(["--pattern", "loopback", "--msg-size", "32MiB",
                            "--iters", str(RING_ITERS), "--validate-timing"])
@@ -2326,6 +2346,201 @@ def ship(card: str, dis: dict) -> dict:
     }
 
 
+# ----------------------------------------------------------- phase 10
+
+
+RING_SIZES = (2, 4)
+RING_VARIANTS = (("contiguous", None), ("zigzag", None),
+                 ("contiguous", 1024), ("zigzag", 1024))
+
+
+def ring_calls(n: int, t_local: int, layout: str, window,
+               causal: bool = True) -> int:
+    """Calls of each flash kernel a ring of ``n`` makes over all its
+    ranks, forward or backward: every rank folds (or differentiates)
+    ``live_ring_hops + 1`` blocks, each in four half x half calls under
+    causal zigzag."""
+    from tpu_p2p_torch.ops.attention import live_ring_hops
+
+    per_block = 4 if layout == "zigzag" and causal else 1
+    return n * (live_ring_hops(n, t_local, causal, layout, window) + 1) \
+        * per_block
+
+
+def ring_in_one_process(q, k, v, g, n: int, *, causal: bool, layout: str,
+                        window, carry_block, bwd_block) -> tuple:
+    """Every rank of a ring of ``n`` in this process, through
+    ``ring_flash``'s per-hop steps: rank ``r`` holds block ``r`` of the
+    sequence (``q, k, v, g`` are global ``[B, H, T, D]`` in the layout's
+    order) and, at hop ``i``, the KV block of rank ``(r - i) % n``, as the
+    ring hands each block to the next rank. The forward folds every live
+    block into each rank's carry; the backward adds each rank's gradient
+    terms into the block's traveling dK/dV (hop by hop, as the block
+    visits the ranks in order) and the rank's dq. ``carry_block`` /
+    ``bwd_block``: the kernels' wrappers or their plain twins. → global
+    ``(out, dq, dk, dv)`` in the layout's order."""
+    from tpu_p2p_torch.ops import ring_flash as RF
+    from tpu_p2p_torch.ops.attention import NEG_INF, finalize, live_ring_hops
+    from tpu_p2p_torch.ops.flash_attention import delta_of, logsumexp
+
+    qs, ks, vs, gs = (x.chunk(n, dim=2) for x in (q, k, v, g))
+    t = qs[0].shape[2]
+    hops = live_ring_hops(n, t, causal, layout, window)
+    kw = dict(causal=causal, layout=layout, window=window)
+    outs, Ls = [], []
+    for r in range(n):
+        o = torch.zeros(qs[r].shape, dtype=torch.float32, device=q.device)
+        m = torch.full(qs[r].shape[:3], NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for i in range(hops + 1):
+            src = (r - i) % n
+            o, m, l = RF._accumulate(qs[r], ks[src], vs[src], o, m, l, r,
+                                     src, n, carry_block=carry_block, **kw)
+        outs.append(finalize(o, m, l, q.dtype))
+        Ls.append(logsumexp(m, l))
+    deltas = [delta_of(gs[r], outs[r]) for r in range(n)]
+    dq = [torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+          for x in qs]
+    dk = [torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+          for x in ks]
+    dv = [torch.zeros_like(x) for x in dk]
+    for i in range(hops + 1):
+        for r in range(n):
+            src = (r - i) % n
+            RF._block_grads(dq[r], dk[src], dv[src], qs[r], ks[src],
+                            vs[src], gs[r].to(q.dtype), Ls[r], deltas[r], r,
+                            src, n, bwd_block=bwd_block, **kw)
+    return tuple(torch.cat(parts, dim=2) for parts in (outs, dq, dk, dv))
+
+
+def ring_on_one_card(TFA, dev, card) -> dict:
+    """Phase 10, part 1: rings of 2 and 4 ranks at the training shape
+    (B 4, 16 heads over 8 KV heads, T 4096, D 128, bf16, causal), every
+    rank's forward folds and backward steps in this process, contiguous
+    and zigzag, with and without a window of 1024: the assembled output
+    and dq/dk/dv within FLASH_BF16_TOL (normalised L-inf) of the
+    full-sequence flash kernels and of the plain versions of the same
+    hop calls; each kernel launched as often as the ring makes it
+    calls. → launches per kernel over all the rings."""
+    from tpu_p2p_torch.ops.attention import from_zigzag, to_zigzag
+
+    b, hq, hkv, t, d = (TRAIN["batch"], TRAIN["heads"], TRAIN["kv_heads"],
+                        TRAIN["seq"], TRAIN["head_dim"])
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+    q, g = (torch.randn((b, hq, t, d), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    k, v = (torch.randn((b, hkv, t, d), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    total = dict.fromkeys(TFA.launches, 0)
+    for window in (None, 1024):
+        qf, kf, vf = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = TFA.flash_attention(qf, kf, vf, True, window)
+        full = (out,) + torch.autograd.grad(out, (qf, kf, vf), g)
+        for n in RING_SIZES:
+            for layout in ("contiguous", "zigzag"):
+                args = [to_zigzag(x, n) if layout == "zigzag" else x
+                        for x in (q, k, v, g)]
+                kw = dict(causal=True, layout=layout, window=window)
+                TFA.reset_launches()
+                got = ring_in_one_process(
+                    *args, n, carry_block=TFA.flash_carry_block,
+                    bwd_block=TFA.flash_bwd_block, **kw)
+                torch.cuda.synchronize()
+                launches = dict(TFA.launches)
+                plain = ring_in_one_process(
+                    *args, n, carry_block=TFA.flash_carry_block_plain,
+                    bwd_block=TFA.flash_bwd_block_plain, **kw)
+                want_calls = ring_calls(n, t // n, layout, window)
+                if any(c != want_calls for c in launches.values()):
+                    raise AssertionError(
+                        f"ring n={n} {layout} window {window}: launches "
+                        f"{launches}, the ring makes {want_calls} of each")
+                names = ("out", "dq", "dk", "dv")
+                vs_plain = {nm: norm_err(a, p)
+                            for nm, a, p in zip(names, got, plain)}
+                if layout == "zigzag":
+                    got = tuple(from_zigzag(x, n) for x in got)
+                vs_full = {nm: norm_err(a, f)
+                           for nm, a, f in zip(names, got, full)}
+                bad = {f"{k} vs {w}": e
+                       for w, errs in (("full", vs_full), ("plain", vs_plain))
+                       for k, e in errs.items() if not e <= FLASH_BF16_TOL}
+                if bad:
+                    raise AssertionError(
+                        f"ring n={n} {layout} window {window}: normalised "
+                        f"L-inf {bad} > {FLASH_BF16_TOL}")
+                for kname, c in launches.items():
+                    total[kname] += c
+                say(f"ring n={n} T_local {t // n} {layout} window {window}"
+                    f": vs full-sequence kernels "
+                    + ", ".join(f"{k} {e:.2e}" for k, e in vs_full.items())
+                    + " | vs plain hop calls "
+                    + ", ".join(f"{k} {e:.2e}" for k, e in vs_plain.items())
+                    + f" (tol {FLASH_BF16_TOL}) | launches {launches} | "
+                    f"{card}")
+                del got, plain
+                torch.cuda.empty_cache()
+    return total
+
+
+def train_world_of_one(TFA, dev, card, p50_single: float) -> dict:
+    """Phase 10, part 2: ``run_training`` through the mesh code on a
+    world of one (``make_runtime`` over the five axes, all of size 1) at
+    the full width, 2 steps: phase 5's gates, every flash kernel once per
+    block per step, and one profiled step in which the card runs no
+    NCCL kernel (a size-1 axis launches nothing). → launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch.models.flagship import (
+        AXES, FlagshipConfig, flagship_token_batch, init_flagship_params,
+        make_flagship_lm_train_step, place_flagship_params)
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    cfg = FlagshipConfig(**TRAIN)
+    rt = make_runtime(device=dev, mesh_shape=(1,) * len(AXES),
+                      axis_names=AXES)
+    try:
+        run = run_train(cfg, 2, TFA, dev, mesh=rt.mesh)
+        check_train_run(run, cfg, 2)
+        ln_v = math.log(cfg.vocab)
+        if not ln_v - 1 <= run["losses"][0] <= ln_v + 2:
+            raise AssertionError(f"mesh train first loss {run['losses'][0]}")
+        params = place_flagship_params(
+            init_flagship_params(cfg, seed=0, device="cpu"), rt.mesh)
+        toks, tgts = flagship_token_batch(cfg, seed=1, device=dev)
+        step = make_flagship_lm_train_step(cfg, donate=True, mesh=rt.mesh)
+        step(params, toks, tgts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, toks, tgts)
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA]
+        if not kernels:
+            raise AssertionError("the profiler saw no kernel in the step")
+        nccl = sorted({k for k in kernels if "nccl" in k.lower()})
+        if nccl:
+            raise AssertionError(f"a world of one launched NCCL kernels in "
+                                 f"the step: {nccl}")
+        del params, step
+    finally:
+        rt.close()
+    tokens = cfg.batch * cfg.seq
+    ms = run["step_ms"][1]
+    say(f"train on the mesh, a world of one (dp pp sp tp ep = 1 1 1 1 1, "
+        f"flagship_large B{cfg.batch} T{cfg.seq}, bf16, flash): losses "
+        f"{run['losses']} | step 2 {ms:.0f} ms = {tokens / ms * 1e3:.0f} "
+        f"tokens/s (phase 5, no mesh: {p50_single:.0f} ms = "
+        f"{tokens / p50_single * 1e3:.0f} tokens/s) | peak memory "
+        f"{run['peak_gib']:.2f} GiB | {len(kernels)} kernels in a profiled "
+        f"step, none of NCCL | flash launches {run['launches']} | {card}")
+    return run["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -2382,6 +2597,13 @@ def main() -> int:
     profile_step(dev, card)
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    ring_launches_total = ring_on_one_card(TFA, dev, card)
+    torch.cuda.empty_cache()
+    mesh_launches = train_world_of_one(TFA, dev, card, trn["step_ms_p50"])
+    torch.cuda.empty_cache()
+    say(f"phase 10 (mesh): {time.perf_counter() - t0:.1f} s")
+
     cfg = FlagshipConfig(batch=SLOTS, **MODEL)
     t0 = time.perf_counter()
     params = init_flagship_params(cfg, seed=0, device=dev)
@@ -2412,11 +2634,19 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched")
+        if k["name"] in mesh_launches:
+            k["launches_by_path"] = {
+                "train": k["launches"], "mesh_train": mesh_launches[k["name"]],
+                "ring": ring_launches_total[k["name"]]}
+            if not all(k["launches_by_path"].values()):
+                raise AssertionError(f"{k['name']}: a path launched it no "
+                                     f"time: {k['launches_by_path']}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     say(json.dumps({"kernels": [
-        {key: k[key] for key in keys + ("edge_sets",) if key in k}
+        {key: k[key] for key in keys + ("edge_sets", "launches_by_path")
+         if key in k}
         for k in kernels]}))
     say(f"card: {card}")
     say(json.dumps({"ok": True, "device": {

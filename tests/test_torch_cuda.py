@@ -670,3 +670,97 @@ def test_device_mode_slope_is_positive_and_near_the_host_slope(cuda):
         assert m.ok is True, m
     finally:
         rt.close()
+
+
+# ------------------------------------------ the flagship step's mesh
+# chip_smoke.py's phase 10 at a small size: every rank of a ring driven
+# through ring_flash's per-hop steps in one process, against the
+# full-sequence kernels and the plain hop calls; the step through the
+# mesh code on a world of one; ranks sharing a card refused.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("layout,window", [
+    ("contiguous", None), ("zigzag", None), ("contiguous", 100),
+    ("zigzag", 100)], ids=["contiguous", "zigzag", "contiguous_window",
+                           "zigzag_window"])
+def test_ring_hops_on_card_match_full_kernels_and_plain(cuda, n, layout,
+                                                        window):
+    import chip_smoke
+    from tpu_p2p_torch.ops.attention import from_zigzag, to_zigzag
+
+    g = torch.Generator(device="cpu").manual_seed(n)
+    bf = torch.bfloat16
+    q, do = (torch.randn((2, 4, 512, 64), generator=g).to(cuda, bf)
+             for _ in range(2))
+    k, v = (torch.randn((2, 2, 512, 64), generator=g).to(cuda, bf)
+            for _ in range(2))
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = TFA.flash_attention(*ts, True, window)
+    full = (out,) + torch.autograd.grad(out, ts, do)
+    args = [to_zigzag(t, n) if layout == "zigzag" else t
+            for t in (q, k, v, do)]
+    kw = dict(causal=True, layout=layout, window=window)
+    TFA.reset_launches()
+    got = chip_smoke.ring_in_one_process(
+        *args, n, carry_block=TFA.flash_carry_block,
+        bwd_block=TFA.flash_bwd_block, **kw)
+    torch.cuda.synchronize()
+    want_calls = chip_smoke.ring_calls(n, 512 // n, layout, window)
+    assert TFA.launches == dict.fromkeys(TFA.launches, want_calls)
+    plain = chip_smoke.ring_in_one_process(
+        *args, n, carry_block=TFA.flash_carry_block_plain,
+        bwd_block=TFA.flash_bwd_block_plain, **kw)
+    for a, b in zip(got, plain):
+        assert chip_smoke.norm_err(a, b) <= chip_smoke.FLASH_BF16_TOL
+    if layout == "zigzag":
+        got = tuple(from_zigzag(t, n) for t in got)
+    for a, b in zip(got, full):
+        assert chip_smoke.norm_err(a, b) <= chip_smoke.FLASH_BF16_TOL
+
+
+@pytest.mark.cuda
+def test_mesh_step_in_a_world_of_one_equals_the_step_and_no_nccl(cuda):
+    # The five axes of size 1 launch nothing: bitwise the mesh-free step,
+    # and no NCCL kernel on the card in a profiled step.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    cfg = F.FlagshipConfig(batch=2, seq=256, heads=4, kv_heads=2,
+                           head_dim=64, stages=2, microbatches=2,
+                           dense_ffn=True, vocab=256, use_flash=True,
+                           rope=True, norm=True, dtype="bfloat16")
+    toks, tgts = F.flagship_token_batch(cfg, seed=1, device=cuda)
+    rt = make_runtime(device=cuda, mesh_shape=(1,) * 5, axis_names=F.AXES)
+    try:
+        results = []
+        for mesh in (None, rt.mesh):
+            params = F.init_flagship_params(cfg, seed=0, device=cuda)
+            step = F.make_flagship_lm_train_step(cfg, mesh=mesh)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                new, loss = step(params, toks, tgts)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            assert names and not [n for n in names if "nccl" in n.lower()]
+            results.append((loss, new))
+        (l0, p0), (l1, p1) = results
+        assert torch.equal(l0, l1)
+        for k in p0:
+            assert torch.equal(p0[k], p1[k]), k
+    finally:
+        rt.close()
+
+
+@pytest.mark.cuda
+def test_mesh_step_on_ranks_sharing_a_card_raises(cuda):
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    cases = os.path.join(os.path.dirname(__file__), "torch_flagship_world.py")
+    for err in run_world(2, f"{cases}:shared_card_case", {}, timeout=600):
+        assert err is not None and "needs one card per rank" in err, err

@@ -303,10 +303,10 @@ _NOT_PORTED_ARGV = {
     "--fault-at-step": ["2"], "--fault-ckpt-crash-bytes": ["10"],
     "--fault-ckpt-corrupt-seed": ["1"], "--fault-ckpt-io-errors": ["1"],
     "--obs-jsonl": ["obs.jsonl"], "--obs-window-step": ["2"],
-    "--trace": ["t.json"], "--cpu-mesh": ["1"], "--remat": [],
+    "--trace": ["t.json"], "--remat": [],
     "--zero-dp": [], "--overlap": ["prefetch"], "--tp-overlap": ["ring"],
     "--ep-overlap": ["ring"], "--pp-overlap": ["wave"],
-    "--pp-chunks": ["2"], "--sp-strategy": ["ulysses"],
+    "--pp-chunks": ["2"],
     "--pp-schedule": ["zb"], "--tick-lowering": ["switch"],
 }
 

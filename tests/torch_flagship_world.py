@@ -1,0 +1,125 @@
+"""Rank-side cases of the port's flagship mesh tests — this file imports
+torch, numpy and the port only, never JAX.
+
+Each ``*_case`` function runs on every rank of a spawned gloo world
+(``tpu_p2p_torch.parallel.launch.run_world(n, "<this file>:<case>",
+kwargs)``), builds one five-axis mesh a case over the same world, and
+returns what the parent compares with the JAX reference it computed on
+its 8-device CPU mesh from the same numpy inputs.
+"""
+
+import numpy as np
+import torch
+
+from tpu_p2p_torch.models import flagship as F
+from tpu_p2p_torch.ops.attention import ring_attention_local
+from tpu_p2p_torch.ops.ulysses import ulysses_attention_local
+from tpu_p2p_torch.parallel.runtime import local_shard
+
+
+def _close(mesh):
+    """Leave the world once the last case is done."""
+    mesh.runtime.close()
+
+
+def step_case(cases):
+    """One SGD step a case: ``cases`` is a list of dicts with ``name``,
+    ``dims`` (dp, pp, sp, tp, ep), ``cfg`` (FlagshipConfig keywords),
+    ``params`` (numpy, global), ``batch`` (two global numpy arrays) and
+    ``lr`` → name → ``{"loss", "params"}``: the step's loss on this rank
+    and, on rank 0, the updated params gathered to global arrays."""
+    out, mesh = {}, None
+    for c in cases:
+        mesh = F.build_mesh(int(np.prod(c["dims"])), device="cpu",
+                            dims=c["dims"])
+        cfg = F.FlagshipConfig(**c["cfg"])
+        params = F.place_flagship_params(c["params"], mesh)
+        spec = F.flagship_data_spec(mesh)
+        x, t = (torch.from_numpy(np.ascontiguousarray(
+            local_shard(a, mesh, spec[:a.ndim]))) for a in c["batch"])
+        make = (F.make_flagship_lm_train_step if cfg.vocab
+                else F.make_flagship_train_step)
+        new, loss = make(cfg, lr=c["lr"], mesh=mesh)(params, x, t)
+        full = F.gather_flagship_params(new, mesh)
+        out[c["name"]] = {
+            "loss": float(loss),
+            "params": ({k: v.numpy() for k, v in full.items()}
+                       if mesh.rank == 0 else None),
+        }
+    _close(mesh)
+    return out
+
+
+def attention_case(cases, world=8):
+    """Sequence-parallel attention alone on a world of ``world`` ranks:
+    ``cases`` is a list of dicts
+    with ``name``, ``sp`` (the line's size; the rest of the world is
+    dp), ``kind`` (``ring`` or ``ulysses``), ``layout``, ``use_flash``,
+    ``causal``, ``window`` and global numpy ``q, k, v, g`` (``[B, H, T,
+    D]``, the sequence in the layout's order) → name → this rank's
+    ``(sp index, out, dq, dk, dv)`` blocks, the grads of ``sum(out *
+    g)``."""
+    out, mesh = {}, None
+    for c in cases:
+        dims = (world // c["sp"], 1, c["sp"], 1, 1)
+        mesh = F.build_mesh(world, device="cpu", dims=dims)
+        line = mesh.line("sp")
+        spec = (None, None, "sp", None)
+        q, k, v, g = (torch.from_numpy(np.ascontiguousarray(
+            local_shard(c[n], mesh, spec))) for n in "qkvg")
+        q, k, v = (a.requires_grad_(True) for a in (q, k, v))
+        if c["kind"] == "ring":
+            o = ring_attention_local(q, k, v, line, causal=c["causal"],
+                                     use_flash=c["use_flash"],
+                                     layout=c["layout"], window=c["window"])
+        else:
+            o = ulysses_attention_local(q, k, v, line, causal=c["causal"],
+                                        use_flash=c["use_flash"],
+                                        window=c["window"])
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        out[c["name"]] = (line.index, o.detach().numpy(), dq.numpy(),
+                          dk.numpy(), dv.numpy())
+    _close(mesh)
+    return out
+
+
+def mesh_case(shapes):
+    """What ``build_mesh`` forms on this rank for each of ``shapes``: its
+    coordinates, its line along each axis, its data plane, and the rank
+    sets that got groups."""
+    out, mesh = {}, None
+    for dims in shapes:
+        mesh = F.build_mesh(int(np.prod(dims)), device="cpu", dims=dims)
+        out[tuple(dims)] = {
+            "coords": mesh.coords,
+            "lines": {a: mesh.line(a).ranks for a in F.AXES},
+            "line_groups": {a: mesh.line(a).host_group is not None
+                            for a in F.AXES},
+            "plane": mesh.plane(F._data_axes(F.AXES)).ranks,
+            "groups": sorted(mesh.runtime._groups),
+        }
+    _close(mesh)
+    return out
+
+
+def shared_card_case(dims=(1, 1, 2, 1, 1)):
+    """A step on ranks that share cuda:0 → the BackendError text each
+    rank raised (None if the step ran): NCCL needs a card a rank."""
+    from tpu_p2p_torch.utils.errors import BackendError
+
+    mesh = F.build_mesh(int(np.prod(dims)), device="cuda:0", dims=dims)
+    try:
+        cfg = F.FlagshipConfig(batch=2, seq=256, heads=4, kv_heads=2,
+                               head_dim=64, stages=2, microbatches=1,
+                               dense_ffn=True, vocab=256, use_flash=True,
+                               dtype="bfloat16")
+        params = F.place_flagship_params(
+            F.init_flagship_params(cfg, seed=0, device="cpu"), mesh)
+        toks, tgts = (local_shard(a, mesh, F._lm_token_spec(mesh)).to(
+            mesh.device) for a in F.flagship_token_batch(cfg, seed=1))
+        F.make_flagship_lm_train_step(cfg, mesh=mesh)(params, toks, tgts)
+        return None
+    except BackendError as e:
+        return str(e)
+    finally:
+        _close(mesh)

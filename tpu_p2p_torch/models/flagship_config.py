@@ -1,22 +1,27 @@
-"""Flagship model config — the port's copy of
+"""Flagship model config and mesh factoring — the port's copy of
 ``tpu_p2p/models/flagship_config.py``.
 
-The model-shape fields, ``use_flash``, and every training field the
-reference's train CLI sets. Field names and defaults match the
-reference, so one keyword set builds both configs. The port runs on one
-device, so the fields that schedule a mesh (sequence-parallel strategy,
-FSDP and its overlap, the tp/ep/pp overlaps, the pipeline schedule and
-its lowering) and rematerialization are not ported yet: a non-default
-value raises rather than being ignored.
+The model-shape fields, ``use_flash``, the sequence-parallel strategy,
+and every training field the reference's train CLI sets. Field names and
+defaults match the reference, so one keyword set builds both configs.
+The mesh has the reference's five axes (``AXES``); :func:`build_mesh`
+factors a world over them. The fields that schedule FSDP and its
+overlap, the tp/ep/pp overlaps, the pipeline schedule and its lowering,
+and rematerialization are not ported yet: a non-default value raises
+rather than being ignored.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Sequence, Tuple
+
+AXES = ("dp", "pp", "sp", "tp", "ep")
+SP_STRATEGIES = ("ring", "ring_zigzag", "ulysses")
 
 # Fields whose machinery is not ported, with the reference's default.
 NOT_PORTED_FIELDS = {
-    "sp_strategy": "ring", "zero_dp": False, "overlap": "none",
+    "zero_dp": False, "overlap": "none",
     "tp_overlap": "none", "ep_overlap": "none", "pp_overlap": "none",
     "pp_chunks": 4, "pp_schedule": "1f1b", "tick_lowering": "masked",
     "remat": False, "remat_policy": "",
@@ -48,7 +53,12 @@ class FlagshipConfig:
     attn_window: int = 0     # > 0: sliding-window attention
     use_flash: bool = False  # attention through the flash kernels
     # (dense attention otherwise)
-    sp_strategy: str = "ring"
+    sp_strategy: str = "ring"  # "ring" (KV rotation), "ring_zigzag"
+    # (the same ring on a load-balanced causal layout: the model reads
+    # its sequence shards as zigzag chunks, see
+    # tpu_p2p_torch.ops.attention.zigzag_chunks; attention is the only
+    # position-dependent op, so the data needs no permutation), or
+    # "ulysses" (head <-> sequence all-to-all; heads % sp == 0)
     zero_dp: bool = False
     overlap: str = "none"
     tp_overlap: str = "none"
@@ -61,12 +71,18 @@ class FlagshipConfig:
     remat_policy: str = ""
 
     def __post_init__(self) -> None:
+        # Strict, because a typo ("zigzag") would fall through to the
+        # contiguous layout and train silently wrong.
+        if self.sp_strategy not in SP_STRATEGIES:
+            raise ValueError(
+                f"unknown sp_strategy {self.sp_strategy!r}; expected "
+                "'ring', 'ring_zigzag', or 'ulysses'"
+            )
         for name, default in NOT_PORTED_FIELDS.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"FlagshipConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (the port runs one device; only "
-                    f"{name}={default!r} is)"
+                    f"ported yet (only {name}={default!r} is)"
                 )
         if self.attn_window < 0:
             raise ValueError(
@@ -91,3 +107,81 @@ class FlagshipConfig:
     @property
     def num_kv_heads(self) -> int:
         return self.kv_heads or self.heads
+
+    def tiny(self, mesh) -> "FlagshipConfig":
+        """Shrink to dryrun scale while keeping every axis of ``mesh``
+        shardable (the reference's ``tiny``)."""
+        ax = mesh.shape
+        tp, sp, pp = ax.get("tp", 1), ax.get("sp", 1), ax.get("pp", 1)
+        dpep = ax.get("dp", 1) * ax.get("ep", 1)
+        heads = 2 * tp * sp
+        # Keep the GQA ratio where it gives a valid KV head count at the
+        # shrunken query head count (divisible, tp-shardable); else MHA.
+        ratio = self.heads // self.num_kv_heads
+        kv = heads // ratio if heads % ratio == 0 else 0
+        if kv and (heads % kv or kv % tp):
+            kv = 0
+        return replace(
+            self,
+            batch=2 * dpep * self.microbatches,
+            seq=16 * sp,
+            heads=heads,
+            kv_heads=kv,
+            head_dim=8,
+            stages=pp,
+            num_experts=2 * ax.get("ep", 1),
+            capacity_factor=float(2 * ax.get("ep", 1)),
+        )
+
+
+def _axis(mesh, name: str) -> Optional[str]:
+    return name if mesh is not None and name in mesh.axis_names else None
+
+
+def _data_axes(axes) -> tuple:
+    """The axes data (and thus loss and gradient partial sums) shard
+    over."""
+    return tuple(a for a in ("dp", "ep", "sp") if a in axes)
+
+
+def _mesh_axes(mesh) -> Dict[str, object]:
+    """Each of ``AXES`` → this rank's line along it (a one-rank line
+    where the axis has size 1), or None where ``mesh`` lacks the axis
+    (``mesh=None``: a world of one, every axis None)."""
+    return {a: (mesh.line(a) if _axis(mesh, a) else None) for a in AXES}
+
+
+def mesh_dims(n_devices: int) -> Tuple[int, ...]:
+    """Factor ``n_devices`` over ``AXES`` (the reference's
+    ``build_mesh``, ``tpu_p2p/models/flagship_config.py:398``): prime
+    factors, largest first, dealt round-robin in the priority order
+    sp → dp → pp → tp → ep; axes without a factor stay size 1."""
+    factors = []
+    m = n_devices
+    for p in (2, 3, 5, 7, 11, 13):
+        while m % p == 0:
+            factors.append(p)
+            m //= p
+    if m > 1:
+        factors.append(m)
+    dims = {a: 1 for a in AXES}
+    order = ["sp", "dp", "pp", "tp", "ep"]
+    for i, f in enumerate(sorted(factors, reverse=True)):
+        dims[order[i % len(order)]] *= f
+    return tuple(dims[a] for a in AXES)
+
+
+def build_mesh(n_devices: int, device=None,
+               dims: Optional[Sequence[int]] = None):
+    """The five-axis mesh over this world of ``n_devices`` ranks (one
+    process a rank: ``torchrun``, or ``--cpu-mesh N``): ``dims`` (dp,
+    pp, sp, tp, ep), by default :func:`mesh_dims`. Makes the runtime
+    (``mesh.runtime``; close it when done) and the groups of every line
+    of every axis of size > 1. ``device`` as
+    :func:`tpu_p2p_torch.parallel.runtime.make_runtime` takes it."""
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(num_devices=n_devices, device=device,
+                      mesh_shape=tuple(dims or mesh_dims(n_devices)),
+                      axis_names=AXES)
+    return rt.mesh

@@ -1,11 +1,18 @@
-"""Flagship forward path on one device — the port of
+"""Flagship forward path over the five-axis mesh — the port of
 ``tpu_p2p/models/flagship_forward.py``.
 
-The reference's block runs inside a five-axis ``shard_map``; here the
-mesh is one device, so there is no sequence/tensor/expert parallelism
-and no join inside the block, and microbatches run one after another
-(what ``pipeline_apply_local`` computes at pp = 1). Attention goes
-through the flash kernels or dense attention by ``cfg.use_flash``.
+The reference traces its block inside a five-axis ``shard_map``; here
+each rank runs the same code on its shards, and the mesh enters as the
+rank's line along each axis (``mesh=None``: a world of one, no axis).
+Per block: q/k/v from this rank's tp heads, rope at the global
+positions of the rank's sp block, attention by ``cfg.sp_strategy`` and
+the sp size (the flash or dense ring, zigzag or contiguous; Ulysses; or
+local attention when the sequence is whole), the Megatron psum joins
+after ``wo`` and ``wf2``, and their conjugates where the replicated
+activation enters the column-split products. Microbatches go through
+the GPipe schedule over pp (:mod:`tpu_p2p_torch.models.pipeline`), or
+one after another when pp has size 1. Attention goes through the flash
+kernels or dense attention by ``cfg.use_flash``.
 
 The reference computes norms and the dense FFN with float32 internals
 and ``preferred_element_type=float32`` matmuls. Here the casts are
@@ -19,15 +26,27 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpu_p2p_torch.models.flagship_config import FlagshipConfig
+from tpu_p2p_torch.models.flagship_config import AXES, FlagshipConfig, \
+    _mesh_axes
 from tpu_p2p_torch.models.flagship_params import (
     STAGELESS_LEAVES,
     Params,
     torch_dtype,
 )
-from tpu_p2p_torch.ops.attention import dense_attention
+from tpu_p2p_torch.models.pipeline import pipeline_apply_local
+from tpu_p2p_torch.ops.attention import (
+    _block_positions,
+    dense_attention,
+    ring_attention_local,
+)
 from tpu_p2p_torch.ops.flash_attention import flash_attention
 from tpu_p2p_torch.ops.rope import apply_rope
+from tpu_p2p_torch.ops.ulysses import ulysses_attention_local
+from tpu_p2p_torch.parallel.collectives import psum_conjugate, psum_join
+
+
+def _size(line) -> int:
+    return line.size if line is not None else 1
 
 
 def _rms_norm(x: torch.Tensor, gain: torch.Tensor,
@@ -38,15 +57,18 @@ def _rms_norm(x: torch.Tensor, gain: torch.Tensor,
     return (xf * r * gain.float()).to(x.dtype)
 
 
-def _dense_ffn(sub: Params, h: torch.Tensor) -> torch.Tensor:
+def _dense_ffn(sub: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
     """Dense 2-layer MLP: ``gelu(h @ wf1) @ wf2`` with float32
-    accumulation. GELU is the tanh approximation (``jax.nn.gelu``'s
-    default, not torch's erf default); the hidden stays float32 and
-    meets ``wf2`` under float32 promotion, as in the reference; the
-    result is cast back to ``h``'s dtype."""
+    accumulation, Megatron-split over ``tp`` (``wf1`` holds a column
+    shard, ``wf2`` the matching row shard; the partial outputs join in
+    float32). GELU is the tanh approximation (``jax.nn.gelu``'s default,
+    not torch's erf default); the hidden stays float32 and meets ``wf2``
+    under float32 promotion, as in the reference; the result is cast
+    back to ``h``'s dtype."""
+    h = psum_conjugate(h, tp)
     f_h = F.gelu(torch.matmul(h.float(), sub["wf1"].float()),
                  approximate="tanh")
-    return torch.matmul(f_h, sub["wf2"].float()).to(h.dtype)
+    return psum_join(torch.matmul(f_h, sub["wf2"].float()), tp).to(h.dtype)
 
 
 def _unembed(y: torch.Tensor, emb: torch.Tensor,
@@ -62,47 +84,95 @@ def _check_ported(cfg: FlagshipConfig) -> None:
             "the MoE FFN (dense_ffn=False) is not ported yet")
 
 
-def _stage_sub_block(sub: Params, x: torch.Tensor,
-                     cfg: FlagshipConfig) -> torch.Tensor:
+def _attention(q, k, v, cfg: FlagshipConfig, sp) -> torch.Tensor:
+    """Attention of this rank's heads over the sequence split along
+    ``sp``, by ``cfg.sp_strategy`` (the reference's dispatch)."""
+    window = cfg.attn_window or None
+    if sp is not None and cfg.sp_strategy == "ulysses":
+        return ulysses_attention_local(q, k, v, sp, causal=cfg.causal,
+                                       use_flash=cfg.use_flash,
+                                       window=window)
+    if _size(sp) > 1:
+        layout = "zigzag" if cfg.sp_strategy == "ring_zigzag" \
+            else "contiguous"
+        return ring_attention_local(q, k, v, sp, causal=cfg.causal,
+                                    use_flash=cfg.use_flash, layout=layout,
+                                    window=window)
+    if cfg.use_flash:  # the sequence is local
+        return flash_attention(q, k, v, cfg.causal, window)
+    return dense_attention(q, k, v, causal=cfg.causal, window=window)
+
+
+def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
+                     sp=None, tp=None) -> torch.Tensor:
     """One transformer block: attention + dense FFN, both residual,
     optionally pre-normed (``cfg.norm``). ``sub``: one stage's leaves
-    (no stage dim) in the compute dtype; ``x``: ``[mb, T, Dm]``."""
+    (no stage dim) in the compute dtype, this rank's tp shard; ``x``:
+    the local ``[mb, T_local, Dm]``, replicated over tp. Zero in, zero
+    out (the pipeline's bubbles)."""
     h = _rms_norm(x, sub["ln1"]) if cfg.norm else x
+    h = psum_conjugate(h, tp)
     q = torch.einsum("btm,hmd->bhtd", h, sub["wq"])
     k = torch.einsum("btm,hmd->bhtd", h, sub["wk"])
     v = torch.einsum("btm,hmd->bhtd", h, sub["wv"])
     if cfg.rope:
-        positions = torch.arange(x.shape[1], device=x.device)
+        t_loc = x.shape[1]
+        if _size(sp) == 1:
+            positions = torch.arange(t_loc, device=x.device)
+        else:
+            layout = "zigzag" if cfg.sp_strategy == "ring_zigzag" \
+                else "contiguous"
+            positions = _block_positions(sp.index, sp.size, t_loc, layout,
+                                         x.device)
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
-    window = cfg.attn_window or None
-    if cfg.use_flash:
-        a = flash_attention(q, k, v, cfg.causal, window)
-    else:
-        a = dense_attention(q, k, v, causal=cfg.causal, window=window)
-    x = x + torch.einsum("bhtd,hdm->btm", a, sub["wo"])
+    a = _attention(q, k, v, cfg, sp)
+    x = x + psum_join(torch.einsum("bhtd,hdm->btm", a, sub["wo"]), tp)
     h2 = _rms_norm(x, sub["ln2"]) if cfg.norm else x
-    return x + _dense_ffn(sub, h2)
+    return x + _dense_ffn(sub, h2, tp)
 
 
 def _stage_block(stage_params: Params, x: torch.Tensor,
-                 cfg: FlagshipConfig, s_local: int) -> torch.Tensor:
-    """Apply ``s_local`` consecutive blocks. Params stored in
-    ``params_dtype`` are cast to the compute dtype at block entry
+                 cfg: FlagshipConfig, s_local: int, sp=None,
+                 tp=None) -> torch.Tensor:
+    """Apply this pp rank's ``s_local`` consecutive blocks. Params stored
+    in ``params_dtype`` are cast to the compute dtype at block entry
     (autograd carries the grads back to the storage-dtype masters)."""
     compute = torch_dtype(cfg.dtype)
     for i in range(s_local):
         sub = {k: (v[i].to(compute) if v.dtype != compute else v[i])
                for k, v in stage_params.items()}
-        x = _stage_sub_block(sub, x, cfg)
+        x = _stage_sub_block(sub, x, cfg, sp, tp)
     return x
 
 
-def _forward_local(params: Params, x: torch.Tensor,
-                   cfg: FlagshipConfig) -> torch.Tensor:
-    """The block stack over ``cfg.microbatches`` microbatches of ``x
-    [B, T, Dm]``, each through every stage in turn; → ``[B, T, Dm]``."""
+def _pipeline_schedule(stage_params: Params, x_mb: torch.Tensor,
+                       cfg: FlagshipConfig, s_local: int, pp, sp, tp):
+    """The microbatches through this rank's stages: GPipe over ``pp``
+    (:func:`pipeline_apply_local`), or one after another without a pp
+    axis of size > 1."""
+    def block_fn(params, x):
+        return _stage_block(params, x, cfg, s_local, sp, tp)
+
+    if _size(pp) == 1:
+        return torch.stack([block_fn(stage_params, x_mb[i])
+                            for i in range(x_mb.shape[0])])
+    return pipeline_apply_local(block_fn, stage_params, x_mb, pp)
+
+
+def _forward_local(params: Params, x: torch.Tensor, cfg: FlagshipConfig,
+                   mesh_axes=None) -> torch.Tensor:
+    """This rank's ``x [B_local, T_local, Dm]`` through the block stack
+    in ``cfg.microbatches`` microbatches; → the same shape. ``mesh_axes``
+    (:func:`~tpu_p2p_torch.models.flagship_config._mesh_axes`): this
+    rank's line along each axis; None is a world of one."""
     _check_ported(cfg)
+    axes = mesh_axes or dict.fromkeys(AXES)
+    pp, sp, tp = axes["pp"], axes["sp"], axes["tp"]
+    if cfg.stages % _size(pp):
+        raise ValueError(
+            f"stages ({cfg.stages}) must divide by pp size ({_size(pp)})")
+    s_local = cfg.stages // _size(pp)
     b = x.shape[0]
     if b % cfg.microbatches:
         raise ValueError(
@@ -111,42 +181,46 @@ def _forward_local(params: Params, x: torch.Tensor,
         )
     x_mb = x.reshape((cfg.microbatches, b // cfg.microbatches)
                      + tuple(x.shape[1:]))
-    y_mb = torch.stack([_stage_block(params, x_mb[i], cfg, cfg.stages)
-                        for i in range(cfg.microbatches)])
+    y_mb = _pipeline_schedule(params, x_mb, cfg, s_local, pp, sp, tp)
     return y_mb.reshape(x.shape)
 
 
-def make_flagship_forward(cfg: FlagshipConfig):
-    """Forward: ``(params, x [B, T, Dm]) → [B, T, Dm]``."""
+def make_flagship_forward(cfg: FlagshipConfig, mesh=None):
+    """Forward of this rank's shards: ``(params, x [B_local, T_local,
+    Dm]) → same`` (``mesh=None``: the whole batch on one device)."""
     _check_ported(cfg)
+    axes = _mesh_axes(mesh)
 
     def forward(params: Params, x: torch.Tensor) -> torch.Tensor:
-        return _forward_local(params, x, cfg)
+        return _forward_local(params, x, cfg, axes)
 
     return forward
 
 
 def _lm_logits_local(params: Params, tokens: torch.Tensor,
-                     cfg: FlagshipConfig) -> torch.Tensor:
+                     cfg: FlagshipConfig, mesh_axes=None) -> torch.Tensor:
     """Embed → block stack → tied unembed: ``tokens [B, T]`` int →
-    float32 logits ``[B, T, vocab]``. The one definition of the LM head,
-    shared by the forward and the train step."""
+    float32 logits ``[B, T, vocab]`` (this rank's shards). The one
+    definition of the LM head, shared by the forward and the train step;
+    every pp rank embeds and unembeds the replicated activations."""
     compute = torch_dtype(cfg.dtype)
     x = F.embedding(tokens.long(), params["emb"]).to(compute)
     stack = {k: v for k, v in params.items() if k not in STAGELESS_LEAVES}
-    y = _forward_local(stack, x, cfg)
+    y = _forward_local(stack, x, cfg, mesh_axes)
     if cfg.norm:
         y = _rms_norm(y, params["lnf"])
     return _unembed(y, params["emb"], compute)
 
 
-def make_flagship_lm_forward(cfg: FlagshipConfig):
-    """LM forward: ``(params, tokens [B, T]) → logits [B, T, vocab]``."""
+def make_flagship_lm_forward(cfg: FlagshipConfig, mesh=None):
+    """LM forward: ``(params, tokens [B_local, T_local]) → logits
+    [B_local, T_local, vocab]``."""
     if not cfg.vocab:
         raise ValueError("cfg.vocab must be > 0 for the LM forward")
     _check_ported(cfg)
+    axes = _mesh_axes(mesh)
 
     def forward(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return _lm_logits_local(params, tokens, cfg)
+        return _lm_logits_local(params, tokens, cfg, axes)
 
     return forward

@@ -1,9 +1,13 @@
-"""Flagship parameters: shapes, seeded init, and the weight carry.
+"""Flagship parameters: shapes, seeded init, placement on the mesh, and
+the weight carry.
 
-The port's copy of ``tpu_p2p/models/flagship_params.py`` minus the mesh
-placement. Params are a ``dict[str, Tensor]`` keyed by the reference's
-leaf names (``wq wk wv wo wf1 wf2 ln1 ln2 lnf emb``, or the MoE
-``router we1 we2``), stage-major like the reference.
+The port's copy of ``tpu_p2p/models/flagship_params.py``. Params are a
+``dict[str, Tensor]`` keyed by the reference's leaf names (``wq wk wv wo
+wf1 wf2 ln1 ln2 lnf emb``, or the MoE ``router we1 we2``), stage-major
+like the reference. On a mesh each rank holds its shard of each leaf: a
+spec names the mesh axis (or None) each dim is split over, as the
+reference's ``PartitionSpec`` does, and :func:`place_flagship_params`
+slices a rank's shard from the global leaves.
 """
 
 from __future__ import annotations
@@ -13,8 +17,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from tpu_p2p_torch.models.flagship_config import FlagshipConfig
+from tpu_p2p_torch.models.flagship_config import FlagshipConfig, _axis
+from tpu_p2p_torch.parallel.runtime import _dim_axes, local_shard
 
 Params = Dict[str, torch.Tensor]
 
@@ -86,6 +92,100 @@ def init_flagship_params(cfg: FlagshipConfig, seed: int = 0, *,
             continue
         a = rng.standard_normal(shape) / math.sqrt(shape[_FAN_IN_DIM[name]])
         out[name] = torch.from_numpy(a).to(dtype).to(device)
+    return out
+
+
+# A spec: per dim, the mesh axis it is split over, a tuple of axes split
+# jointly (the first major), or None (replicated); see local_shard.
+Spec = Tuple[object, ...]
+
+
+def _base_param_specs(mesh) -> Dict[str, Spec]:
+    """Every leaf's spec (reference ``_base_param_specs``): the stage dim
+    over pp, heads over tp, experts over ep; the dense FFN Megatron-split
+    (``wf1`` by columns, ``wf2`` by rows); norms per stage; the tied
+    embedding and the final norm replicated."""
+    pp, tp, ep = _axis(mesh, "pp"), _axis(mesh, "tp"), _axis(mesh, "ep")
+    return {
+        "wq": (pp, tp, None, None),
+        "wk": (pp, tp, None, None),
+        "wv": (pp, tp, None, None),
+        "wo": (pp, tp, None, None),
+        "router": (pp, None, None),
+        "we1": (pp, ep, None, None),
+        "we2": (pp, ep, None, None),
+        "wf1": (pp, None, tp),
+        "wf2": (pp, tp, None),
+        "ln1": (pp, None),
+        "ln2": (pp, None),
+        "lnf": (None,),
+        "emb": (None, None),
+    }
+
+
+def flagship_param_specs(mesh, cfg: Optional[FlagshipConfig] = None
+                         ) -> Dict[str, Spec]:
+    """The specs of this config's leaves (with ``cfg``), or of every
+    stage-major leaf (without): the reference's ``flagship_param_specs``
+    without ZeRO, which the port does not have yet."""
+    base = _base_param_specs(mesh)
+    if cfg is not None:
+        return {k: base[k] for k in flagship_param_shapes(cfg)}
+    return {k: v for k, v in base.items() if k not in STAGELESS_LEAVES}
+
+
+def flagship_data_spec(mesh) -> Spec:
+    """A regression batch ``[B, T, Dm]``: batch over (dp, ep) jointly,
+    sequence over sp."""
+    batch = tuple(a for a in (_axis(mesh, "dp"), _axis(mesh, "ep")) if a)
+    return (batch or None, _axis(mesh, "sp"), None)
+
+
+def _lm_token_spec(mesh) -> Spec:
+    """Token ids ``[B, T]``: batch over (dp, ep), sequence over sp."""
+    return flagship_data_spec(mesh)[:2]
+
+
+def place_flagship_params(params, mesh) -> Params:
+    """This rank's shard of each leaf of the global ``params`` (tensors,
+    or the reference's numpy arrays as :func:`params_from_numpy` takes
+    them), as contiguous tensors on ``mesh.device`` (the CPU without a
+    mesh)."""
+    base = _base_param_specs(mesh)
+    device = mesh.device if mesh is not None else torch.device("cpu")
+    out = {}
+    for k, v in params.items():
+        shard = local_shard(v, mesh, base[k])
+        out[k] = (shard.contiguous().to(device)
+                  if isinstance(shard, torch.Tensor)
+                  else tensor_from_numpy(shard, device))
+    return out
+
+
+def _gather_dim(x: torch.Tensor, line, dim: int) -> torch.Tensor:
+    from tpu_p2p_torch.parallel.collectives import axis_group
+
+    group = axis_group(line, "all_gather")
+    parts = [torch.empty_like(x) for _ in range(line.size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def gather_flagship_params(params: Params, mesh) -> Params:
+    """The global leaves from every rank's shards (the inverse of
+    :func:`place_flagship_params`), on every rank: one all-gather along
+    each split axis's line. Collective over the mesh: every rank calls
+    it."""
+    base = _base_param_specs(mesh)
+    out = {}
+    for k in sorted(params):
+        x = params[k]
+        for dim, entry in enumerate(base[k]):
+            for a in reversed(_dim_axes(entry)):
+                line = mesh.line(a)
+                if line.size > 1:
+                    x = _gather_dim(x, line, dim)
+        out[k] = x
     return out
 
 

@@ -1,12 +1,19 @@
-"""Single-device attention helpers — the port's copy of the one-device
-half of ``tpu_p2p/ops/attention.py``.
+"""Attention helpers and ring attention — the port of
+``tpu_p2p/ops/attention.py``.
 
 ``dense_attention`` is the ``use_flash=False`` path and the test oracle
 of the flash kernels; ``finalize`` owns the fully-masked-row policy
 (``l == 0`` rows → 0) shared with :mod:`tpu_p2p_torch.ops.
-flash_attention`; ``_merge`` is the streaming-softmax update. The ring,
-zigzag and sharding helpers of the reference belong to the multi-card
-slice and are not here.
+flash_attention`; ``_merge`` is the streaming-softmax update.
+
+Sequence parallelism: with the sequence split over a mesh line, each
+rank holds a ``[B, H, T_local, D]`` block of q, k and v.
+:func:`ring_attention_local` rotates the KV blocks around the line
+(``n - 1`` shift-by-1 hops, fewer where a window makes the rest dead)
+while each rank folds them into its ``(o, m, l)`` carry; the flash form
+is :mod:`tpu_p2p_torch.ops.ring_flash`. The zigzag layout
+(:func:`zigzag_chunks`) gives every rank one early and one mirrored
+late half-chunk, so causal work is even across ranks.
 """
 
 from __future__ import annotations
@@ -86,3 +93,135 @@ def _merge(o, m, l, s, v):
     o_new = o * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
                                                 v.float())
     return o_new, m_new, l_new
+
+
+def _block_scores(q: torch.Tensor, k: torch.Tensor, scale: float):
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+
+
+def zigzag_chunks(rank: int, n: int, t_local: int):
+    """Global start positions of a rank's two zigzag half-chunks: the
+    sequence is cut into ``2n`` chunks of ``t_local / 2``, and rank ``r``
+    holds chunks ``r`` and ``2n - 1 - r``."""
+    half = t_local // 2
+    return rank * half, (2 * n - 1 - rank) * half
+
+
+def live_ring_hops(n: int, t: int, causal: bool, layout: str,
+                   window) -> int:
+    """Ring rotations that can carry a live KV block: under a causal
+    window on the contiguous layout, rank ``my``'s queries see only the
+    blocks ``my - H .. my`` with ``H = ceil((window - 1) / T_local)``, so
+    later hops would ship dead blocks and are dropped. Zigzag holds a
+    late chunk on every rank: every hop stays live there."""
+    if window is not None and causal and layout == "contiguous":
+        return min(n - 1, -(-(window - 1) // t))
+    return n - 1
+
+
+def _check_window(window, causal: bool) -> None:
+    """Reject the silently wrong windows: non-causal, and < 1."""
+    if window is None:
+        return
+    if not causal:
+        raise ValueError("window requires causal attention")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _block_positions(src_block: int, n: int, t: int, layout: str,
+                     device=None) -> torch.Tensor:
+    """Global positions ``[t]`` of block ``src_block`` of ``n``."""
+    if layout == "zigzag":
+        lo, hi = zigzag_chunks(src_block, n, t)
+        half = torch.arange(t // 2, device=device)
+        return torch.cat([lo + half, hi + half])
+    return src_block * t + torch.arange(t, device=device)
+
+
+def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         line, *, causal: bool = False,
+                         use_flash: bool = False,
+                         layout: str = "contiguous",
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Ring attention of this rank's block over the sequence split along
+    ``line`` (a mesh line, :meth:`Mesh.line`).
+
+    ``q [B, H, T_local, D]``, ``k/v [B, H_kv, T_local, D]`` (GQA: the
+    rotating blocks stay narrow). The KV block rotates right (the
+    ``ring`` workload's edge set) while this rank folds each arriving
+    block into its float32 ``(o, m, l)`` carry, masked at the block's
+    global positions. Differentiable through autograd: each hop is an
+    :func:`~tpu_p2p_torch.parallel.collectives.axis_ppermute`.
+    ``use_flash`` runs the folds and the backward in the flash kernels
+    (:func:`tpu_p2p_torch.ops.ring_flash.ring_flash_attention`).
+    ``layout="zigzag"`` reads the blocks as zigzag chunks (even
+    ``T_local``).
+    """
+    if layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"unknown layout {layout!r}")
+    _check_window(window, causal)
+    if use_flash:
+        from tpu_p2p_torch.ops.ring_flash import ring_flash_attention
+
+        return ring_flash_attention(q, k, v, line, causal, layout, window)
+    from tpu_p2p_torch.parallel.collectives import axis_ppermute, ring_edges
+
+    n, my = line.size, line.index
+    b, h, t, d = q.shape
+    if layout == "zigzag" and t % 2:
+        raise ValueError(f"zigzag needs an even local length, got {t}")
+    scale = 1.0 / math.sqrt(d)
+    edges = ring_edges(n)
+    o = q.new_zeros((b, h, t, d), dtype=torch.float32)
+    m = q.new_full((b, h, t), NEG_INF, dtype=torch.float32)
+    l = q.new_zeros((b, h, t), dtype=torch.float32)
+    q_pos = _block_positions(my, n, t, layout, q.device)
+
+    def accumulate(o, m, l, k_blk, v_blk, src):
+        s = _block_scores(q, repeat_kv(k_blk, h), scale)
+        if causal:
+            k_pos = _block_positions(src, n, t, layout, q.device)
+            vis = q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                vis &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(vis, s, NEG_INF)
+        return _merge(o, m, l, s, repeat_kv(v_blk, h))
+
+    hops = live_ring_hops(n, t, causal, layout, window)
+    k_cur, v_cur = k, v
+    for i in range(hops):
+        k_nxt = axis_ppermute(k_cur, line, edges)
+        v_nxt = axis_ppermute(v_cur, line, edges)
+        o, m, l = accumulate(o, m, l, k_cur, v_cur, (my - i) % n)
+        k_cur, v_cur = k_nxt, v_nxt
+    o, m, l = accumulate(o, m, l, k_cur, v_cur, (my - hops) % n)
+    return finalize(o, m, l, q.dtype)
+
+
+def zigzag_perm(n: int, seq: int) -> list:
+    """Sequence permutation into zigzag order: shard ``r`` of the
+    permuted sequence holds chunks ``(r, 2n-1-r)`` of the original."""
+    if seq % (2 * n):
+        raise ValueError(f"sequence {seq} must divide by 2n = {2 * n}")
+    half = seq // (2 * n)
+    perm = []
+    for r in range(n):
+        perm.extend(range(r * half, (r + 1) * half))
+        perm.extend(range((2 * n - 1 - r) * half, (2 * n - r) * half))
+    return perm
+
+
+def to_zigzag(x: torch.Tensor, n: int, seq_axis: int = 2) -> torch.Tensor:
+    """Reorder the sequence axis into the zigzag layout."""
+    perm = torch.tensor(zigzag_perm(n, x.shape[seq_axis]), device=x.device)
+    return x.index_select(seq_axis, perm)
+
+
+def from_zigzag(x: torch.Tensor, n: int, seq_axis: int = 2) -> torch.Tensor:
+    """Inverse of :func:`to_zigzag`."""
+    perm = zigzag_perm(n, x.shape[seq_axis])
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return x.index_select(seq_axis, torch.tensor(inv, device=x.device))

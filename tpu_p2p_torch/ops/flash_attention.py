@@ -29,7 +29,12 @@ The functions:
   ``_dq_reduce_kernel``), dk/dv from kernel ``flash_bwd_dkdv`` (replaces
   ``_bwd_dkdv_kernel``), already folded to the narrow ``B·Hkv`` rows;
 - :func:`flash_attention` — the trainable ``[B, H, T, D]`` op, a
-  ``torch.autograd.Function`` saving ``(q, k, v, out, L)`` and never P.
+  ``torch.autograd.Function`` saving ``(q, k, v, out, L)`` and never P;
+- :func:`flash_carry_block` and :func:`flash_bwd_block` — the ring
+  hop's steps on ``[B, H, T, D]`` blocks at global offsets (reference
+  :569 and :606), over :func:`_flash_call` and :func:`_flash_bwd_call`;
+  their ``*_plain`` twins run the plain versions on any device (what
+  the kernels are held against on the card).
 
 The math both forms share with the reference: the softmax scale and
 ``log2 e`` are folded into q with one rounding back to q's dtype (the
@@ -51,7 +56,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpu_p2p_torch.ops.attention import NEG_INF, finalize, repeat_kv
+from tpu_p2p_torch.ops.attention import (
+    NEG_INF,
+    _check_window,
+    finalize,
+    repeat_kv,
+)
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -176,15 +186,6 @@ def _causal_mask(tq: int, tk: int, q_off: int, k_off: int, window,
     if window is not None:
         vis &= q_pos - k_pos < window
     return vis
-
-
-def _check_window(window, causal: bool) -> None:
-    if window is None:
-        return
-    if not causal:
-        raise ValueError("window requires causal attention")
-    if window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
 
 
 def zero_carry(bh: int, t: int, d: int, device
@@ -471,7 +472,101 @@ def _flash_bwd_call(q3, k3, v3, do3, L, delta, q_off: int = 0,
     return dq, dk, dv
 
 
+def _flash_bwd_call_plain(q3, k3, v3, do3, L, delta, q_off: int = 0,
+                          k_off: int = 0, *, causal: bool, q_heads: int,
+                          window: Optional[int] = None):
+    """Plain version of :func:`_flash_bwd_call`."""
+    kw = dict(causal=causal, q_heads=q_heads, window=window)
+    dk, dv = _flash_bwd_dkdv_plain(q3, k3, v3, do3, L, delta, q_off, k_off,
+                                   **kw)
+    dq = _flash_bwd_dq_plain(q3, k3, v3, do3, L, delta, q_off, k_off, **kw)
+    return dq, dk, dv
+
+
+# ------------------------------------------------------ ring blocks
+
+
+def _carry_block(call, q, k, v, o, m, l, q_off, k_off, causal, window):
+    b, h, tq, d = q.shape
+    h_kv, tk = k.shape[1], k.shape[2]
+    bh = b * h
+    o3, m3, l3 = call(q.reshape(bh, tq, d), k.reshape(b * h_kv, tk, d),
+                      v.reshape(b * h_kv, tk, d), o.reshape(bh, tq, d),
+                      m.reshape(bh, tq), l.reshape(bh, tq), int(q_off),
+                      int(k_off), causal=causal, q_heads=h, window=window)
+    return (o3.reshape(b, h, tq, d), m3.reshape(b, h, tq),
+            l3.reshape(b, h, tq))
+
+
+def flash_carry_block(q, k, v, o, m, l, q_off: int, k_off: int, *,
+                      causal: bool = False, window: Optional[int] = None):
+    """Fold one KV block into the carry — the ring hop's forward step
+    (reference :569). ``q [B, H, Tq, D]`` against ``k/v [B, H_kv, Tk,
+    D]`` (GQA) at global offsets ``q_off``/``k_off`` (host integers);
+    carry ``o [B, H, Tq, D]``, ``m/l [B, H, Tq]`` float32, ``m`` in
+    natural log. The kernel on card tensors, the plain version on CPU
+    tensors (:func:`_flash_call`)."""
+    return _carry_block(_flash_call, q, k, v, o, m, l, q_off, k_off,
+                        causal, window)
+
+
+def flash_carry_block_plain(q, k, v, o, m, l, q_off: int, k_off: int, *,
+                            causal: bool = False,
+                            window: Optional[int] = None):
+    """:func:`flash_carry_block` through the plain version on any
+    device."""
+    return _carry_block(_flash_call_plain, q, k, v, o, m, l, q_off, k_off,
+                        causal, window)
+
+
+def _bwd_block(call, q, k, v, do, L, delta, q_off, k_off, causal, window):
+    b, h, tq, d = q.shape
+    h_kv, tk = k.shape[1], k.shape[2]
+    bh = b * h
+    dq, dk, dv = call(q.reshape(bh, tq, d), k.reshape(b * h_kv, tk, d),
+                      v.reshape(b * h_kv, tk, d),
+                      do.to(q.dtype).reshape(bh, tq, d),
+                      L.reshape(bh, tq), delta.reshape(bh, tq), int(q_off),
+                      int(k_off), causal=causal, q_heads=h, window=window)
+    return (dq.reshape(b, h, tq, d), dk.reshape(b, h_kv, tk, d),
+            dv.reshape(b, h_kv, tk, d))
+
+
+def flash_bwd_block(q, k, v, do, L, delta, q_off: int, k_off: int, *,
+                    causal: bool = False, window: Optional[int] = None):
+    """FlashAttention-2 gradients of one q block against one KV block
+    from the *global* logsumexp ``L`` and ``delta = rowsum(dO·O)``
+    (``[B, H, Tq]``) — the ring hop's backward step (reference :606).
+    → float32 partial sums ``(dq [B, H, Tq, D], dk [B, H_kv, Tk, D],
+    dv)``, GQA groups folded. Routed as :func:`_flash_bwd_call`."""
+    return _bwd_block(_flash_bwd_call, q, k, v, do, L, delta, q_off, k_off,
+                      causal, window)
+
+
+def flash_bwd_block_plain(q, k, v, do, L, delta, q_off: int, k_off: int, *,
+                          causal: bool = False,
+                          window: Optional[int] = None):
+    """:func:`flash_bwd_block` through the plain versions on any
+    device."""
+    return _bwd_block(_flash_bwd_call_plain, q, k, v, do, L, delta, q_off,
+                      k_off, causal, window)
+
+
 # ------------------------------------------------ the trainable op
+
+
+def logsumexp(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """The backward's residual ``L = m + log l`` of a finished carry;
+    fully-masked rows (``l == 0``) get ``+1e30``, so the backward's
+    ``exp2(s - L)`` underflows to an all-zero P row."""
+    live = l > 0.0
+    return torch.where(live, m + torch.log(torch.where(live, l, 1.0)), 1e30)
+
+
+def delta_of(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO·O)`` in float32, from the unrounded
+    cotangent."""
+    return (g.float() * out.float()).sum(dim=-1)
 
 
 def _flash_fwd(q, k, v, causal: bool, window):
@@ -483,12 +578,7 @@ def _flash_fwd(q, k, v, causal: bool, window):
                           v.reshape(b * h_kv, t, d),
                           *zero_carry(bh, t, d, q.device), 0, 0,
                           causal=causal, q_heads=h, window=window)
-    out = finalize(o, m, l, q.dtype).reshape(b, h, t, d)
-    # Logsumexp residual; fully-masked rows (l == 0) get +1e30 so the
-    # backward's exp2(s - L) underflows to an all-zero P row.
-    live = l > 0.0
-    L = torch.where(live, m + torch.log(torch.where(live, l, 1.0)), 1e30)
-    return out, L
+    return finalize(o, m, l, q.dtype).reshape(b, h, t, d), logsumexp(m, l)
 
 
 def _flash_bwd(causal: bool, window, saved, g):
@@ -496,9 +586,8 @@ def _flash_bwd(causal: bool, window, saved, g):
     b, h, t, d = q.shape
     h_kv = k.shape[1]
     bh = b * h
-    # delta = rowsum(dO · O) in float32, in torch; everything O(T²)
-    # runs in the kernels.
-    delta = (g.float() * out.float()).sum(dim=-1).reshape(bh, t)
+    # delta in torch; everything O(T²) runs in the kernels.
+    delta = delta_of(g, out).reshape(bh, t)
     dq, dk, dv = _flash_bwd_call(q.reshape(bh, t, d),
                                  k.reshape(b * h_kv, t, d),
                                  v.reshape(b * h_kv, t, d),

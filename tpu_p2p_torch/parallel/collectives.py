@@ -25,6 +25,12 @@
   line (``mesh.line(axis)``): an axis edge set is the same edges in
   every line of the other axis, as a ``ppermute`` over one axis of a
   2-D ``shard_map`` is (:func:`expected_permute` with ``axis=``).
+- The flagship step's collectives along one axis of its mesh, as
+  autograd functions whose backward is the reference's transpose:
+  :func:`psum_join` (all-reduce forward, identity backward),
+  :func:`psum_conjugate` (its conjugate), :func:`axis_ppermute` and the
+  tiled :func:`axis_all_to_all`; :func:`all_reduce_flat` sums a step's
+  gradients over the data axes in one collective a dtype.
 - the chunk wave :func:`chunked_ppermute_compute` (reference :627): a
   computed buffer shipped as ``chunks`` hops, each chunk's ship in flight
   while the next chunk computes, over either transport.
@@ -253,17 +259,31 @@ def _local_ppermute(xs, mesh, edges: Sequence[Edge]) -> list:
     return outs
 
 
-def ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge]) -> torch.Tensor:
+def ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge], *,
+             what: str = "") -> torch.Tensor:
     """This rank's arrival of one edge-set transfer over the library
     collective: row ``dst`` gets row ``src`` per edge, zeros where no
     edge arrives. Members without an edge send nothing. On a
-    ``LocalMesh``, ``x`` and the result are per-rank lists."""
+    ``LocalMesh``, ``x`` and the result are per-rank lists. ``what``
+    names the caller in the error on ranks that share a card (as
+    :func:`_library_group`)."""
     if mesh.in_process:
         return _local_ppermute(x, mesh, edges)
+    out, pending = ppermute_start(x, mesh, edges, what=what)
+    return ppermute_wait(out, pending)
+
+
+def ppermute_start(x: torch.Tensor, mesh, edges: Sequence[Edge], *,
+                   what: str = ""):
+    """Issue :func:`ppermute` on a process mesh without waiting for it:
+    → ``(out, pending)``; ``out`` holds the arrival after
+    :func:`ppermute_wait`. Work issued in between on the card's stream
+    runs while the transfer is in flight (NCCL's own stream); ``x`` must
+    stay unchanged until then."""
     i = mesh.index
     x = x.contiguous()
     out = torch.zeros_like(x)
-    group = _library_group(mesh, x.device)
+    group = _library_group(mesh, x.device, what)
     ops = []
     for s, d in edges:
         if s == i and d == i:
@@ -272,9 +292,14 @@ def ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge]) -> torch.Tensor:
             ops.append(dist.P2POp(dist.isend, x, mesh.ranks[d], group))
         elif d == i:
             ops.append(dist.P2POp(dist.irecv, out, mesh.ranks[s], group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    return out, (dist.batch_isend_irecv(ops) if ops else [])
+
+
+def ppermute_wait(out: torch.Tensor, pending) -> torch.Tensor:
+    """Wait for a :func:`ppermute_start` (on the card: the current
+    stream waits for the transfer) → its arrival."""
+    for req in pending:
+        req.wait()
     return out
 
 
@@ -355,6 +380,151 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
         o = torch.cat([a[k] for a in arrivals], dim=chunk_dim)
         out.append(o.narrow(chunk_dim, 0, size) if pad else o)
     return mesh.unrows(out)
+
+
+# ------------------------------------------- differentiable, along an axis
+#
+# The collectives of the flagship step, on one line of a mesh (a 1-D
+# process mesh, ``mesh.line(axis)``), as autograd functions: the
+# backward of each is the reference's transpose of the same collective
+# under ``shard_map``. On a line of one rank each is the identity and
+# launches nothing. They run over the group of the line's device: gloo
+# for a CPU mesh, NCCL for a mesh on cards, and on ranks that share a
+# card they raise BackendError before any traffic (NCCL needs a card a
+# rank).
+
+
+def axis_group(line, what: str):
+    """The library group of ``line`` on its own device (raises
+    :class:`BackendError` where its ranks share a card)."""
+    return _library_group(line, line.device, what)
+
+
+def _all_reduce_copy(x: torch.Tensor, line, what: str) -> torch.Tensor:
+    group = axis_group(line, what)
+    y = x.contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+class _PsumJoin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.line = line
+        return _all_reduce_copy(x, line, "psum_join")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PsumConjugate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.line = line
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_copy(g, ctx.line, "psum_conjugate"), None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, edges):
+        ctx.line, ctx.edges = line, edges
+        axis_group(line, "ppermute")
+        return ppermute(x, line, edges, what="ppermute")
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.edges]
+        return ppermute(g, ctx.line, back, what="ppermute"), None, None
+
+
+def _a2a(x: torch.Tensor, line, split_dim: int, concat_dim: int):
+    group = axis_group(line, "all_to_all")
+    parts = torch.stack(x.chunk(line.size, dim=split_dim)).contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, split_dim, concat_dim):
+        ctx.args = line, split_dim, concat_dim
+        return _a2a(x, line, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        line, split_dim, concat_dim = ctx.args
+        return _a2a(g, line, concat_dim, split_dim), None, None, None
+
+
+def psum_join(x: torch.Tensor, line) -> torch.Tensor:
+    """The sum of ``x`` over the line, replicated (the reference's
+    ``psum`` of a varying value, :748): all-reduce forward, identity
+    backward, since the replicated sum's cotangent reaches every member
+    once. The Megatron joins after ``wo`` and ``wf2``, the pipeline's
+    output replication. ``line=None`` (no such axis): the identity."""
+    return x if line is None or line.size == 1 else _PsumJoin.apply(x, line)
+
+
+def psum_conjugate(x: torch.Tensor, line) -> torch.Tensor:
+    """The identity forward, a sum over the line backward: where a value
+    replicated over the line enters work that differs by member (a
+    column-split product, the pipeline's first stage), each member's
+    cotangent is a part of the whole, as the transpose of ``shard_map``'s
+    implicit broadcast sums them. ``line=None``: the identity."""
+    if line is None or line.size == 1:
+        return x
+    return _PsumConjugate.apply(x, line)
+
+
+def axis_ppermute(x: torch.Tensor, line, edges: Sequence[Edge]):
+    """:func:`ppermute` along the line, differentiable: the backward is
+    the same hop over the reversed edges (the reference's transpose)."""
+    if line.size == 1:
+        return x.clone() if any(s == d for s, d in edges) else \
+            torch.zeros_like(x)
+    return _Ppermute.apply(x, line, tuple(edges))
+
+
+def axis_all_to_all(x: torch.Tensor, line, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """Tiled all-to-all along the line (reference :846): ``x`` splits
+    into ``line.size`` chunks along ``split_dim``, chunk ``j`` goes to
+    member ``j``, and the chunks received concatenate along
+    ``concat_dim`` in member order. Differentiable: the backward is the
+    inverse reshard."""
+    if line.size == 1:
+        return x
+    if x.shape[split_dim] % line.size:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split into {line.size} chunks")
+    return _AllToAll.apply(x, line, split_dim, concat_dim)
+
+
+def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh,
+                    what: str) -> None:
+    """Sum each tensor over ``mesh`` in place, one all-reduce a dtype
+    over the tensors flattened together (the gradient reduction of a
+    step: one collective instead of one a leaf). Nothing on a mesh of
+    one rank."""
+    if mesh.size == 1 or not tensors:
+        return
+    group = axis_group(mesh, what)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, group=group)
+        offset = 0
+        for t in same:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 class CollectiveCache:

@@ -16,12 +16,17 @@ One process per rank, as in the reference program (``mpirun -n N``,
   only when every rank has a card of its own.
 - :class:`Mesh` is the port's counterpart of a ``jax.sharding.Mesh``:
   1-D over axis ``"d"`` (the whole world, ``rt.mesh``, or the pair of
-  ``rt.submesh([a, b])``), or 2-D over axes ``("x", "y")`` when
+  ``rt.submesh([a, b])``), 2-D over axes ``("x", "y")`` when
   ``make_runtime(mesh_shape=(A, B))`` lays the world out row-major
-  (rank ``r`` at ``(r // B, r % B)``). Each line of a 2-D mesh along an
-  axis (the ranks that differ only in that coordinate) is a 1-D mesh of
-  its own, with its own groups and peer-push windows
-  (:meth:`Mesh.line`): a collective along an axis runs on the lines.
+  (rank ``r`` at ``(r // B, r % B)``), or n-D over named axes
+  (``mesh_shape=(dp, pp, sp, tp, ep), axis_names=AXES``, the flagship's
+  five). Each line of a mesh along an axis (the ranks that differ only
+  in that coordinate) is a 1-D mesh of its own, with its own groups and
+  peer-push windows (:meth:`Mesh.line`): a collective along an axis runs
+  on the lines. A plane over a set of axes (:meth:`Mesh.plane`, e.g.
+  the flagship's data axes) is the same over several coordinates. An
+  axis of size 1 gets no group: its lines are one-rank meshes, on which
+  every collective is the identity.
 - :meth:`Mesh.barrier` is a stream sync on the card, then a barrier of
   the host group: ``MPI_Barrier`` (``p2p_matrix.cc:146,201``).
 - :class:`LocalMesh` is the in-process counterpart of a 1-D
@@ -83,8 +88,11 @@ class Mesh:
     # this set of ranks, by capacity (shared by both orders of a pair)
     axis_names: Tuple[str, ...] = (MESH_AXIS,)
     dims: Tuple[int, ...] = ()     # extent per axis; () = (size,)
-    lines: Dict[str, "Mesh"] = field(default_factory=dict)  # of a 2-D
-    # mesh: this rank's line along each axis
+    runtime: Optional["Runtime"] = None  # whose groups the lines and
+    # planes of a multi-axis mesh use
+    planes: Dict[Tuple[str, ...], "Mesh"] = field(default_factory=dict)
+    # of a multi-axis mesh: this rank's plane over each axis set made so
+    # far (a line is the plane over one axis)
 
     def __post_init__(self) -> None:
         if not self.dims:
@@ -98,6 +106,13 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.dims))
 
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate along each axis (row-major layout)."""
+        grid = torch.arange(self.size).reshape(self.dims)
+        where = (grid == self.index).nonzero()[0].tolist()
+        return dict(zip(self.axis_names, where))
+
     def line(self, axis: str) -> "Mesh":
         """This rank's line along ``axis``: the 1-D mesh of the members
         that differ from it only in that coordinate (the mesh itself when
@@ -106,7 +121,39 @@ class Mesh:
             raise ValueError(f"axis {axis!r} not in {self.axis_names}")
         if len(self.axis_names) == 1:
             return self
-        return self.lines[axis]
+        return self.plane((axis,))
+
+    def plane(self, axes: Sequence[str]) -> "Mesh":
+        """This rank's plane over ``axes``: the members that differ from
+        it only in those coordinates, as a 1-D mesh in row-major order
+        over them (mesh order of the axes), named by the joined axis
+        names. A plane of one rank (every axis of size 1) has no groups.
+        Made on first use and cached; every rank of the world must ask
+        for a new axis set at the same point (``new_group`` is collective
+        over the world), as :meth:`Runtime.groups` says."""
+        for a in axes:
+            if a not in self.axis_names:
+                raise ValueError(f"axis {a!r} not in {self.axis_names}")
+        key = tuple(a for a in self.axis_names if a in axes)
+        plane = self.planes.get(key)
+        if plane is not None:
+            return plane
+        idx = [self.axis_names.index(a) for a in key]
+        ranks = next(p for p in _planes(self.dims, idx)
+                     if self.index in p)
+        ranks = tuple(self.ranks[i] for i in ranks)
+        if len(ranks) == 1:
+            # No group for one rank; a world of one has the world's.
+            made = self.runtime._groups if self.runtime else {}
+            host, dev, windows = made.get(ranks, (None, None, {}))
+        else:
+            host, dev, windows = self.runtime.plane_groups(
+                self.ranks, self.dims, idx)
+        plane = Mesh(ranks=ranks, rank=self.rank, device=self.device,
+                     host_group=host, device_group=dev, windows=windows,
+                     axis_names=("+".join(key),) if len(key) > 1 else key)
+        self.planes[key] = plane
+        return plane
 
     @property
     def is_member(self) -> bool:
@@ -324,6 +371,20 @@ class Runtime:
             self._groups[key] = groups
         return groups
 
+    def plane_groups(self, ranks: Sequence[int], dims: Sequence[int],
+                     axes: Sequence[int]) -> tuple:
+        """:meth:`groups` of every plane over axis indices ``axes`` of
+        the mesh of ``ranks`` laid out row-major over ``dims``, made in
+        plane order (so every rank makes them in one order); → this
+        rank's."""
+        mine = None
+        for plane in _planes(tuple(dims), list(axes)):
+            members = tuple(ranks[i] for i in plane)
+            groups = self.groups(members)
+            if self.rank in members:
+                mine = groups
+        return mine
+
     def submesh(self, device_ids: Sequence[int]) -> Mesh:
         """The 1-D mesh over ``device_ids`` (pair isolation), made with
         :meth:`groups` (so every rank calls it, in the same order)."""
@@ -368,6 +429,38 @@ class Runtime:
         dist.destroy_process_group()
 
 
+def _dim_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def local_shard(x, mesh, spec: Sequence):
+    """This rank's block of the global array or tensor ``x`` under
+    ``spec`` on ``mesh``: each split dim cut into equal blocks, the
+    rank's block by its coordinates (row-major over a joint split).
+    ``mesh=None``: ``x`` itself."""
+    if mesh is None:
+        return x
+    shape, coords = mesh.shape, mesh.coords
+    for dim, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        parts = math.prod(shape[a] for a in axes)
+        if parts == 1:
+            continue
+        if x.shape[dim] % parts:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split over {axes} ({parts} parts)")
+        block = 0
+        for a in axes:
+            block = block * shape[a] + coords[a]
+        size = x.shape[dim] // parts
+        index = [slice(None)] * x.ndim
+        index[dim] = slice(block * size, (block + 1) * size)
+        x = x[tuple(index)]
+    return x
+
+
 def pick_device(device=None) -> torch.device:
     """The rank's device: ``device`` when given (sharing a card is then
     the caller's choice), else ``cuda:{LOCAL_RANK}``, which must exist:
@@ -395,12 +488,15 @@ def _nccl_possible(keys: Sequence[Tuple[int, str]]) -> bool:
         and len(set(keys)) == len(keys)
 
 
-def _lines(dims: Tuple[int, ...], axis: int):
-    """The lines of a row-major mesh of ``dims`` along ``axis``: for each
-    setting of the other coordinates (row-major), the ranks that vary
-    along ``axis``, in axis order."""
-    grid = torch.arange(math.prod(dims)).reshape(dims).movedim(axis, -1)
-    return [tuple(line.tolist()) for line in grid.reshape(-1, dims[axis])]
+def _planes(dims: Tuple[int, ...], axes: Sequence[int]):
+    """The planes of a row-major mesh of ``dims`` over the axis indices
+    ``axes`` (a line when there is one): for each setting of the other
+    coordinates (row-major), the mesh indices that vary along ``axes``,
+    row-major over them."""
+    grid = torch.arange(math.prod(dims)).reshape(dims)
+    grid = grid.movedim(list(axes), list(range(-len(axes), 0)))
+    size = math.prod(dims[a] for a in axes)
+    return [tuple(p.tolist()) for p in grid.reshape(-1, size)]
 
 
 def make_runtime(num_devices: Optional[int] = None,
@@ -414,13 +510,15 @@ def make_runtime(num_devices: Optional[int] = None,
     starts one rank per device, so the way to use N devices is a world
     of N (``--cpu-mesh N`` spawns exactly that many).
 
-    ``mesh_shape`` (e.g. ``(4, 2)``) lays the world out as a 2-D mesh
-    over ``axis_names`` (default ``("x", "y")``) in row-major rank
-    order, and makes the groups of every line of every axis, axis by
-    axis, line by line (the same order on every rank). Without it the
-    mesh is 1-D over ``("d",)`` in rank order. The reference reorders a
-    1-D world of more than 2 devices by a measured ring order; that
-    relabelling changes no value and comes with the topology module."""
+    ``mesh_shape`` (e.g. ``(4, 2)``) lays the world out as a mesh over
+    ``axis_names`` (default ``("x", "y")`` for 2-D; a mesh of more axes
+    names them, as the flagship's ``(dp, pp, sp, tp, ep)``) in row-major
+    rank order, and makes the groups of every line of every axis of
+    size > 1, axis by axis, line by line (the same order on every rank).
+    Without it the mesh is 1-D over ``("d",)`` in rank order. The
+    reference reorders a 1-D world of more than 2 devices by a measured
+    ring order; that relabelling changes no value and comes with the
+    topology module."""
     device = pick_device(device)
     init_distributed()
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -449,26 +547,21 @@ def make_runtime(num_devices: Optional[int] = None,
         check(math.prod(dims) == world,
               f"mesh shape {dims} != {world} devices")
         names = tuple(axis_names or MESH_AXES_2D[:len(dims)])
-    check(len(names) == len(dims) and len(dims) in (1, 2),
-          f"mesh shape {dims} over axes {names}: the port's meshes are "
-          "1-D or 2-D, one name per axis")
+    check(len(names) == len(dims) and len(set(names)) == len(names),
+          f"mesh shape {dims} over axes {names}: one distinct name per "
+          "axis (the default names cover 1-D or 2-D meshes)")
     mesh = Mesh(ranks=tuple(range(world)), rank=rank, device=device,
                 host_group=dist.group.WORLD, device_group=device_group,
                 axis_names=names, dims=dims)
     rt = Runtime(rank=rank, world=world, device=device,
                  placement=placement, mesh=mesh)
     rt._groups[mesh.ranks] = (mesh.host_group, device_group, mesh.windows)
-    if len(dims) == 2:
-        for a, name in enumerate(names):
-            for line in _lines(dims, a):
-                host, dev, windows = rt.groups(line)
-                if rank in line:
-                    mesh.lines[name] = Mesh(
-                        ranks=line, rank=rank, device=device,
-                        host_group=host, device_group=dev,
-                        windows=windows, axis_names=(name,))
+    if len(dims) > 1:
+        mesh.runtime = rt
+        lines = [mesh.line(name) for name in names]
         if device_group is not None:
-            for name in names:  # every rank: its x line, then its y line
-                dist.all_reduce(torch.zeros(1, device=device),
-                                group=mesh.lines[name].device_group)
+            for line in lines:  # every rank: its lines in axis order
+                if line.device_group is not None and line.size > 1:
+                    dist.all_reduce(torch.zeros(1, device=device),
+                                    group=line.device_group)
     return rt

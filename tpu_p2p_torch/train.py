@@ -1,27 +1,34 @@
-"""The flagship training loop on one device — the port of
+"""The flagship training loop over the five-axis mesh — the port of
 ``tpu_p2p/train.py``'s plain-SGD path.
 
 ``python -m tpu_p2p_torch train --dense-ffn --steps 4 ...`` (or
 ``python -m tpu_p2p_torch.train``) trains the flagship model on seeded
-synthetic data and prints the reference's JSONL records (``step``,
-``loss``, ``wall_s``, ``tokens_per_s_wall``) and its closing
-``{"summary": ...}`` line. It runs on the card unless ``--device cpu``
-is given; ``--device cuda`` without a card raises, nothing falls back.
+synthetic data on ``build_mesh(world)``: one rank a card under
+``torchrun --nproc-per-node N`` (NCCL), ``--cpu-mesh N`` spawned gloo
+CPU ranks, or a world of one. Rank 0 prints the reference's JSONL
+records (``step``, ``loss``, ``wall_s``, ``tokens_per_s_wall``) and its
+closing ``{"summary": ...}`` line. It runs on the card unless ``--device
+cpu`` (or ``--cpu-mesh``) is given; ``--device cuda`` without a card
+raises, nothing falls back.
 
 Batches are generated per step from ``seed`` and the global step index
-(byte-identical to the reference's stream), go to the device through
-:class:`tpu_p2p_torch.utils.data.DeviceLoader`, and the step updates
-the params in place (the reference donates them). Every reference flag
-parses; the flags whose machinery is not ported (optax optimizers and
-schedules, evaluation, checkpoints and recovery, fault injection,
-observability, the CPU mesh, remat, FSDP, the mesh overlaps and
-schedules, the MoE FFN) exit with "not ported yet" when set.
+(byte-identical to the reference's stream); each rank's
+:class:`tpu_p2p_torch.utils.data.DeviceLoader` keeps its (dp·ep, sp)
+block, and the step updates the rank's param shards in place (the
+reference donates them). Every reference flag parses; the flags whose
+machinery is not ported (optax optimizers and schedules, evaluation,
+checkpoints and recovery, fault injection, observability, remat, FSDP,
+the mesh overlaps and schedules, the MoE FFN) exit with "not ported
+yet" when set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and
+``--moe-mult`` are the port's own: a mesh other than ``build_mesh``'s
+factoring, and the FFN width of the 4x-FFN configurations.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 import traceback
@@ -62,11 +69,11 @@ _FLAGS_NOT_PORTED = (
     ("fault_ckpt_corrupt_seed", "--fault-ckpt-corrupt-seed"),
     ("fault_ckpt_io_errors", "--fault-ckpt-io-errors"),
     ("obs_jsonl", "--obs-jsonl"), ("obs_window_step", "--obs-window-step"),
-    ("trace", "--trace"), ("cpu_mesh", "--cpu-mesh"),
+    ("trace", "--trace"),
     ("remat", "--remat"), ("zero_dp", "--zero-dp"),
     ("overlap", "--overlap"), ("tp_overlap", "--tp-overlap"),
     ("ep_overlap", "--ep-overlap"), ("pp_overlap", "--pp-overlap"),
-    ("pp_chunks", "--pp-chunks"), ("sp_strategy", "--sp-strategy"),
+    ("pp_chunks", "--pp-chunks"),
     ("pp_schedule", "--pp-schedule"), ("tick_lowering", "--tick-lowering"),
 )
 
@@ -90,13 +97,17 @@ def _per_step_batches(cfg, seed: int, start_step: int) -> Iterator:
 
 def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
                  log_every: int = 10, log_path: Optional[str] = None,
-                 log_stream=None, device="cuda", **unported) -> dict:
-    """Train the flagship for ``steps`` steps of plain SGD on ``device``;
-    returns a summary dict (``final_loss``, ``steps_run``,
-    ``start_step``, ``params``).
+                 log_stream=None, device="cuda", mesh=None,
+                 **unported) -> dict:
+    """Train the flagship for ``steps`` steps of plain SGD; returns a
+    summary dict (``final_loss``, ``steps_run``, ``start_step``,
+    ``params``: this rank's shards).
 
-    Every ``log_every`` steps (and at the last) one JSONL record goes to
-    ``log_stream`` and/or is appended to ``log_path``; reading its loss
+    ``mesh`` (:func:`tpu_p2p_torch.models.flagship.build_mesh`): train
+    this rank's shards on ``mesh.device``; every rank of the mesh calls
+    this. ``mesh=None``: the whole model on ``device``. Every
+    ``log_every`` steps (and at the last) rank 0 sends one JSONL record
+    to ``log_stream`` and/or appends it to ``log_path``; reading its loss
     waits for the device, so ``wall_s`` is real elapsed time. The
     reference's other keywords (checkpoints, optax, eval, obs, faults)
     are accepted at their defaults and raise otherwise.
@@ -114,16 +125,25 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
         if value != _RUN_NOT_PORTED[name]:
             raise NotImplementedError(
                 f"run_training({name}={value!r}) is not ported yet")
-    device = torch.device(device)
-    resolve_device(device.type)  # "cuda" without a card raises
-    params = F.init_flagship_params(cfg, seed=seed, device=device)
+    if mesh is None:
+        device = torch.device(device)
+        resolve_device(device.type)  # "cuda" without a card raises
+        params = F.init_flagship_params(cfg, seed=seed, device=device)
+    else:
+        device = mesh.device
+        params = F.place_flagship_params(
+            F.init_flagship_params(cfg, seed=seed, device="cpu"), mesh)
     make = (F.make_flagship_lm_train_step if cfg.vocab
             else F.make_flagship_train_step)
-    step_fn = make(cfg, lr=lr, donate=True)
+    step_fn = make(cfg, lr=lr, donate=True, mesh=mesh)
     loader = DeviceLoader(_per_step_batches(cfg, seed, 0), device,
-                          prefetch=2)
+                          prefetch=2, mesh=mesh,
+                          spec=F.flagship_data_spec(mesh))
+    printer = mesh is None or mesh.index == 0
 
     def emit(rec):
+        if not printer:
+            return
         line = json.dumps(rec)
         if log_stream is not None:
             print(line, file=log_stream, flush=True)
@@ -158,8 +178,9 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m tpu_p2p_torch train",
-        description="Train the flagship model (synthetic data) on one "
-                    "device with plain SGD and JSONL logging.",
+        description="Train the flagship model (synthetic data) on the "
+                    "five-axis mesh of the world with plain SGD and "
+                    "JSONL logging.",
     )
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-2)
@@ -167,8 +188,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--log-jsonl", default=None, metavar="PATH")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="device to train on (default cuda; raises "
-                        "without a card)")
+                   help="device to train on (default cuda, a card a rank; "
+                        "raises without a card)")
     nyp = "not ported yet (rejected when set)"
     p.add_argument("--obs-jsonl", default=None, metavar="PATH", help=nyp)
     p.add_argument("--obs-window-step", type=int, default=None,
@@ -195,7 +216,11 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-batches", type=int, default=2, metavar="K",
                    help=nyp)
     p.add_argument("--cpu-mesh", type=int, default=None, metavar="N",
-                   help=nyp + "; use --device cpu")
+                   help="spawn N CPU ranks (gloo) and train on "
+                        "build_mesh(N)")
+    p.add_argument("--mesh-shape", default=None, metavar="DPxPPxSPxTPxEP",
+                   help="the mesh's dims (default: build_mesh's factoring "
+                        "of the world)")
     p.add_argument("--heal", action="store_true", help=nyp)
     p.add_argument("--fault-degrade-edge", default=None, metavar="S:D",
                    help=nyp)
@@ -224,6 +249,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stages", type=int, default=2)
     p.add_argument("--microbatches", type=int, default=2)
     p.add_argument("--experts", type=int, default=4)
+    p.add_argument("--moe-mult", type=int, default=2,
+                   help="FFN width = MOE_MULT x model dim")
     p.add_argument("--vocab", type=int, default=0)
     p.add_argument("--attn-window", type=int, default=0)
     p.add_argument("--dtype", default="float32")
@@ -231,9 +258,7 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="param storage dtype (e.g. float32 master "
                         "weights with --dtype bfloat16 compute)")
     p.add_argument("--sp-strategy", default="ring",
-                   choices=("ring", "ring_zigzag", "ulysses"),
-                   help="ring (one device: no sequence parallelism); "
-                        "the others are " + nyp)
+                   choices=("ring", "ring_zigzag", "ulysses"))
     for flag in ("flash", "norm", "dense-ffn", "rope", "remat", "zero-dp"):
         p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--overlap", default="none", choices=("none", "prefetch"),
@@ -263,36 +288,105 @@ def _not_ported(args: argparse.Namespace) -> Optional[str]:
     return None
 
 
+def config_from_args(args: argparse.Namespace):
+    """The ``FlagshipConfig`` of parsed ``train`` arguments."""
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+
+    return FlagshipConfig(
+        batch=args.batch, seq=args.seq, heads=args.heads,
+        kv_heads=args.kv_heads, head_dim=args.head_dim,
+        stages=args.stages, microbatches=args.microbatches,
+        num_experts=args.experts, moe_mult=args.moe_mult,
+        vocab=args.vocab, attn_window=args.attn_window,
+        dtype=args.dtype, param_dtype=args.param_dtype,
+        sp_strategy=args.sp_strategy, use_flash=args.flash,
+        norm=args.norm, dense_ffn=args.dense_ffn, rope=args.rope,
+    )
+
+
+def mesh_shape(text: Optional[str], world: int):
+    """The mesh's dims: ``--mesh-shape`` parsed, or ``build_mesh``'s
+    factoring of ``world``."""
+    from tpu_p2p_torch.models.flagship import mesh_dims
+
+    if text is None:
+        return mesh_dims(world)
+    try:
+        dims = tuple(int(d) for d in text.lower().split("x"))
+    except ValueError:
+        dims = ()
+    if len(dims) != 5 or min(dims) < 1:
+        raise ValueError(f"--mesh-shape must look like 2x1x2x1x1 (dp x pp "
+                         f"x sp x tp x ep), got {text!r}")
+    return dims
+
+
+def _card_report(rt) -> Optional[str]:
+    """Rank 0's lines of every rank's peak device memory and flash
+    kernel launches over the run (cards only)."""
+    import torch
+
+    from tpu_p2p_torch.ops import flash_attention as TFA
+
+    if rt.device.type != "cuda":
+        return None
+    peaks = rt.gather(round(torch.cuda.max_memory_allocated(rt.device)
+                            / 2**30, 3))
+    launches = rt.gather(dict(TFA.launches))
+    return (f"# peak device memory per rank (GiB): {peaks}\n"
+            f"# flash kernel launches per rank: {launches}")
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = _build_parser().parse_args(argv)
     flag = _not_ported(args)
     if flag is not None:
         print(f"train {flag}: not ported yet", file=sys.stderr)
         return 2
-    from tpu_p2p_torch.models.flagship import FlagshipConfig
+    if args.cpu_mesh and "RANK" not in os.environ:
+        from tpu_p2p_torch.parallel.launch import spawn
 
+        return max(spawn(args.cpu_mesh, ["-m", "tpu_p2p_torch.train",
+                                         *argv]))
+    from tpu_p2p_torch.models.flagship import AXES
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.utils.device import resolve_device
+
+    rt = None
     try:
-        cfg = FlagshipConfig(
-            batch=args.batch, seq=args.seq, heads=args.heads,
-            kv_heads=args.kv_heads, head_dim=args.head_dim,
-            stages=args.stages, microbatches=args.microbatches,
-            num_experts=args.experts, vocab=args.vocab,
-            attn_window=args.attn_window, dtype=args.dtype,
-            param_dtype=args.param_dtype, use_flash=args.flash,
-            norm=args.norm, dense_ffn=args.dense_ffn, rope=args.rope,
-        )
+        cfg = config_from_args(args)
+        cpu = bool(args.cpu_mesh) or resolve_device(args.device).type \
+            == "cpu"
+        world = int(os.environ.get("WORLD_SIZE", "1")) \
+            if "RANK" in os.environ else 1
+        rt = make_runtime(device="cpu" if cpu else None,
+                          mesh_shape=mesh_shape(args.mesh_shape, world),
+                          axis_names=AXES)
         summary = run_training(
             cfg, steps=args.steps, lr=args.lr, seed=args.seed,
             log_every=args.log_every, log_path=args.log_jsonl,
-            log_stream=sys.stdout, device=args.device)
+            log_stream=sys.stdout, mesh=rt.mesh)
+        report, rank = _card_report(rt), rt.rank
+        rt.close()
+        rt = None
     except KeyboardInterrupt:
         return 130
     except Exception as e:  # noqa: BLE001 — the CLI's one fail-fast exit
         print(f"Failed: {type(e).__name__} '{e}'", file=sys.stderr)
         traceback.print_exception(e, file=sys.stderr)
         return 1
+    finally:
+        if rt is not None:  # a failed rank leaves the world too
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
     summary.pop("params")
-    print(json.dumps({"summary": summary}))
+    if rank == 0:
+        if report:
+            print(report, file=sys.stderr)
+        print(json.dumps({"summary": summary}))
     return 0
 
 

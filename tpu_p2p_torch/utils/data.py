@@ -8,6 +8,12 @@ the current stream and runs while the host goes on; the loader keeps
 before step ``i``'s work. PyTorch's pinned-memory allocator holds a
 pinned buffer until the copy that reads it has finished. On the CPU the
 batch is handed over as is.
+
+On a mesh each rank keeps its own block of every host batch (the
+reference's sharded ``device_put``): ``spec`` names the mesh axes each
+dim splits over (:func:`tpu_p2p_torch.parallel.runtime.local_shard`),
+so a rank copies only its (dp·ep, sp) slice of the byte-identical
+global batch.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Any, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from tpu_p2p_torch.parallel.runtime import local_shard
 
 Batch = Tuple[Any, ...]  # tensors or numpy arrays
 
@@ -33,21 +41,27 @@ class DeviceLoader:
     """Iterate device-resident batches with ``prefetch`` in flight.
 
     ``source`` yields host batches: tuples of tensors or numpy arrays.
+    With ``mesh``, each array is cut to this rank's block under
+    ``spec`` first.
     """
 
     def __init__(self, source: Iterable[Batch], device,
-                 prefetch: int = 2) -> None:
+                 prefetch: int = 2, *, mesh=None, spec=()) -> None:
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
         self._it = iter(source)
         self._device = torch.device(device)
+        self._mesh, self._spec = mesh, spec
         self._prefetch = prefetch
         self._queue: deque = deque()
         self._exhausted = False
         self._error: Optional[Exception] = None
 
     def _put(self, host_batch: Batch) -> Batch:
-        return tuple(_to_device(a, self._device) for a in host_batch)
+        return tuple(
+            _to_device(local_shard(a, self._mesh, self._spec[:a.ndim]),
+                       self._device)
+            for a in host_batch)
 
     def _fill(self) -> None:
         while (not self._exhausted and self._error is None
