@@ -4,7 +4,7 @@
 Drives the port's serving and training paths on one NVIDIA GPU at the
 full width of the repo's production LM (436 M parameters, Dm 2048, 16
 heads x 128 with GQA 2:1, 8 blocks, dense 4x FFN, vocab 32768,
-bfloat16), then the reference program (the all-pairs P2P matrix and the
+bfloat16; and its MoE twin, 4 experts as wide as that FFN), then the reference program (the all-pairs P2P matrix and the
 8 B latency line) on worlds of ranks that share the card, and fails on
 the first phase that goes wrong:
 
@@ -118,7 +118,19 @@ the first phase that goes wrong:
    width for 2 steps, with phase 5's gates, and one profiled step in
    which the card runs no NCCL kernel. Ranks sharing a card have no
    NCCL, so the multi-rank step runs across cards by hand
-   (``flagship_cards.py``).
+   (``flagship_cards.py``);
+11. moe     — (run right after phase 10) the MoE FFN: (a) one layer at
+   flagship_large's width (Dm 2048, 4 experts of 8192, 16384 bf16
+   tokens in groups of 256, capacity factor 2) on the card against the
+   port's CPU evaluation of the same inputs — each token's expert, its
+   slot, the drops and the kept slots a group and expert equal, bar
+   tokens whose top-1/top-2 router-logit margin is under 1e-4 (their
+   number printed), the output within 2e-2 (normalised L-inf) — and
+   its device time beside the expert FFN's; (b) ``run_training`` with
+   the MoE FFN at the full width (4 experts, B 4 x T 4096) for 3
+   steps, with phase 5's gates, step ms, tokens/s and peak memory; (c)
+   the MoE model's dense-cache decode against its paged step at chunk 1
+   over 16 positions of 32 slots (phase 6's check and launch counts).
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -2541,6 +2553,191 @@ def train_world_of_one(TFA, dev, card, p50_single: float) -> dict:
     return run["launches"]
 
 
+# ----------------------------------------------------------- phase 11
+
+
+MOE_TRAIN = {**TRAIN, "dense_ffn": False, "num_experts": 4}
+MOE_TRAIN_STEPS = 3
+MOE_NEAR_TIE = 1e-4      # router-logit margin below which a card/CPU flip
+#                          is a rounding tie, not a fault
+
+
+def _kept_by_expert(route, num_experts: int) -> torch.Tensor:
+    """Kept slots ``[N, E]`` of each routing group's experts."""
+    onehot = torch.nn.functional.one_hot(route.expert, num_experts)
+    return (onehot * route.keep[..., None]).sum(dim=(1, 2))
+
+
+def moe_layer(dev, card) -> dict:
+    """Phase 11 (a): one MoE layer at flagship_large's width (Dm 2048, 4
+    experts of 8192, 16384 bf16 tokens in groups of 256, capacity factor
+    2) on the card against the port's CPU evaluation of the same inputs:
+    the routing state (each token's expert, its slot, drops, kept slots
+    a group and expert) equal, bar tokens whose top-1/top-2 router-logit
+    margin is under ``MOE_NEAR_TIE``; the output within
+    ``FLASH_BF16_TOL`` (normalised L-inf) on every other token. Then the
+    layer's device time forward and forward + backward, beside its
+    expert FFN alone (the two widened GEMMs, gelu and casts) at the same
+    slot count. → timings."""
+    from tpu_p2p_torch.models import moe as TM
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+
+    cfg = FlagshipConfig(**MOE_TRAIN).moe()
+    tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    gs, e = cfg.group_size, cfg.num_experts
+    ng, cap = tokens // gs, cfg.capacity(cfg.group_size)
+    p_cpu = TM.init_moe_params(cfg, seed=0, dtype=torch.bfloat16)
+    x_cpu = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (tokens, cfg.d_model))).to(torch.bfloat16)
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    x_dev = x_cpu.to(dev)
+
+    def route(x, p):
+        return TM._route(x.reshape(ng, gs, -1), p["router"], e, cap,
+                         cfg.router_top_k)
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        r_dev, out_dev = route(x_dev, p_dev), TM.moe_layer_local(
+            p_dev, x_dev, cfg)
+        torch.cuda.synchronize()
+        r_cpu, out_cpu = route(x_cpu, p_cpu), TM.moe_layer_local(
+            p_cpu, x_cpu, cfg)
+    cpu_s = time.perf_counter() - t0
+    r_dev = TM.Route(*(t.cpu() for t in r_dev))
+    top2 = (x_cpu.float() @ p_cpu["router"].float()).topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1] < MOE_NEAR_TIE).reshape(ng, gs)
+    flipped = (r_dev.expert != r_cpu.expert).any(-1)
+    if (flipped & ~near).any():
+        raise AssertionError(
+            f"moe routing: {int((flipped & ~near).sum())} tokens chose "
+            f"another expert on the card with a router-logit margin >= "
+            f"{MOE_NEAR_TIE}")
+    kept_dev, kept_cpu = _kept_by_expert(r_dev, e), _kept_by_expert(r_cpu, e)
+    drops = [int((~r.keep).sum()) for r in (r_dev, r_cpu)]
+    if not flipped.any():
+        same = (torch.equal(r_dev.pos, r_cpu.pos)
+                and torch.equal(r_dev.keep, r_cpu.keep))
+    else:
+        # A flipped token moves one kept slot between its two experts.
+        moved = torch.nn.functional.one_hot(r_dev.expert[..., 0], e) \
+            - torch.nn.functional.one_hot(r_cpu.expert[..., 0], e)
+        same = torch.equal(kept_dev, kept_cpu + (
+            moved * flipped[..., None]).sum(1))
+    if not same or drops[0] != drops[1]:
+        raise AssertionError(
+            f"moe routing state differs: drops {drops}, kept slots a "
+            f"group and expert equal: {torch.equal(kept_dev, kept_cpu)}")
+    ok = ~flipped.reshape(-1)
+    err = norm_err(out_dev.cpu()[ok], out_cpu[ok])
+    if not err <= FLASH_BF16_TOL:
+        raise AssertionError(f"moe layer card vs CPU: normalised L-inf "
+                             f"{err} > {FLASH_BF16_TOL}")
+    del out_cpu, p_cpu, r_cpu
+
+    p_grad = {k: v.detach().requires_grad_(True) for k, v in p_dev.items()}
+    x_grad = x_dev.detach().requires_grad_(True)
+    g_out = torch.randn_like(x_dev)
+    slots = torch.randn((e, ng * cap, cfg.d_model), device=dev,
+                        dtype=torch.bfloat16, requires_grad=True)
+    g_slots = torch.randn_like(slots)
+
+    def forward():
+        with torch.no_grad():
+            TM.moe_layer_local(p_dev, x_dev, cfg)
+
+    def forward_backward():
+        out = TM.moe_layer_local(p_grad, x_grad, cfg)
+        torch.autograd.grad(out, [x_grad, *p_grad.values()], g_out)
+
+    def experts():
+        h = torch.nn.functional.gelu(
+            torch.matmul(slots.float(), p_grad["w1"].float()),
+            approximate="tanh")
+        y = torch.matmul(h.to(slots.dtype).float(), p_grad["w2"].float())
+        torch.autograd.grad(y.to(slots.dtype),
+                            [slots, p_grad["w1"], p_grad["w2"]], g_slots)
+
+    ms = {"forward": time_eager(forward, calls=5, warm=2),
+          "forward_backward": time_eager(forward_backward, calls=3, warm=1),
+          "experts_forward_backward": time_eager(experts, calls=3, warm=1)}
+    gemm_flop = 3 * 2 * 2 * (e * ng * cap) * cfg.d_model * cfg.d_ff
+    kept = int(kept_dev.sum())
+    say(f"moe layer (Dm {cfg.d_model}, {e} experts of {cfg.d_ff}, {tokens} "
+        f"bf16 tokens, groups of {gs}, capacity {cap} a group and expert): "
+        f"routing state equal to the CPU's (kept {kept} of {tokens}, drops "
+        f"{drops[0]}; {int(near.sum())} tokens under the {MOE_NEAR_TIE} "
+        f"router-logit margin, {int(flipped.sum())} of them flipped) | "
+        f"output vs CPU normalised L-inf {err:.2e} (tol {FLASH_BF16_TOL}; "
+        f"CPU pass {cpu_s:.1f} s) | forward {ms['forward']:.2f} ms, "
+        f"forward + backward {ms['forward_backward']:.2f} ms, of it the "
+        f"expert FFN {ms['experts_forward_backward']:.2f} ms "
+        f"({ms['experts_forward_backward'] / ms['forward_backward']:.3f}; "
+        f"{gemm_flop / ms['experts_forward_backward'] / 1e9:.1f} TFLOP/s "
+        f"on {gemm_flop / 1e12:.2f} TFLOP of widened float32 GEMMs, "
+        f"bound {gemm_flop / F32_FLOPS_PER_S * 1e3:.1f} ms at the float32 "
+        f"peak) | {card}")
+    return ms
+
+
+def moe_train(TFA, dev, card) -> dict:
+    """Phase 11 (b): ``run_training`` at the full width with the MoE FFN
+    (4 experts, capacity factor 2, top-1, groups of 256): phase 5's
+    gates, step ms, tokens/s, peak memory. → launches, step ms."""
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+
+    cfg = FlagshipConfig(**MOE_TRAIN)
+    run = run_train(cfg, MOE_TRAIN_STEPS, TFA, dev)
+    check_train_run(run, cfg, MOE_TRAIN_STEPS)
+    ln_v = math.log(cfg.vocab)
+    if not ln_v - 1 <= run["losses"][0] <= ln_v + 2:
+        raise AssertionError(f"moe train first loss {run['losses'][0]} "
+                             f"outside [{ln_v - 1}, {ln_v + 2}]")
+    p50 = statistics.median(run["step_ms"][1:])
+    tokens = cfg.batch * cfg.seq
+    say(f"train flagship_large MoE ({cfg.num_experts} experts of "
+        f"{cfg.moe_mult}x, capacity factor {cfg.capacity_factor}, top-1, "
+        f"groups of 256; B{cfg.batch} T{cfg.seq}, {cfg.stages} blocks, "
+        f"bf16, flash, SGD lr 1e-2, seed 0): losses {run['losses']} | step "
+        f"ms {[round(x) for x in run['step_ms']]}, p50 of steps 2-"
+        f"{MOE_TRAIN_STEPS} {p50:.0f} ms = {tokens / p50 * 1e3:.0f} "
+        f"tokens/s | peak memory {run['peak_gib']:.2f} GiB | flash "
+        f"launches {run['launches']} | {card}")
+    return {"launches": run["launches"], "step_ms_p50": p50}
+
+
+def moe_decode(TK, dev, card) -> dict:
+    """Phase 11 (c): the MoE model's dense-cache decode against its paged
+    step at chunk 1 (phase 6's check) on ``SLOTS`` slots. → launches."""
+    from tpu_p2p_torch.models.flagship import (
+        FlagshipConfig, init_flagship_params)
+
+    cfg = FlagshipConfig(batch=SLOTS, **{**MODEL, "dense_ffn": False,
+                                         "num_experts": 4})
+    params = init_flagship_params(cfg, seed=0, device=dev)
+    dec = decode_parity(cfg, params, dev, TK)
+    say(f"moe decode: paged (chunk 1) vs dense over {DECODE_POSITIONS} "
+        f"positions x {SLOTS} slots ({cfg.num_experts} experts, "
+        f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M "
+        f"parameters): max abs diff {dec['max_abs_diff']} (tol "
+        f"{BF16_TOL}), bitwise {dec['bitwise']} | launches "
+        f"{dec['launches']} | {card}")
+    return dec["launches"]
+
+
+def moe(TFA, TK, dev, card) -> dict:
+    """Phase 11: the MoE FFN on the card. → each part's launches."""
+    t0 = time.perf_counter()
+    moe_layer(dev, card)
+    torch.cuda.empty_cache()
+    trn = moe_train(TFA, dev, card)
+    torch.cuda.empty_cache()
+    dec = moe_decode(TK, dev, card)
+    torch.cuda.empty_cache()
+    say(f"phase 11 (moe): {time.perf_counter() - t0:.1f} s")
+    return {"train": trn["launches"], "decode": dec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -2603,6 +2800,7 @@ def main() -> int:
     mesh_launches = train_world_of_one(TFA, dev, card, trn["step_ms_p50"])
     torch.cuda.empty_cache()
     say(f"phase 10 (mesh): {time.perf_counter() - t0:.1f} s")
+    moe_launches = moe(TFA, TK, dev, card)
 
     cfg = FlagshipConfig(batch=SLOTS, **MODEL)
     t0 = time.perf_counter()
@@ -2630,14 +2828,22 @@ def main() -> int:
                 "paged_kv_write": srv["launches"]["paged_kv_write"],
                 "dma_permute": kernels[-2]["launches"],
                 "dma_ship": dis["launches"]["dma_ship"], **trn["launches"]}
+    paths = {name: {"train": n, "mesh_train": mesh_launches[name],
+                    "ring": ring_launches_total[name],
+                    "moe_train": moe_launches["train"][name]}
+             for name, n in trn["launches"].items()}
+    paths["cache_kv_write"] = {
+        "decode": launches["cache_kv_write"],
+        "moe_decode": moe_launches["decode"]["cache_kv_write"]}
+    paths["paged_kv_write"] = {
+        "serve": launches["paged_kv_write"],
+        "moe_decode": moe_launches["decode"]["paged_kv_write"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:
             raise AssertionError(f"{k['name']} never launched")
-        if k["name"] in mesh_launches:
-            k["launches_by_path"] = {
-                "train": k["launches"], "mesh_train": mesh_launches[k["name"]],
-                "ring": ring_launches_total[k["name"]]}
+        if k["name"] in paths:
+            k["launches_by_path"] = paths[k["name"]]
             if not all(k["launches_by_path"].values()):
                 raise AssertionError(f"{k['name']}: a path launched it no "
                                      f"time: {k['launches_by_path']}")

@@ -2,12 +2,14 @@
 """The flagship training step across the cards of one host:
 ``python3 flagship_cards.py`` runs ``python -m tpu_p2p_torch train`` at
 the flagship_large width (B 4 x T 4096, 16 heads over 8 KV heads of 128,
-8 blocks, 4x dense FFN, vocab 32768, rope, norm, flash, bf16, SGD lr
-1e-2, seed 0) on one card, then as one ``torchrun`` world of every card
-on each mesh below, and prints each run's records under its label, the
-cards' name and power limit first.
+8 blocks, vocab 32768, rope, norm, flash, bf16, SGD lr 1e-2, seed 0)
+with the 4x dense FFN and then with the MoE FFN (4 experts as wide,
+capacity factor 2, top-1, groups of 256): each on one card, then as one
+``torchrun`` world of every card on each of its meshes below, and
+prints each run's records under its label, the cards' name and power
+limit first. ``--ffn dense`` or ``--ffn moe`` runs one set alone.
 
-Meshes on 4 cards (dp x pp x sp x tp x ep):
+Dense meshes on 4 cards (dp x pp x sp x tp x ep):
 
 - ``build_mesh(4)``: dp 2 x sp 2, the ring;
 - sp 4 with ``ring_zigzag``;
@@ -15,11 +17,17 @@ Meshes on 4 cards (dp x pp x sp x tp x ep):
 - tp 2 x sp 2 (the ring);
 - pp 2 x dp 2 (GPipe, one microbatch: a bubble tick a stage).
 
+MoE meshes on 4 cards:
+
+- ep 4 (one expert a card, the batch split four ways);
+- dp 2 x ep 2 (the experts' gradients summed over dp only);
+- sp 2 x ep 2 (the ring and the ep all-to-alls together).
+
 For each: the step ms (median of steps 2-4, each read when its loss
 reached the host), tokens/s, the peak device memory and flash kernel
 launches (over the run) of every rank, and
 the relative difference of the losses of steps 1 and 2 from the
-one-card run's (bf16 sums in another order: a reading, not a gate; the
+same FFN's one-card run (bf16 sums in another order: a reading, not a gate; the
 float32 CPU parity tests hold the math). One JSON object with every
 number closes the output (and goes to ``--json PATH`` too).
 
@@ -27,7 +35,8 @@ After each mesh's run, one more ``torchrun`` world of the same mesh
 profiles its third step on every rank (``--profile-rank``, this script
 under ``torchrun``): wall ms, the card's busy time (the union of its
 kernel spans over all streams), idle share, and device ms by kernel
-family (NCCL, flash, GEMM, copies and casts, elementwise, reductions).
+family (NCCL send/recv — the ep all-to-alls and the ring's hops —,
+other NCCL, flash, GEMM, copies and casts, elementwise, reductions).
 
 ``--cpu`` runs the same meshes as gloo worlds of 4 CPU ranks at a tiny
 width (a rehearsal of the commands; its times are the host's, and the
@@ -56,9 +65,9 @@ LARGE = ["--batch", "4", "--seq", "4096", "--heads", "16", "--kv-heads",
 TINY = ["--batch", "4", "--seq", "64", "--heads", "8", "--kv-heads", "4",
         "--head-dim", "8", "--stages", "2", "--microbatches", "1",
         "--moe-mult", "4", "--vocab", "64", "--device", "cpu"]
-COMMON = ["--dense-ffn", "--rope", "--norm", "--flash", "--lr", "1e-2",
-          "--seed", "0", "--steps", str(STEPS), "--log-every", "1"]
-MESHES = (
+COMMON = ["--rope", "--norm", "--flash", "--lr", "1e-2", "--seed", "0",
+          "--steps", str(STEPS), "--log-every", "1"]
+DENSE_MESHES = (
     ("dp2 x sp2 ring (build_mesh(4))", []),
     ("sp4 ring_zigzag", ["--mesh-shape", "1x1x4x1x1", "--sp-strategy",
                          "ring_zigzag"]),
@@ -67,9 +76,19 @@ MESHES = (
     ("tp2 x sp2 ring", ["--mesh-shape", "1x1x2x2x1"]),
     ("pp2 x dp2", ["--mesh-shape", "2x2x1x1x1"]),
 )
+MOE_MESHES = (
+    ("moe ep4", ["--mesh-shape", "1x1x1x1x4"]),
+    ("moe dp2 x ep2", ["--mesh-shape", "2x1x1x1x2"]),
+    ("moe sp2 x ep2 ring", ["--mesh-shape", "1x1x2x1x2"]),
+)
+FFNS = {  # --ffn -> (train's FFN flags, one-card label, meshes)
+    "dense": (["--dense-ffn"], "one card", DENSE_MESHES),
+    "moe": ([], "moe one card", MOE_MESHES),
+}
 
 
 FAMILIES = (
+    ("nccl send/recv", ("SendRecv",)),
     ("nccl", ("nccl", "Nccl")),
     ("flash", ("flash_fwd_kernel", "flash_bwd_")),
     ("gemm", ("gemm", "Gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -237,6 +256,8 @@ def main(argv=None) -> int:
                    help="gloo worlds of 4 CPU ranks at a tiny width")
     p.add_argument("--json", metavar="PATH",
                    help="also write the closing JSON object to PATH")
+    p.add_argument("--ffn", choices=("dense", "moe", "both"), default="both",
+                   help="which FFN's runs (default both)")
     args = p.parse_args(argv)
     if args.cpu:
         n, shape = 4, TINY
@@ -255,23 +276,27 @@ def main(argv=None) -> int:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (os.path.dirname(os.path.abspath(__file__)),
                     os.environ.get("PYTHONPATH")) if p))
-    train = ["-m", "tpu_p2p_torch", "train", *shape, *COMMON]
-    one = run("one card", [sys.executable, *train], env, tokens)
-    results = [one]
     torchrun = [sys.executable, "-m", "torch.distributed.run",
                 "--standalone", "--nproc-per-node", str(n)]
-    for label, mesh in MESHES:
-        res = run(label, [*torchrun, *train, *mesh], env, tokens)
-        res["profile"] = profiled(label, [
-            *torchrun, os.path.abspath(__file__), "--profile-rank", *shape,
-            *COMMON, *mesh], env)
-        if "losses" in res and "losses" in one:
-            res["loss_rel_diff_steps_1_2"] = [
-                abs(a - b) / abs(b) for a, b in zip(res["losses"][:2],
-                                                    one["losses"][:2])]
-            res["speedup_vs_one_card"] = (res["tokens_per_s"]
-                                          / one["tokens_per_s"])
-        results.append(res)
+    results = []
+    for ffn in (("dense", "moe") if args.ffn == "both" else (args.ffn,)):
+        flags, one_label, meshes = FFNS[ffn]
+        common = [*shape, *flags, *COMMON]
+        train = ["-m", "tpu_p2p_torch", "train", *common]
+        one = run(one_label, [sys.executable, *train], env, tokens)
+        results.append(one)
+        for label, mesh in meshes:
+            res = run(label, [*torchrun, *train, *mesh], env, tokens)
+            res["profile"] = profiled(label, [
+                *torchrun, os.path.abspath(__file__), "--profile-rank",
+                *common, *mesh], env)
+            if "losses" in res and "losses" in one:
+                res["loss_rel_diff_steps_1_2"] = [
+                    abs(a - b) / abs(b) for a, b in zip(res["losses"][:2],
+                                                        one["losses"][:2])]
+                res["speedup_vs_one_card"] = (res["tokens_per_s"]
+                                              / one["tokens_per_s"])
+            results.append(res)
     for res in results:
         if "error" in res:
             print(f"{res['label']}: FAILED (rc {res['rc']})", flush=True)

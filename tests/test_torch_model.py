@@ -279,12 +279,21 @@ def test_paged_step_validates_inputs():
         TP.make_paged_lm_step(
             TF.FlagshipConfig(**{**MODEL, "attn_window": 8}),
             page_len=8, max_blocks=2, chunk=1)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TP.make_paged_lm_step(
-            TF.FlagshipConfig(**{**MODEL, "dense_ffn": False}),
-            page_len=8, max_blocks=2, chunk=1)
     with pytest.raises(ValueError, match="page_len"):
         TP.init_paged_pool(tcfg, num_pages=8, page_len=12, device="cpu")
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_moe_paged_step_matches_reference(chunk):
+    # The MoE FFN in the paged step (every expert on the device): the
+    # step's rows route together, as in the reference.
+    jcfg, tcfg, np_params, toks = _setup(seed=3, dense_ffn=False,
+                                         num_experts=4)
+    want, want_pool = _jax_paged(jcfg, np_params, toks, chunk)
+    got, pool = _torch_paged(tcfg, np_params, toks, chunk)
+    np.testing.assert_allclose(got, want, **TOL)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(pool[k].numpy(), want_pool[k], **TOL)
 
 
 def test_kv_page_bytes_matches_reference():

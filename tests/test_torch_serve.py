@@ -461,8 +461,8 @@ def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys):
         assert "not ported yet" in capsys.readouterr().err
     assert TE.main(["--disagg", "--requests", "1"]) == 1  # cuda: no card
     assert "no CUDA device" in capsys.readouterr().err
-    assert TCLI.main(["train"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert TCLI.main(["train"]) == 1                      # cuda: no card
+    assert "no CUDA device" in capsys.readouterr().err
     assert TE.main(["--device", "cpu", "--reuse"]) == 0
     assert "NULL" in capsys.readouterr().out
 
@@ -473,7 +473,8 @@ def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "tpu_p2p_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "serve_profile.py",
-              REPO / "flash_tiles.py"]
+              REPO / "flash_tiles.py", REPO / "flagship_cards.py",
+              REPO / "collectives_cards.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -1,7 +1,9 @@
 """The port's ``train`` across a world of ranks against the JAX
 reference: ``python -m tpu_p2p_torch train --cpu-mesh 8`` against the
-reference's ``run_training`` on ``build_mesh(8)`` (same flags and seed:
-losses to relative 1e-4, the same record keys), the flags still not
+reference's ``run_training`` on ``build_mesh(8)`` or the mesh
+``--mesh-shape`` names (same flags and seed: losses to relative 1e-4,
+the same record keys; one case trains the MoE FFN with its experts split
+over ep 2), the flags still not
 ported, the five-axis runtime (lines, planes, groups), the placement of
 params and batches against the reference's shardings, and the refusal
 of a multi-rank step on ranks that share a card (NCCL needs a card a
@@ -40,18 +42,33 @@ LOSS_RTOL = 1e-4
 SHAPE = ["--batch", "4", "--seq", "32", "--heads", "4", "--kv-heads", "2",
          "--head-dim", "8", "--stages", "2", "--microbatches", "2",
          "--dense-ffn", "--steps", "4", "--log-every", "2"]
-CLI_CASES = {
-    "ring_lm_flash": ["--rope", "--norm", "--vocab", "64", "--flash"],
-    "zigzag_lm_flash": ["--sp-strategy", "ring_zigzag", "--rope", "--vocab",
-                        "64", "--flash"],
-    "ulysses_mse": ["--sp-strategy", "ulysses", "--norm"],
+MOE_SHAPE = [a for a in SHAPE if a != "--dense-ffn"]
+CLI_CASES = {  # name -> the full flag list
+    "ring_lm_flash": SHAPE + ["--rope", "--norm", "--vocab", "64",
+                              "--flash"],
+    "zigzag_lm_flash": SHAPE + ["--sp-strategy", "ring_zigzag", "--rope",
+                                "--vocab", "64", "--flash"],
+    "ulysses_mse": SHAPE + ["--sp-strategy", "ulysses", "--norm"],
+    # The MoE FFN (no --dense-ffn) on pp 2 x sp 2 x ep 2: the experts
+    # split over ep, GPipe's bubble ticks routed too.
+    "moe_ep2_lm_flash": MOE_SHAPE + ["--mesh-shape", "1x2x2x1x2", "--rope",
+                                     "--norm", "--vocab", "64", "--flash"],
 }
 
 
-def _reference_records(extra):
-    """The reference's ``run_training`` on its ``build_mesh(8)`` with the
-    config the same flags give → (records, summary)."""
-    args = JT._build_parser().parse_args(SHAPE + extra)
+def _reference_records(argv):
+    """The reference's ``run_training`` on the mesh the flags name (its
+    ``build_mesh(8)`` without ``--mesh-shape``, the port's own flag) with
+    the config the same flags give → (records, summary)."""
+    argv = list(argv)
+    dims = None
+    if "--mesh-shape" in argv:
+        i = argv.index("--mesh-shape")
+        dims = tuple(int(d) for d in argv[i + 1].split("x"))
+        del argv[i:i + 2]
+    args = JT._build_parser().parse_args(argv)
+    mesh = (JF.build_mesh(8) if dims is None
+            else JMesh(np.array(jax.devices()[:8]).reshape(dims), JF.AXES))
     cfg = JF.FlagshipConfig(
         batch=args.batch, seq=args.seq, heads=args.heads,
         kv_heads=args.kv_heads, head_dim=args.head_dim, stages=args.stages,
@@ -59,7 +76,7 @@ def _reference_records(extra):
         sp_strategy=args.sp_strategy, use_flash=args.flash, norm=args.norm,
         dense_ffn=args.dense_ffn, rope=args.rope)
     buf = io.StringIO()
-    out = JT.run_training(JF.build_mesh(8), cfg, steps=args.steps,
+    out = JT.run_training(mesh, cfg, steps=args.steps,
                           log_every=args.log_every, log_stream=buf)
     out.pop("params")
     return [json.loads(s) for s in buf.getvalue().splitlines()], out
@@ -67,15 +84,15 @@ def _reference_records(extra):
 
 @pytest.mark.parametrize("name", sorted(CLI_CASES))
 def test_train_cpu_mesh_cli_matches_reference(name):
-    extra = CLI_CASES[name]
+    argv = CLI_CASES[name]
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_p2p_torch", "train", "--cpu-mesh", "8",
-         "--device", "cpu", *SHAPE, *extra], capture_output=True, text=True,
+         "--device", "cpu", *argv], capture_output=True, text=True,
         cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = [json.loads(s) for s in proc.stdout.splitlines()]
     got, summary = lines[:-1], lines[-1]["summary"]   # rank 0 alone prints
-    want, want_summary = _reference_records(extra)
+    want, want_summary = _reference_records(argv)
     assert [list(r) for r in got] == [list(r) for r in want]
     assert [r["step"] for r in got] == [r["step"] for r in want] == [2, 4]
     for g, w in zip(got, want):
@@ -90,14 +107,10 @@ def test_train_cpu_mesh_cli_matches_reference(name):
     (["--zero-dp"], "--zero-dp"),
     (["--tp-overlap", "ring"], "--tp-overlap"),
     (["--pp-overlap", "wave"], "--pp-overlap"),
-    ([], "MoE"),
-], ids=["zero_dp", "tp_overlap", "pp_overlap", "moe"])
+], ids=["zero_dp", "tp_overlap", "pp_overlap"])
 def test_train_cpu_mesh_still_rejects_what_is_not_ported(argv, what,
                                                          capsys):
-    base = [a for a in SHAPE if a != "--dense-ffn"]
-    if what != "MoE":
-        base.append("--dense-ffn")
-    assert TT.main(["--cpu-mesh", "8", *base, *argv]) == 2
+    assert TT.main(["--cpu-mesh", "8", *SHAPE, *argv]) == 2
     err = capsys.readouterr().err
     assert what in err and "not ported yet" in err
 

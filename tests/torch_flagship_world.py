@@ -8,6 +8,8 @@ returns what the parent compares with the JAX reference it computed on
 its 8-device CPU mesh from the same numpy inputs.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -123,3 +125,34 @@ def shared_card_case(dims=(1, 1, 2, 1, 1)):
         return str(e)
     finally:
         _close(mesh)
+
+
+def moe_case(cases):
+    """The MoE layer alone with its experts split over an ep line of the
+    whole world: ``cases`` is a list of dicts with ``name``, ``cfg``
+    (MoEConfig keywords), global numpy ``params`` (``router``, ``w1``,
+    ``w2``) and tokens ``x [G, D]`` → name → this rank's ``(out, dx,
+    d_router, dw1, dw2)``: its token block's output and the grads of
+    ``sum(out ** 2)`` (the router's a partial sum over the line)."""
+    from tpu_p2p_torch.models.moe import MoEConfig, moe_layer_local
+
+    out, mesh = {}, None
+    for c in cases:
+        n = int(os.environ["WORLD_SIZE"])
+        mesh = F.build_mesh(n, device="cpu", dims=(1, 1, 1, 1, n))
+        line = mesh.line("ep")
+        spec = {"router": (None, None), "w1": ("ep", None, None),
+                "w2": ("ep", None, None)}
+        params = {k: torch.from_numpy(np.ascontiguousarray(
+            local_shard(v, mesh, spec[k]))).requires_grad_(True)
+            for k, v in c["params"].items()}
+        x = torch.from_numpy(np.ascontiguousarray(
+            local_shard(c["x"], mesh, ("ep", None)))).requires_grad_(True)
+        y = moe_layer_local(params, x, MoEConfig(**c["cfg"]), line)
+        grads = torch.autograd.grad(torch.sum(y ** 2),
+                                    (x, params["router"], params["w1"],
+                                     params["w2"]))
+        out[c["name"]] = (y.detach().numpy(),
+                          *(g.numpy() for g in grads))
+    _close(mesh)
+    return out

@@ -10,8 +10,10 @@ shared with the paged serving step, which is what makes paged-vs-dense
 parity bitwise.
 
 Single device: the reference's dp/tp/ep ``shard_map`` maps onto one
-device here, so there is no join inside the block. The dense-FFN model
-only: MoE decode is not ported yet.
+device here, so there is no join inside the block and the MoE FFN keeps
+every expert local (no ep all-to-all). Its routing groups are the
+step's rows, so which tokens drop depends on the batch, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from tpu_p2p_torch.models.flagship import (
     STAGELESS_LEAVES,
     FlagshipConfig,
     _dense_ffn,
+    _moe_ffn,
     _rms_norm,
     _unembed,
     torch_dtype,
@@ -37,13 +40,10 @@ NEG_INF = -1e30  # masked scores: finite, so exp underflows to an exact 0
 
 
 def check_serving_cfg(cfg: FlagshipConfig) -> None:
-    """The configurations this slice decodes: a tied-embedding LM with
-    the dense FFN."""
+    """The configurations this port decodes: a tied-embedding LM (dense
+    FFN or MoE)."""
     if not cfg.vocab:
         raise ValueError("cfg.vocab must be > 0 for LM decoding")
-    if not cfg.dense_ffn:
-        raise NotImplementedError(
-            "MoE decode (dense_ffn=False) is not ported yet")
 
 
 def init_kv_cache(cfg: FlagshipConfig, max_len: int, device="cuda") -> Cache:
@@ -74,7 +74,8 @@ def _attend_ffn(sub, x, q, kb, vb, live, cfg: FlagshipConfig):
     ``sqrt(Dh)`` after the product; masked scores become ``NEG_INF``;
     the softmax runs in float32 and ``p`` is cast to the compute dtype
     before the float32-accumulated PV product — all as in the
-    reference.
+    reference. Then the FFN: dense, or MoE over the ``B·C`` rows with
+    every expert on this device.
     """
     b, hq, c, dh = q.shape
     hkv = kb.shape[1]
@@ -87,7 +88,9 @@ def _attend_ffn(sub, x, q, kb, vb, live, cfg: FlagshipConfig):
     a = a.reshape(b, hq, c, dh)
     x = x + torch.einsum("bhtd,hdm->btm", a, sub["wo"])
     h2 = _rms_norm(x, sub["ln2"]) if cfg.norm else x
-    return x + _dense_ffn(sub, h2)
+    if cfg.dense_ffn:
+        return x + _dense_ffn(sub, h2)
+    return x + _moe_ffn(sub, h2, cfg)
 
 
 def _decode_sub_block(sub, x, h, k_cache, v_cache, pos: int, pos_rows,

@@ -18,6 +18,7 @@ from tpu_p2p_torch.models.flagship_forward import (  # noqa: F401
     _dense_ffn,
     _forward_local,
     _lm_logits_local,
+    _moe_ffn,
     _pipeline_schedule,
     _rms_norm,
     _stage_block,
@@ -45,6 +46,7 @@ from tpu_p2p_torch.models.flagship_params import (  # noqa: F401
     tensor_from_numpy,
     torch_dtype,
 )
+from tpu_p2p_torch.models.moe import MoEConfig  # noqa: F401
 from tpu_p2p_torch.models.flagship_steps import (  # noqa: F401
     _reject_zb_schedule,
     _sgd_update,
@@ -57,6 +59,7 @@ from tpu_p2p_torch.models.flagship_steps import (  # noqa: F401
 __all__ = [
     "AXES",
     "FlagshipConfig",
+    "MoEConfig",
     "Params",
     "build_mesh",
     "flagship_data_spec",

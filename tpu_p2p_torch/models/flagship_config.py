@@ -2,7 +2,8 @@
 ``tpu_p2p/models/flagship_config.py``.
 
 The model-shape fields, ``use_flash``, the sequence-parallel strategy,
-and every training field the reference's train CLI sets. Field names and
+every training field the reference's train CLI sets, and the MoE FFN's
+config (:meth:`FlagshipConfig.moe`). Field names and
 defaults match the reference, so one keyword set builds both configs.
 The mesh has the reference's five axes (``AXES``); :func:`build_mesh`
 factors a world over them. The fields that schedule FSDP and its
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence, Tuple
+
+from tpu_p2p_torch.models.moe import MoEConfig
 
 AXES = ("dp", "pp", "sp", "tp", "ep")
 SP_STRATEGIES = ("ring", "ring_zigzag", "ulysses")
@@ -107,6 +110,16 @@ class FlagshipConfig:
     @property
     def num_kv_heads(self) -> int:
         return self.kv_heads or self.heads
+
+    def moe(self) -> MoEConfig:
+        """The MoE FFN's config (the reference's ``moe``): experts as
+        wide as the dense FFN, routing groups of 256 tokens."""
+        return MoEConfig(
+            d_model=self.model_dim, d_ff=self.moe_mult * self.model_dim,
+            num_experts=self.num_experts,
+            capacity_factor=self.capacity_factor, group_size=256,
+            ep_overlap=self.ep_overlap,
+        )
 
     def tiny(self, mesh) -> "FlagshipConfig":
         """Shrink to dryrun scale while keeping every axis of ``mesh``

@@ -9,7 +9,9 @@ positions of the rank's sp block, attention by ``cfg.sp_strategy`` and
 the sp size (the flash or dense ring, zigzag or contiguous; Ulysses; or
 local attention when the sequence is whole), the Megatron psum joins
 after ``wo`` and ``wf2``, and their conjugates where the replicated
-activation enters the column-split products. Microbatches go through
+activation enters the column-split products; or, with ``dense_ffn``
+off, the MoE FFN with its experts split over ``ep``
+(:mod:`tpu_p2p_torch.models.moe`). Microbatches go through
 the GPipe schedule over pp (:mod:`tpu_p2p_torch.models.pipeline`), or
 one after another when pp has size 1. Attention goes through the flash
 kernels or dense attention by ``cfg.use_flash``.
@@ -33,6 +35,7 @@ from tpu_p2p_torch.models.flagship_params import (
     Params,
     torch_dtype,
 )
+from tpu_p2p_torch.models.moe import moe_layer_local
 from tpu_p2p_torch.models.pipeline import pipeline_apply_local
 from tpu_p2p_torch.ops.attention import (
     _block_positions,
@@ -71,17 +74,21 @@ def _dense_ffn(sub: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
     return psum_join(torch.matmul(f_h, sub["wf2"].float()), tp).to(h.dtype)
 
 
+def _moe_ffn(sub: Params, h2: torch.Tensor, cfg: FlagshipConfig,
+             ep=None) -> torch.Tensor:
+    """The MoE FFN over this rank's flattened tokens, experts split over
+    ``ep`` (this rank's line, or None). No tp join: every tp rank routes
+    the same replicated tokens through the same replicated experts."""
+    moe = {"router": sub["router"], "w1": sub["we1"], "w2": sub["we2"]}
+    tokens = h2.reshape(-1, h2.shape[-1])
+    return moe_layer_local(moe, tokens, cfg.moe(), ep).reshape(h2.shape)
+
+
 def _unembed(y: torch.Tensor, emb: torch.Tensor,
              compute: torch.dtype) -> torch.Tensor:
     """Tied unembed in the compute dtype with float32 accumulation: both
     operands widened to float32 (exact for bf16 products)."""
     return torch.matmul(y.to(compute).float(), emb.to(compute).float().t())
-
-
-def _check_ported(cfg: FlagshipConfig) -> None:
-    if not cfg.dense_ffn:
-        raise NotImplementedError(
-            "the MoE FFN (dense_ffn=False) is not ported yet")
 
 
 def _attention(q, k, v, cfg: FlagshipConfig, sp) -> torch.Tensor:
@@ -104,9 +111,10 @@ def _attention(q, k, v, cfg: FlagshipConfig, sp) -> torch.Tensor:
 
 
 def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
-                     sp=None, tp=None) -> torch.Tensor:
-    """One transformer block: attention + dense FFN, both residual,
-    optionally pre-normed (``cfg.norm``). ``sub``: one stage's leaves
+                     sp=None, tp=None, ep=None) -> torch.Tensor:
+    """One transformer block: attention + FFN (dense, or MoE by
+    ``cfg.dense_ffn``), both residual, optionally pre-normed
+    (``cfg.norm``). ``sub``: one stage's leaves
     (no stage dim) in the compute dtype, this rank's tp shard; ``x``:
     the local ``[mb, T_local, Dm]``, replicated over tp. Zero in, zero
     out (the pipeline's bubbles)."""
@@ -129,12 +137,14 @@ def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
     a = _attention(q, k, v, cfg, sp)
     x = x + psum_join(torch.einsum("bhtd,hdm->btm", a, sub["wo"]), tp)
     h2 = _rms_norm(x, sub["ln2"]) if cfg.norm else x
-    return x + _dense_ffn(sub, h2, tp)
+    if cfg.dense_ffn:
+        return x + _dense_ffn(sub, h2, tp)
+    return x + _moe_ffn(sub, h2, cfg, ep)
 
 
 def _stage_block(stage_params: Params, x: torch.Tensor,
                  cfg: FlagshipConfig, s_local: int, sp=None,
-                 tp=None) -> torch.Tensor:
+                 tp=None, ep=None) -> torch.Tensor:
     """Apply this pp rank's ``s_local`` consecutive blocks. Params stored
     in ``params_dtype`` are cast to the compute dtype at block entry
     (autograd carries the grads back to the storage-dtype masters)."""
@@ -142,17 +152,18 @@ def _stage_block(stage_params: Params, x: torch.Tensor,
     for i in range(s_local):
         sub = {k: (v[i].to(compute) if v.dtype != compute else v[i])
                for k, v in stage_params.items()}
-        x = _stage_sub_block(sub, x, cfg, sp, tp)
+        x = _stage_sub_block(sub, x, cfg, sp, tp, ep)
     return x
 
 
 def _pipeline_schedule(stage_params: Params, x_mb: torch.Tensor,
-                       cfg: FlagshipConfig, s_local: int, pp, sp, tp):
+                       cfg: FlagshipConfig, s_local: int, pp, sp, tp,
+                       ep=None):
     """The microbatches through this rank's stages: GPipe over ``pp``
     (:func:`pipeline_apply_local`), or one after another without a pp
     axis of size > 1."""
     def block_fn(params, x):
-        return _stage_block(params, x, cfg, s_local, sp, tp)
+        return _stage_block(params, x, cfg, s_local, sp, tp, ep)
 
     if _size(pp) == 1:
         return torch.stack([block_fn(stage_params, x_mb[i])
@@ -166,9 +177,8 @@ def _forward_local(params: Params, x: torch.Tensor, cfg: FlagshipConfig,
     in ``cfg.microbatches`` microbatches; → the same shape. ``mesh_axes``
     (:func:`~tpu_p2p_torch.models.flagship_config._mesh_axes`): this
     rank's line along each axis; None is a world of one."""
-    _check_ported(cfg)
     axes = mesh_axes or dict.fromkeys(AXES)
-    pp, sp, tp = axes["pp"], axes["sp"], axes["tp"]
+    pp, sp, tp, ep = axes["pp"], axes["sp"], axes["tp"], axes["ep"]
     if cfg.stages % _size(pp):
         raise ValueError(
             f"stages ({cfg.stages}) must divide by pp size ({_size(pp)})")
@@ -181,14 +191,13 @@ def _forward_local(params: Params, x: torch.Tensor, cfg: FlagshipConfig,
         )
     x_mb = x.reshape((cfg.microbatches, b // cfg.microbatches)
                      + tuple(x.shape[1:]))
-    y_mb = _pipeline_schedule(params, x_mb, cfg, s_local, pp, sp, tp)
+    y_mb = _pipeline_schedule(params, x_mb, cfg, s_local, pp, sp, tp, ep)
     return y_mb.reshape(x.shape)
 
 
 def make_flagship_forward(cfg: FlagshipConfig, mesh=None):
     """Forward of this rank's shards: ``(params, x [B_local, T_local,
     Dm]) → same`` (``mesh=None``: the whole batch on one device)."""
-    _check_ported(cfg)
     axes = _mesh_axes(mesh)
 
     def forward(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -217,7 +226,6 @@ def make_flagship_lm_forward(cfg: FlagshipConfig, mesh=None):
     [B_local, T_local, vocab]``."""
     if not cfg.vocab:
         raise ValueError("cfg.vocab must be > 0 for the LM forward")
-    _check_ported(cfg)
     axes = _mesh_axes(mesh)
 
     def forward(params: Params, tokens: torch.Tensor) -> torch.Tensor:

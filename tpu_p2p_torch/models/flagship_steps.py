@@ -5,20 +5,22 @@ cross-entropy objective — the port of the GPipe-autodiff steps of
 Each builder returns a plain function of this rank's shards. Gradients
 come from ``torch.autograd.grad`` over the local loss; the collectives
 inside the forward (pipeline hops, ring hops, Ulysses reshards, the tp
-joins and their conjugates) carry their own backward. What ``shard_map``
-autodiff adds in the reference is spelled out after the backward: every
-leaf is replicated over the data axes (dp, ep, sp), so its gradient is
-summed over them (:func:`~tpu_p2p_torch.parallel.collectives.
-all_reduce_flat`, one collective a dtype), and so is the loss. The
-builders take ``mesh=None`` for a world of one. ``donate=True`` (the
-reference's buffer donation) becomes an in-place update: the step
-writes the new values into the params it was given, under ``no_grad``,
-and returns that same dict.
+joins and their conjugates, the ep all-to-alls) carry their own
+backward. What ``shard_map`` autodiff adds in the reference is spelled
+out after the backward: a leaf's gradient is summed over the data axes
+(dp, ep, sp) that its spec does not split — every leaf over all three,
+but the experts (``we1``, ``we2``, split over ep) over (dp, sp) only,
+since each ep member holds other experts — in one collective a dtype a
+plane (:func:`~tpu_p2p_torch.parallel.collectives.all_reduce_flat`),
+and the loss over all three. The builders take ``mesh=None`` for a
+world of one. ``donate=True`` (the reference's buffer donation) becomes
+an in-place update: the step writes the new values into the params it
+was given, under ``no_grad``, and returns that same dict.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -28,12 +30,15 @@ from tpu_p2p_torch.models.flagship_config import (
     _mesh_axes,
 )
 from tpu_p2p_torch.models.flagship_forward import (
-    _check_ported,
     _forward_local,
     _lm_logits_local,
 )
-from tpu_p2p_torch.models.flagship_params import Params
+from tpu_p2p_torch.models.flagship_params import (
+    Params,
+    flagship_param_specs,
+)
 from tpu_p2p_torch.parallel.collectives import all_reduce_flat
+from tpu_p2p_torch.parallel.runtime import _dim_axes
 
 Step = Callable[..., Tuple[Params, torch.Tensor]]
 
@@ -83,43 +88,64 @@ def _reject_zb_schedule(cfg: FlagshipConfig) -> None:
             "executor; the GPipe autodiff steps run a masked schedule")
 
 
-def _data_plane(mesh):
-    """This rank's plane over the data axes, or None for a world of
-    one. Made when a step is built, on every rank alike."""
-    if mesh is None:
-        return None
-    return mesh.plane(_data_axes(mesh.axis_names))
+class _GradPlanes:
+    """Where a step's sums run: ``loss`` is this rank's plane over every
+    data axis; ``leaf`` maps each leaf to its plane over the data axes
+    its spec does not split (the reference's ``shard_map`` rule) — for
+    the experts, split over ep, that is (dp, sp). Made when a step is
+    built, on every rank alike (``new_group`` is collective)."""
+
+    def __init__(self, cfg: FlagshipConfig, mesh) -> None:
+        data = _data_axes(mesh.axis_names)
+        self.loss = mesh.plane(data)
+        self.leaf = {}
+        for k, spec in flagship_param_specs(mesh, cfg).items():
+            split = {a for entry in spec for a in _dim_axes(entry)}
+            self.leaf[k] = mesh.plane(
+                tuple(a for a in data if a not in split))
 
 
-def _value_and_grad(loss_fn, params: Params, plane):
+def _grad_planes(cfg: FlagshipConfig, mesh) -> Optional[_GradPlanes]:
+    """The step's planes, or None for a world of one."""
+    return None if mesh is None else _GradPlanes(cfg, mesh)
+
+
+def _value_and_grad(loss_fn, params: Params,
+                    planes: Optional[_GradPlanes]):
     """``(loss, grads)`` of ``loss_fn(params)`` w.r.t. every leaf,
-    without touching the leaves' ``.grad``; both summed over the data
-    ``plane`` after the backward (the gradients in one collective a
-    dtype)."""
+    without touching the leaves' ``.grad``; after the backward the loss
+    is summed over the data plane and each gradient over its leaf's
+    plane, one collective a dtype a plane, the planes in leaf order
+    (the same on every rank)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss = loss_fn(leaves)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     loss = loss.detach()
-    if plane is not None and plane.size > 1:
-        all_reduce_flat(list(grads.values()) + [loss.reshape(1)], plane,
-                        "the gradient all-reduce")
+    if planes is None:
+        return loss, grads
+    by_plane = {planes.loss.ranks: (planes.loss, [loss.reshape(1)])}
+    for k, g in grads.items():
+        plane = planes.leaf[k]
+        by_plane.setdefault(plane.ranks, (plane, []))[1].append(g)
+    for plane, tensors in by_plane.values():
+        if plane.size > 1:
+            all_reduce_flat(tensors, plane, "the gradient all-reduce")
     return loss, grads
 
 
 def make_flagship_grad_fn(cfg: FlagshipConfig, mesh=None):
     """``(params, x, target) → (grads, loss)`` of this rank's shards: the
     global sum of squared error of the block stack and its gradients."""
-    _check_ported(cfg)
     _reject_zb_schedule(cfg)
     axes = _mesh_axes(mesh)
-    plane = _data_plane(mesh)
+    planes = _grad_planes(cfg, mesh)
 
     def grad_fn(params: Params, x: torch.Tensor, target: torch.Tensor):
         def local_loss(p):
             out = _forward_local(p, x, cfg, axes)
             return torch.sum((out.float() - target.float()) ** 2)
 
-        loss, grads = _value_and_grad(local_loss, params, plane)
+        loss, grads = _value_and_grad(local_loss, params, planes)
         return grads, loss
 
     return grad_fn
@@ -149,10 +175,9 @@ def make_flagship_lm_grad_fn(cfg: FlagshipConfig, mesh=None):
     built."""
     if not cfg.vocab:
         raise ValueError("cfg.vocab must be > 0 for the LM step")
-    _check_ported(cfg)
     _reject_zb_schedule(cfg)
     axes = _mesh_axes(mesh)
-    plane = _data_plane(mesh)
+    planes = _grad_planes(cfg, mesh)
 
     def grad_fn(params: Params, tokens: torch.Tensor,
                 targets: torch.Tensor):
@@ -164,7 +189,7 @@ def make_flagship_lm_grad_fn(cfg: FlagshipConfig, mesh=None):
             tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
             return torch.sum(lse - tgt)
 
-        loss, grads = _value_and_grad(local_loss, params, plane)
+        loss, grads = _value_and_grad(local_loss, params, planes)
         return grads, loss
 
     return grad_fn

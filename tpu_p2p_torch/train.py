@@ -1,15 +1,16 @@
 """The flagship training loop over the five-axis mesh — the port of
 ``tpu_p2p/train.py``'s plain-SGD path.
 
-``python -m tpu_p2p_torch train --dense-ffn --steps 4 ...`` (or
-``python -m tpu_p2p_torch.train``) trains the flagship model on seeded
-synthetic data on ``build_mesh(world)``: one rank a card under
-``torchrun --nproc-per-node N`` (NCCL), ``--cpu-mesh N`` spawned gloo
-CPU ranks, or a world of one. Rank 0 prints the reference's JSONL
-records (``step``, ``loss``, ``wall_s``, ``tokens_per_s_wall``) and its
-closing ``{"summary": ...}`` line. It runs on the card unless ``--device
-cpu`` (or ``--cpu-mesh``) is given; ``--device cuda`` without a card
-raises, nothing falls back.
+``python -m tpu_p2p_torch train --steps 4 ...`` (or ``python -m
+tpu_p2p_torch.train``) trains the flagship model (the MoE FFN, or the
+dense one with ``--dense-ffn``) on seeded synthetic data on
+``build_mesh(world)``: one rank a card under ``torchrun
+--nproc-per-node N`` (NCCL), ``--cpu-mesh N`` spawned gloo CPU ranks,
+or a world of one. Rank 0 prints the reference's JSONL records
+(``step``, ``loss``, ``wall_s``, ``tokens_per_s_wall``) and its closing
+``{"summary": ...}`` line. It runs on the card unless ``--device cpu``
+(or ``--cpu-mesh``) is given; ``--device cuda`` without a card raises,
+nothing falls back.
 
 Batches are generated per step from ``seed`` and the global step index
 (byte-identical to the reference's stream); each rank's
@@ -18,9 +19,9 @@ block, and the step updates the rank's param shards in place (the
 reference donates them). Every reference flag parses; the flags whose
 machinery is not ported (optax optimizers and schedules, evaluation,
 checkpoints and recovery, fault injection, observability, remat, FSDP,
-the mesh overlaps and schedules, the MoE FFN) exit with "not ported
-yet" when set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and
-``--moe-mult`` are the port's own: a mesh other than ``build_mesh``'s
+the mesh overlaps and schedules) exit with "not ported yet" when
+set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and ``--moe-mult`` are
+the port's own: a mesh other than ``build_mesh``'s
 factoring, and the FFN width of the 4x-FFN configurations.
 """
 
@@ -283,8 +284,6 @@ def _not_ported(args: argparse.Namespace) -> Optional[str]:
     for dest, flag in _FLAGS_NOT_PORTED:
         if getattr(args, dest) != parser.get_default(dest):
             return flag
-    if not args.dense_ffn:
-        return "the MoE FFN (no --dense-ffn)"
     return None
 
 
