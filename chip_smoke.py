@@ -130,7 +130,19 @@ the first phase that goes wrong:
    the MoE FFN at the full width (4 experts, B 4 x T 4096) for 3
    steps, with phase 5's gates, step ms, tokens/s and peak memory; (c)
    the MoE model's dense-cache decode against its paged step at chunk 1
-   over 16 positions of 32 slots (phase 6's check and launch counts).
+   over 16 positions of 32 slots (phase 6's check and launch counts);
+12. memory  — (run right after phase 11) rematerialization and ZeRO
+   storage on one card: (a) the dense step at the full width, plain and
+   with ``remat=True``, 2 steps each from the same params over the same
+   batches: the remat losses bitwise the plain ones (or else the
+   difference printed and held within 1e-6 relative), the flash forward
+   launched twice a block a step (the recompute), peak memory of each;
+   (b) ``run_training`` with phase 11's MoE config under ``remat=True``
+   and under ``remat_policy="dots_with_no_batch_dims_saveable"``, 2
+   steps each, with phase 5's gates, step ms, tokens/s and peak memory,
+   each peak below phase 11's plain MoE peak; (c) ``zero_dp=True`` on a
+   world of one through the mesh code: an empty ZeRO plan, losses
+   bitwise the plain step's, and no NCCL kernel in a profiled step.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -864,14 +876,24 @@ def run_train(cfg, steps: int, TFA, dev, mesh=None) -> dict:
 
 
 def check_train_run(run: dict, cfg, steps: int) -> None:
+    """Finite losses, one a step, and each flash kernel once per block
+    per microbatch per step — the forward twice under remat, whose
+    backward runs each block's forward again."""
     losses = run["losses"]
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
-    want = steps * cfg.stages * cfg.microbatches
-    if any(n != want for n in run["launches"].values()):
-        raise AssertionError(f"flash launches {run['launches']} over "
-                             f"{steps} steps, expected {want} of each "
-                             "(once per block per microbatch per step)")
+    check_launches(run["launches"], cfg, steps)
+
+
+def check_launches(launches: dict, cfg, steps: int) -> None:
+    once = steps * cfg.stages * cfg.microbatches
+    want = {name: once * (2 if cfg.remat and name == "flash_fwd" else 1)
+            for name in launches}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} over {steps} "
+                             f"steps, expected {want} (once per block per "
+                             "microbatch per step; the forward again in "
+                             "the remat recompute)")
 
 
 def train(TFA, dev, card) -> dict:
@@ -894,7 +916,8 @@ def train(TFA, dev, card) -> dict:
         f"{tokens / p50 * 1e3:.0f} tokens/s | peak memory "
         f"{run['peak_gib']:.2f} GiB | flash launches {run['launches']} | "
         f"{card}")
-    return {"launches": run["launches"], "step_ms_p50": p50}
+    return {"launches": run["launches"], "step_ms_p50": p50,
+            "peak_gib": run["peak_gib"]}
 
 
 def grads_vs_dense(dev, card) -> None:
@@ -2703,7 +2726,8 @@ def moe_train(TFA, dev, card) -> dict:
         f"{MOE_TRAIN_STEPS} {p50:.0f} ms = {tokens / p50 * 1e3:.0f} "
         f"tokens/s | peak memory {run['peak_gib']:.2f} GiB | flash "
         f"launches {run['launches']} | {card}")
-    return {"launches": run["launches"], "step_ms_p50": p50}
+    return {"launches": run["launches"], "step_ms_p50": p50,
+            "peak_gib": run["peak_gib"]}
 
 
 def moe_decode(TK, dev, card) -> dict:
@@ -2735,7 +2759,177 @@ def moe(TFA, TK, dev, card) -> dict:
     dec = moe_decode(TK, dev, card)
     torch.cuda.empty_cache()
     say(f"phase 11 (moe): {time.perf_counter() - t0:.1f} s")
-    return {"train": trn["launches"], "decode": dec}
+    return {"train": trn["launches"], "decode": dec,
+            "train_peak_gib": trn["peak_gib"]}
+
+
+# ----------------------------------------------------------- phase 12
+
+
+MEMORY_STEPS = 2
+REMAT_POLICY = "dots_with_no_batch_dims_saveable"
+
+
+def direct_steps(cfg, host_params, batches, TFA, dev, mesh=None) -> dict:
+    """``MEMORY_STEPS`` LM steps of ``cfg`` (on ``mesh`` when given) from
+    a device copy of ``host_params`` over ``batches`` → the unrounded
+    losses, the flash launches, peak memory and per-step ms."""
+    from tpu_p2p_torch.models.flagship import (
+        make_flagship_lm_train_step, place_flagship_params)
+
+    fresh = {k: v.clone() for k, v in host_params.items()}  # the step
+    # updates its params in place
+    params = place_flagship_params(fresh, mesh, cfg) if mesh \
+        else {k: v.to(dev) for k, v in fresh.items()}
+    step = make_flagship_lm_train_step(cfg, donate=True, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TFA.reset_launches()
+    losses, ms = [], []
+    for toks, tgts in batches:
+        t0 = time.perf_counter()
+        params, loss = step(params, toks, tgts)
+        losses.append(loss.float().cpu())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out = {"losses": torch.stack(losses), "launches": dict(TFA.launches),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "step_ms": ms}
+    del params, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def loss_gate(got: torch.Tensor, want: torch.Tensor, what: str) -> str:
+    """Bitwise, or else the relative difference printed and held within
+    1e-6."""
+    if torch.equal(got, want):
+        return "bitwise"
+    rel = ((got.double() - want.double()).abs()
+           / want.double().abs()).max().item()
+    say(f"{what}: losses {got.tolist()} vs {want.tolist()}, max relative "
+        f"difference {rel:.3e}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"{what}: losses differ by {rel:.3e} relative "
+                             "(> 1e-6)")
+    return f"max relative difference {rel:.3e}"
+
+
+def memory_dense(TFA, dev, card) -> dict:
+    """Phase 12 (a) and (c): the dense step at the full width, plain,
+    with ``remat=True``, and with ``zero_dp=True`` through the mesh code
+    on a world of one, each ``MEMORY_STEPS`` steps from the same params
+    over the same batches. → each run's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch.models.flagship import (
+        AXES, FlagshipConfig, _fsdp_plan, init_flagship_params,
+        make_flagship_lm_train_step, place_flagship_params)
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.train import _per_step_batches
+
+    cfg = FlagshipConfig(**TRAIN)
+    host = init_flagship_params(cfg, seed=0, device="cpu")
+    stream = _per_step_batches(cfg, 0, 0)
+    batches = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in next(stream)) for _ in range(MEMORY_STEPS)]
+    plain = direct_steps(cfg, host, batches, TFA, dev)
+    check_launches(plain["launches"], cfg, MEMORY_STEPS)
+    rcfg = dataclasses.replace(cfg, remat=True)
+    remat = direct_steps(rcfg, host, batches, TFA, dev)
+    check_launches(remat["launches"], rcfg, MEMORY_STEPS)
+    remat_gate = loss_gate(remat["losses"], plain["losses"], "dense remat")
+    zcfg = dataclasses.replace(cfg, zero_dp=True)
+    rt = make_runtime(device=dev, mesh_shape=(1,) * len(AXES),
+                      axis_names=AXES)
+    try:
+        if _fsdp_plan(rt.mesh, zcfg) is not None:
+            raise AssertionError("zero_dp on a world of one planned shards")
+        zero = direct_steps(zcfg, host, batches, TFA, dev, mesh=rt.mesh)
+        check_launches(zero["launches"], zcfg, MEMORY_STEPS)
+        if not torch.equal(zero["losses"], plain["losses"]):
+            raise AssertionError(
+                f"zero_dp on a world of one: losses {zero['losses']} != "
+                f"the plain step's {plain['losses']}")
+        params = place_flagship_params(
+            {k: v.clone() for k, v in host.items()}, rt.mesh, zcfg)
+        step = make_flagship_lm_train_step(zcfg, donate=True, mesh=rt.mesh)
+        step(params, *batches[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, *batches[1])
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA]
+        nccl = sorted({k for k in kernels if "nccl" in k.lower()})
+        if not kernels or nccl:
+            raise AssertionError(f"zero_dp world of one: {len(kernels)} "
+                                 f"kernels, NCCL among them: {nccl}")
+        del params, step
+    finally:
+        rt.close()
+    torch.cuda.empty_cache()
+    tokens = cfg.batch * cfg.seq
+    for what, run in (("plain", plain), ("remat", remat),
+                      ("zero_dp world of one", zero)):
+        say(f"memory dense {what} (flagship_large B{cfg.batch} "
+            f"T{cfg.seq}, bf16, flash, {MEMORY_STEPS} steps): losses "
+            f"{run['losses'].tolist()} | step ms "
+            f"{[round(x) for x in run['step_ms']]}, step 2 "
+            f"{run['step_ms'][-1]:.0f} ms = "
+            f"{tokens / run['step_ms'][-1] * 1e3:.0f} tokens/s | peak "
+            f"memory {run['peak_gib']:.2f} GiB | flash launches "
+            f"{run['launches']} | {card}")
+    say(f"memory dense: remat losses vs plain {remat_gate}; zero_dp on a "
+        f"world of one: empty plan, losses bitwise, {len(kernels)} kernels "
+        f"in a profiled step, none of NCCL | {card}")
+    return {"remat": remat["launches"], "zero": zero["launches"]}
+
+
+def memory_moe(TFA, dev, card, plain_peak: float) -> dict:
+    """Phase 12 (b): ``run_training`` with the MoE FFN (phase 11's
+    config) under ``remat=True`` and under ``remat_policy=
+    REMAT_POLICY``, ``MEMORY_STEPS`` steps each, with phase 5's gates;
+    each peak must stay below phase 11's plain MoE peak. → launches."""
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+
+    out = {}
+    tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    for what, policy in (("remat", ""), ("remat_policy", REMAT_POLICY)):
+        cfg = FlagshipConfig(**MOE_TRAIN, remat=True, remat_policy=policy)
+        run = run_train(cfg, MEMORY_STEPS, TFA, dev)
+        check_train_run(run, cfg, MEMORY_STEPS)
+        ln_v = math.log(cfg.vocab)
+        if not ln_v - 1 <= run["losses"][0] <= ln_v + 2:
+            raise AssertionError(f"moe {what} first loss {run['losses'][0]}")
+        if not run["peak_gib"] < plain_peak:
+            raise AssertionError(
+                f"moe {what}: peak {run['peak_gib']:.2f} GiB not below the "
+                f"plain MoE step's {plain_peak:.2f} GiB")
+        ms = run["step_ms"][-1]
+        say(f"memory moe {what}{' ' + policy if policy else ''} "
+            f"(flagship_large MoE, B{cfg.batch} T{cfg.seq}, {MEMORY_STEPS} "
+            f"steps): losses {run['losses']} | step ms "
+            f"{[round(x) for x in run['step_ms']]}, step 2 {ms:.0f} ms = "
+            f"{tokens / ms * 1e3:.0f} tokens/s | peak memory "
+            f"{run['peak_gib']:.2f} GiB (plain, phase 11: {plain_peak:.2f}) "
+            f"| flash launches {run['launches']} | {card}")
+        out[what] = run["launches"]
+        torch.cuda.empty_cache()
+    return out
+
+
+def memory(TFA, dev, card, moe_peak: float) -> dict:
+    """Phase 12: rematerialization and ZeRO storage on one card. → each
+    run's flash launches."""
+    t0 = time.perf_counter()
+    out = memory_dense(TFA, dev, card)
+    out.update(("moe_" + k, v)
+               for k, v in memory_moe(TFA, dev, card, moe_peak).items())
+    say(f"phase 12 (memory): {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2801,6 +2995,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"phase 10 (mesh): {time.perf_counter() - t0:.1f} s")
     moe_launches = moe(TFA, TK, dev, card)
+    mem_launches = memory(TFA, dev, card, moe_launches["train_peak_gib"])
 
     cfg = FlagshipConfig(batch=SLOTS, **MODEL)
     t0 = time.perf_counter()
@@ -2830,7 +3025,9 @@ def main() -> int:
                 "dma_ship": dis["launches"]["dma_ship"], **trn["launches"]}
     paths = {name: {"train": n, "mesh_train": mesh_launches[name],
                     "ring": ring_launches_total[name],
-                    "moe_train": moe_launches["train"][name]}
+                    "moe_train": moe_launches["train"][name],
+                    **{f"memory_{k}": v[name]
+                       for k, v in mem_launches.items()}}
              for name, n in trn["launches"].items()}
     paths["cache_kv_write"] = {
         "decode": launches["cache_kv_write"],

@@ -7,7 +7,9 @@ with the 4x dense FFN and then with the MoE FFN (4 experts as wide,
 capacity factor 2, top-1, groups of 256): each on one card, then as one
 ``torchrun`` world of every card on each of its meshes below, and
 prints each run's records under its label, the cards' name and power
-limit first. ``--ffn dense`` or ``--ffn moe`` runs one set alone.
+limit first. Three sets of meshes: ``--ffn dense``, ``--ffn moe`` or
+``--ffn zero`` runs one set alone (with the one-card runs of the FFNs
+it uses), ``--ffn all`` (the default) every set.
 
 Dense meshes on 4 cards (dp x pp x sp x tp x ep):
 
@@ -23,6 +25,15 @@ MoE meshes on 4 cards:
 - dp 2 x ep 2 (the experts' gradients summed over dp only);
 - sp 2 x ep 2 (the ring and the ep all-to-alls together).
 
+ZeRO and remat on 4 cards (``zero``):
+
+- dense dp 4, replicated (the gradient all-reduce after the backward);
+- dense dp 4 ``--zero-dp`` (a bulk all-gather a leaf in the forward, a
+  reduce-scatter a leaf in the backward);
+- dense dp 4 ``--zero-dp --overlap prefetch`` (one bucketed gather a
+  block, issued a block ahead);
+- MoE dp 2 x ep 2 ``--zero-dp --overlap prefetch --remat``.
+
 For each: the step ms (median of steps 2-4, each read when its loss
 reached the host), tokens/s, the peak device memory and flash kernel
 launches (over the run) of every rank, and
@@ -36,7 +47,8 @@ profiles its third step on every rank (``--profile-rank``, this script
 under ``torchrun``): wall ms, the card's busy time (the union of its
 kernel spans over all streams), idle share, and device ms by kernel
 family (NCCL send/recv — the ep all-to-alls and the ring's hops —,
-other NCCL, flash, GEMM, copies and casts, elementwise, reductions).
+NCCL all-gather and reduce-scatter — the ZeRO traffic —, other NCCL,
+flash, GEMM, copies and casts, elementwise, reductions).
 
 ``--cpu`` runs the same meshes as gloo worlds of 4 CPU ranks at a tiny
 width (a rehearsal of the commands; its times are the host's, and the
@@ -81,14 +93,31 @@ MOE_MESHES = (
     ("moe dp2 x ep2", ["--mesh-shape", "2x1x1x1x2"]),
     ("moe sp2 x ep2 ring", ["--mesh-shape", "1x1x2x1x2"]),
 )
-FFNS = {  # --ffn -> (train's FFN flags, one-card label, meshes)
-    "dense": (["--dense-ffn"], "one card", DENSE_MESHES),
-    "moe": ([], "moe one card", MOE_MESHES),
+DP4 = ["--mesh-shape", "4x1x1x1x1"]
+ZERO_MESHES = (  # (label, FFN, mesh and knobs)
+    ("dense dp4 replicated", "dense", DP4),
+    ("dense dp4 zero", "dense", [*DP4, "--zero-dp"]),
+    ("dense dp4 zero prefetch", "dense",
+     [*DP4, "--zero-dp", "--overlap", "prefetch"]),
+    ("moe dp2 x ep2 zero prefetch remat", "moe",
+     ["--mesh-shape", "2x1x1x1x2", "--zero-dp", "--overlap", "prefetch",
+      "--remat"]),
+)
+FFNS = {  # FFN -> (train's FFN flags, one-card label)
+    "dense": (["--dense-ffn"], "one card"),
+    "moe": ([], "moe one card"),
+}
+SETS = {  # --ffn -> [(label, FFN, mesh flags)]
+    "dense": [(label, "dense", m) for label, m in DENSE_MESHES],
+    "moe": [(label, "moe", m) for label, m in MOE_MESHES],
+    "zero": list(ZERO_MESHES),
 }
 
 
 FAMILIES = (
     ("nccl send/recv", ("SendRecv",)),
+    ("nccl all-gather", ("AllGather",)),
+    ("nccl reduce-scatter", ("ReduceScatter",)),
     ("nccl", ("nccl", "Nccl")),
     ("flash", ("flash_fwd_kernel", "flash_bwd_")),
     ("gemm", ("gemm", "Gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -130,7 +159,7 @@ def profile_rank(argv) -> int:
                                 int(os.environ["WORLD_SIZE"])))
     mesh = rt.mesh
     params = F.place_flagship_params(
-        F.init_flagship_params(cfg, seed=args.seed, device="cpu"), mesh)
+        F.init_flagship_params(cfg, seed=args.seed, device="cpu"), mesh, cfg)
     step = F.make_flagship_lm_train_step(cfg, lr=args.lr, donate=True,
                                          mesh=mesh)
     loader = DeviceLoader(T._per_step_batches(cfg, args.seed, 0),
@@ -256,8 +285,8 @@ def main(argv=None) -> int:
                    help="gloo worlds of 4 CPU ranks at a tiny width")
     p.add_argument("--json", metavar="PATH",
                    help="also write the closing JSON object to PATH")
-    p.add_argument("--ffn", choices=("dense", "moe", "both"), default="both",
-                   help="which FFN's runs (default both)")
+    p.add_argument("--ffn", choices=(*SETS, "all"), default="all",
+                   help="which set of runs (default all)")
     args = p.parse_args(argv)
     if args.cpu:
         n, shape = 4, TINY
@@ -278,14 +307,17 @@ def main(argv=None) -> int:
                     os.environ.get("PYTHONPATH")) if p))
     torchrun = [sys.executable, "-m", "torch.distributed.run",
                 "--standalone", "--nproc-per-node", str(n)]
-    results = []
-    for ffn in (("dense", "moe") if args.ffn == "both" else (args.ffn,)):
-        flags, one_label, meshes = FFNS[ffn]
-        common = [*shape, *flags, *COMMON]
-        train = ["-m", "tpu_p2p_torch", "train", *common]
-        one = run(one_label, [sys.executable, *train], env, tokens)
-        results.append(one)
-        for label, mesh in meshes:
+    results, one_card = [], {}
+    for name in (SETS if args.ffn == "all" else (args.ffn,)):
+        for label, ffn, mesh in SETS[name]:
+            flags, one_label = FFNS[ffn]
+            common = [*shape, *flags, *COMMON]
+            train = ["-m", "tpu_p2p_torch", "train", *common]
+            if ffn not in one_card:
+                one_card[ffn] = run(one_label, [sys.executable, *train],
+                                    env, tokens)
+                results.append(one_card[ffn])
+            one = one_card[ffn]
             res = run(label, [*torchrun, *train, *mesh], env, tokens)
             res["profile"] = profiled(label, [
                 *torchrun, os.path.abspath(__file__), "--profile-rank",

@@ -303,8 +303,7 @@ _NOT_PORTED_ARGV = {
     "--fault-at-step": ["2"], "--fault-ckpt-crash-bytes": ["10"],
     "--fault-ckpt-corrupt-seed": ["1"], "--fault-ckpt-io-errors": ["1"],
     "--obs-jsonl": ["obs.jsonl"], "--obs-window-step": ["2"],
-    "--trace": ["t.json"], "--remat": [],
-    "--zero-dp": [], "--overlap": ["prefetch"], "--tp-overlap": ["ring"],
+    "--trace": ["t.json"], "--tp-overlap": ["ring"],
     "--ep-overlap": ["ring"], "--pp-overlap": ["wave"],
     "--pp-chunks": ["2"],
     "--pp-schedule": ["zb"], "--tick-lowering": ["switch"],
@@ -351,7 +350,7 @@ def test_run_training_rejects_keywords_not_ported(name):
 @pytest.mark.parametrize("name", sorted(TF.NOT_PORTED_FIELDS))
 def test_config_rejects_fields_not_ported(name):
     default = TF.NOT_PORTED_FIELDS[name]
-    value = {False: True, 4: 2, "": "dots"}.get(default, "other")
+    value = {4: 2}.get(default, "other")
     with pytest.raises(NotImplementedError, match=f"{name}.*not ported"):
         TF.FlagshipConfig(**{name: value})
     assert getattr(TF.FlagshipConfig(), name) == getattr(

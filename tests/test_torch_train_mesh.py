@@ -104,10 +104,9 @@ def test_train_cpu_mesh_cli_matches_reference(name):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--zero-dp"], "--zero-dp"),
     (["--tp-overlap", "ring"], "--tp-overlap"),
     (["--pp-overlap", "wave"], "--pp-overlap"),
-], ids=["zero_dp", "tp_overlap", "pp_overlap"])
+], ids=["tp_overlap", "pp_overlap"])
 def test_train_cpu_mesh_still_rejects_what_is_not_ported(argv, what,
                                                          capsys):
     assert TT.main(["--cpu-mesh", "8", *SHAPE, *argv]) == 2

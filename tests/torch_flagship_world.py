@@ -29,25 +29,74 @@ def step_case(cases):
     ``dims`` (dp, pp, sp, tp, ep), ``cfg`` (FlagshipConfig keywords),
     ``params`` (numpy, global), ``batch`` (two global numpy arrays) and
     ``lr`` → name → ``{"loss", "params"}``: the step's loss on this rank
-    and, on rank 0, the updated params gathered to global arrays."""
+    and, on rank 0, the updated params gathered to global arrays (the
+    config's specs: ZeRO shards included). A case with ``"grads":
+    True`` runs the grad function instead: ``params`` are then the
+    gathered gradients, and ``shapes`` each leaf's (grad, param) shard
+    shapes on this rank."""
     out, mesh = {}, None
     for c in cases:
         mesh = F.build_mesh(int(np.prod(c["dims"])), device="cpu",
                             dims=c["dims"])
         cfg = F.FlagshipConfig(**c["cfg"])
-        params = F.place_flagship_params(c["params"], mesh)
+        params = F.place_flagship_params(c["params"], mesh, cfg)
         spec = F.flagship_data_spec(mesh)
         x, t = (torch.from_numpy(np.ascontiguousarray(
             local_shard(a, mesh, spec[:a.ndim]))) for a in c["batch"])
-        make = (F.make_flagship_lm_train_step if cfg.vocab
-                else F.make_flagship_train_step)
-        new, loss = make(cfg, lr=c["lr"], mesh=mesh)(params, x, t)
-        full = F.gather_flagship_params(new, mesh)
-        out[c["name"]] = {
-            "loss": float(loss),
-            "params": ({k: v.numpy() for k, v in full.items()}
-                       if mesh.rank == 0 else None),
-        }
+        res = {}
+        if c.get("grads"):
+            make = (F.make_flagship_lm_grad_fn if cfg.vocab
+                    else F.make_flagship_grad_fn)
+            new, loss = make(cfg, mesh=mesh)(params, x, t)
+            res["shapes"] = {k: (tuple(new[k].shape), tuple(v.shape))
+                             for k, v in params.items()}
+        else:
+            make = (F.make_flagship_lm_train_step if cfg.vocab
+                    else F.make_flagship_train_step)
+            new, loss = make(cfg, lr=c["lr"], mesh=mesh)(params, x, t)
+        full = F.gather_flagship_params(new, mesh, cfg)
+        res["loss"] = float(loss)
+        res["params"] = ({k: v.numpy() for k, v in full.items()}
+                         if mesh.rank == 0 else None)
+        out[c["name"]] = res
+    _close(mesh)
+    return out
+
+
+def bucket_case(cases):
+    """:func:`bucketed_all_gather` over the dp line of a world of dp
+    ranks: ``cases`` is a list of dicts with ``name``, ``leaves``
+    (name → (global numpy array, gather dim)), ``bf16`` (the leaves
+    cast to bfloat16), ``bucket_bytes`` and ``cot`` (name → numpy ``[world, *global shape]``, rank ``r``'s
+    cotangent at ``[r]``) → name → ``(bucketed, per_leaf, grads)``:
+    the gathered leaves in one collective a bucket and one a leaf, and
+    the shards' gradients of ``sum(out * cot[r])``, as float32 (exact
+    for bfloat16 leaves)."""
+    from tpu_p2p_torch.parallel.collectives import bucketed_all_gather
+
+    n = int(os.environ["WORLD_SIZE"])
+    mesh = F.build_mesh(n, device="cpu", dims=(n, 1, 1, 1, 1))
+    line = mesh.line("dp")
+    out = {}
+    for c in cases:
+        shards = {}
+        for k, (a, d) in c["leaves"].items():
+            spec = [None] * a.ndim
+            spec[d] = "dp"
+            t = torch.from_numpy(np.ascontiguousarray(
+                local_shard(a, mesh, spec)))
+            if k in c["bf16"]:
+                t = t.bfloat16()
+            shards[k] = (t.requires_grad_(True), d)
+        got = bucketed_all_gather(shards, line, c["bucket_bytes"])
+        one = {k: bucketed_all_gather({k: sd}, line)[k]
+               for k, sd in shards.items()}
+        loss = sum(torch.sum(got[k] * torch.from_numpy(c["cot"][k][line.index]))
+                   for k in got)
+        grads = torch.autograd.grad(loss, [v for v, _ in shards.values()])
+        out[c["name"]] = tuple(
+            {k: v.detach().float().numpy() for k, v in d.items()}
+            for d in (got, one, dict(zip(shards, grads))))
     _close(mesh)
     return out
 

@@ -17,6 +17,7 @@ from tpu_p2p_torch.models.flagship_config import (  # noqa: F401
 from tpu_p2p_torch.models.flagship_forward import (  # noqa: F401
     _dense_ffn,
     _forward_local,
+    _fsdp_prepare,
     _lm_logits_local,
     _moe_ffn,
     _pipeline_schedule,
@@ -31,6 +32,7 @@ from tpu_p2p_torch.models.flagship_params import (  # noqa: F401
     Params,
     STAGELESS_LEAVES,
     _base_param_specs,
+    _fsdp_plan,
     _lm_token_spec,
     flagship_data_spec,
     flagship_host_batch,

@@ -2,14 +2,15 @@
 ``tpu_p2p/models/flagship_config.py``.
 
 The model-shape fields, ``use_flash``, the sequence-parallel strategy,
-every training field the reference's train CLI sets, and the MoE FFN's
-config (:meth:`FlagshipConfig.moe`). Field names and
-defaults match the reference, so one keyword set builds both configs.
-The mesh has the reference's five axes (``AXES``); :func:`build_mesh`
-factors a world over them. The fields that schedule FSDP and its
-overlap, the tp/ep/pp overlaps, the pipeline schedule and its lowering,
-and rematerialization are not ported yet: a non-default value raises
-rather than being ignored.
+ZeRO storage (``zero_dp``) and its prefetch schedule (``overlap``),
+rematerialization (``remat``, ``remat_policy``), every training field
+the reference's train CLI sets, and the MoE FFN's config
+(:meth:`FlagshipConfig.moe`). Field names and defaults match the
+reference, so one keyword set builds both configs. The mesh has the
+reference's five axes (``AXES``); :func:`build_mesh` factors a world
+over them. The tp/ep/pp overlaps, the pipeline schedule and its
+lowering are not ported yet: a non-default value raises rather than
+being ignored.
 """
 
 from __future__ import annotations
@@ -18,16 +19,15 @@ from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence, Tuple
 
 from tpu_p2p_torch.models.moe import MoEConfig
+from tpu_p2p_torch.utils.remat import REMAT_POLICIES
 
 AXES = ("dp", "pp", "sp", "tp", "ep")
 SP_STRATEGIES = ("ring", "ring_zigzag", "ulysses")
 
 # Fields whose machinery is not ported, with the reference's default.
 NOT_PORTED_FIELDS = {
-    "zero_dp": False, "overlap": "none",
     "tp_overlap": "none", "ep_overlap": "none", "pp_overlap": "none",
     "pp_chunks": 4, "pp_schedule": "1f1b", "tick_lowering": "masked",
-    "remat": False, "remat_policy": "",
 }
 
 
@@ -93,6 +93,32 @@ class FlagshipConfig:
             )
         if self.attn_window and not self.causal:
             raise ValueError("attn_window requires causal=True")
+        # Strict like sp_strategy: a typo would train on the bulk-gather
+        # path while the run's logs claim overlap.
+        if self.overlap not in ("none", "prefetch"):
+            raise ValueError(
+                f"unknown overlap {self.overlap!r}; expected 'none' "
+                "or 'prefetch'"
+            )
+        # prefetch schedules ZeRO gathers: without zero_dp there are
+        # none. A dp axis of size 1 under zero_dp stays a legal no-op
+        # (a mesh property, known when a step is built).
+        if self.overlap == "prefetch" and not self.zero_dp:
+            raise ValueError(
+                "overlap='prefetch' requires zero_dp=True (the prefetch "
+                "schedule is a ZeRO parameter-gather schedule; without "
+                "FSDP storage there is nothing to prefetch)"
+            )
+        # The reference accepts the names of jax.checkpoint_policies'
+        # POLICIES and refuses the factories that build one.
+        if self.remat_policy and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; expected "
+                f"one of {sorted(REMAT_POLICIES)} — factory names that "
+                "build policies from arguments are not accepted"
+            )
+        if self.remat_policy and not self.remat:
+            raise ValueError("remat_policy requires remat=True")
         kv = self.num_kv_heads
         if kv <= 0 or self.heads % kv:
             raise ValueError(

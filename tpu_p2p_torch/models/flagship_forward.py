@@ -14,7 +14,12 @@ off, the MoE FFN with its experts split over ``ep``
 (:mod:`tpu_p2p_torch.models.moe`). Microbatches go through
 the GPipe schedule over pp (:mod:`tpu_p2p_torch.models.pipeline`), or
 one after another when pp has size 1. Attention goes through the flash
-kernels or dense attention by ``cfg.use_flash``.
+kernels or dense attention by ``cfg.use_flash``. Under ``cfg.remat``
+each block runs under ``torch.utils.checkpoint``
+(:func:`tpu_p2p_torch.utils.remat.remat_block`, ``cfg.remat_policy``);
+under ``cfg.zero_dp`` the ZeRO gathers run through
+:func:`_fsdp_prepare`, in bulk or, with ``overlap="prefetch"``, one
+block ahead in the block loop.
 
 The reference computes norms and the dense FFN with float32 internals
 and ``preferred_element_type=float32`` matmuls. Here the casts are
@@ -33,6 +38,7 @@ from tpu_p2p_torch.models.flagship_config import AXES, FlagshipConfig, \
 from tpu_p2p_torch.models.flagship_params import (
     STAGELESS_LEAVES,
     Params,
+    _fsdp_plan,
     torch_dtype,
 )
 from tpu_p2p_torch.models.moe import moe_layer_local
@@ -45,7 +51,9 @@ from tpu_p2p_torch.ops.attention import (
 from tpu_p2p_torch.ops.flash_attention import flash_attention
 from tpu_p2p_torch.ops.rope import apply_rope
 from tpu_p2p_torch.ops.ulysses import ulysses_attention_local
+from tpu_p2p_torch.parallel import fsdp
 from tpu_p2p_torch.parallel.collectives import psum_conjugate, psum_join
+from tpu_p2p_torch.utils.remat import product, remat_block
 
 
 def _size(line) -> int:
@@ -69,9 +77,12 @@ def _dense_ffn(sub: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
     under float32 promotion, as in the reference; the result is cast
     back to ``h``'s dtype."""
     h = psum_conjugate(h, tp)
-    f_h = F.gelu(torch.matmul(h.float(), sub["wf1"].float()),
-                 approximate="tanh")
-    return psum_join(torch.matmul(f_h, sub["wf2"].float()), tp).to(h.dtype)
+    with product("wf1", batch_dims=False):
+        f_h = torch.matmul(h.float(), sub["wf1"].float())
+    f_h = F.gelu(f_h, approximate="tanh")
+    with product("wf2", batch_dims=False):
+        out = torch.matmul(f_h, sub["wf2"].float())
+    return psum_join(out, tp).to(h.dtype)
 
 
 def _moe_ffn(sub: Params, h2: torch.Tensor, cfg: FlagshipConfig,
@@ -110,6 +121,12 @@ def _attention(q, k, v, cfg: FlagshipConfig, sp) -> torch.Tensor:
     return dense_attention(q, k, v, causal=cfg.causal, window=window)
 
 
+def _project(h: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """A q/k/v projection of this rank's heads, ``btm,hmd->bhtd``."""
+    with product(name, batch_dims=False):
+        return torch.einsum("btm,hmd->bhtd", h, w)
+
+
 def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
                      sp=None, tp=None, ep=None) -> torch.Tensor:
     """One transformer block: attention + FFN (dense, or MoE by
@@ -120,9 +137,7 @@ def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
     out (the pipeline's bubbles)."""
     h = _rms_norm(x, sub["ln1"]) if cfg.norm else x
     h = psum_conjugate(h, tp)
-    q = torch.einsum("btm,hmd->bhtd", h, sub["wq"])
-    k = torch.einsum("btm,hmd->bhtd", h, sub["wk"])
-    v = torch.einsum("btm,hmd->bhtd", h, sub["wv"])
+    q, k, v = (_project(h, sub[w], w) for w in ("wq", "wk", "wv"))
     if cfg.rope:
         t_loc = x.shape[1]
         if _size(sp) == 1:
@@ -135,35 +150,75 @@ def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
     a = _attention(q, k, v, cfg, sp)
-    x = x + psum_join(torch.einsum("bhtd,hdm->btm", a, sub["wo"]), tp)
+    with product("wo", batch_dims=False):
+        o = torch.einsum("bhtd,hdm->btm", a, sub["wo"])
+    x = x + psum_join(o, tp)
     h2 = _rms_norm(x, sub["ln2"]) if cfg.norm else x
     if cfg.dense_ffn:
         return x + _dense_ffn(sub, h2, tp)
     return x + _moe_ffn(sub, h2, cfg, ep)
 
 
+def _block_body(cfg: FlagshipConfig):
+    """One block as the stage loop calls it: ``(sub, x, sp, tp, ep) →
+    x``, under rematerialization when ``cfg.remat``. Params stored in
+    ``params_dtype`` are cast to the compute dtype at block entry
+    (autograd carries the grads back to the storage-dtype masters),
+    inside the remat boundary on purpose: a checkpointed block's inputs
+    stay live until its backward, so a cast outside would pin a
+    compute-dtype copy of every block's params, while recomputing the
+    cast from the masters is free."""
+    compute = torch_dtype(cfg.dtype)
+
+    def cast_and_run(sub, x, sp, tp, ep):
+        sub = {k: (v.to(compute) if v.dtype != compute else v)
+               for k, v in sub.items()}
+        return _stage_sub_block(sub, x, cfg, sp, tp, ep)
+
+    return remat_block(cast_and_run, cfg.remat, cfg.remat_policy)
+
+
 def _stage_block(stage_params: Params, x: torch.Tensor,
                  cfg: FlagshipConfig, s_local: int, sp=None,
-                 tp=None, ep=None) -> torch.Tensor:
-    """Apply this pp rank's ``s_local`` consecutive blocks. Params stored
-    in ``params_dtype`` are cast to the compute dtype at block entry
-    (autograd carries the grads back to the storage-dtype masters)."""
-    compute = torch_dtype(cfg.dtype)
+                 tp=None, ep=None, prefetch=None) -> torch.Tensor:
+    """Apply this pp rank's ``s_local`` consecutive blocks.
+
+    ``prefetch``: None — every leaf arrives whole and is sliced per
+    block. Or ``(dp_line, per_stage_plan)`` — the planned leaves arrive
+    dp-sharded and are gathered one block ahead: the loop issues block
+    ``i+1``'s bucketed gather before block ``i``'s compute and waits on
+    it when block ``i+1`` starts (the double buffer; at most two blocks'
+    gathered params at once). The gather sits outside the remat
+    boundary: re-gathering inside the backward would pay the collective
+    again, and the gathered slice is a block input, live as the bulk
+    gather's would be."""
+    body = _block_body(cfg)
+    if prefetch is None:
+        for i in range(s_local):
+            x = body({k: v[i] for k, v in stage_params.items()}, x,
+                     sp, tp, ep)
+        return x
+    line, plan = prefetch
+    cur = fsdp.gather_stage(stage_params, 0, line, plan)
     for i in range(s_local):
-        sub = {k: (v[i].to(compute) if v.dtype != compute else v[i])
+        nxt = (fsdp.gather_stage(stage_params, i + 1, line, plan)
+               if i + 1 < s_local else None)
+        got = cur.wait()
+        sub = {k: (got[k] if k in got else v[i])
                for k, v in stage_params.items()}
-        x = _stage_sub_block(sub, x, cfg, sp, tp, ep)
+        x = body(sub, x, sp, tp, ep)
+        cur = nxt
     return x
 
 
 def _pipeline_schedule(stage_params: Params, x_mb: torch.Tensor,
                        cfg: FlagshipConfig, s_local: int, pp, sp, tp,
-                       ep=None):
+                       ep=None, prefetch=None):
     """The microbatches through this rank's stages: GPipe over ``pp``
     (:func:`pipeline_apply_local`), or one after another without a pp
     axis of size > 1."""
     def block_fn(params, x):
-        return _stage_block(params, x, cfg, s_local, sp, tp, ep)
+        return _stage_block(params, x, cfg, s_local, sp, tp, ep, prefetch)
 
     if _size(pp) == 1:
         return torch.stack([block_fn(stage_params, x_mb[i])
@@ -172,11 +227,12 @@ def _pipeline_schedule(stage_params: Params, x_mb: torch.Tensor,
 
 
 def _forward_local(params: Params, x: torch.Tensor, cfg: FlagshipConfig,
-                   mesh_axes=None) -> torch.Tensor:
+                   mesh_axes=None, prefetch=None) -> torch.Tensor:
     """This rank's ``x [B_local, T_local, Dm]`` through the block stack
     in ``cfg.microbatches`` microbatches; → the same shape. ``mesh_axes``
     (:func:`~tpu_p2p_torch.models.flagship_config._mesh_axes`): this
-    rank's line along each axis; None is a world of one."""
+    rank's line along each axis; None is a world of one. ``prefetch``
+    as :func:`_fsdp_prepare` returns it."""
     axes = mesh_axes or dict.fromkeys(AXES)
     pp, sp, tp, ep = axes["pp"], axes["sp"], axes["tp"], axes["ep"]
     if cfg.stages % _size(pp):
@@ -191,23 +247,47 @@ def _forward_local(params: Params, x: torch.Tensor, cfg: FlagshipConfig,
         )
     x_mb = x.reshape((cfg.microbatches, b // cfg.microbatches)
                      + tuple(x.shape[1:]))
-    y_mb = _pipeline_schedule(params, x_mb, cfg, s_local, pp, sp, tp, ep)
+    y_mb = _pipeline_schedule(params, x_mb, cfg, s_local, pp, sp, tp, ep,
+                              prefetch)
     return y_mb.reshape(x.shape)
+
+
+def _fsdp_prepare(params: Params, cfg: FlagshipConfig, plan, dp):
+    """Apply the ZeRO gather schedule the config asks for, over the dp
+    line ``dp``. → ``(params, prefetch)``: under ``overlap="none"`` (or
+    without a plan) every planned leaf is gathered here in bulk and
+    ``prefetch`` is None. Under ``overlap="prefetch"`` only the leaves
+    the per-block schedule cannot cover (the stage-less ``emb`` and
+    ``lnf``, leaves split on their stage dim) are gathered here; the
+    rest stay dp-sharded and ``prefetch`` carries ``(dp, per_stage
+    plan)`` for :func:`_stage_block`. The one seam every step and
+    forward goes through."""
+    if not plan:
+        return params, None
+    if cfg.overlap != "prefetch":
+        return fsdp.all_gather_params(params, dp, plan), None
+    stage_leaves = set(params) - set(STAGELESS_LEAVES)
+    upfront, per_stage = fsdp.split_plan_for_prefetch(plan, stage_leaves)
+    params = fsdp.all_gather_params(params, dp, upfront)
+    return params, ((dp, per_stage) if per_stage else None)
 
 
 def make_flagship_forward(cfg: FlagshipConfig, mesh=None):
     """Forward of this rank's shards: ``(params, x [B_local, T_local,
     Dm]) → same`` (``mesh=None``: the whole batch on one device)."""
     axes = _mesh_axes(mesh)
+    plan = _fsdp_plan(mesh, cfg)
 
     def forward(params: Params, x: torch.Tensor) -> torch.Tensor:
-        return _forward_local(params, x, cfg, axes)
+        params, prefetch = _fsdp_prepare(params, cfg, plan, axes["dp"])
+        return _forward_local(params, x, cfg, axes, prefetch)
 
     return forward
 
 
 def _lm_logits_local(params: Params, tokens: torch.Tensor,
-                     cfg: FlagshipConfig, mesh_axes=None) -> torch.Tensor:
+                     cfg: FlagshipConfig, mesh_axes=None,
+                     prefetch=None) -> torch.Tensor:
     """Embed → block stack → tied unembed: ``tokens [B, T]`` int →
     float32 logits ``[B, T, vocab]`` (this rank's shards). The one
     definition of the LM head, shared by the forward and the train step;
@@ -215,7 +295,7 @@ def _lm_logits_local(params: Params, tokens: torch.Tensor,
     compute = torch_dtype(cfg.dtype)
     x = F.embedding(tokens.long(), params["emb"]).to(compute)
     stack = {k: v for k, v in params.items() if k not in STAGELESS_LEAVES}
-    y = _forward_local(stack, x, cfg, mesh_axes)
+    y = _forward_local(stack, x, cfg, mesh_axes, prefetch)
     if cfg.norm:
         y = _rms_norm(y, params["lnf"])
     return _unembed(y, params["emb"], compute)
@@ -227,8 +307,10 @@ def make_flagship_lm_forward(cfg: FlagshipConfig, mesh=None):
     if not cfg.vocab:
         raise ValueError("cfg.vocab must be > 0 for the LM forward")
     axes = _mesh_axes(mesh)
+    plan = _fsdp_plan(mesh, cfg)
 
     def forward(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return _lm_logits_local(params, tokens, cfg, axes)
+        params, prefetch = _fsdp_prepare(params, cfg, plan, axes["dp"])
+        return _lm_logits_local(params, tokens, cfg, axes, prefetch)
 
     return forward

@@ -7,7 +7,8 @@ wf1 wf2 ln1 ln2 lnf emb``, or the MoE ``router we1 we2``), stage-major
 like the reference. On a mesh each rank holds its shard of each leaf: a
 spec names the mesh axis (or None) each dim is split over, as the
 reference's ``PartitionSpec`` does, and :func:`place_flagship_params`
-slices a rank's shard from the global leaves.
+slices a rank's shard from the global leaves. Under ``cfg.zero_dp`` the
+ZeRO plan (:func:`_fsdp_plan`) adds ``dp`` to each planned leaf's spec.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_p2p_torch.models.flagship_config import FlagshipConfig, _axis
+from tpu_p2p_torch.parallel import fsdp
 from tpu_p2p_torch.parallel.runtime import _dim_axes, local_shard
 
 Params = Dict[str, torch.Tensor]
@@ -123,15 +125,34 @@ def _base_param_specs(mesh) -> Dict[str, Spec]:
     }
 
 
+def _fsdp_plan(mesh, cfg: Optional[FlagshipConfig]):
+    """The static ZeRO plan, or None when FSDP is off or does not apply
+    (no ``cfg.zero_dp``, no dp axis, or a dp axis of size 1)."""
+    if cfg is None or not cfg.zero_dp or _axis(mesh, "dp") is None:
+        return None
+    plan = fsdp.fsdp_plan(flagship_param_shapes(cfg),
+                          _base_param_specs(mesh), mesh.shape["dp"])
+    return plan if any(d is not None for d in plan.values()) else None
+
+
 def flagship_param_specs(mesh, cfg: Optional[FlagshipConfig] = None
                          ) -> Dict[str, Spec]:
-    """The specs of this config's leaves (with ``cfg``), or of every
-    stage-major leaf (without): the reference's ``flagship_param_specs``
-    without ZeRO, which the port does not have yet."""
+    """Param specs: pp stage-major, tp heads, ep experts — plus the dp
+    dim from the ZeRO plan under ``cfg.zero_dp``. With ``cfg`` the keys
+    are this config's leaves; without, every stage-major leaf."""
     base = _base_param_specs(mesh)
+    plan = _fsdp_plan(mesh, cfg)
+    specs = fsdp.fsdp_specs(base, plan, "dp") if plan else base
     if cfg is not None:
-        return {k: base[k] for k in flagship_param_shapes(cfg)}
-    return {k: v for k, v in base.items() if k not in STAGELESS_LEAVES}
+        return {k: specs[k] for k in flagship_param_shapes(cfg)}
+    return {k: v for k, v in specs.items() if k not in STAGELESS_LEAVES}
+
+
+def _placement_specs(mesh, cfg: Optional[FlagshipConfig]):
+    """Every leaf's spec for placing and gathering: ``cfg``'s (ZeRO
+    included), or the base specs of every leaf without a config."""
+    return (flagship_param_specs(mesh, cfg) if cfg is not None
+            else _base_param_specs(mesh))
 
 
 def flagship_data_spec(mesh) -> Spec:
@@ -146,16 +167,18 @@ def _lm_token_spec(mesh) -> Spec:
     return flagship_data_spec(mesh)[:2]
 
 
-def place_flagship_params(params, mesh) -> Params:
+def place_flagship_params(params, mesh,
+                          cfg: Optional[FlagshipConfig] = None) -> Params:
     """This rank's shard of each leaf of the global ``params`` (tensors,
     or the reference's numpy arrays as :func:`params_from_numpy` takes
     them), as contiguous tensors on ``mesh.device`` (the CPU without a
-    mesh)."""
-    base = _base_param_specs(mesh)
+    mesh). With ``cfg`` the specs are :func:`flagship_param_specs`',
+    so a ``zero_dp`` config's planned leaves hold their dp shard."""
+    specs = _placement_specs(mesh, cfg)
     device = mesh.device if mesh is not None else torch.device("cpu")
     out = {}
     for k, v in params.items():
-        shard = local_shard(v, mesh, base[k])
+        shard = local_shard(v, mesh, specs[k])
         out[k] = (shard.contiguous().to(device)
                   if isinstance(shard, torch.Tensor)
                   else tensor_from_numpy(shard, device))
@@ -171,16 +194,17 @@ def _gather_dim(x: torch.Tensor, line, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def gather_flagship_params(params: Params, mesh) -> Params:
+def gather_flagship_params(params: Params, mesh,
+                           cfg: Optional[FlagshipConfig] = None) -> Params:
     """The global leaves from every rank's shards (the inverse of
-    :func:`place_flagship_params`), on every rank: one all-gather along
-    each split axis's line. Collective over the mesh: every rank calls
-    it."""
-    base = _base_param_specs(mesh)
+    :func:`place_flagship_params` with the same ``cfg``), on every rank:
+    one all-gather along each split axis's line, dp included. Collective
+    over the mesh: every rank calls it."""
+    specs = _placement_specs(mesh, cfg)
     out = {}
     for k in sorted(params):
         x = params[k]
-        for dim, entry in enumerate(base[k]):
+        for dim, entry in enumerate(specs[k]):
             for a in reversed(_dim_axes(entry)):
                 line = mesh.line(a)
                 if line.size > 1:

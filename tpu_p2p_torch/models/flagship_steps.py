@@ -12,10 +12,14 @@ out after the backward: a leaf's gradient is summed over the data axes
 but the experts (``we1``, ``we2``, split over ep) over (dp, sp) only,
 since each ep member holds other experts — in one collective a dtype a
 plane (:func:`~tpu_p2p_torch.parallel.collectives.all_reduce_flat`),
-and the loss over all three. The builders take ``mesh=None`` for a
-world of one. ``donate=True`` (the reference's buffer donation) becomes
-an in-place update: the step writes the new values into the params it
-was given, under ``no_grad``, and returns that same dict.
+and the loss over all three. Under ``cfg.zero_dp`` the ZeRO gathers sit
+inside the differentiated loss (:func:`_fsdp_prepare`): their backward
+is the reduce-scatter over dp, so a dp-split leaf's gradient arrives as
+its shard, already summed over dp, and its plane leaves dp out. The
+builders take ``mesh=None`` for a world of one. ``donate=True`` (the
+reference's buffer donation) becomes an in-place update: the step
+writes the new values into the params (or their shards) it was given,
+under ``no_grad``, and returns that same dict.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ from tpu_p2p_torch.models.flagship_config import (
 )
 from tpu_p2p_torch.models.flagship_forward import (
     _forward_local,
+    _fsdp_prepare,
     _lm_logits_local,
 )
 from tpu_p2p_torch.models.flagship_params import (
     Params,
+    _fsdp_plan,
     flagship_param_specs,
 )
 from tpu_p2p_torch.parallel.collectives import all_reduce_flat
@@ -92,8 +98,9 @@ class _GradPlanes:
     """Where a step's sums run: ``loss`` is this rank's plane over every
     data axis; ``leaf`` maps each leaf to its plane over the data axes
     its spec does not split (the reference's ``shard_map`` rule) — for
-    the experts, split over ep, that is (dp, sp). Made when a step is
-    built, on every rank alike (``new_group`` is collective)."""
+    the experts, split over ep, that is (dp, sp); for a ZeRO leaf, split
+    over dp, its reduce-scatter has summed over dp already. Made when a
+    step is built, on every rank alike (``new_group`` is collective)."""
 
     def __init__(self, cfg: FlagshipConfig, mesh) -> None:
         data = _data_axes(mesh.axis_names)
@@ -135,14 +142,17 @@ def _value_and_grad(loss_fn, params: Params,
 
 def make_flagship_grad_fn(cfg: FlagshipConfig, mesh=None):
     """``(params, x, target) → (grads, loss)`` of this rank's shards: the
-    global sum of squared error of the block stack and its gradients."""
+    global sum of squared error of the block stack and its gradients,
+    each shaped like its param's shard (ZeRO shards included)."""
     _reject_zb_schedule(cfg)
     axes = _mesh_axes(mesh)
     planes = _grad_planes(cfg, mesh)
+    plan = _fsdp_plan(mesh, cfg)
 
     def grad_fn(params: Params, x: torch.Tensor, target: torch.Tensor):
         def local_loss(p):
-            out = _forward_local(p, x, cfg, axes)
+            p, prefetch = _fsdp_prepare(p, cfg, plan, axes["dp"])
+            out = _forward_local(p, x, cfg, axes, prefetch)
             return torch.sum((out.float() - target.float()) ** 2)
 
         loss, grads = _value_and_grad(local_loss, params, planes)
@@ -178,11 +188,13 @@ def make_flagship_lm_grad_fn(cfg: FlagshipConfig, mesh=None):
     _reject_zb_schedule(cfg)
     axes = _mesh_axes(mesh)
     planes = _grad_planes(cfg, mesh)
+    plan = _fsdp_plan(mesh, cfg)
 
     def grad_fn(params: Params, tokens: torch.Tensor,
                 targets: torch.Tensor):
         def local_loss(p):
-            logits = _lm_logits_local(p, tokens, cfg, axes)
+            p, prefetch = _fsdp_prepare(p, cfg, plan, axes["dp"])
+            logits = _lm_logits_local(p, tokens, cfg, axes, prefetch)
             m = logits.amax(dim=-1, keepdim=True).detach()
             lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m),
                                                   dim=-1))

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_p2p_torch.parallel.collectives import axis_all_to_all
+from tpu_p2p_torch.utils.remat import product
 
 Params = Dict[str, torch.Tensor]
 
@@ -132,7 +133,8 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, num_experts: int,
     rank loses a free slot. Gates are the chosen probabilities (k = 1)
     or those renormalised over the k choices. ``valid [..., G]`` (0/1)
     masks padding rows out: they take no slot."""
-    logits = torch.matmul(x.float(), router_w.float())
+    with product("router", batch_dims=False):
+        logits = torch.matmul(x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
     top_e = _top_k(probs, k)                                  # [..., G, k]
     top_p = probs.gather(-1, top_e)
@@ -239,10 +241,14 @@ def moe_layer_local(params: Params, x: torch.Tensor, cfg: MoEConfig,
     slots = _dispatch(xg, slot, n_slots).reshape(e, ng * cap, d)
     # Each expert's slots to its owner: [E, NC, D] -> [E/n, n·NC, D].
     slots = axis_all_to_all(slots, ep, 0, 1) if n > 1 else slots
-    h = F.gelu(torch.matmul(slots.float(), params["w1"].float()),
-               approximate="tanh")
-    y = torch.matmul(h.to(x.dtype).float(), params["w2"].float()
-                     ).to(x.dtype)
+    # The expert FFN: ``ecd,edf->ecf`` in the reference, a product with
+    # the expert as a batch dim.
+    with product("we1", batch_dims=True):
+        h = torch.matmul(slots.float(), params["w1"].float())
+    h = F.gelu(h, approximate="tanh")
+    with product("we2", batch_dims=True):
+        y = torch.matmul(h.to(x.dtype).float(), params["w2"].float())
+    y = y.to(x.dtype)
     # The inverse reshard: [E/n, n·NC, D] -> [E, NC, D] at the source.
     y = axis_all_to_all(y, ep, 1, 0) if n > 1 else y
     out = _combine(y.reshape(n_slots, d), slot,

@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from tpu_p2p_torch.utils.remat import product
+
 NEG_INF = -1e30  # large-negative instead of -inf: no NaN from
 # (-inf) - (-inf) on fully-masked rows
 
@@ -66,11 +68,15 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k = repeat_kv(k, q.shape[1])
     v = repeat_kv(v, q.shape[1])
     t, d = q.shape[2], q.shape[3]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    with product("attn_scores", batch_dims=True):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s / math.sqrt(d)
     if causal:
         s = torch.where(_window_mask(t, window, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    with product("attn_values", batch_dims=True):
+        o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
 
 
 def finalize(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
@@ -90,13 +96,15 @@ def _merge(o, m, l, s, v):
     alpha = torch.exp(m - m_new)
     p = torch.exp(s - m_new[..., None])
     l_new = l * alpha + p.sum(dim=-1)
-    o_new = o * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
-                                                v.float())
-    return o_new, m_new, l_new
+    with product("attn_values", batch_dims=True):
+        pv = torch.matmul(p.to(v.dtype).float(), v.float())
+    return o * alpha[..., None] + pv, m_new, l_new
 
 
 def _block_scores(q: torch.Tensor, k: torch.Tensor, scale: float):
-    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    with product("attn_scores", batch_dims=True):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    return s * scale
 
 
 def zigzag_chunks(rank: int, n: int, t_local: int):

@@ -30,7 +30,10 @@
   :func:`psum_join` (all-reduce forward, identity backward),
   :func:`psum_conjugate` (its conjugate), :func:`axis_ppermute` and the
   tiled :func:`axis_all_to_all`; :func:`all_reduce_flat` sums a step's
-  gradients over the data axes in one collective a dtype.
+  gradients over the data axes in one collective a dtype;
+  :func:`bucketed_all_gather` (and :func:`start_bucketed_all_gather`,
+  the same issued without waiting) gathers ZeRO shards in one
+  collective a dtype bucket, its backward the summing reduce-scatter.
 - the chunk wave :func:`chunked_ppermute_compute` (reference :627): a
   computed buffer shipped as ``chunks`` hops, each chunk's ship in flight
   while the next chunk computes, over either transport.
@@ -57,6 +60,7 @@ hooks and fault throttle are not ported yet.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
@@ -525,6 +529,148 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh,
         for t in same:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+def _gather_buckets(items, bucket_bytes):
+    """Greedy split of ``[(name, shard, dim), ...]`` into buckets of at
+    most ``bucket_bytes`` of local-shard payload each (a shard larger
+    than the cap gets its own bucket). ``None`` = one bucket."""
+    if bucket_bytes is None:
+        return [items]
+    buckets, cur, cur_bytes = [], [], 0
+    for it in items:
+        nbytes = it[1].numel() * it[1].element_size()
+        if cur and cur_bytes + nbytes > bucket_bytes:
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(it)
+        cur_bytes += nbytes
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+class _BucketInFlight:
+    """One bucket's all-gather, issued from the shards' values (no
+    autograd) and not yet waited on: the raveled shards concatenated in
+    ``flat`` and the landing buffer ``rows`` (``[n * total]``, flat as
+    gloo wants it) both stay referenced here until
+    :class:`_BucketGather` has waited."""
+
+    def __init__(self, bucket, line, group) -> None:
+        self.bucket, self.line, self.group = bucket, line, group
+        with torch.no_grad():
+            self.flat = torch.cat([v.detach().reshape(-1)
+                                   for _, v, _ in bucket])
+        self.rows = self.flat.new_empty(line.size * self.flat.numel())
+        self.work = dist.all_gather_into_tensor(
+            self.rows, self.flat, group=group, async_op=True)
+
+
+class _BucketGather(torch.autograd.Function):
+    """Wait on a bucket's gather and carve each leaf out of ``rows``:
+    ``movedim(0, d)`` of the leading gather axis and a merge reshape is
+    the tiled gather's block concatenation, so each leaf is bitwise the
+    per-leaf tiled gather. The backward is its transpose: each leaf's
+    cotangent laid out as ``[n, size]`` in the same order, one summing
+    ``reduce_scatter_tensor`` for the bucket, and this rank's row split
+    back into the shards."""
+
+    @staticmethod
+    def forward(ctx, inflight, *shards):
+        inflight.work.wait()
+        n = inflight.line.size
+        rows = inflight.rows.view(n, -1)
+        ctx.line, ctx.group = inflight.line, inflight.group
+        ctx.meta = [(tuple(v.shape), d) for v, (_, _, d)
+                    in zip(shards, inflight.bucket)]
+        outs, off = [], 0
+        for shape, d in ctx.meta:
+            size = math.prod(shape)
+            seg = rows[:, off:off + size].reshape((n,) + shape)
+            outs.append(seg.movedim(0, d).reshape(
+                shape[:d] + (n * shape[d],) + shape[d + 1:]))
+            off += size
+        inflight.flat = inflight.rows = inflight.work = None
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.line.size
+        rows = torch.cat([
+            g.reshape(shape[:d] + (n, shape[d]) + shape[d + 1:])
+            .movedim(d, 0).reshape(n, -1)
+            for g, (shape, d) in zip(grads, ctx.meta)], dim=1).contiguous()
+        flat = rows.new_empty(rows.shape[1])
+        dist.reduce_scatter_tensor(flat, rows.view(-1), group=ctx.group)
+        out, off = [], 0
+        for shape, _ in ctx.meta:
+            size = math.prod(shape)
+            out.append(flat[off:off + size].view(shape))
+            off += size
+        return (None, *out)
+
+
+class PendingGather:
+    """Bucketed all-gathers in flight (:func:`start_bucketed_all_gather`);
+    :meth:`wait` lands them and returns ``{name: full tensor}``."""
+
+    def __init__(self, names, ready, inflight) -> None:
+        self._names, self._ready, self._inflight = names, ready, inflight
+
+    def wait(self) -> Dict[str, torch.Tensor]:
+        out = dict(self._ready)
+        for b in self._inflight:
+            names = [k for k, _, _ in b.bucket]
+            out.update(zip(names, _BucketGather.apply(
+                b, *(v for _, v, _ in b.bucket))))
+        self._inflight = ()
+        return {k: out[k] for k in self._names}
+
+
+def start_bucketed_all_gather(shards, line, bucket_bytes=None
+                              ) -> PendingGather:
+    """Issue :func:`bucketed_all_gather`'s collectives without waiting:
+    the ZeRO prefetch starts the next stage's gather before this stage's
+    compute and waits where it needs the result. On a card the gathers
+    run on NCCL's stream and :meth:`PendingGather.wait` orders the
+    current stream after them; on the CPU gloo runs them in its own
+    thread."""
+    # Validate BEFORE the trivial-line return: a mis-built plan must
+    # fail on a world of one too.
+    for k, (v, d) in shards.items():
+        if not 0 <= d < v.ndim:
+            raise ValueError(f"{k}: gather dim {d} out of range for "
+                             f"rank-{v.ndim} shard")
+    if line is None or line.size == 1:
+        return PendingGather(list(shards),
+                             {k: v for k, (v, _) in shards.items()}, ())
+    group = axis_group(line, "bucketed_all_gather")
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k, (v, d) in shards.items():
+        by_dtype.setdefault(v.dtype, []).append((k, v, d))
+    inflight = [_BucketInFlight(bucket, line, group)
+                for items in by_dtype.values()
+                for bucket in _gather_buckets(items, bucket_bytes)]
+    return PendingGather(list(shards), {}, inflight)
+
+
+def bucketed_all_gather(shards, line, bucket_bytes=None
+                        ) -> Dict[str, torch.Tensor]:
+    """Gather many dp-sharded tensors in one collective a bucket (the
+    reference's ``bucketed_all_gather``, :280).
+
+    ``shards``: ``{name: (local_shard, gather_dim)}``, each the local
+    block of a tensor split along ``gather_dim`` over ``line``; → each
+    name's full tensor, bitwise the per-leaf tiled all-gather, paying
+    one ``all_gather_into_tensor`` a bucket instead of one a leaf.
+    Shards are grouped by dtype (concatenation needs one element type)
+    and split into buckets of at most ``bucket_bytes`` of local-shard
+    payload (``None``: one bucket a dtype). Differentiable: the backward
+    is one summing ``reduce_scatter_tensor`` a bucket, the reference's
+    ``psum_scatter`` transpose. ``line=None`` or a line of one rank:
+    the shards themselves."""
+    return start_bucketed_all_gather(shards, line, bucket_bytes).wait()
 
 
 class CollectiveCache:

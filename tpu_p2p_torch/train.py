@@ -16,11 +16,13 @@ Batches are generated per step from ``seed`` and the global step index
 (byte-identical to the reference's stream); each rank's
 :class:`tpu_p2p_torch.utils.data.DeviceLoader` keeps its (dp·ep, sp)
 block, and the step updates the rank's param shards in place (the
-reference donates them). Every reference flag parses; the flags whose
-machinery is not ported (optax optimizers and schedules, evaluation,
-checkpoints and recovery, fault injection, observability, remat, FSDP,
-the mesh overlaps and schedules) exit with "not ported yet" when
-set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and ``--moe-mult`` are
+reference donates them). ``--zero-dp`` keeps each rank's dp shard of
+the params (ZeRO-3, gathered on use; ``--overlap prefetch`` gathers one
+block ahead) and ``--remat`` recomputes each block inside the backward.
+Every reference flag parses; the flags whose machinery is not ported
+(optax optimizers and schedules, evaluation, checkpoints and recovery,
+fault injection, observability, the tp/ep/pp overlaps and the pipeline
+schedules) exit with "not ported yet" when set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and ``--moe-mult`` are
 the port's own: a mesh other than ``build_mesh``'s
 factoring, and the FFN width of the 4x-FFN configurations.
 """
@@ -70,9 +72,7 @@ _FLAGS_NOT_PORTED = (
     ("fault_ckpt_corrupt_seed", "--fault-ckpt-corrupt-seed"),
     ("fault_ckpt_io_errors", "--fault-ckpt-io-errors"),
     ("obs_jsonl", "--obs-jsonl"), ("obs_window_step", "--obs-window-step"),
-    ("trace", "--trace"),
-    ("remat", "--remat"), ("zero_dp", "--zero-dp"),
-    ("overlap", "--overlap"), ("tp_overlap", "--tp-overlap"),
+    ("trace", "--trace"), ("tp_overlap", "--tp-overlap"),
     ("ep_overlap", "--ep-overlap"), ("pp_overlap", "--pp-overlap"),
     ("pp_chunks", "--pp-chunks"),
     ("pp_schedule", "--pp-schedule"), ("tick_lowering", "--tick-lowering"),
@@ -133,7 +133,7 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
     else:
         device = mesh.device
         params = F.place_flagship_params(
-            F.init_flagship_params(cfg, seed=seed, device="cpu"), mesh)
+            F.init_flagship_params(cfg, seed=seed, device="cpu"), mesh, cfg)
     make = (F.make_flagship_lm_train_step if cfg.vocab
             else F.make_flagship_train_step)
     step_fn = make(cfg, lr=lr, donate=True, mesh=mesh)
@@ -263,7 +263,8 @@ def _build_parser() -> argparse.ArgumentParser:
     for flag in ("flash", "norm", "dense-ffn", "rope", "remat", "zero-dp"):
         p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--overlap", default="none", choices=("none", "prefetch"),
-                   help=nyp)
+                   help="ZeRO gather schedule: prefetch gathers each "
+                        "block's params one block ahead (needs --zero-dp)")
     p.add_argument("--tp-overlap", default="none", choices=("none", "ring"),
                    help=nyp)
     p.add_argument("--ep-overlap", default="none", choices=("none", "ring"),
@@ -300,6 +301,7 @@ def config_from_args(args: argparse.Namespace):
         dtype=args.dtype, param_dtype=args.param_dtype,
         sp_strategy=args.sp_strategy, use_flash=args.flash,
         norm=args.norm, dense_ffn=args.dense_ffn, rope=args.rope,
+        remat=args.remat, zero_dp=args.zero_dp, overlap=args.overlap,
     )
 
 
