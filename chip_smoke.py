@@ -142,7 +142,28 @@ the first phase that goes wrong:
    steps each, with phase 5's gates, step ms, tokens/s and peak memory,
    each peak below phase 11's plain MoE peak; (c) ``zero_dp=True`` on a
    world of one through the mesh code: an empty ZeRO plan, losses
-   bitwise the plain step's, and no NCCL kernel in a profiled step.
+   bitwise the plain step's, and no NCCL kernel in a profiled step;
+13. patterns — (run right after phase 12) the benchmark's model
+   patterns on a world of one: (a) ``ring_attention --flash`` (also
+   with ``--attn-window 128``) and ``ulysses_attention --flash``
+   through ``cli.main`` at the CLI's defaults (B 8, H 8, T 512, D 64,
+   bf16, causal): each line parses, the flash forward launches once a
+   call, its ``--profile-dir`` trace holds it and no NCCL kernel; then both
+   patterns' workloads at flagship_large's attention width (B 4, H 16,
+   T 4096, D 128; the ring also with a window of 1024), their p50 and
+   TFLOP/s beside the attention function called from a host loop, the
+   forward kernel alone at that shape and phase 4's, each function's flash
+   output within 2e-2 (normalised L-inf) of its plain path; (b) the
+   RingTransformer at ``ModelConfig()``'s width (B 8, T 512, 8 heads x
+   64, bf16) on a (dp, sp, tp) mesh of one: the flash forward within
+   2e-2 of the plain one, 3 SGD steps with finite losses, the first
+   within 1e-2 relative of the port's CPU float32 evaluation; (c)
+   ``flagship_step`` at the CLI's tiny defaults in float32 and
+   bfloat16, then at phase 5's width without the vocabulary (the
+   pattern trains the block stack on the regression objective) for 3
+   steps: its p50 within 10 % of the same step called alone, each
+   flash kernel launched once a block a step; then with ``zero_dp``
+   and ``overlap="prefetch"``: an empty ZeRO plan and no NCCL kernel.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -2932,6 +2953,335 @@ def memory(TFA, dev, card, moe_peak: float) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phase 13
+
+
+SP_WIDTH = dict(batch=4, heads=16, seq=4096, head_dim=128)  # flagship_large's
+# attention (bench.py:545-550), without GQA: the SP patterns' q, k and v
+# carry the same heads
+SP_WINDOW = 1024
+SP_ITERS = 20
+
+
+def sp_runs():
+    """The SP workloads at ``SP_WIDTH``: (pattern, workload, builder,
+    window), shared with ``collectives_cards.py``."""
+    from tpu_p2p_torch.ops import attention as A
+    from tpu_p2p_torch.ops import ulysses as U
+    from tpu_p2p_torch.workloads.ring_attn import run_ring_attention
+    from tpu_p2p_torch.workloads.ulysses_attn import run_ulysses_attention
+
+    return (("ring_attention", run_ring_attention, A.ring_attention, 0),
+            ("ring_attention", run_ring_attention, A.ring_attention,
+             SP_WINDOW),
+            ("ulysses_attention", run_ulysses_attention,
+             U.ulysses_attention, 0))
+
+
+STEP_ITERS = 3                   # flagship_step timed steps (+1 warm-up)
+STEP_TOL = 0.10                  # pattern p50 vs the same step called alone
+RT_LOSS_TOL = 1e-2               # card bf16 vs CPU float32, first loss
+
+
+def counted(TFA, fn, launches: dict):
+    """``fn()`` with the flash counts set to 0 just before and read just
+    after, added into ``launches`` → its result."""
+    torch.cuda.synchronize()
+    TFA.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in TFA.launches.items():
+        launches[k] = launches.get(k, 0) + v
+    return out
+
+
+def trace_kernels(path: str) -> list:
+    """The kernel names of a ``--profile-dir`` trace."""
+    with open(path) as fh:
+        return [e["name"] for e in json.load(fh)["traceEvents"]
+                if e.get("cat") == "kernel"]
+
+
+SP_LINE = re.compile(r"p50 ([0-9.]+)ms/step +([0-9.]+) TFLOP/s")
+
+
+def sp_cli(TFA, launches: dict, card: str) -> None:
+    """Phase 13 (a), at the CLI's defaults (B 8, H 8, T 512, D 64, bf16,
+    causal) on a world of one: each command exits 0 and prints a line
+    that parses, its trace holds the flash forward kernel and no NCCL
+    kernel (the line has one rank), and the forward launches once a
+    call (warm-up included)."""
+    import tempfile
+
+    cmds = (["--pattern", "ring_attention", "--flash"],
+            ["--pattern", "ulysses_attention", "--flash"],
+            ["--pattern", "ring_attention", "--flash", "--attn-window",
+             "128"])
+    iters = 8
+    for argv in cmds:
+        with tempfile.TemporaryDirectory(prefix="smoke_sp_") as td:
+            mine = {}
+            out, _ = counted(TFA, lambda: cli_cell(
+                [*argv, "--iters", str(iters), "--profile-dir", td]), mine)
+            kernels = trace_kernels(os.path.join(td, "rank0.trace.json"))
+        m = SP_LINE.search(out)
+        if not m or not float(m.group(1)) > 0:
+            raise AssertionError(f"{argv}: unparsed line {out!r}")
+        nccl = sorted({k for k in kernels if "nccl" in k.lower()})
+        flash = [k for k in kernels if "flash_fwd" in k]
+        calls = iters + 1
+        # The wrapper's count is the launch count. One run's trace lacked
+        # one launch the wrapper counted, for a cause not found, so the
+        # trace only has to hold the kernel.
+        if nccl or not flash or mine["flash_fwd"] != calls:
+            raise AssertionError(
+                f"{argv}: NCCL kernels {nccl}, flash kernels in the trace "
+                f"{len(flash)}, launches {mine}, expected {calls} a call")
+        for k, v in mine.items():
+            launches[k] = launches.get(k, 0) + v
+        say(f"patterns cli {' '.join(argv)}: p50 {m.group(1)} ms, "
+            f"{m.group(2)} TFLOP/s (under the profiler) | flash forward "
+            f"{mine['flash_fwd'] / calls:g} launch a call, {len(kernels)} "
+            f"kernels in the trace ({len(flash)} of them flash), none of "
+            f"NCCL | {card}")
+
+
+def sp_width(TFA, dev, launches: dict, row3_ms: float, card: str) -> dict:
+    """Phase 13 (a), at flagship_large's attention width on a world of
+    one: ``ring_attention`` (no window, window 1024) and
+    ``ulysses_attention`` with ``--flash`` through their workloads, then
+    each attention function's flash output against its plain path on the same
+    inputs (normalised L-inf <= 2e-2, those calls not counted). → name →
+    (p50 ms, TFLOP/s)."""
+    from tpu_p2p_torch.config import BenchConfig
+    from tpu_p2p_torch.models.ring_transformer import ModelConfig
+    from tpu_p2p_torch.ops import attention as A
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.workloads.base import WorkloadContext
+
+    mc = ModelConfig(**SP_WIDTH)
+    b, h, t, d = mc.batch, mc.heads, mc.seq, mc.head_dim
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    rt = make_runtime(device=dev)
+    out = {}
+    try:
+        for pattern, run, build, window in sp_runs():
+            cfg = BenchConfig(pattern=pattern, use_flash=True,
+                              attn_window=window, iters=SP_ITERS)
+            ctx = WorkloadContext(rt=rt, cfg=cfg)
+            mine = {}
+            res = counted(TFA, lambda: run(ctx, mc), mine)
+            calls = SP_ITERS + 1
+            if mine["flash_fwd"] != calls:
+                raise AssertionError(f"{pattern} W{window}: launches {mine},"
+                                     f" expected {calls}")
+            for key, n in mine.items():
+                launches[key] = launches.get(key, 0) + n
+            w = window or None
+            fn = build(rt.mesh, "d", True, use_flash=True, window=w)
+            got = fn(q, k, v)
+            want = build(rt.mesh, "d", True, use_flash=False,
+                         window=w)(q, k, v)
+            err = norm_err(got, want)
+            del got, want
+            torch.cuda.empty_cache()
+            if not err <= FLASH_BF16_TOL:
+                raise AssertionError(f"{pattern} W{window}: flash vs plain "
+                                     f"{err:.3e} > {FLASH_BF16_TOL}")
+            # Where the pattern's time goes: the function's call from a
+            # host loop (no sync a call), and the kernel alone at this
+            # shape from a zero carry.
+            loop_ms = time_eager(lambda: fn(q, k, v), calls=10)
+            q3, k3, v3 = (x.reshape(b * h, t, d) for x in (q, k, v))
+            carry = TFA.zero_carry(b * h, t, d, dev)
+            alone_ms = time_eager(lambda: TFA._flash_call(
+                q3, k3, v3, *carry, causal=True, q_heads=h, window=w),
+                calls=10)
+            flops = A.flops_per_step(b, h, t, d, causal=True, window=w)
+            name = f"{pattern}{f' W{window}' if window else ''}"
+            out[name] = (res["p50_ms"], res["tflops"])
+            say(f"patterns {name} --flash @ B{b} H{h} T{t} D{d} bf16 "
+                f"causal, world of one: p50 {res['p50_ms']:.3f} ms, "
+                f"{res['tflops']:.1f} TFLOP/s ({flops / 1e12:.4f} TFLOP a "
+                f"step; a sync a call) | the call from a host loop "
+                f"{loop_ms:.3f} ms | the forward kernel alone at H{h}/{h} "
+                f"{alone_ms:.3f} ms = {flops / alone_ms / 1e9:.1f} TFLOP/s;"
+                f" at B{TRAIN['batch']} H{TRAIN['heads']}/"
+                f"{TRAIN['kv_heads']}, causal, no window (phase 4) "
+                f"{row3_ms:.3f} ms | flash vs plain {err:.2e} (tol "
+                f"{FLASH_BF16_TOL}) | flash forward "
+                f"{mine['flash_fwd'] / calls:g} launch a call | {card}")
+    finally:
+        rt.close()
+    return out
+
+
+def ring_transformer(TFA, dev, launches: dict, card: str) -> None:
+    """Phase 13 (b): the RingTransformer at ``ModelConfig()``'s width
+    (B 8, T 512, 8 heads x 64, mlp_mult 4, bf16) on a (dp, sp, tp) mesh
+    of one rank: ``make_forward`` with ``use_flash`` against the same
+    forward without it (2e-2), then 3 SGD steps of ``make_train_step``
+    (the forward without the flash kernels, as the reference's step):
+    finite losses, the first within 1e-2 relative of the port's CPU
+    float32 evaluation of the same params and batch."""
+    from tpu_p2p_torch.models import ring_transformer as M
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    cfg = M.ModelConfig()
+    rt = make_runtime(device=dev, mesh_shape=(1, 1, 1),
+                      axis_names=("dp", "sp", "tp"))
+    try:
+        mesh = rt.mesh
+        params = M.init_params(cfg, seed=0, device=dev)
+        x, t = M.example_batch(cfg, mesh, seed=1)
+        mine = {}
+        got = counted(TFA, lambda: M.make_forward(
+            mesh, dataclasses.replace(cfg, use_flash=True))(params, x), mine)
+        if mine["flash_fwd"] != 1:
+            raise AssertionError(f"ring transformer forward: {mine}")
+        want = M.make_forward(mesh, cfg)(params, x)
+        err = norm_err(got, want)
+        if not err <= FLASH_BF16_TOL:
+            raise AssertionError(f"ring transformer flash forward vs plain "
+                                 f"{err:.3e} > {FLASH_BF16_TOL}")
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        _, cpu_loss = M.make_train_step(None, f32)(
+            {k: v.float().cpu() for k, v in params.items()},
+            x.float().cpu(), t.float().cpu())
+        step = M.make_train_step(mesh, cfg)
+        losses = []
+
+        def steps():
+            nonlocal params
+            for _ in range(3):
+                params, loss = step(params, x, t)
+                losses.append(loss.item())
+
+        counted(TFA, steps, mine)
+        rel = abs(losses[0] - cpu_loss.item()) / abs(cpu_loss.item())
+        if not all(math.isfinite(v) for v in losses) or not rel <= \
+                RT_LOSS_TOL:
+            raise AssertionError(f"ring transformer losses {losses}, CPU "
+                                 f"float32 {cpu_loss.item()} (rel {rel:.2e})")
+        for key, n in mine.items():
+            launches[key] = launches.get(key, 0) + n
+    finally:
+        rt.close()
+    say(f"patterns RingTransformer (B{cfg.batch} T{cfg.seq} H{cfg.heads}x"
+        f"{cfg.head_dim} mlp {cfg.mlp_mult} bf16, mesh dp sp tp = 1 1 1): "
+        f"flash forward vs plain {err:.2e} (tol {FLASH_BF16_TOL}); SGD "
+        f"losses {losses}, first vs CPU float32 {cpu_loss.item():.6f}: "
+        f"{rel:.2e} (tol {RT_LOSS_TOL}) | flash launches {mine} | {card}")
+
+
+def flagship_pattern(TFA, dev, launches: dict, lm_step_ms: float,
+                     card: str) -> None:
+    """Phase 13 (c): ``--pattern flagship_step`` at the CLI's tiny
+    defaults in float32 and bfloat16; then the workload at phase 5's
+    width (``TRAIN`` without the vocabulary: the pattern trains the
+    block stack on the regression objective), whose p50 must lie within
+    10 % of the same step called alone, each flash kernel launched once
+    a block a step; then with ``zero_dp`` and ``overlap="prefetch"`` on
+    the world of one: an empty ZeRO plan and no NCCL kernel in the
+    profiled run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch.config import BenchConfig
+    from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.workloads.base import WorkloadContext
+    from tpu_p2p_torch.workloads.flagship_step import run_flagship_step
+
+    for dtype in ("float32", "bfloat16"):
+        out, _ = counted(TFA, lambda: cli_cell(
+            ["--pattern", "flagship_step", "--dtype", dtype, "--iters",
+             "4"]), launches)
+        if "flagship_step mesh {'dp': 1, 'pp': 1, 'sp': 1, 'tp': 1, " \
+                "'ep': 1}" not in out or "tokens/s" not in out:
+            raise AssertionError(f"flagship_step {dtype}: {out!r}")
+    cfg = F.FlagshipConfig(**{**TRAIN, "vocab": 0})
+    zcfg = dataclasses.replace(cfg, zero_dp=True, overlap="prefetch")
+    steps = STEP_ITERS + 1
+    rt = make_runtime(device=dev)
+    try:
+        ctx = WorkloadContext(rt=rt, cfg=BenchConfig(
+            pattern="flagship_step", iters=STEP_ITERS))
+        mine = {}
+        res = counted(TFA, lambda: run_flagship_step(ctx, cfg), mine)
+        check_launches(mine, cfg, steps)
+        if not math.isfinite(res["loss"]):
+            raise AssertionError(f"flagship_step TRAIN: loss {res['loss']}")
+        for key, n in mine.items():
+            launches[key] = launches.get(key, 0) + n
+        # The same step called alone, from the same params and batch.
+        params = F.init_flagship_params(cfg, device=dev)
+        x, t = (a.to(dev) for a in F.flagship_host_batch(
+            cfg, np.random.default_rng(1)))
+        step = F.make_flagship_train_step(cfg)
+        alone = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, loss = step(params, x, t)
+            loss.item()
+            alone.append((time.perf_counter() - t0) * 1e3)
+        del params, step
+        torch.cuda.empty_cache()
+        alone_ms = statistics.median(alone[1:])
+        if not abs(res["p50_ms"] - alone_ms) <= STEP_TOL * alone_ms:
+            raise AssertionError(f"flagship_step p50 {res['p50_ms']:.1f} ms"
+                                 f" vs the step alone {alone_ms:.1f} ms")
+        mesh = F.build_mesh(1, runtime=rt)
+        if F._fsdp_plan(mesh, zcfg) is not None:
+            raise AssertionError("zero_dp on a world of one planned shards")
+        zmine = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            zres = counted(TFA, lambda: run_flagship_step(ctx, zcfg), zmine)
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA]
+        nccl = sorted({k for k in kernels if "nccl" in k.lower()})
+        check_launches(zmine, zcfg, steps)
+        if not kernels or nccl:
+            raise AssertionError(f"flagship_step zero_dp + prefetch, world "
+                                 f"of one: {len(kernels)} kernels, NCCL "
+                                 f"{nccl}")
+        for key, n in zmine.items():
+            launches[key] = launches.get(key, 0) + n
+    finally:
+        rt.close()
+    tokens = cfg.batch * cfg.seq
+    say(f"patterns flagship_step (flagship_large blocks, B{cfg.batch} "
+        f"T{cfg.seq}, {cfg.stages} blocks, bf16, flash, MSE, {STEP_ITERS} "
+        f"steps + 1 warm-up): p50 {res['p50_ms']:.1f} ms = "
+        f"{res['tokens_per_s']:.0f} tokens/s | the step alone "
+        f"{alone_ms:.1f} ms (tol {STEP_TOL:.0%}); phase 5's LM step "
+        f"{lm_step_ms:.0f} ms = {tokens / lm_step_ms * 1e3:.0f} tokens/s | "
+        f"flash launches {mine} | zero_dp + prefetch, world of one: empty "
+        f"plan, p50 {zres['p50_ms']:.1f} ms under the profiler, "
+        f"{len(kernels)} kernels, none of NCCL | {card}")
+
+
+def patterns(TFA, dev, card, row3_ms: float, lm_step_ms: float) -> dict:
+    """Phase 13: the benchmark's model patterns on one card. → the flash
+    launches of the runs that drove them (not of the comparisons)."""
+    t0 = time.perf_counter()
+    launches = {}
+    sp_cli(TFA, launches, card)
+    torch.cuda.empty_cache()
+    sp_width(TFA, dev, launches, row3_ms, card)
+    torch.cuda.empty_cache()
+    ring_transformer(TFA, dev, launches, card)
+    torch.cuda.empty_cache()
+    flagship_pattern(TFA, dev, launches, lm_step_ms, card)
+    torch.cuda.empty_cache()
+    say(f"phase 13 (patterns): {time.perf_counter() - t0:.1f} s | flash "
+        f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -2996,6 +3346,8 @@ def main() -> int:
     say(f"phase 10 (mesh): {time.perf_counter() - t0:.1f} s")
     moe_launches = moe(TFA, TK, dev, card)
     mem_launches = memory(TFA, dev, card, moe_launches["train_peak_gib"])
+    row3_ms = next(k["ms"] for k in kernels if k["name"] == "flash_fwd")
+    pat_launches = patterns(TFA, dev, card, row3_ms, trn["step_ms_p50"])
 
     cfg = FlagshipConfig(batch=SLOTS, **MODEL)
     t0 = time.perf_counter()
@@ -3026,6 +3378,7 @@ def main() -> int:
     paths = {name: {"train": n, "mesh_train": mesh_launches[name],
                     "ring": ring_launches_total[name],
                     "moe_train": moe_launches["train"][name],
+                    "patterns": pat_launches[name],
                     **{f"memory_{k}": v[name]
                        for k, v in mem_launches.items()}}
              for name, n in trn["launches"].items()}

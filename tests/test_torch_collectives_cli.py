@@ -158,8 +158,12 @@ def test_float32_check_fails_like_the_reference(port):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--hybrid"], ["--pattern", "ring_attention"],
-    ["--pattern", "ulysses_attention"], ["--pattern", "flagship_step"],
+    ["--hybrid"],
+    ["--pattern", "flagship_step", "--tp-overlap", "ring"],
+    ["--pattern", "flagship_step", "--ep-overlap", "ring"],
+    ["--pattern", "flagship_step", "--pp-overlap", "wave"],
+    ["--pattern", "flagship_step", "--pp-schedule", "zb"],
+    ["--pattern", "flagship_step", "--tick-lowering", "switch"],
 ])
 def test_still_unported_flags_exit_2(argv, capsys):
     assert TCLI.main(["--cpu-mesh", "2", *argv]) == 2

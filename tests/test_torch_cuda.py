@@ -764,3 +764,33 @@ def test_mesh_step_on_ranks_sharing_a_card_raises(cuda):
     cases = os.path.join(os.path.dirname(__file__), "torch_flagship_world.py")
     for err in run_world(2, f"{cases}:shared_card_case", {}, timeout=600):
         assert err is not None and "needs one card per rank" in err, err
+
+
+# ------------------------------------------ the benchmark's SP patterns
+# chip_smoke.py's phase 13 (a) at a small size: the ring_attention
+# entry on a world of one, the flash kernels against the plain path.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100], ids=["causal", "window"])
+def test_ring_attention_entry_flash_matches_plain_on_card(cuda, window):
+    import chip_smoke
+    from tpu_p2p_torch.ops import attention as A
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    g = torch.Generator(device="cpu").manual_seed(13)
+    q, k, v = (torch.randn((2, 4, 512, 64), generator=g).to(
+        cuda, torch.bfloat16) for _ in range(3))
+    rt = make_runtime(device=cuda)
+    try:
+        TFA.reset_launches()
+        got = A.ring_attention(rt.mesh, "d", True, use_flash=True,
+                               window=window)(q, k, v)
+        torch.cuda.synchronize()
+        assert TFA.launches["flash_fwd"] == 1
+        want = A.ring_attention(rt.mesh, "d", True, use_flash=False,
+                                window=window)(q, k, v)
+        assert TFA.launches["flash_fwd"] == 1
+        assert chip_smoke.norm_err(got, want) <= chip_smoke.FLASH_BF16_TOL
+    finally:
+        rt.close()

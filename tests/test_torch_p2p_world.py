@@ -451,11 +451,8 @@ def test_cli_sweep_fused_jsonl_resume_and_num_devices(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--pattern", "ring_attention"], ["--pattern", "ulysses_attention"],
-    ["--zero-dp"], ["--hybrid"], ["--attn-window", "8"],
-    ["--overlap", "prefetch"], ["--ep-overlap", "ring"],
-    ["--pattern", "flagship_step"],
-    ["--flash"], ["--tp-overlap", "ring"], ["obs"], ["topo"], ["zb"],
+    ["--hybrid"], ["--ep-overlap", "ring"], ["--tp-overlap", "ring"],
+    ["obs"], ["topo"], ["zb"],
 ])
 def test_unported_flags_exit_2(argv, capsys):
     assert TCLI.main(argv) == 2

@@ -9,15 +9,18 @@ default the uni- then bi-directional all-pairs Gbps matrix at 32 MiB ×
 
 ``--cpu-mesh N`` spawns the N ranks itself (the counterpart of the
 reference's N simulated devices); rank 0 alone prints, and the command
-exits with the worst rank's code. ``--pattern`` runs the reference's
-transfer patterns (pairwise, latency, loopback, ring, torus2d over
-``--mesh-shape AxB``, all_to_all, allreduce, reduce_scatter,
-all_gather); ``--mode device`` publishes the card's clock,
-``--validate-timing`` cross-checks it against the host clock after the
-run, ``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run.
-``serve`` runs the serving engine and ``train`` the training loop. The
-reference's flags and subcommands the port does not run yet (the
-model-step patterns and their knobs, ``--hybrid``, ``obs``, ``topo``,
+exits with the worst rank's code. ``--pattern`` runs every pattern of
+the reference: the transfers (pairwise, latency, loopback, ring,
+torus2d over ``--mesh-shape AxB``, all_to_all, allreduce,
+reduce_scatter, all_gather) and the model patterns (ring_attention and
+ulysses_attention, with ``--flash`` and ``--attn-window``;
+flagship_step, with ``--zero-dp`` and ``--overlap``); ``--mode device``
+publishes the card's clock, ``--validate-timing`` cross-checks it
+against the host clock after the run, ``--profile-dir DIR`` writes a
+``torch.profiler`` trace of the run. ``serve`` runs the serving engine
+and ``train`` the training loop. The reference's flags and subcommands
+the port does not run yet (``--hybrid``, flagship_step's tp/ep/pp
+overlaps, pipeline schedule and tick lowering, ``obs``, ``topo``,
 ``zb``) parse and exit 2 with "not ported yet".
 """
 
@@ -41,9 +44,9 @@ from tpu_p2p_torch.config import (
 )
 from tpu_p2p_torch.utils.errors import fail_fast
 
-PORTED_PATTERNS = ("pairwise", "latency", "loopback", "ring", "torus2d",
-                   "all_to_all", "allreduce", "reduce_scatter",
-                   "all_gather")
+# Flags of the reference CLI that the port parses but does not run.
+UNPORTED_FLAGS = ("hybrid", "tp_overlap", "ep_overlap", "pp_overlap",
+                  "pp_schedule", "tick_lowering")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,13 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
             "P2P bandwidth matrices (the reference workload), ring / "
             "2-D torus shifts, all_to_all and the NCCL reductions, and "
             "small-message latency, over NCCL or the hand-written "
-            "peer-push kernel."
+            "peer-push kernel; ring and Ulysses sequence-parallel "
+            "attention and the five-axis flagship train step."
         ),
     )
     p.add_argument("--pattern", choices=PATTERNS, default="pairwise",
                    help="workload to run (default: the reference's "
-                        "all-pairs matrix); ported: "
-                        + ", ".join(PORTED_PATTERNS))
+                        "all-pairs matrix)")
     p.add_argument("--msg-size", default=None, metavar="SIZE",
                    help="payload per message, e.g. 4KiB, 32MiB, 1GiB "
                         "(default: 32MiB per the reference; latency/"
@@ -116,13 +119,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "chain (loopback on 1 rank, ring otherwise); "
                         "MISMATCH exits nonzero")
     p.add_argument("--flash", action="store_true",
-                   help="ring_attention flash kernel (not ported yet)")
+                   help="ring_attention / ulysses_attention: attention "
+                        "in the hand-written flash kernels")
     p.add_argument("--attn-window", type=int, default=0, metavar="W",
-                   help="sliding-window attention (not ported yet)")
+                   help="ring/ulysses_attention: sliding-window "
+                        "attention; windowed contiguous rings drop their "
+                        "dead hops")
     p.add_argument("--zero-dp", action="store_true",
-                   help="flagship_step ZeRO-3 (not ported yet)")
+                   help="flagship_step: ZeRO-3 parameter sharding over "
+                        "the dp axis")
     p.add_argument("--overlap", choices=("none", "prefetch"), default="none",
-                   help="flagship_step FSDP gather schedule (not ported yet)")
+                   help="flagship_step + --zero-dp: the ZeRO gather "
+                        "schedule (prefetch = each block's gather issued "
+                        "one block ahead)")
     p.add_argument("--tp-overlap", choices=("none", "ring"), default="none",
                    help="flagship_step tp-join schedule (not ported yet)")
     p.add_argument("--ep-overlap", choices=("none", "ring"), default="none",
@@ -144,12 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
 def unported(args: argparse.Namespace) -> Optional[str]:
     """The first flag of the reference CLI this run sets that the port
     does not run yet, or None."""
-    if args.pattern not in PORTED_PATTERNS:
-        return f"--pattern {args.pattern}"
     defaults = build_parser().parse_args([])
-    for flag in ("hybrid", "flash", "attn_window", "zero_dp", "overlap",
-                 "tp_overlap", "ep_overlap", "pp_overlap", "pp_schedule",
-                 "tick_lowering"):
+    for flag in UNPORTED_FLAGS:
         if getattr(args, flag) != getattr(defaults, flag):
             return "--" + flag.replace("_", "-")
     return None
@@ -185,6 +190,10 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         jsonl=args.jsonl,
         resume=args.resume,
         profile_dir=args.profile_dir,
+        use_flash=args.flash,
+        attn_window=args.attn_window,
+        zero_dp=args.zero_dp,
+        overlap=args.overlap,
     )
 
 

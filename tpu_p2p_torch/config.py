@@ -100,8 +100,8 @@ PATTERNS = (
     "ulysses_attention",  # all_to_all SP counterpart (configs[3] transport)
     "flagship_step",  # the composite 5-axis train-step benchmark
 )
-# The reference's whole pattern list, so the CLI parses every name;
-# the port runs those its workload registry holds (the rest exit 2).
+# The reference's whole pattern list; the port's workload registry
+# runs every one.
 
 MODES = ("serialized", "fused", "differential", "device")
 # serialized = one message in flight, drained each time (the reference's
@@ -124,8 +124,9 @@ TICK_LOWERINGS = ("masked", "switch")
 @dataclass
 class BenchConfig:
     """Everything a benchmark run needs; defaults = the reference's
-    constants. The flagship-step fields of the reference config are
-    parsed by the CLI but not ported, so they are not here."""
+    constants. The reference's tp/ep/pp overlap, pipeline-schedule and
+    tick-lowering fields are parsed by the CLI but not ported (it
+    refuses them), so they are not here."""
 
     pattern: str = "pairwise"
     # None = unset; bandwidth patterns then use the reference's 32 MiB
@@ -147,7 +148,18 @@ class BenchConfig:
     check: bool = False  # verify payload contents after transfer
     jsonl: Optional[str] = None  # structured twin of the stdout matrix
     resume: bool = False  # skip cells already present in jsonl
+    seed: int = 0  # the SP patterns' QKV draws
     profile_dir: Optional[str] = None  # torch.profiler trace output
+    use_flash: bool = False  # the flash kernels on the SP attention
+    # patterns (the ring's folds, Ulysses' full-sequence call)
+    attn_window: int = 0  # > 0: sliding-window attention on the SP
+    # patterns; windowed contiguous rings also drop their dead hops
+    # (tpu_p2p_torch.ops.attention.live_ring_hops)
+    overlap: str = "none"  # flagship_step: the ZeRO gather schedule
+    # ("prefetch" = each block's gather issued one block ahead), as
+    # FlagshipConfig.overlap; other patterns ignore it
+    zero_dp: bool = False  # flagship_step: ZeRO-3 parameter sharding
+    # over the dp axis (FlagshipConfig.zero_dp)
     transport: str = "xla"
 
     def __post_init__(self) -> None:
@@ -163,11 +175,25 @@ class BenchConfig:
                 f"direction {self.direction!r} not in {DIRECTIONS}")
         if self.iters <= 0:
             raise ValueError("iters must be positive")
+        if self.attn_window < 0:
+            raise ValueError(
+                f"attn_window must be >= 0, got {self.attn_window}"
+            )
+        if self.overlap not in ("none", "prefetch"):
+            raise ValueError(
+                f"unknown overlap {self.overlap!r}; expected 'none' "
+                "or 'prefetch'"
+            )
         if self.transport not in TRANSPORTS:
             raise ValueError(
                 f"unknown transport {self.transport!r}; expected one "
                 f"of {TRANSPORTS}"
             )
+
+    @property
+    def window(self) -> Optional[int]:
+        """``attn_window`` in the ops' convention (0 → None)."""
+        return self.attn_window or None
 
     def sizes(self) -> Tuple[int, ...]:
         if self.sweep:

@@ -211,16 +211,24 @@ def mesh_dims(n_devices: int) -> Tuple[int, ...]:
 
 
 def build_mesh(n_devices: int, device=None,
-               dims: Optional[Sequence[int]] = None):
+               dims: Optional[Sequence[int]] = None, runtime=None):
     """The five-axis mesh over this world of ``n_devices`` ranks (one
     process a rank: ``torchrun``, or ``--cpu-mesh N``): ``dims`` (dp,
     pp, sp, tp, ep), by default :func:`mesh_dims`. Makes the runtime
     (``mesh.runtime``; close it when done) and the groups of every line
     of every axis of size > 1. ``device`` as
-    :func:`tpu_p2p_torch.parallel.runtime.make_runtime` takes it."""
+    :func:`tpu_p2p_torch.parallel.runtime.make_runtime` takes it.
+    ``runtime``: lay the mesh over that world instead (the benchmark's,
+    whose process group exists already); its groups are reused where a
+    line's ranks match a group it made."""
     from tpu_p2p_torch.parallel.runtime import make_runtime
 
+    dims = tuple(dims or mesh_dims(n_devices))
+    if runtime is not None:
+        if runtime.world != n_devices:
+            raise ValueError(f"a mesh of {n_devices} devices over a world "
+                             f"of {runtime.world}")
+        return runtime.axis_mesh(dims, AXES)
     rt = make_runtime(num_devices=n_devices, device=device,
-                      mesh_shape=tuple(dims or mesh_dims(n_devices)),
-                      axis_names=AXES)
+                      mesh_shape=dims, axis_names=AXES)
     return rt.mesh

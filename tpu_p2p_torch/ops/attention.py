@@ -14,6 +14,9 @@ while each rank folds them into its ``(o, m, l)`` carry; the flash form
 is :mod:`tpu_p2p_torch.ops.ring_flash`. The zigzag layout
 (:func:`zigzag_chunks`) gives every rank one early and one mirrored
 late half-chunk, so causal work is even across ranks.
+:func:`ring_attention` is the benchmark's entry (this rank's blocks in
+and out), with :func:`flops_per_step` and :func:`kv_bytes_per_hop` its
+accounting.
 """
 
 from __future__ import annotations
@@ -205,6 +208,58 @@ def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_cur, v_cur = k_nxt, v_nxt
     o, m, l = accumulate(o, m, l, k_cur, v_cur, (my - hops) % n)
     return finalize(o, m, l, q.dtype)
+
+
+def ring_attention(mesh, axis: str, causal: bool = False,
+                   use_flash: bool = False, layout: str = "contiguous",
+                   window: Optional[int] = None):
+    """Ring attention over ``mesh`` as the benchmark calls it: → ``fn(q,
+    k, v)`` of this rank's blocks of global ``[B, H, T, D]`` arrays
+    with ``T`` split along ``axis`` (placed with
+    :func:`attention_sharding`), returning this rank's block of the
+    output. The other axes of the mesh replicate. ``layout="zigzag"``:
+    the global arrays are in zigzag order (:func:`to_zigzag`)."""
+    line = mesh.line(axis)
+
+    def fn(q, k, v):
+        return ring_attention_local(q, k, v, line, causal=causal,
+                                    use_flash=use_flash, layout=layout,
+                                    window=window)
+
+    return fn
+
+
+def attention_sharding(mesh, axis: str) -> tuple:
+    """The spec of a global ``[B, H, T, D]`` attention operand: ``T``
+    split along ``axis`` (:func:`~tpu_p2p_torch.parallel.runtime.
+    local_shard` takes this rank's block)."""
+    del mesh
+    return (None, None, axis, None)
+
+
+def flops_per_step(b: int, h: int, t: int, d: int, *, causal: bool = False,
+                   window: Optional[int] = None) -> int:
+    """Attention FLOPs of one forward: 2·(QK) + 2·(PV) products. Causal
+    halves the score matrix; a window further limits query ``i`` to
+    ``min(i + 1, W)`` keys."""
+    if causal and window is not None:
+        w = min(window, t)
+        keys = t * w - w * (w - 1) // 2
+        return 4 * b * h * keys * d
+    total = 4 * b * h * t * t * d
+    return total // 2 if causal else total
+
+
+def itemsize(dtype) -> int:
+    """Bytes of one element of ``dtype`` (a torch dtype or its name)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return dtype.itemsize
+
+
+def kv_bytes_per_hop(b: int, h: int, t_local: int, d: int, dtype) -> int:
+    """Bytes each rank ships a ring hop (its K and V blocks)."""
+    return 2 * b * h * t_local * d * itemsize(dtype)
 
 
 def zigzag_perm(n: int, seq: int) -> list:

@@ -11,7 +11,8 @@ back. Needs ``H`` and ``H_kv`` divisible by the line's size.
 
 from __future__ import annotations
 
-from tpu_p2p_torch.ops.attention import _check_window, dense_attention
+from tpu_p2p_torch.ops.attention import _check_window, dense_attention, \
+    itemsize
 from tpu_p2p_torch.parallel.collectives import axis_all_to_all
 
 
@@ -38,3 +39,26 @@ def ulysses_attention_local(q, k, v, line, *, causal: bool = False,
     else:
         ah = dense_attention(qh, kh, vh, causal=causal, window=window)
     return axis_all_to_all(ah, line, 2, 1)
+
+
+def ulysses_attention(mesh, axis: str, causal: bool = False,
+                      use_flash: bool = False, window=None):
+    """Ulysses attention over ``mesh`` as the benchmark calls it, with
+    :func:`tpu_p2p_torch.ops.attention.ring_attention`'s convention:
+    ``fn(q, k, v)`` of this rank's ``T`` blocks along ``axis`` → this
+    rank's block of the output."""
+    line = mesh.line(axis)
+
+    def fn(q, k, v):
+        return ulysses_attention_local(q, k, v, line, causal=causal,
+                                       use_flash=use_flash, window=window)
+
+    return fn
+
+
+def a2a_bytes_per_reshard(b: int, h: int, t: int, d: int, n: int,
+                          dtype) -> int:
+    """Bytes each rank exchanges a tensor reshard: all but the ``1/n``
+    chunk it keeps of its ``B·H·(T/n)·D`` block."""
+    local = b * h * t * d * itemsize(dtype) // n
+    return local * (n - 1) // n

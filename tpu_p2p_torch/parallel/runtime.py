@@ -385,6 +385,35 @@ class Runtime:
                 mine = groups
         return mine
 
+    def axis_mesh(self, dims: Sequence[int],
+                  axis_names: Sequence[str]) -> Mesh:
+        """A mesh of the whole world over named axes, row-major in rank
+        order, with the groups of every line of every axis of size > 1
+        made axis by axis, line by line (:meth:`groups`: every rank
+        calls this, in the same order; a rank set made before shares its
+        groups). On cards each new line's communicator is formed here,
+        so a step's first collective is not its first call."""
+        dims = tuple(int(d) for d in dims)
+        names = tuple(axis_names)
+        check(math.prod(dims) == self.world,
+              f"mesh shape {dims} != {self.world} devices")
+        check(len(names) == len(dims) and len(set(names)) == len(names),
+              f"mesh shape {dims} over axes {names}: one distinct name "
+              "per axis (the default names cover 1-D or 2-D meshes)")
+        world = self.mesh
+        mesh = Mesh(ranks=world.ranks, rank=self.rank, device=self.device,
+                    host_group=world.host_group,
+                    device_group=world.device_group, windows=world.windows,
+                    axis_names=names, dims=dims, runtime=self)
+        if len(dims) > 1:
+            lines = [mesh.line(name) for name in names]
+            if world.device_group is not None:
+                for line in lines:  # every rank: its lines in axis order
+                    if line.device_group is not None and line.size > 1:
+                        dist.all_reduce(torch.zeros(1, device=self.device),
+                                        group=line.device_group)
+        return mesh
+
     def submesh(self, device_ids: Sequence[int]) -> Mesh:
         """The 1-D mesh over ``device_ids`` (pair isolation), made with
         :meth:`groups` (so every rank calls it, in the same order)."""
@@ -539,29 +568,14 @@ def make_runtime(num_devices: Optional[int] = None,
         # Form the communicator with every rank now: a later
         # batch_isend_irecv over a pair must not be its first call.
         dist.all_reduce(torch.zeros(1, device=device), group=device_group)
-    if mesh_shape is None:
-        dims = (world,)
-        names = tuple(axis_names or (MESH_AXIS,))
-    else:
-        dims = tuple(int(d) for d in mesh_shape)
-        check(math.prod(dims) == world,
-              f"mesh shape {dims} != {world} devices")
-        names = tuple(axis_names or MESH_AXES_2D[:len(dims)])
-    check(len(names) == len(dims) and len(set(names)) == len(names),
-          f"mesh shape {dims} over axes {names}: one distinct name per "
-          "axis (the default names cover 1-D or 2-D meshes)")
-    mesh = Mesh(ranks=tuple(range(world)), rank=rank, device=device,
-                host_group=dist.group.WORLD, device_group=device_group,
-                axis_names=names, dims=dims)
+    flat = Mesh(ranks=tuple(range(world)), rank=rank, device=device,
+                host_group=dist.group.WORLD, device_group=device_group)
     rt = Runtime(rank=rank, world=world, device=device,
-                 placement=placement, mesh=mesh)
-    rt._groups[mesh.ranks] = (mesh.host_group, device_group, mesh.windows)
-    if len(dims) > 1:
-        mesh.runtime = rt
-        lines = [mesh.line(name) for name in names]
-        if device_group is not None:
-            for line in lines:  # every rank: its lines in axis order
-                if line.device_group is not None and line.size > 1:
-                    dist.all_reduce(torch.zeros(1, device=device),
-                                    group=line.device_group)
+                 placement=placement, mesh=flat)
+    rt._groups[flat.ranks] = (flat.host_group, device_group, flat.windows)
+    if mesh_shape is not None:
+        rt.mesh = rt.axis_mesh(
+            mesh_shape, axis_names or MESH_AXES_2D[:len(mesh_shape)])
+    elif axis_names:
+        rt.mesh = rt.axis_mesh((world,), axis_names)
     return rt

@@ -1,7 +1,8 @@
-"""Benchmark workloads, registered by name for the CLI — the patterns
-ported so far: ``pairwise``, ``latency``, ``loopback``, ``ring``,
-``torus2d``, ``all_to_all``, ``allreduce``, ``reduce_scatter`` and
-``all_gather``.
+"""Benchmark workloads, registered by name for the CLI — every pattern
+of the reference: ``pairwise``, ``latency``, ``loopback``, ``ring``,
+``torus2d``, ``all_to_all``, ``allreduce``, ``reduce_scatter``,
+``all_gather``, ``ring_attention``, ``ulysses_attention`` and
+``flagship_step``.
 
 Importing this package registers them in
 :data:`tpu_p2p_torch.workloads.base.WORKLOADS`.
@@ -11,8 +12,11 @@ from tpu_p2p_torch.workloads.base import WORKLOADS, WorkloadContext, workload  #
 from tpu_p2p_torch.workloads import (  # noqa: F401  (registration)
     allreduce,
     alltoall,
+    flagship_step,
     latency,
     pairwise,
     ring,
+    ring_attn,
     torus,
+    ulysses_attn,
 )
