@@ -99,8 +99,9 @@ the first phase that goes wrong:
    The fused-ship kernel against its plain version and
    ``expected_permute`` on 2 and 4 in-process ranks, bitwise, and its
    time beside a token-chunk GEMM: ship alone, compute alone, fused,
-   and their overlap; then one ship alone and one fused under
-   ``torch.profiler``, split into push, arrival, spin and idle time.
+   and their overlap; then, in a process of its own, one ship alone
+   and one fused under ``torch.profiler``, split into push, arrival,
+   spin and idle time.
    In-process ranks run concurrently on the card, so the migration Gbps
    are on-card copies, not link numbers;
 10. mesh    — (run right after phase 5) the training step's
@@ -164,6 +165,21 @@ the first phase that goes wrong:
    steps: its p50 within 10 % of the same step called alone, each
    flash kernel launched once a block a step; then with ``zero_dp``
    and ``overlap="prefetch"``: an empty ZeRO plan and no NCCL kernel.
+14. loop    — (run right after phase 13) the training loop's optimizer,
+   evaluation and durable checkpoints at phase 5's width: (a)
+   ``run_training`` with AdamW (weight decay 0.01), global-norm
+   clipping at 1.0, one warmup step and the cosine schedule for 4
+   steps, eval every 2 steps on one held-out batch, a generation every
+   2 steps keeping 2: finite losses, the first near ln V, eval records
+   at steps 2 and 4, both generations verify, each flash kernel once a
+   block a step (the forward once more a block an evaluation); step ms
+   beside phase 5's SGD p50, peak memory, each save's ms, bytes and
+   GB/s, the verifying load's ms; (b) a resume to step 4 from a copy of
+   the directory without ``gen-000004``: start step 2, the loss and
+   every param bitwise (a)'s (else the largest difference, held within
+   1e-6 relative); (c) ``run_training_supervised`` with a simulated
+   crash 512 bytes into the step-4 save: one restart from
+   ``gen-000002``, the three ``# supervise:`` lines, (a)'s final loss.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -2002,7 +2018,9 @@ def ship_profile(card: str) -> dict:
     the profiler recorded, and the kernels of the call with the median
     span (µs from its first kernel). The same calls run once first as
     the profiler's warm-up cycle: the first events after tracing starts
-    can be lost (a lost sleep merges or drops a call)."""
+    can be lost (a lost sleep merges or drops a call). :func:`ship` runs
+    it in a process of its own: in a process minutes old the profiler
+    loses and misplaces device events (PERF.md § 7)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     mesh, _, _, calls = ship_cases()
@@ -2378,6 +2396,8 @@ def profile_disagg(cfg, params, card: str) -> None:
 def ship(card: str, dis: dict) -> dict:
     """The kernel checks on 2 and 4 ranks, the timing, and the row of
     the kernels line."""
+    from tpu_p2p_torch.parallel.launch import run_world
+
     checks = [ship_kernel_checks(n) for n in (2, 4)]
     for n, c in zip((2, 4), checks):
         if c["bad"]:
@@ -2388,7 +2408,7 @@ def ship(card: str, dis: dict) -> dict:
         f"136 B int8 and {list(SHIP_CHUNK)} bf16, y == the product on the "
         f"side, backward == the reverse hop | {card}")
     tm = ship_timing(card)
-    ship_profile(card)
+    run_world(1, f"{__file__}:ship_profile", {"card": card}, timeout=300)
     return {
         "name": "dma_ship", "route": "cuda",
         "source": "tpu_p2p_torch/csrc/p2p_dma.cu",
@@ -3282,6 +3302,227 @@ def patterns(TFA, dev, card, row3_ms: float, lm_step_ms: float) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- phase 14
+
+
+LOOP_LR = 3e-4                   # AdamW (at 1e-2 its loss climbs to 18)
+LOOP = dict(optimizer="adamw", weight_decay=0.01, clip_norm=1.0,
+            warmup_steps=1, schedule="cosine", eval_every=2, eval_batches=1,
+            ckpt_every=2, ckpt_keep=2)
+LOOP_STEPS = 4
+RESUME_RTOL = 1e-6
+
+
+class SaveClock:
+    """Times every ``save_generation`` the loop makes (wrapping the
+    module function for the phase): → ``[(step, ms, bytes), ...]``."""
+
+    def __init__(self):
+        from tpu_p2p_torch.utils import checkpoint as C
+
+        self.C, self.real, self.saves = C, C.save_generation, []
+
+    def __enter__(self):
+        def timed(path, params, step, **kw):
+            t0 = time.perf_counter()
+            try:
+                stats = self.real(path, params, step, **kw)
+            except BaseException:
+                self.saves.append((step, 1e3 * (time.perf_counter() - t0),
+                                   None))
+                raise
+            self.saves.append((step, 1e3 * (time.perf_counter() - t0),
+                               stats["bytes"]))
+            return stats
+
+        self.C.save_generation = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.C.save_generation = self.real
+
+
+def loop_run(cfg, TFA, dev, fn, **kw) -> dict:
+    """``fn`` (``run_training`` or its supervisor) at phase 5's width
+    with ``LOOP``'s flags and a record every step → the records, the
+    summary, the flash launches, the saves and the peak memory."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TFA.reset_launches()
+    t0 = time.perf_counter()
+    with SaveClock() as clock:
+        out = fn(cfg, steps=LOOP_STEPS, lr=LOOP_LR, seed=0, log_every=1,
+                 log_stream=buf, device=dev, **LOOP, **kw)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    recs = [json.loads(s) for s in lines if not s.startswith("#")]
+    return {"out": out, "recs": recs, "notes": [s for s in lines
+                                                if s.startswith("#")],
+            "launches": dict(TFA.launches), "saves": clock.saves,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": time.perf_counter() - t0}
+
+
+def loop_records(run: dict, start: int) -> tuple:
+    """→ (losses by step, eval losses by step, clean step ms): a step's
+    wall time is clean where no eval or save ran between its record and
+    the one before (steps after a step that neither evaluates nor
+    saves)."""
+    losses = {r["step"]: r["loss"] for r in run["recs"] if "loss" in r}
+    evals = {r["step"]: r["eval_loss"] for r in run["recs"]
+             if "eval_loss" in r}
+    walls = {r["step"]: r["wall_s"] for r in run["recs"] if "loss" in r}
+    clean = [1e3 * (walls[s] - walls[s - 1]) for s in sorted(walls)
+             if s - 1 in walls and (s - 1) % LOOP["eval_every"]
+             and (s - 1) % LOOP["ckpt_every"] and s - 1 > start]
+    return losses, evals, clean
+
+
+def check_loop_launches(launches: dict, cfg, steps: int, evals: int):
+    once = cfg.stages * cfg.microbatches
+    want = {"flash_fwd": once * (steps + evals),
+            "flash_bwd_dkdv": once * steps, "flash_bwd_dq": once * steps}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want} "
+                             f"(once a block a step; the forward again "
+                             f"a block an evaluation)")
+
+
+def max_rel_diff(a: dict, b: dict) -> tuple:
+    """The largest ``|a - b| / max|b|`` over the leaves → (value, leaf)."""
+    diffs = [(float((a[k].float() - b[k].float()).abs().max())
+              / max(float(b[k].float().abs().max()), 1e-30), k) for k in b]
+    return max(diffs, key=lambda d: d[0])
+
+
+def train_loop(TFA, dev, card, sgd_p50: float) -> dict:
+    """Phase 14: the training loop's optimizer, evaluation and durable
+    checkpoints at phase 5's width. → the flash launches of run (a)."""
+    import shutil
+    import tempfile
+
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+    from tpu_p2p_torch.obs.faults import FaultPlan
+    from tpu_p2p_torch.train import run_training, run_training_supervised
+    from tpu_p2p_torch.utils import checkpoint as C
+
+    t0 = time.perf_counter()
+    cfg = FlagshipConfig(**TRAIN)
+    root = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        # (a) the full loop
+        ck_a = os.path.join(root, "a")
+        a = loop_run(cfg, TFA, dev, run_training, ckpt_dir=ck_a)
+        losses, evals, clean = loop_records(a, 0)
+        final = a["out"]["final_loss"]
+        if (sorted(losses) != list(range(1, LOOP_STEPS + 1))
+                or not all(math.isfinite(x) for x in losses.values())):
+            raise AssertionError(f"loop losses {losses}")
+        ln_v = math.log(cfg.vocab)
+        if not ln_v - 1 <= losses[1] <= ln_v + 2:
+            raise AssertionError(f"loop first loss {losses[1]} outside "
+                                 f"[ln V - 1, ln V + 2]")
+        if sorted(evals) != [2, 4] or not all(
+                math.isfinite(x) for x in evals.values()):
+            raise AssertionError(f"eval records {evals}, expected steps "
+                                 "2 and 4")
+        gens = [n for _, n in C.list_generations(ck_a)]
+        if gens != ["gen-000004", "gen-000002"]:
+            raise AssertionError(f"generations {gens}")
+        reason = C.verify_generation(os.path.join(ck_a, gens[1]))
+        if reason is not None:
+            raise AssertionError(f"{gens[1]} does not verify: {reason}")
+        check_loop_launches(a["launches"], cfg, LOOP_STEPS, len(evals))
+        launches = a["launches"]
+        tl = time.perf_counter()
+        lc = C.load_latest(ck_a)   # verifies gen-000004 on the way
+        load_ms = 1e3 * (time.perf_counter() - tl)
+        if lc.name != gens[0] or lc.skipped:
+            raise AssertionError(f"load_latest chose {lc.name}, skipping "
+                                 f"{lc.skipped}")
+        load_bytes = sum(os.path.getsize(os.path.join(lc.path, f))
+                         for f in os.listdir(lc.path))
+        del lc
+        p50 = statistics.median(clean)
+        tokens = cfg.batch * cfg.seq
+        saves = "; ".join(
+            f"step {s}: {ms:.0f} ms, {b} B = {b / ms / 1e6:.2f} GB/s"
+            for s, ms, b in a["saves"])
+        say(f"train loop (a) flagship_large (B{cfg.batch} T{cfg.seq}, bf16, "
+            f"flash), AdamW wd 0.01, clip 1.0, warmup 1 + cosine, lr {LOOP_LR}, "
+            f"{LOOP_STEPS} steps: losses {[losses[s] for s in sorted(losses)]}"
+            f" | eval {evals} | step ms of steps {len(clean)} clean "
+            f"{[round(x) for x in clean]}, p50 {p50:.0f} ms = "
+            f"{tokens / p50 * 1e3:.0f} tokens/s (phase 5 SGD p50 "
+            f"{sgd_p50:.0f} ms: the optimizer {p50 - sgd_p50:+.0f} ms) | "
+            f"peak memory {a['peak_gib']:.2f} GiB | saves {saves} | "
+            f"verifying load of {gens[0]} {load_ms:.0f} ms, "
+            f"{load_bytes} B = {load_bytes / load_ms / 1e6:.2f} GB/s | "
+            f"flash launches {a['launches']} | {card}")
+
+        # (b) resume from a copy without gen-000004 (hard links)
+        ck_b = os.path.join(root, "b")
+        os.makedirs(ck_b)
+        shutil.copytree(os.path.join(ck_a, "gen-000002"),
+                        os.path.join(ck_b, "gen-000002"),
+                        copy_function=os.link)
+        b = loop_run(cfg, TFA, dev, run_training, ckpt_dir=ck_b,
+                     resume=True)
+        if b["out"]["start_step"] != 2:
+            raise AssertionError(f"resume started at {b['out']['start_step']}")
+        bitwise = (b["out"]["final_loss"] == final and all(
+            bits_equal(b["out"]["params"][k], a["out"]["params"][k])
+            for k in a["out"]["params"]))
+        worst, leaf = max_rel_diff(b["out"]["params"], a["out"]["params"])
+        loss_rel = abs(b["out"]["final_loss"] - final) / abs(final)
+        if not bitwise and max(worst, loss_rel) > RESUME_RTOL:
+            raise AssertionError(
+                f"resume: final loss {b['out']['final_loss']} vs {final}, "
+                f"largest param difference {worst:.3e} ({leaf}), over "
+                f"{RESUME_RTOL}")
+        say(f"train loop (b) resume from gen-000002 to step {LOOP_STEPS}: "
+            f"final loss {b['out']['final_loss']} vs (a) {final}, params "
+            f"{'bitwise' if bitwise else f'largest rel. diff {worst:.3e} ({leaf})'}"
+            f" | the resume (load, 2 steps, eval, save) "
+            f"{b['seconds']:.1f} s | {card}")
+        del a, b
+        shutil.rmtree(ck_a)
+        shutil.rmtree(ck_b)
+        torch.cuda.empty_cache()
+
+        # (c) the supervisor through a crash 512 bytes into the step-4 save
+        ck_c = os.path.join(root, "c")
+        c = loop_run(cfg, TFA, dev, run_training_supervised, ckpt_dir=ck_c,
+                     fault_plan=FaultPlan(ckpt_crash_after_bytes=512,
+                                          start_step=4))
+        sup = c["out"]["supervisor"]
+        want_notes = [
+            "# supervise: crashed mid-checkpoint at step 4 (simulated "
+            "process death after 512 bytes into params.npz)",
+            "# supervise: resuming from gen-000002 (step 2, 2 step(s) to "
+            "re-run)",
+            f"# supervise: completed at step {LOOP_STEPS} after 1 "
+            "restart(s)"]
+        if (sup != {"restarts": 1, "crashes": [
+                {"step": 4, "resume_step": 2, "lost_steps": 2}]}
+                or c["notes"] != want_notes):
+            raise AssertionError(f"supervise: {sup}, lines {c['notes']}")
+        if c["out"]["final_loss"] != final:
+            raise AssertionError(f"supervised final loss "
+                                 f"{c['out']['final_loss']} vs (a) {final}")
+        say(f"train loop (c) supervise, crash 512 B into the step-4 save: "
+            f"{sup} | {' / '.join(c['notes'])} | final loss "
+            f"{c['out']['final_loss']} == (a) | {c['seconds']:.1f} s with "
+            f"the crash and the re-entry | {card}")
+        del c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(f"phase 14 (loop): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -3348,6 +3589,7 @@ def main() -> int:
     mem_launches = memory(TFA, dev, card, moe_launches["train_peak_gib"])
     row3_ms = next(k["ms"] for k in kernels if k["name"] == "flash_fwd")
     pat_launches = patterns(TFA, dev, card, row3_ms, trn["step_ms_p50"])
+    loop_launches = train_loop(TFA, dev, card, trn["step_ms_p50"])
 
     cfg = FlagshipConfig(batch=SLOTS, **MODEL)
     t0 = time.perf_counter()
@@ -3379,6 +3621,7 @@ def main() -> int:
                     "ring": ring_launches_total[name],
                     "moe_train": moe_launches["train"][name],
                     "patterns": pat_launches[name],
+                    "train_loop": loop_launches[name],
                     **{f"memory_{k}": v[name]
                        for k, v in mem_launches.items()}}
              for name, n in trn["launches"].items()}

@@ -34,7 +34,17 @@ ZeRO and remat on 4 cards (``zero``):
   block, issued a block ahead);
 - MoE dp 2 x ep 2 ``--zero-dp --overlap prefetch --remat``.
 
-For each: the step ms (median of steps 2-4, each read when its loss
+The training loop on 4 cards (``--ffn loop``, not part of ``all``):
+one ``torchrun`` world of dp 2 x sp 2 trains the dense FFN with AdamW
+(weight decay 0.01, lr 3e-4), global-norm clipping at 1.0, one warmup
+step and the cosine schedule for 4 steps, publishing a checkpoint
+generation every 2 steps; then one card resumes a copy of its
+checkpoint directory without ``gen-000004`` to step 4. It prints both
+runs' records, each save's seconds and the resumed final loss's
+relative difference from the 4 cards' (bf16 on another mesh: a
+reading; the CPU tests hold the cross-mesh resume to 1e-4 in float32).
+
+For each mesh: the step ms (median of steps 2-4, each read when its loss
 reached the host), tokens/s, the peak device memory and flash kernel
 launches (over the run) of every rank, and
 the relative difference of the losses of steps 1 and 2 from the
@@ -107,6 +117,9 @@ FFNS = {  # FFN -> (train's FFN flags, one-card label)
     "dense": (["--dense-ffn"], "one card"),
     "moe": ([], "moe one card"),
 }
+LOOP = ["--optimizer", "adamw", "--weight-decay", "0.01", "--clip-norm",
+        "1.0", "--warmup-steps", "1", "--schedule", "cosine", "--lr", "3e-4",
+        "--ckpt-every", "2", "--ckpt-keep", "2"]
 SETS = {  # --ffn -> [(label, FFN, mesh flags)]
     "dense": [(label, "dense", m) for label, m in DENSE_MESHES],
     "moe": [(label, "moe", m) for label, m in MOE_MESHES],
@@ -206,8 +219,10 @@ def card_line() -> str:
     return "; ".join(out.stdout.strip().splitlines())
 
 
-def run(label: str, cmd: list, env: dict, tokens: int) -> dict:
-    """One training run → its records' numbers, or its error."""
+def run(label: str, cmd: list, env: dict, tokens: int,
+        steps: int = STEPS) -> dict:
+    """One training run of ``steps`` logged steps → its records' numbers,
+    or its error."""
     t0 = time.perf_counter()
     # A session of its own, so a run past its time limit goes down with
     # every rank torchrun started.
@@ -225,18 +240,18 @@ def run(label: str, cmd: list, env: dict, tokens: int) -> dict:
           f"{' '.join(cmd[cmd.index('train'):])}", flush=True)
     sys.stdout.write(out)
     res = {"label": label, "rc": rc}
-    recs = [json.loads(s) for s in out.splitlines()
-            if s.startswith('{"step"')]
+    recs = [r for r in (json.loads(s) for s in out.splitlines()
+                        if s.startswith('{"step"')) if "loss" in r]
     memory = re.search(r"peak device memory per rank \(GiB\): (\[.*\])",
                        err)
     launches = re.search(r"flash kernel launches per rank: (\[.*\])", err)
-    if rc or len(recs) != STEPS:
+    if rc or len(recs) != steps:
         res["error"] = err[-3000:]
         print(res["error"], flush=True)
         return res
     walls = [0.0] + [r["wall_s"] for r in recs]
     step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
-    p50 = statistics.median(step_ms[1:])
+    p50 = statistics.median(step_ms[1:] or step_ms)
     res.update(losses=[r["loss"] for r in recs], step_ms=step_ms,
                step_ms_p50=p50, tokens_per_s=tokens / p50 * 1e3,
                peak_gib=json.loads(memory.group(1)) if memory else None,
@@ -276,6 +291,50 @@ def profiled(label: str, cmd: list, env: dict):
     return rows[0]
 
 
+def loop_cards(shape: list, env: dict, torchrun: list, tokens: int,
+               card: str) -> list:
+    """``--ffn loop``: the 4-card AdamW run with its checkpoints, then one
+    card resuming it → the two runs' results."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="flagship_cards_loop_")
+    try:
+        ck4, ck1 = os.path.join(root, "cards"), os.path.join(root, "one")
+        common = [*shape, "--dense-ffn", *COMMON, *LOOP]  # LOOP's --lr
+        # comes last, so it wins
+        train = ["-m", "tpu_p2p_torch", "train", *common]
+        t0 = time.perf_counter()
+        four = run("loop dp2 x sp2 adamw clip cosine ckpt",
+                   [*torchrun, *train, "--mesh-shape", "2x1x2x1x1",
+                    "--ckpt-dir", ck4], env, tokens)
+        four["seconds"] = time.perf_counter() - t0
+        gens = sorted(os.listdir(ck4)) if os.path.isdir(ck4) else []
+        four["generations"] = gens
+        if "error" in four:
+            return [four]
+        os.makedirs(ck1)
+        shutil.copytree(os.path.join(ck4, "gen-000002"),
+                        os.path.join(ck1, "gen-000002"))
+        t0 = time.perf_counter()
+        one = run("loop resume on one card from gen-000002",
+                  [sys.executable, *train, "--ckpt-dir", ck1, "--resume"],
+                  env, tokens, steps=STEPS - 2)
+        one["seconds"] = time.perf_counter() - t0
+        if "losses" in one:
+            one["final_loss_rel_diff"] = (abs(one["losses"][-1]
+                                              - four["losses"][-1])
+                                          / abs(four["losses"][-1]))
+            print(f"loop: 4 cards {four['losses']} ({four['seconds']:.1f} s "
+                  f"with two saves; generations {gens}) | one card resumed "
+                  f"at step 2: {one['losses']} ({one['seconds']:.1f} s with "
+                  f"the load and a save), final loss rel. diff "
+                  f"{one['final_loss_rel_diff']:.3e} | {card}", flush=True)
+        return [four, one]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["--profile-rank"]:
@@ -285,8 +344,9 @@ def main(argv=None) -> int:
                    help="gloo worlds of 4 CPU ranks at a tiny width")
     p.add_argument("--json", metavar="PATH",
                    help="also write the closing JSON object to PATH")
-    p.add_argument("--ffn", choices=(*SETS, "all"), default="all",
-                   help="which set of runs (default all)")
+    p.add_argument("--ffn", choices=(*SETS, "all", "loop"), default="all",
+                   help="which set of runs (default all; loop: the "
+                        "training loop's checkpoint and resume)")
     args = p.parse_args(argv)
     if args.cpu:
         n, shape = 4, TINY
@@ -308,7 +368,10 @@ def main(argv=None) -> int:
     torchrun = [sys.executable, "-m", "torch.distributed.run",
                 "--standalone", "--nproc-per-node", str(n)]
     results, one_card = [], {}
-    for name in (SETS if args.ffn == "all" else (args.ffn,)):
+    if args.ffn == "loop":
+        results = loop_cards(shape, env, torchrun, tokens, card)
+    for name in (SETS if args.ffn == "all" else
+                 (args.ffn,) if args.ffn != "loop" else ()):
         for label, ffn, mesh in SETS[name]:
             flags, one_label = FFNS[ffn]
             common = [*shape, *flags, *COMMON]

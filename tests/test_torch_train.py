@@ -292,16 +292,9 @@ def test_train_cli_dispatch_and_log_file(tmp_path, capsys):
 
 
 _NOT_PORTED_ARGV = {
-    "--optimizer": ["adamw"], "--weight-decay": ["0.1"],
-    "--clip-norm": ["1.0"], "--warmup-steps": ["2"],
-    "--schedule": ["cosine"], "--eval-every": ["2"],
-    "--eval-batches": ["3"], "--ckpt-dir": ["ckpt"], "--ckpt-every": ["2"],
-    "--ckpt-keep": ["5"], "--resume": [], "--supervise": [],
-    "--max-restarts": ["5"], "--heal": [], "--fault-degrade-edge": ["0:1"],
+    "--heal": [], "--fault-degrade-edge": ["0:1"],
     "--fault-degrade-factor": ["4"], "--fault-slow-rank": ["0"],
     "--fault-slow-ms": ["5"], "--fault-lost-host": ["1"],
-    "--fault-at-step": ["2"], "--fault-ckpt-crash-bytes": ["10"],
-    "--fault-ckpt-corrupt-seed": ["1"], "--fault-ckpt-io-errors": ["1"],
     "--obs-jsonl": ["obs.jsonl"], "--obs-window-step": ["2"],
     "--trace": ["t.json"], "--tp-overlap": ["ring"],
     "--ep-overlap": ["ring"], "--pp-overlap": ["wave"],

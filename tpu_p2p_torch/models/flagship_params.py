@@ -201,16 +201,19 @@ def gather_flagship_params(params: Params, mesh,
     one all-gather along each split axis's line, dp included. Collective
     over the mesh: every rank calls it."""
     specs = _placement_specs(mesh, cfg)
-    out = {}
-    for k in sorted(params):
-        x = params[k]
-        for dim, entry in enumerate(specs[k]):
-            for a in reversed(_dim_axes(entry)):
-                line = mesh.line(a)
-                if line.size > 1:
-                    x = _gather_dim(x, line, dim)
-        out[k] = x
-    return out
+    return {k: gather_leaf(params[k], mesh, specs[k])
+            for k in sorted(params)}
+
+
+def gather_leaf(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """One leaf's global tensor from every rank's shard under ``spec``
+    (collective over the lines of its split axes)."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(_dim_axes(entry)):
+            line = mesh.line(a)
+            if line.size > 1:
+                x = _gather_dim(x, line, dim)
+    return x
 
 
 def flagship_host_batch(cfg: FlagshipConfig, rng: np.random.Generator
@@ -242,7 +245,7 @@ def tensor_from_numpy(a: np.ndarray, device,
     ``torch.from_numpy`` does not know that dtype. A read-only array (a
     JAX array's host view) is copied, since the tensor may be written
     in place."""
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(np.shape(a))  # keeps 0-dim
     if not a.flags.writeable:
         a = a.copy()
     if a.dtype.name == "bfloat16":

@@ -24,6 +24,7 @@ under ``no_grad``, and returns that same dict.
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -222,3 +223,159 @@ def make_flagship_lm_train_step(cfg: FlagshipConfig, lr: float = 1e-2,
                 loss / n_tok)
 
     return step
+
+
+# ------------------------------------------------ the optax-style step
+
+
+def make_flagship_optax_step(cfg: FlagshipConfig, tx, lm: bool = False,
+                             donate: bool = False, mesh=None):
+    """One step under a transformation of
+    :mod:`tpu_p2p_torch.utils.optim`: ``(params, opt_state, x, target) →
+    (params, opt_state, loss)``. The gradients (summed over the data
+    planes as in the SGD steps) are divided by the global count in their
+    own dtype, transformed, and added to the params in the param dtype
+    (``optim.apply_updates``; no float32 widening, unlike
+    :func:`_sgd_update`). Every update is elementwise on this rank's
+    shards, so the moments are shaped like the shards (ZeRO's dp shards
+    included); a clipping transformation needs
+    :func:`global_norm_reducer`'s ``reduce`` on a mesh. ``lm=True``
+    trains next-token CE (``cfg.vocab > 0``); ``donate=True`` writes the
+    new params into those given."""
+    from tpu_p2p_torch.utils.optim import apply_updates
+
+    if lm:
+        grad_fn = make_flagship_lm_grad_fn(cfg, mesh)
+        n_out = cfg.batch * cfg.seq
+    else:
+        grad_fn = make_flagship_grad_fn(cfg, mesh)
+        n_out = cfg.batch * cfg.seq * cfg.model_dim
+
+    def step(params: Params, opt_state, x: torch.Tensor,
+             target: torch.Tensor):
+        grads, loss = grad_fn(params, x, target)
+        with torch.no_grad():
+            grads = {k: g / torch.tensor(n_out, dtype=g.dtype)
+                     for k, g in grads.items()}
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = apply_updates(params, updates, in_place=donate)
+        return params, opt_state, loss / n_out
+
+    return step
+
+
+def init_optimizer(tx, params: Params):
+    """``tx.init`` of this rank's shards: each moment is shaped like its
+    param's shard on the param's device (so ZeRO moments are dp shards);
+    the counts are int32 scalars on the host."""
+    return tx.init(params)
+
+
+def global_norm_reducer(cfg: FlagshipConfig, mesh):
+    """The ``reduce`` of ``optim.clip_by_global_norm`` on ``mesh``: each
+    leaf's float32 sum of squares is summed over the plane of the axes
+    its spec SPLITS it along (tp, pp, ep for the experts, dp for a ZeRO
+    leaf) — the complement of :class:`_GradPlanes`' — so a replicated
+    copy counts once and every rank gets the same norm. One collective a
+    plane, planes in leaf order; made when the step is built, on every
+    rank alike. None without a mesh."""
+    if mesh is None:
+        return None
+    planes = {}
+    for k, spec in flagship_param_specs(mesh, cfg).items():
+        split = {a for entry in spec for a in _dim_axes(entry)}
+        planes[k] = mesh.plane(tuple(a for a in mesh.axis_names
+                                     if a in split))
+
+    def reduce(sums: Dict[str, torch.Tensor]) -> None:
+        by_plane = {}
+        for k in sorted(sums):
+            plane = planes[k]
+            by_plane.setdefault(plane.ranks, (plane, []))[1].append(sums[k])
+        for plane, tensors in by_plane.values():
+            if plane.size > 1:
+                all_reduce_flat(tensors, plane, "the global-norm sum")
+
+    return reduce
+
+
+_PARAM_KEY = re.compile(r"\['([^']+)'\]$")
+
+
+def _param_of(path: str):
+    """The param a state leaf belongs to (its innermost dict key), or
+    None for a count."""
+    m = _PARAM_KEY.search(path)
+    return m.group(1) if m else None
+
+
+def opt_state_template(tx, cfg: FlagshipConfig):
+    """The global state's structure and shapes on the ``meta`` device
+    (no memory): the template a checkpoint's state loads into."""
+    from tpu_p2p_torch.models.flagship_params import (flagship_param_shapes,
+                                                       torch_dtype)
+
+    dtype = torch_dtype(cfg.params_dtype)
+    return tx.init({k: torch.empty(s, dtype=dtype, device="meta")
+                    for k, s in flagship_param_shapes(cfg).items()})
+
+
+def place_opt_state(state, mesh, cfg: FlagshipConfig, device):
+    """This rank's shard of each moment of a global state on ``device``
+    (the param's spec, ZeRO's with ``cfg.zero_dp``); counts stay on the
+    host. ``mesh=None``: the whole moments on ``device``."""
+    from tpu_p2p_torch.parallel.runtime import local_shard
+    from tpu_p2p_torch.utils.optim import tree_map_leaves
+
+    specs = None if mesh is None else flagship_param_specs(mesh, cfg)
+
+    def place(path, leaf):
+        name = _param_of(path)
+        if name is None:
+            return leaf.cpu()
+        if specs is not None:
+            leaf = local_shard(leaf, mesh, specs[name])
+        return leaf.contiguous().to(device)
+
+    return tree_map_leaves(place, state)
+
+
+def gather_opt_state(state, mesh, cfg: FlagshipConfig):
+    """The global state from every rank's moment shards (the inverse of
+    :func:`place_opt_state`; collective over the mesh, leaves in flatten
+    order). ``mesh=None``: ``state`` itself."""
+    from tpu_p2p_torch.models.flagship_params import gather_leaf
+    from tpu_p2p_torch.utils.optim import tree_map_leaves
+
+    if mesh is None:
+        return state
+    specs = flagship_param_specs(mesh, cfg)
+
+    def gather(path, leaf):
+        name = _param_of(path)
+        return leaf if name is None else gather_leaf(leaf, mesh, specs[name])
+
+    return tree_map_leaves(gather, state)
+
+
+def opt_state_from_numpy(np_leaves, template, *, paths=None):
+    """The weight carry for optimizer state: the reference's optax state
+    flattened to numpy (``[np.asarray(v) for v in
+    jax.tree_util.tree_leaves(state)]``, with ``paths`` its ``keystr``
+    strings when given) → the port's state in ``template``'s structure,
+    each leaf on its template leaf's device. Bitwise for float32 and
+    bfloat16."""
+    from tpu_p2p_torch.models.flagship_params import tensor_from_numpy
+    from tpu_p2p_torch.utils.optim import (leaf_paths,
+                                           tree_flatten_with_path,
+                                           tree_unflatten)
+
+    flat = tree_flatten_with_path(template)
+    if len(np_leaves) != len(flat):
+        raise ValueError(f"{len(np_leaves)} leaves for a state of "
+                         f"{len(flat)}")
+    if paths is not None and list(paths) != leaf_paths(template):
+        raise ValueError(f"leaf paths {list(paths)} vs the port's "
+                         f"{leaf_paths(template)}")
+    return tree_unflatten(template, [tensor_from_numpy(a, t.device)
+                                     for a, (_, t) in zip(np_leaves, flat)])

@@ -1,5 +1,5 @@
 """The flagship training loop over the five-axis mesh — the port of
-``tpu_p2p/train.py``'s plain-SGD path.
+``tpu_p2p/train.py``.
 
 ``python -m tpu_p2p_torch train --steps 4 ...`` (or ``python -m
 tpu_p2p_torch.train``) trains the flagship model (the MoE FFN, or the
@@ -7,23 +7,31 @@ dense one with ``--dense-ffn``) on seeded synthetic data on
 ``build_mesh(world)``: one rank a card under ``torchrun
 --nproc-per-node N`` (NCCL), ``--cpu-mesh N`` spawned gloo CPU ranks,
 or a world of one. Rank 0 prints the reference's JSONL records
-(``step``, ``loss``, ``wall_s``, ``tokens_per_s_wall``) and its closing
-``{"summary": ...}`` line. It runs on the card unless ``--device cpu``
-(or ``--cpu-mesh``) is given; ``--device cuda`` without a card raises,
-nothing falls back.
+(``step``, ``loss``, ``wall_s``, ``tokens_per_s_wall``; ``eval_loss``
+every ``--eval-every`` steps) and its closing ``{"summary": ...}``
+line. It runs on the card unless ``--device cpu`` (or ``--cpu-mesh``)
+is given; ``--device cuda`` without a card raises, nothing falls back.
 
 Batches are generated per step from ``seed`` and the global step index
-(byte-identical to the reference's stream); each rank's
+(byte-identical to the reference's stream), so a resumed run consumes
+exactly the batches the interrupted one would have; each rank's
 :class:`tpu_p2p_torch.utils.data.DeviceLoader` keeps its (dp·ep, sp)
 block, and the step updates the rank's param shards in place (the
-reference donates them). ``--zero-dp`` keeps each rank's dp shard of
-the params (ZeRO-3, gathered on use; ``--overlap prefetch`` gathers one
+reference donates them). ``--optimizer adamw``, ``--clip-norm``,
+``--warmup-steps`` and ``--schedule cosine`` train through the port's
+copy of optax (:mod:`tpu_p2p_torch.utils.optim`); ``--ckpt-dir`` /
+``--ckpt-every`` / ``--ckpt-keep`` publish durable generations in the
+reference's format (:mod:`tpu_p2p_torch.utils.checkpoint`),
+``--resume`` continues from the newest intact one, and ``--supervise``
+re-enters after a simulated crash mid-save (the ``--fault-ckpt-*``
+flags). ``--zero-dp`` keeps each rank's dp shard of the params and
+moments (ZeRO-3, gathered on use; ``--overlap prefetch`` gathers one
 block ahead) and ``--remat`` recomputes each block inside the backward.
 Every reference flag parses; the flags whose machinery is not ported
-(optax optimizers and schedules, evaluation, checkpoints and recovery,
-fault injection, observability, the tp/ep/pp overlaps and the pipeline
-schedules) exit with "not ported yet" when set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and ``--moe-mult`` are
-the port's own: a mesh other than ``build_mesh``'s
+(``--heal``, the link/straggler/lost-host faults, observability, the
+tp/ep/pp overlaps and the pipeline schedules) exit with "not ported
+yet" when set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and
+``--moe-mult`` are the port's own: a mesh other than ``build_mesh``'s
 factoring, and the FFN width of the 4x-FFN configurations.
 """
 
@@ -46,31 +54,18 @@ TICK_LOWERINGS = ("masked", "switch")
 # run_training keywords whose machinery is not ported, with the
 # reference's defaults (a non-default value raises).
 _RUN_NOT_PORTED = {
-    "ckpt_dir": None, "ckpt_every": 0, "ckpt_keep": None, "resume": False,
-    "optimizer": "sgd", "weight_decay": 0.0, "eval_every": 0,
-    "eval_batches": 2, "clip_norm": 0.0, "warmup_steps": 0,
-    "schedule": "constant", "obs_jsonl": None, "fault_plan": None,
-    "heal": False, "health_config": None, "obs_window_step": None,
+    "obs_jsonl": None, "heal": False, "health_config": None,
+    "obs_window_step": None,
 }
 
 # CLI flags whose machinery is not ported: (argparse dest, flag).
 _FLAGS_NOT_PORTED = (
-    ("optimizer", "--optimizer"), ("weight_decay", "--weight-decay"),
-    ("clip_norm", "--clip-norm"), ("warmup_steps", "--warmup-steps"),
-    ("schedule", "--schedule"), ("eval_every", "--eval-every"),
-    ("eval_batches", "--eval-batches"), ("ckpt_dir", "--ckpt-dir"),
-    ("ckpt_every", "--ckpt-every"), ("ckpt_keep", "--ckpt-keep"),
-    ("resume", "--resume"), ("supervise", "--supervise"),
-    ("max_restarts", "--max-restarts"), ("heal", "--heal"),
+    ("heal", "--heal"),
     ("fault_degrade_edge", "--fault-degrade-edge"),
     ("fault_degrade_factor", "--fault-degrade-factor"),
     ("fault_slow_rank", "--fault-slow-rank"),
     ("fault_slow_ms", "--fault-slow-ms"),
     ("fault_lost_host", "--fault-lost-host"),
-    ("fault_at_step", "--fault-at-step"),
-    ("fault_ckpt_crash_bytes", "--fault-ckpt-crash-bytes"),
-    ("fault_ckpt_corrupt_seed", "--fault-ckpt-corrupt-seed"),
-    ("fault_ckpt_io_errors", "--fault-ckpt-io-errors"),
     ("obs_jsonl", "--obs-jsonl"), ("obs_window_step", "--obs-window-step"),
     ("trace", "--trace"), ("tp_overlap", "--tp-overlap"),
     ("ep_overlap", "--ep-overlap"), ("pp_overlap", "--pp-overlap"),
@@ -96,26 +91,145 @@ def _per_step_batches(cfg, seed: int, start_step: int) -> Iterator:
         step += 1
 
 
+def _make_eval_fn(cfg, mesh=None):
+    """``(params, x, t) → float32 scalar``: the train objective's mean
+    over the GLOBAL batch (MSE per element, or CE per token), no update.
+    Each rank sums its block in float32; the sums meet over the data
+    plane (dp, ep, sp), which leaves the pp and tp copies of the output
+    out, and the total is divided by the global count."""
+    import torch
+
+    from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.parallel.collectives import all_reduce_flat
+
+    plane = None if mesh is None else mesh.plane(
+        F._data_axes(mesh.axis_names))
+    if cfg.vocab:
+        fwd = F.make_flagship_lm_forward(cfg, mesh)
+        count = cfg.batch * cfg.seq
+
+        def local(params, toks, targets):
+            logp = torch.log_softmax(fwd(params, toks).float(), dim=-1)
+            return -torch.sum(torch.gather(logp, -1,
+                                           targets.long()[..., None]))
+    else:
+        fwd = F.make_flagship_forward(cfg, mesh)
+        count = cfg.batch * cfg.seq * cfg.model_dim
+
+        def local(params, x, t):
+            return torch.sum((fwd(params, x).float() - t.float()) ** 2)
+
+    def eval_fn(params, x, t):
+        with torch.no_grad():
+            s = local(params, x, t).reshape(1)
+            if plane is not None:
+                all_reduce_flat([s], plane, "the eval sum")
+            return s[0] / count
+
+    return eval_fn
+
+
+def _broadcast(mesh, obj):
+    """``obj`` as the mesh's first rank holds it, on every rank."""
+    if mesh is None or mesh.size == 1:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=mesh.ranks[0],
+                               group=mesh.host_group)
+    return box[0]
+
+
+def _load_resume(ckpt_dir: str, mesh):
+    """The verifying loader on the first rank, its verdict on every
+    rank: → the ``LoadedCheckpoint`` of the generation the first rank
+    chose (each rank reads its params from it), or None when
+    ``ckpt_dir`` holds nothing. A failed load (the ladder's ValueError,
+    an OSError, anything else) raises on every rank alike, so no rank
+    waits in the broadcast."""
+    from tpu_p2p_torch.utils import checkpoint as C
+
+    if mesh is None or mesh.size == 1:
+        return C.load_latest(ckpt_dir) if C.has_checkpoint(ckpt_dir) \
+            else None
+    verdict = lc = failed = None
+    if mesh.index == 0 and C.has_checkpoint(ckpt_dir):
+        try:
+            lc = C.load_latest(ckpt_dir)
+            verdict = ("ok", lc.path, lc.name, lc.step, lc.skipped)
+        except Exception as e:  # noqa: BLE001 — every rank must leave
+            # the load together; re-raised below
+            kind = ("value" if isinstance(e, ValueError) else
+                    "os" if isinstance(e, OSError) else "other")
+            verdict, failed = ("error", kind, f"{type(e).__name__}: {e}",
+                               str(e)), e
+    verdict = _broadcast(mesh, verdict)
+    if failed is not None:
+        raise failed
+    if verdict is None:
+        return None
+    if verdict[0] == "error":
+        _, kind, named, text = verdict
+        if kind == "value":
+            raise ValueError(text)
+        if kind == "os":
+            raise OSError(text)
+        raise RuntimeError(f"the checkpoint load failed on the first "
+                           f"rank: {named}")
+    if lc is not None:
+        return lc
+    _, path, name, step, skipped = verdict
+    params, _ = C._load_flat_params(path)
+    return C.LoadedCheckpoint(path=path, name=name, step=step,
+                              params=params, skipped=skipped)
+
+
 def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
-                 log_every: int = 10, log_path: Optional[str] = None,
-                 log_stream=None, device="cuda", mesh=None,
+                 log_every: int = 10, ckpt_dir: Optional[str] = None,
+                 ckpt_every: int = 0, ckpt_keep: Optional[int] = None,
+                 resume: bool = False, log_path: Optional[str] = None,
+                 log_stream=None, optimizer: str = "sgd",
+                 weight_decay: float = 0.0, eval_every: int = 0,
+                 eval_batches: int = 2, clip_norm: float = 0.0,
+                 warmup_steps: int = 0, schedule: str = "constant",
+                 fault_plan=None, device="cuda", mesh=None,
                  **unported) -> dict:
-    """Train the flagship for ``steps`` steps of plain SGD; returns a
-    summary dict (``final_loss``, ``steps_run``, ``start_step``,
-    ``params``: this rank's shards).
+    """Train the flagship for ``steps`` global steps; returns a summary
+    dict (``start_step``, ``steps_run``, ``final_loss``, ``params``: this
+    rank's shards, and ``ckpt_resume`` after a resume).
 
     ``mesh`` (:func:`tpu_p2p_torch.models.flagship.build_mesh`): train
     this rank's shards on ``mesh.device``; every rank of the mesh calls
     this. ``mesh=None``: the whole model on ``device``. Every
-    ``log_every`` steps (and at the last) rank 0 sends one JSONL record
-    to ``log_stream`` and/or appends it to ``log_path``; reading its loss
-    waits for the device, so ``wall_s`` is real elapsed time. The
-    reference's other keywords (checkpoints, optax, eval, obs, faults)
-    are accepted at their defaults and raise otherwise.
+    ``log_every`` steps (and at the last) the first rank sends one JSONL
+    record to ``log_stream`` and/or appends it to ``log_path``; reading
+    its loss waits for the device, so ``wall_s`` is real elapsed time.
+
+    As the reference's loop: ``optimizer="adamw"``, ``clip_norm``,
+    ``warmup_steps`` or ``schedule="cosine"`` train through
+    :mod:`tpu_p2p_torch.utils.optim` (the schedule's count lives in the
+    checkpointed state, so resume stays bit-exact), else the plain SGD
+    step. ``eval_every=N`` logs ``eval_loss`` on a held-out batch set
+    every N steps. ``ckpt_every=N`` publishes a generation
+    (:func:`tpu_p2p_torch.utils.checkpoint.save_generation`: params,
+    optimizer state and schedule metadata at once) every N steps and at
+    the end, keeping ``ckpt_keep``; ``resume=True`` continues from the
+    newest intact generation, refusing a checkpoint of another config or
+    optimizer shape in the reference's words. On a mesh the params and
+    moments are gathered on every rank, the first rank writes, and the
+    save's outcome (a ``SimulatedCrash`` or an ``OSError`` included)
+    reaches every rank, so all raise alike. ``fault_plan``: a
+    :class:`tpu_p2p_torch.obs.faults.FaultPlan` of storage faults,
+    injected around the loop. The reference's other keywords (obs,
+    heal) are accepted at their defaults and raise otherwise.
     """
     import torch
 
     from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.obs import faults
+    from tpu_p2p_torch.utils import checkpoint as C
+    from tpu_p2p_torch.utils import optim as O
     from tpu_p2p_torch.utils.data import DeviceLoader
     from tpu_p2p_torch.utils.device import resolve_device
 
@@ -126,24 +240,155 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
         if value != _RUN_NOT_PORTED[name]:
             raise NotImplementedError(
                 f"run_training({name}={value!r}) is not ported yet")
+    shapes = faults.non_storage_shapes(fault_plan)
+    if shapes:
+        raise NotImplementedError(
+            f"run_training(fault_plan=...) with {', '.join(shapes)} is "
+            "not ported yet (only the storage faults are)")
     if mesh is None:
         device = torch.device(device)
         resolve_device(device.type)  # "cuda" without a card raises
-        params = F.init_flagship_params(cfg, seed=seed, device=device)
     else:
         device = mesh.device
+    first = mesh is None or mesh.index == 0
+
+    start_step = 0
+    ckpt_resume = None
+    if resume and ckpt_dir:
+        # Keys are checked on the host before placing (placing looks
+        # each key's spec up). The loader is the VERIFYING one: damaged
+        # generations are skipped newest first, each with its reason.
+        ckpt_resume = _load_resume(ckpt_dir, mesh)
+    if ckpt_resume is not None:
+        host, start_step = ckpt_resume.params, ckpt_resume.step
+        want_shapes = F.flagship_param_shapes(cfg)
+        want_dtype = F.torch_dtype(cfg.params_dtype)
+        problems = []
+        if set(host) != set(want_shapes):
+            problems.append(
+                f"keys {sorted(host)} vs expected {sorted(want_shapes)}"
+            )
+        else:
+            for k, v in host.items():
+                if tuple(v.shape) != tuple(want_shapes[k]):
+                    problems.append(
+                        f"{k}: shape {tuple(v.shape)} vs expected "
+                        f"{tuple(want_shapes[k])}"
+                    )
+                elif v.dtype != want_dtype:
+                    problems.append(
+                        f"{k}: dtype {_dtype_name(v.dtype)} vs expected "
+                        f"{_dtype_name(want_dtype)}"
+                    )
+        if problems:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} does not fit this config "
+                f"(config/checkpoint mismatch): {'; '.join(problems)}"
+            )
+        params = (F.place_flagship_params(host, mesh, cfg)
+                  if mesh is not None
+                  else {k: v.to(device) for k, v in host.items()})
+    elif mesh is None:
+        params = F.init_flagship_params(cfg, seed=seed, device=device)
+    else:
         params = F.place_flagship_params(
             F.init_flagship_params(cfg, seed=seed, device="cpu"), mesh, cfg)
-    make = (F.make_flagship_lm_train_step if cfg.vocab
-            else F.make_flagship_train_step)
-    step_fn = make(cfg, lr=lr, donate=True, mesh=mesh)
-    loader = DeviceLoader(_per_step_batches(cfg, seed, 0), device,
-                          prefetch=2, mesh=mesh,
-                          spec=F.flagship_data_spec(mesh))
-    printer = mesh is None or mesh.index == 0
+
+    if optimizer not in ("sgd", "adamw"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    if schedule not in ("constant", "cosine"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if schedule == "cosine" and warmup_steps >= steps:
+        raise ValueError(
+            f"schedule='cosine' needs warmup_steps ({warmup_steps}) < "
+            f"steps ({steps}) — the decay phase would be empty"
+        )
+    if eval_every and eval_batches < 1:
+        raise ValueError(
+            f"eval_every={eval_every} needs eval_batches >= 1, got "
+            f"{eval_batches} (an empty eval set would log NaN losses)"
+        )
+    opt_state = tx = None
+    # The hygiene flags route even sgd through the optimizer
+    # transformations (the plain step has nowhere to hang them).
+    use_optax = (optimizer == "adamw" or clip_norm > 0
+                 or warmup_steps > 0 or schedule != "constant")
+    # The learning-rate curve the state's count indexes into: saved with
+    # the checkpoint and compared at resume (a different --steps would
+    # reshape the cosine's decay_steps mid-run).
+    sched_meta = {
+        "optimizer": optimizer, "schedule": schedule, "lr": lr,
+        "warmup_steps": warmup_steps,
+        "decay_steps": max(steps, 1) if schedule == "cosine" else None,
+        "clip_norm": clip_norm, "weight_decay": weight_decay,
+    }
+    if use_optax:
+        tx = O.make_optimizer(
+            optimizer, lr, steps=steps, weight_decay=weight_decay,
+            clip_norm=clip_norm, warmup_steps=warmup_steps,
+            schedule=schedule, clip_reduce=F.global_norm_reducer(cfg, mesh))
+        opt_state = F.init_optimizer(tx, params)
+        if start_step and ckpt_resume is not None:
+            # The optimizer state lives inside the loaded generation
+            # (published atomically with the params).
+            ckpt_src = ckpt_resume.path
+            if not C.has_opt_state(ckpt_src):
+                raise ValueError(
+                    f"resuming an optax run from {ckpt_src}, but the "
+                    "checkpoint has no optimizer state (saved by the "
+                    "plain-sgd path?)"
+                )
+            saved = C.read_sched_meta(ckpt_src)
+            if saved is not None:  # absent in older checkpoints
+                diffs = [
+                    f"{k}: checkpoint {saved.get(k)!r} vs this run {v!r}"
+                    for k, v in sched_meta.items() if saved.get(k) != v
+                ]
+                if diffs:
+                    raise ValueError(
+                        f"resume at {ckpt_src} changes the optimizer/"
+                        "LR-schedule shape mid-run: "
+                        + "; ".join(diffs)
+                        + " — pass the original flags (a different "
+                        "--steps reshapes cosine decay_steps)"
+                    )
+            host_state = C.load_opt_state(
+                ckpt_src, F.opt_state_template(tx, cfg),
+                expect_step=start_step)
+            opt_state = F.place_opt_state(host_state, mesh, cfg, device)
+        step_fn = F.make_flagship_optax_step(cfg, tx, lm=bool(cfg.vocab),
+                                             donate=True, mesh=mesh)
+    else:
+        if start_step and ckpt_resume is not None and C.has_opt_state(
+                ckpt_resume.path):
+            # Resuming a hygiene/adamw checkpoint without those flags
+            # would drop the schedule count and moments mid-curve.
+            raise ValueError(
+                f"checkpoint at {ckpt_resume.path} carries optimizer "
+                "state, but this run uses the plain-sgd path — pass "
+                "the original --optimizer/--clip-norm/--warmup-steps/"
+                "--schedule flags (or choose a fresh --ckpt-dir to "
+                "discard it)"
+            )
+        make = (F.make_flagship_lm_train_step if cfg.vocab
+                else F.make_flagship_train_step)
+        step_fn = make(cfg, lr=lr, donate=True, mesh=mesh)
+
+    spec = F.flagship_data_spec(mesh)
+    eval_fn = None
+    if eval_every:
+        eval_fn = _make_eval_fn(cfg, mesh)
+        src = _per_step_batches(cfg, seed + 999_983, 0)
+        held = DeviceLoader((next(src) for _ in range(eval_batches)),
+                            device, prefetch=eval_batches, mesh=mesh,
+                            spec=spec)
+        eval_set = list(held)
+
+    loader = DeviceLoader(_per_step_batches(cfg, seed, start_step), device,
+                          prefetch=2, mesh=mesh, spec=spec)
 
     def emit(rec):
-        if not printer:
+        if not first:
             return
         line = json.dumps(rec)
         if log_stream is not None:
@@ -152,36 +397,179 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
             with open(log_path, "a") as fh:
                 fh.write(line + "\n")
 
+    def save_ckpt(step_no):
+        # ONE atomic generation: params + optimizer state + schedule
+        # metadata land together or not at all. Every rank gathers; the
+        # first writes and tells the others how it went.
+        full = F.gather_flagship_params(params, mesh, cfg) \
+            if mesh is not None else params
+        full = {k: full[k] for k in params}  # init order: the file's
+        state = (F.gather_opt_state(opt_state, mesh, cfg)
+                 if opt_state is not None else None)
+        outcome = failed = None
+        if first:
+            try:
+                outcome = ("ok", C.save_generation(
+                    ckpt_dir, full, step_no, opt_state=state,
+                    sched_meta=sched_meta if state is not None else None,
+                    keep=ckpt_keep))
+            except faults.SimulatedCrash as e:
+                outcome, failed = ("crash", os.path.basename(e.path),
+                                   e.bytes_written, e.step), e
+            except OSError as e:
+                outcome, failed = ("oserror", str(e)), e
+            except Exception as e:  # noqa: BLE001 — every rank must
+                # leave the save together; re-raised below
+                outcome, failed = ("error", f"{type(e).__name__}: {e}"), e
+        outcome = _broadcast(mesh, outcome)
+        if failed is not None:
+            raise failed
+        if outcome[0] == "crash":
+            raise faults.SimulatedCrash(outcome[1], outcome[2],
+                                        step=outcome[3])
+        if outcome[0] == "oserror":
+            raise OSError(outcome[1])
+        if outcome[0] == "error":
+            raise RuntimeError(f"the checkpoint save failed on the first "
+                               f"rank: {outcome[1]}")
+        return outcome[1]
+
+    import contextlib
+
     t0 = time.monotonic()
     tokens_per_step = cfg.batch * cfg.seq
     loss = None
-    for step in range(steps):
-        x, t = next(loader)
-        params, loss = step_fn(params, x, t)
-        if log_every and ((step + 1) % log_every == 0 or step + 1 == steps):
-            loss_f = float(loss)  # waits for the device on log steps
-            dt = time.monotonic() - t0
-            emit({
-                "step": step + 1,
-                "loss": round(loss_f, 6),
-                "wall_s": round(dt, 3),
-                "tokens_per_s_wall": round((step + 1) * tokens_per_step
-                                           / dt),
-            })
-    return {
-        "start_step": 0,
-        "steps_run": max(0, steps),
+    saved_at = start_step - 1
+    with contextlib.ExitStack() as stack:
+        if fault_plan is not None:
+            stack.enter_context(faults.injecting(fault_plan))
+        for step in range(start_step, steps):
+            x, t = next(loader)
+            if opt_state is not None:
+                params, opt_state, loss = step_fn(params, opt_state, x, t)
+            else:
+                params, loss = step_fn(params, x, t)
+            if log_every and ((step + 1) % log_every == 0
+                              or step + 1 == steps):
+                loss_f = float(loss)  # waits for the device on log steps
+                dt = time.monotonic() - t0
+                emit({
+                    "step": step + 1,
+                    "loss": round(loss_f, 6),
+                    "wall_s": round(dt, 3),
+                    "tokens_per_s_wall": round(
+                        (step + 1 - start_step) * tokens_per_step / dt),
+                })
+            if eval_every and eval_fn and (step + 1) % eval_every == 0:
+                ev = float(np.mean([float(eval_fn(params, xe, te))
+                                    for xe, te in eval_set]))
+                emit({"step": step + 1, "eval_loss": round(ev, 6)})
+            if ckpt_every and ckpt_dir and (step + 1) % ckpt_every == 0:
+                save_ckpt(step + 1)
+                saved_at = step + 1
+    ran = max(0, steps - start_step)
+    if ran and ckpt_dir and saved_at != steps:  # the rolling save may
+        # have written this state already
+        save_ckpt(steps)
+    out = {
+        "start_step": start_step,
+        "steps_run": ran,
         "final_loss": round(float(loss), 6) if loss is not None else None,
         "params": params,
     }
+    if ckpt_resume is not None:
+        out["ckpt_resume"] = {"generation": ckpt_resume.name,
+                              "step": ckpt_resume.step,
+                              "skipped": ckpt_resume.skipped}
+    return out
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def run_training_supervised(cfg, *, steps: int, fault_plan=None,
+                            resume: bool = False, max_restarts: int = 3,
+                            mesh=None, **kw) -> dict:
+    """:func:`run_training` under the crash-resilient supervisor (the
+    reference's ``run_training_supervised``): a ``SimulatedCrash`` mid
+    checkpoint write is caught, and the loop re-enters from the newest
+    INTACT generation through the verifying loader; the per-step batch
+    stream replays the lost steps exactly, so the run ends where an
+    uninterrupted one would. Needs ``ckpt_dir`` and ``ckpt_every``; at
+    most ``max_restarts`` re-entries. The summary gains ``supervisor``
+    (``restarts`` and each crash's ``step``, ``resume_step``,
+    ``lost_steps``); each transition prints a ``# supervise:`` line on
+    ``log_stream`` (the first rank's). On a mesh every rank re-enters
+    together: the crash reaches every rank from the save."""
+    from tpu_p2p_torch.obs import faults
+    from tpu_p2p_torch.utils import checkpoint as C
+
+    ckpt_dir = kw.get("ckpt_dir")
+    if not (ckpt_dir and kw.get("ckpt_every")):
+        raise ValueError(
+            "supervised training needs ckpt_dir and ckpt_every — "
+            "without a generation to re-enter from, a crash is total "
+            "loss"
+        )
+    if max_restarts < 1:
+        raise ValueError(f"max_restarts must be >= 1, got "
+                         f"{max_restarts}")
+    log_stream = kw.get("log_stream")
+    first = mesh is None or mesh.index == 0
+
+    def note(msg):
+        if log_stream is not None and first:
+            print(msg, file=log_stream, flush=True)
+
+    restarts = 0
+    crashes = []
+    while True:
+        try:
+            out = run_training(cfg, steps=steps,
+                               resume=resume or restarts > 0,
+                               fault_plan=fault_plan, mesh=mesh, **kw)
+            out["supervisor"] = {"restarts": restarts,
+                                 "crashes": crashes}
+            if restarts:
+                note(f"# supervise: completed at step {steps} after "
+                     f"{restarts} restart(s)")
+            return out
+        except faults.SimulatedCrash as e:
+            restarts += 1
+            crash_step = e.step
+            intact = _broadcast(mesh, C.latest_intact_step(ckpt_dir)
+                                if first else None)
+            resume_step = intact if intact is not None else 0
+            lost = (crash_step - resume_step
+                    if crash_step is not None else None)
+            crashes.append({"step": crash_step,
+                            "resume_step": resume_step,
+                            "lost_steps": lost})
+            # The file's basename and the byte count only: the temp
+            # dir's path would not reproduce.
+            note(f"# supervise: crashed mid-checkpoint at step "
+                 f"{crash_step} (simulated process death after "
+                 f"{e.bytes_written} bytes into "
+                 f"{os.path.basename(e.path)})")
+            if intact is not None:
+                note(f"# supervise: resuming from gen-{intact:06d} "
+                     f"(step {resume_step}, {lost} step(s) to re-run)")
+            else:
+                note("# supervise: no intact generation — restarting "
+                     f"from step 0 ({lost} step(s) to re-run)")
+            if restarts > max_restarts:
+                note(f"# supervise: restart budget ({max_restarts}) "
+                     "exhausted — giving up")
+                raise
 
 
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m tpu_p2p_torch train",
         description="Train the flagship model (synthetic data) on the "
-                    "five-axis mesh of the world with plain SGD and "
-                    "JSONL logging.",
+                    "five-axis mesh of the world with checkpoint/resume "
+                    "and JSONL logging.",
     )
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-2)
@@ -196,26 +584,31 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--obs-window-step", type=int, default=None,
                    metavar="K", help=nyp)
     p.add_argument("--trace", default=None, metavar="PATH", help=nyp)
-    p.add_argument("--ckpt-dir", default=None, metavar="DIR", help=nyp)
-    p.add_argument("--ckpt-every", type=int, default=0, metavar="N",
-                   help=nyp)
+    p.add_argument("--ckpt-dir", default=None, metavar="DIR")
+    p.add_argument("--ckpt-every", type=int, default=0, metavar="N")
     p.add_argument("--ckpt-keep", type=int, default=CKPT_KEEP, metavar="K",
-                   help=nyp)
-    p.add_argument("--resume", action="store_true", help=nyp)
-    p.add_argument("--supervise", action="store_true", help=nyp)
+                   help="checkpoint generations retained after each "
+                        "atomic publish")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest INTACT checkpoint "
+                        "generation in --ckpt-dir (the verifying loader "
+                        "falls back past damaged ones)")
+    p.add_argument("--supervise", action="store_true",
+                   help="crash-resilient supervisor: a (simulated) process "
+                        "death mid-checkpoint re-enters from the newest "
+                        "intact generation and replays the lost steps "
+                        "(requires --ckpt-dir and --ckpt-every)")
     p.add_argument("--max-restarts", type=int, default=3, metavar="N",
-                   help=nyp)
-    p.add_argument("--optimizer", default="sgd", choices=("sgd", "adamw"),
-                   help="sgd; adamw is " + nyp)
-    p.add_argument("--weight-decay", type=float, default=0.0, help=nyp)
-    p.add_argument("--clip-norm", type=float, default=0.0, help=nyp)
-    p.add_argument("--warmup-steps", type=int, default=0, help=nyp)
+                   help="--supervise: crash re-entries before giving up")
+    p.add_argument("--optimizer", default="sgd", choices=("sgd", "adamw"))
+    p.add_argument("--weight-decay", type=float, default=0.0)
+    p.add_argument("--clip-norm", type=float, default=0.0,
+                   help="global-norm gradient clipping (0 = off)")
+    p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--schedule", default="constant",
-                   choices=("constant", "cosine"), help=nyp)
-    p.add_argument("--eval-every", type=int, default=0, metavar="N",
-                   help=nyp)
-    p.add_argument("--eval-batches", type=int, default=2, metavar="K",
-                   help=nyp)
+                   choices=("constant", "cosine"))
+    p.add_argument("--eval-every", type=int, default=0, metavar="N")
+    p.add_argument("--eval-batches", type=int, default=2, metavar="K")
     p.add_argument("--cpu-mesh", type=int, default=None, metavar="N",
                    help="spawn N CPU ranks (gloo) and train on "
                         "build_mesh(N)")
@@ -234,13 +627,21 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault-lost-host", type=int, default=None, metavar="H",
                    help=nyp)
     p.add_argument("--fault-at-step", type=int, default=0, metavar="K",
-                   help=nyp)
+                   help="first step the checkpoint faults apply to")
+    # Storage faults, applied only by the checkpoint writer.
     p.add_argument("--fault-ckpt-crash-bytes", type=int, default=None,
-                   metavar="B", help=nyp)
+                   metavar="B",
+                   help="inject: simulated process death after B bytes of "
+                        "the first checkpoint save at/past --fault-at-step "
+                        "(pair with --supervise)")
     p.add_argument("--fault-ckpt-corrupt-seed", type=int, default=None,
-                   metavar="S", help=nyp)
+                   metavar="S",
+                   help="inject: seeded one-bit flip in each generation "
+                        "published at/past --fault-at-step")
     p.add_argument("--fault-ckpt-io-errors", type=int, default=0,
-                   metavar="N", help=nyp)
+                   metavar="N",
+                   help="inject: first N checkpoint write attempts fail "
+                        "transiently (absorbed by the bounded retry)")
     # Model shape (FlagshipConfig fields).
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=256)
@@ -338,9 +739,29 @@ def _card_report(rt) -> Optional[str]:
             f"# flash kernel launches per rank: {launches}")
 
 
+def fault_plan_from_args(args: argparse.Namespace):
+    """The storage :class:`~tpu_p2p_torch.obs.faults.FaultPlan` the
+    ``--fault-ckpt-*`` flags and ``--fault-at-step`` describe, or None."""
+    if (args.fault_ckpt_crash_bytes is None
+            and args.fault_ckpt_corrupt_seed is None
+            and not args.fault_ckpt_io_errors):
+        return None
+    from tpu_p2p_torch.obs.faults import FaultPlan
+
+    return FaultPlan(ckpt_crash_after_bytes=args.fault_ckpt_crash_bytes,
+                     ckpt_corrupt_seed=args.fault_ckpt_corrupt_seed,
+                     ckpt_io_errors=args.fault_ckpt_io_errors,
+                     start_step=args.fault_at_step)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _build_parser().parse_args(argv)
+    if args.supervise and args.heal:
+        raise SystemExit(
+            "--supervise and --heal are separate recovery wrappers; "
+            "pick one (the supervisor covers storage crashes, heal "
+            "covers lost hosts)")
     flag = _not_ported(args)
     if flag is not None:
         print(f"train {flag}: not ported yet", file=sys.stderr)
@@ -364,10 +785,22 @@ def main(argv=None) -> int:
         rt = make_runtime(device="cpu" if cpu else None,
                           mesh_shape=mesh_shape(args.mesh_shape, world),
                           axis_names=AXES)
-        summary = run_training(
-            cfg, steps=args.steps, lr=args.lr, seed=args.seed,
-            log_every=args.log_every, log_path=args.log_jsonl,
-            log_stream=sys.stdout, mesh=rt.mesh)
+        common = dict(
+            steps=args.steps, lr=args.lr, seed=args.seed,
+            log_every=args.log_every, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every, ckpt_keep=args.ckpt_keep,
+            log_path=args.log_jsonl, log_stream=sys.stdout,
+            optimizer=args.optimizer, weight_decay=args.weight_decay,
+            eval_every=args.eval_every, eval_batches=args.eval_batches,
+            clip_norm=args.clip_norm, warmup_steps=args.warmup_steps,
+            schedule=args.schedule, fault_plan=fault_plan_from_args(args),
+            mesh=rt.mesh)
+        if args.supervise:
+            summary = run_training_supervised(
+                cfg, resume=args.resume, max_restarts=args.max_restarts,
+                **common)
+        else:
+            summary = run_training(cfg, resume=args.resume, **common)
         report, rank = _card_report(rt), rt.rank
         rt.close()
         rt = None

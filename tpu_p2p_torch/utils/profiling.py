@@ -39,6 +39,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
+import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -48,6 +49,13 @@ import torch.distributed as dist
 
 from tpu_p2p_torch.utils import timing as timing_mod
 from tpu_p2p_torch.utils.errors import TransferTimeout
+
+# On the H100 host, torch.profiler loses device events near the edges of
+# a recorded window, and more the older the process: a few minutes in,
+# every kernel of a 60 ms window can go missing, while a host pause of
+# half a second on either side keeps them (PERF.md § 7). A recorded
+# window on a card starts and ends with one.
+WINDOW_PAD_S = 0.5
 
 CHAIN_TAG = "tp_p2p_chain"   # record_function name prefix of a chain run
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -147,7 +155,8 @@ def capture_device_slope(f_short: Callable, f_long: Callable, x,
     launch theirs, so a rank still entering the profiler would show up
     as busy time of the others) → (device slope or None, note). The same
     runs go once first as the profiler's warm-up cycle, which is not
-    recorded: the tracer can lose the first events after it starts. The
+    recorded: the tracer can lose the first events after it starts. On a
+    card the recorded runs sit between two pauses of ``WINDOW_PAD_S``. The
     note is None only where no device track can exist (a CPU world):
     there the verdict is unjudged. Raises :class:`TransferTimeout` when
     a fence outlives ``timeout_s``."""
@@ -160,7 +169,10 @@ def capture_device_slope(f_short: Callable, f_long: Callable, x,
     with tempfile.TemporaryDirectory(prefix="tp_p2p_dev_") as td:
         with profile(activities=acts, schedule=schedule(
                 wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):                  # warm-up, then recorded
+            for cycle in ("warm-up", "recorded"):
+                pad = card and cycle == "recorded"
+                if pad:
+                    time.sleep(WINDOW_PAD_S)
                 for j in range(runs):
                     for n, f in ((n_short, f_short), (n_long, f_long)):
                         if barrier is not None:
@@ -168,6 +180,8 @@ def capture_device_slope(f_short: Callable, f_long: Callable, x,
                         with record_function(f"{CHAIN_TAG}:{n}:{j}"):
                             out = f(x)
                         timing_mod.run_fenced(out, timeout_s)
+                if pad:
+                    time.sleep(WINDOW_PAD_S)
                 prof.step()
         path = os.path.join(td, "trace.json")
         prof.export_chrome_trace(path)
