@@ -43,7 +43,8 @@ the first phase that goes wrong:
 6. decode   — teacher-forced paged logits (chunk 1) against the dense
    KV-cached decode step, which writes through ``cache_kv_write``, each
    step launching its fused write once per block;
-7. serve    — ``run_engine`` on a seeded 16-request trace in continuous
+7. serve    — ``run_engine`` over a serve mesh of one rank on a seeded
+   16-request trace in continuous
    and static batching: every request finishes, step counts equal the
    dry ``simulate_schedule``, the page pool drains full, both batching
    modes emit the same tokens, and the fused paged write ran once on
@@ -180,6 +181,26 @@ the first phase that goes wrong:
    1e-6 relative); (c) ``run_training_supervised`` with a simulated
    crash 512 bytes into the step-4 save: one restart from
    ``gen-000002``, the three ``# supervise:`` lines, (a)'s final loss.
+15. serve mesh — (run right after phase 9's engine runs) colocated
+   serving over the serve mesh, every rank a (card, stream) pair of one
+   controller: (a) ``run_engine`` on dp 2 and dp 4 ranks sharing cuda:0
+   at phase 7's width and trace (32 slots, pages ``SLOTS·5 + n``
+   rounded up to a multiple of n), continuous and static: every request
+   finishes, steps equal ``simulate_schedule(n_shards=n)``, every shard
+   drains full, both modes emit the same tokens, the fused paged write
+   launched ``stages`` times a (busy step, rank with an active row) and
+   nothing else; every token teacher-forced through the dense decode
+   step within 2 x 5e-2 of the dense maximum (phase 9's gate); how many
+   streams equal phase 7's bitwise; tokens/s, TTFT and per-token p50/p99
+   for dp 1 (phase 7), 2 and 4; (b) ``serve --reuse``'s three graded
+   runs on 2 ranks sharing cuda:0: the schedule counts of the CPU run,
+   TTFT ratio below 0.5, more than 1 token a decode step, and each
+   stream that parts from the baseline (or from the CPU's) held to the
+   teacher-forced gate with its count and top-2 margins printed; (c)
+   ``run_chaos`` on 2 ranks sharing cuda:0: preempt, shed and step
+   counts of the CPU run, ``slow_step``'s streams bitwise the fault-free
+   twin's, the sampled streams against their batch-1 dense rollouts
+   under the same gate.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -188,6 +209,7 @@ printing no result, where no CUDA device is visible.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -221,6 +243,8 @@ MODEL = dict(heads=16, kv_heads=8, head_dim=128, stages=8,
 SLOTS, PAGE_LEN, MAX_BLOCKS, CHUNK = 32, 32, 8, 8
 NUM_PAGES = SLOTS * 5 + 1        # 161 pages of 1 MiB
 DECODE_POSITIONS = 16
+SERVE_KEYS = ("serve_tokens_per_s", "serve_ttft_ms_p50", "serve_ttft_ms_p99",
+              "serve_tok_ms_p50", "serve_tok_ms_p99", "wall_s", "steps")
 
 
 def say(*parts) -> None:
@@ -1121,13 +1145,15 @@ def serve_config(cfg):
 
 def serve(cfg, params, TK, card: str) -> dict:
     from tpu_p2p_torch.serve.batcher import simulate_schedule
-    from tpu_p2p_torch.serve.engine import run_engine, synthetic_trace
+    from tpu_p2p_torch.serve.engine import (run_engine, serve_mesh,
+                                            synthetic_trace)
 
     sc = serve_config(cfg)
     trace = synthetic_trace(sc)
-    run_engine(cfg, params, trace[:2], sc=sc)      # warm-up, not counted
+    mesh = serve_mesh(1, [params["emb"].device])
+    run_engine(mesh, cfg, params, trace[:2], sc=sc)  # warm-up, not counted
     torch.cuda.synchronize()
-    streams, busy_total = {}, 0
+    streams, summary, busy_total = {}, {}, 0
     TK.reset_launches()
     for mode in ("continuous", "static"):
         sim = simulate_schedule(
@@ -1135,10 +1161,11 @@ def serve(cfg, params, TK, card: str) -> dict:
             num_pages=sc.num_pages, max_blocks=sc.max_blocks,
             chunk=sc.chunk, mode=mode)
         torch.cuda.reset_peak_memory_stats()
-        out = run_engine(cfg, params, trace, sc=sc, mode=mode)
+        out = run_engine(mesh, cfg, params, trace, sc=sc, mode=mode)
         torch.cuda.synchronize()
         b = out["batcher"]
         busy = b.step_idx - b.idle_steps
+        summary[mode] = {k: out[k] for k in SERVE_KEYS}
         busy_total += busy
         fin = out["finished"]
         if len(fin) != len(trace) or any(len(r.generated) != r.max_new
@@ -1174,7 +1201,8 @@ def serve(cfg, params, TK, card: str) -> dict:
                 if streams["continuous"][r] != streams["static"][r]]
         raise AssertionError(f"continuous vs static streams differ for "
                              f"requests {diff}")
-    return {"launches": counts, "streams": streams["continuous"]}
+    return {"launches": counts, "streams": streams["continuous"],
+            "summary": summary}
 
 
 # ------------------------------------------------------------ phase 8
@@ -3523,6 +3551,281 @@ def train_loop(TFA, dev, card, sgd_p50: float) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- phase 15
+
+
+MESH_RANKS = (2, 4)                     # dp ranks sharing cuda:0
+
+
+def mesh_pages(n: int) -> int:
+    """Phase 7's pool over ``n`` shards: ``SLOTS·5 + n`` pages (a trash
+    page a shard), rounded up to a multiple of ``n``."""
+    pages = SLOTS * 5 + n
+    return pages + (-pages) % n
+
+
+def mesh_rank_steps(sim: dict, n: int) -> int:
+    """Over a dry schedule's busy steps, how many (step, rank) pairs have
+    an active row: the serve mesh runs a rank's step only then."""
+    act = sim["stacked"]["n_active"]
+    return int((act.reshape(len(act), n, -1).sum(-1) > 0).sum())
+
+
+def mesh_run(mesh, cfg, params, sc, trace, mode: str, TK) -> dict:
+    """``run_engine`` over ``mesh``, its KV-write launches counted;
+    raises unless every request finishes in full, the steps equal the dry
+    ``simulate_schedule(n_shards=n)``, every shard drains full, and the
+    KV write launched ``stages`` times a (busy step, rank with an active
+    row) and nothing else launched."""
+    from tpu_p2p_torch.serve.batcher import simulate_schedule
+    from tpu_p2p_torch.serve.engine import run_engine
+
+    n, what = mesh.size, f"dp {mesh.size} {mode}"
+    sim = simulate_schedule(
+        trace, slots=sc.slots, page_len=sc.page_len,
+        num_pages=sc.num_pages, max_blocks=sc.max_blocks, chunk=sc.chunk,
+        mode=mode, n_shards=n)
+    torch.cuda.synchronize()
+    TK.reset_launches()
+    out = run_engine(mesh, cfg, params, trace, sc=sc, mode=mode)
+    torch.cuda.synchronize()
+    counts = dict(TK.launches)
+    b, fin = out["batcher"], out["finished"]
+    if len(fin) != len(trace) or any(len(r.generated) != r.max_new
+                                      for r in fin):
+        raise AssertionError(f"{what}: {len(fin)}/{len(trace)} requests "
+                             "finished in full")
+    busy = out["steps"] - out["idle_steps"]
+    if (busy, out["idle_steps"]) != (sim["steps"], sim["idle_steps"]):
+        raise AssertionError(
+            f"{what}: {busy} busy + {out['idle_steps']} idle steps, the "
+            f"dry schedule says {sim['steps']} + {sim['idle_steps']}")
+    if any(b.pool_alloc.available(k) != b.pool_alloc.capacity
+           for k in range(n)):
+        raise AssertionError(f"{what}: page leak")
+    rank_steps = mesh_rank_steps(sim, n)
+    want = cfg.stages * rank_steps
+    if counts != {"paged_kv_write": want, "cache_kv_write": 0,
+                  "paged_rows_write": 0, "cache_row_write": 0}:
+        raise AssertionError(
+            f"{what}: launches {counts}, expected paged_kv_write {want} = "
+            f"stages {cfg.stages} x {rank_steps} (busy step, rank with an "
+            "active row) pairs, and nothing else")
+    out.update(streams={r.rid: list(r.generated) for r in fin},
+               launches=want, rank_steps=rank_steps, busy=busy)
+    return out
+
+
+def dense_logits(cfg, params, seq) -> torch.Tensor:
+    """Teacher-forced dense-decode logits of one token sequence at batch
+    1 on the params' device: row ``t`` scores the token after position
+    ``t``."""
+    from tpu_p2p_torch.models import decode as D
+
+    dev = params["emb"].device
+    cfg1 = dataclasses.replace(cfg, batch=1)
+    step = D.make_flagship_lm_decode_step(cfg1)
+    cache = D.init_kv_cache(cfg1, len(seq) + (-len(seq)) % 8, dev)
+    rows = []
+    for t in range(len(seq) - 1):
+        tok = torch.tensor([[int(seq[t])]], device=dev)
+        cache, lg = step(params, cache, tok, t)
+        rows.append(lg[0, 0].float())
+    return torch.stack(rows)
+
+
+def parity_gate(cfg, params, prompts: dict, got: dict, want: dict,
+                what: str, card: str) -> int:
+    """The streams of ``got`` that part from ``want`` (rid → tokens), each
+    token of both held to phase 9's teacher-forced gate (its dense logit
+    within ``WITNESS_TOL`` of the dense maximum); prints how many part
+    and the dense top-2 margin where each first parts. → how many
+    part."""
+    parts, worst = [], 0.0
+    for rid in sorted(got):
+        if got[rid] == want[rid]:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(got[rid], want[rid]))
+                 if x != y)
+        p = len(prompts[rid])
+        for toks in (got[rid], want[rid]):
+            seq = np.concatenate([prompts[rid], toks]).astype(np.int64)
+            rows = dense_logits(cfg, params, seq)[p - 1:]
+            tgt = torch.from_numpy(seq[p:]).to(rows.device)
+            gap = rows.max(-1).values - rows.gather(1, tgt[:, None])[:, 0]
+            worst = max(worst, gap.max().item())
+        top2 = torch.topk(rows[j], 2).values
+        parts.append(f"rid {rid} at token {j}: {got[rid][j]} vs "
+                     f"{want[rid][j]}, dense top-2 margin "
+                     f"{(top2[0] - top2[1]).item():.3g}")
+    say(f"{what}: {len(parts)}/{len(got)} streams part bitwise"
+        + (": " + "; ".join(parts) + f"; every token of both within "
+           f"{worst:.3g} of the dense max (tol {WITNESS_TOL})"
+           if parts else "") + f" | {card}")
+    if worst > WITNESS_TOL:
+        raise AssertionError(f"{what}: a token's dense logit trails the "
+                             f"max by {worst} > {WITNESS_TOL}")
+    return len(parts)
+
+
+def mesh_width(cfg, params, TK, phase7: dict, card: str) -> int:
+    """(a) ``run_engine`` over dp 2 and dp 4 ranks sharing the card at
+    phase 7's width and trace, continuous and static; → the KV-write
+    launches counted."""
+    from tpu_p2p_torch.serve.engine import serve_mesh, synthetic_trace
+
+    dev = params["emb"].device
+    base = serve_config(cfg)
+    trace = synthetic_trace(base)
+    rows = {1: phase7["summary"]["continuous"]}
+    runs, launches = {}, 0
+    for n in MESH_RANKS:
+        mesh = serve_mesh(n, [dev] * n)
+        sc = dataclasses.replace(base, num_pages=mesh_pages(n))
+        streams = {}
+        for mode in ("continuous", "static"):
+            out = mesh_run(mesh, cfg, params, sc, trace, mode, TK)
+            launches += out["launches"]
+            streams[mode] = out["streams"]
+            rows.setdefault(n, {k: out[k] for k in SERVE_KEYS})
+            say(f"serve mesh dp {n} {mode}: {out['requests']} requests, "
+                f"{out['prompt_tokens']} prompt + {out['gen_tokens']} "
+                f"generated tokens, {out['busy']} steps (= simulate_"
+                f"schedule(n_shards={n})) + {out['idle_steps']} idle, "
+                f"pages {sc.num_pages} ({sc.num_pages // n} a shard, "
+                f"every shard drained full) | kv_rows_kernel launches "
+                f"{out['launches']} = stages {cfg.stages} x "
+                f"{out['rank_steps']} (busy step, rank with an active row) "
+                f"pairs, of {out['busy']} x {n} | {card}")
+        if streams["continuous"] != streams["static"]:
+            diff = [r for r in streams["continuous"]
+                    if streams["continuous"][r] != streams["static"][r]]
+            raise AssertionError(f"dp {n}: continuous vs static streams "
+                                 f"differ for requests {diff}")
+        same = sum(streams["continuous"][r] == phase7["streams"][r]
+                   for r in phase7["streams"])
+        say(f"serve mesh dp {n}: continuous == static bitwise "
+            f"({len(trace)}/{len(trace)} streams); {same}/{len(trace)} "
+            f"streams bitwise phase 7's one-rank streams | {card}")
+        runs[f"dp {n}"] = streams["continuous"]
+    stream_witness(cfg, params, trace, runs, card)
+    for n, r in rows.items():
+        say(f"serve mesh dp {n} continuous on one card: "
+            f"{r['serve_tokens_per_s']} tokens/s, ttft p50 "
+            f"{r['serve_ttft_ms_p50']} ms p99 {r['serve_ttft_ms_p99']} ms, "
+            f"per-token p50 {r['serve_tok_ms_p50']} ms p99 "
+            f"{r['serve_tok_ms_p99']} ms, {r['steps']} steps in "
+            f"{r['wall_s']} s ({r['wall_s'] * 1e3 / r['steps']:.1f} ms a "
+            f"step){' (phase 7)' if n == 1 else ''} | {card}")
+    return launches
+
+
+def mesh_reuse(dev, TK, card: str) -> int:
+    """(b) ``serve --reuse``'s three graded runs over 2 ranks sharing
+    the card, against the same runs on 2 CPU ranks; → the KV-write
+    launches counted."""
+    from tpu_p2p_torch.serve.engine import (_ttft_steps_mean, run_reuse,
+                                            serve_mesh)
+
+    torch.cuda.synchronize()
+    TK.reset_launches()
+    got = run_reuse(serve_mesh(2, [dev] * 2))
+    torch.cuda.synchronize()
+    counts = dict(TK.launches)
+    if not counts["paged_kv_write"] or sum(counts.values()) \
+            != counts["paged_kv_write"]:
+        raise AssertionError(f"reuse launches {counts}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = run_reuse(serve_mesh(2, ["cpu"] * 2))
+    keys = ("requests", "steps", "prefix_hits", "prefix_pages_shared",
+            "prefix_tokens_saved", "cow_forks")
+    for run in ("base", "prefix"):
+        a, b = ({k: o[run].get(k) for k in keys} for o in (got, want))
+        if a != b:
+            raise AssertionError(f"reuse {run}: card {a} vs CPU {b}")
+    ratio = (_ttft_steps_mean(got["prefix"]["finished"])
+             / _ttft_steps_mean(got["base"]["finished"]))
+    if not ratio < 0.5:
+        raise AssertionError(f"reuse prefix: TTFT ratio {ratio} >= 0.5")
+    spec = got["spec"]
+    rate = spec["spec_decode_tokens"] / max(spec["spec_decode_steps"], 1)
+    if rate <= 1.0:
+        raise AssertionError(f"reuse spec: {rate} tokens a decode step")
+    prompts = {r.rid: np.asarray(r.prompt) for r in got["trace"]}
+
+    def streams(out):
+        return {r.rid: list(r.generated) for r in out["finished"]}
+
+    base = streams(got["base"])
+    for run in ("prefix", "spec"):
+        parity_gate(got["cfg"], got["params"], prompts,
+                    streams(got[run]), base,
+                    f"reuse {run} vs baseline on the card", card)
+    parity_gate(got["cfg"], got["params"], prompts, base,
+                streams(want["base"]), "reuse baseline, card vs CPU", card)
+    return counts["paged_kv_write"]
+
+
+def mesh_chaos(dev, TK, card: str) -> dict:
+    """(c) ``run_chaos`` over 2 ranks sharing the card against the same
+    on 2 CPU ranks; → the KV-write launches counted (the engine's paged
+    ones, the dense rollouts' dense ones)."""
+    from tpu_p2p_torch.models.flagship import init_flagship_params
+    from tpu_p2p_torch.serve import resilience as R
+    from tpu_p2p_torch.serve.engine import (_engine_model, serve_mesh,
+                                            synthetic_trace)
+
+    torch.cuda.synchronize()
+    TK.reset_launches()
+    got = R.run_chaos(serve_mesh(2, [dev] * 2), out=sys.stdout)
+    torch.cuda.synchronize()
+    counts = dict(TK.launches)
+    want = R.run_chaos(serve_mesh(2, ["cpu"] * 2), out=io.StringIO())
+    same = {"preempt_clamp": ("preemptions", "completed", "token_loss",
+                              "recover_steps", "steps"),
+            "storm_shed": ("shed", "total", "completed", "first_shed_step",
+                           "steps"),
+            "slow_step": ("steps", "ref_steps")}
+    for scen, keys in same.items():
+        a, b = ({k: o[scen][k] for k in keys} for o in (got, want))
+        if a != b:
+            raise AssertionError(f"chaos {scen}: card {a} vs CPU {b}")
+    p, st, sl = got["preempt_clamp"], got["storm_shed"], got["slow_step"]
+    if not (p["preemptions"] and not p["token_loss"]
+            and p["completed"] == p["requests"] and st["ok"]
+            and sl["tokens_bitwise"] and sl["delay_visible"]):
+        raise AssertionError(f"chaos on the card: preempt {p['ok']}, "
+                             f"storm {st['ok']}, slow {sl['ok']}")
+    sc = R._chaos_sc(2)
+    cfg = _engine_model(sc)
+    prompts = {r.rid: np.asarray(r.prompt) for r in synthetic_trace(sc)}
+    checked = {rid: p["streams"][rid] for rid in p["dense"]}
+    parity_gate(cfg, init_flagship_params(cfg, device=dev), prompts,
+                checked, p["dense"],
+                "chaos preempt_clamp vs its batch-1 dense rollouts", card)
+    say(f"chaos on the card: preemptions {p['preemptions']}, shed "
+        f"{st['shed']}/{st['total']}, steps {p['steps']} / {st['steps']} / "
+        f"{sl['steps']} (= the CPU run), slow_step streams bitwise the "
+        f"fault-free twin's, tok p99 {sl['tok_ms_p99_ref']} -> "
+        f"{sl['tok_ms_p99_slow']} ms | launches {counts} | {card}")
+    if not counts["paged_kv_write"] or not counts["cache_kv_write"]:
+        raise AssertionError(f"chaos launches {counts}")
+    return counts
+
+
+def serve_mesh_phase(cfg, params, TK, phase7: dict, card: str) -> dict:
+    """Phase 15: (a) at the full width, (b) the graded reuse runs, (c)
+    the chaos smoke; → the KV-write launches by path."""
+    dev = params["emb"].device
+    paged = {"serve_mesh": mesh_width(cfg, params, TK, phase7, card)}
+    torch.cuda.empty_cache()
+    paged["serve_reuse"] = mesh_reuse(dev, TK, card)
+    chaos = mesh_chaos(dev, TK, card)
+    paged["serve_chaos"] = chaos["paged_kv_write"]
+    return {"paged_kv_write": paged,
+            "cache_kv_write": {"serve_chaos": chaos["cache_kv_write"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -3609,10 +3912,17 @@ def main() -> int:
     kernels.append(p2p(card))
     t0 = time.perf_counter()
     dis = disagg(cfg, params, srv["streams"], card)
+    say(f"phase 9 (disagg, without the ship kernel checks): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_paths = serve_mesh_phase(cfg, params, TK, srv, card)
+    say(f"phase 15 (serve mesh): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     del params
     torch.cuda.empty_cache()
     kernels.append(ship(card, dis))
-    say(f"phase 9 (disagg): {time.perf_counter() - t0:.1f} s")
+    say(f"phase 9 (the ship kernel checks): "
+        f"{time.perf_counter() - t0:.1f} s")
     launches = {"cache_kv_write": dec["launches"]["cache_kv_write"],
                 "paged_kv_write": srv["launches"]["paged_kv_write"],
                 "dma_permute": kernels[-2]["launches"],
@@ -3627,10 +3937,12 @@ def main() -> int:
              for name, n in trn["launches"].items()}
     paths["cache_kv_write"] = {
         "decode": launches["cache_kv_write"],
-        "moe_decode": moe_launches["decode"]["cache_kv_write"]}
+        "moe_decode": moe_launches["decode"]["cache_kv_write"],
+        **mesh_paths["cache_kv_write"]}
     paths["paged_kv_write"] = {
         "serve": launches["paged_kv_write"],
-        "moe_decode": moe_launches["decode"]["paged_kv_write"]}
+        "moe_decode": moe_launches["decode"]["paged_kv_write"],
+        **mesh_paths["paged_kv_write"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

@@ -35,7 +35,9 @@ one call, each turn a process of its own (``--root DIR --part P``):
   launch counts kept; exits 1 unless the streams, migrations and
   peer-push launches of the two trees are equal;
 - ``profile``: this profile of each tree, parent, change, change,
-  parent: ``enqueue_ms``, ``device_ms`` and launches per busy step.
+  parent: ``enqueue_ms``, ``device_ms`` and launches per busy step. It
+  serves through ``serve_mesh`` and ``Batcher._issue``, so the parent
+  must be a tree that serves over the serve mesh.
 
 Then one JSON line of it all (the streams as a verdict)::
 
@@ -60,28 +62,34 @@ TURN_KEYS = ("enqueue_ms_p50", "enqueue_ms_mean", "device_ms_p50",
              "device_ms_mean", "step_ms_p50", "launches_per_busy_step")
 
 
+def serve_once(cfg, params, trace, sc):
+    """``run_engine`` in continuous batching on one rank, the params'
+    card."""
+    from tpu_p2p_torch.serve.engine import run_engine, serve_mesh
+
+    mesh = serve_mesh(1, [params["emb"].device])
+    return run_engine(mesh, cfg, params, trace, sc=sc, mode="continuous")
+
+
 def timed_serve(cfg, params, trace, sc):
-    """Serve ``trace`` with every busy step's parts timed; → per-part
-    lists of ms."""
+    """Serve ``trace`` on one rank with every busy step's parts timed; →
+    per-part lists of ms."""
     from tpu_p2p_torch.serve import batcher as B
-    from tpu_p2p_torch.serve.engine import run_engine
 
     parts = {k: [] for k in ("step_ms", "host_sched_ms", "enqueue_ms",
                              "device_ms", "wait_copy_ms", "copy_ms")}
     run_step, step = B.Batcher._run_step, B.Batcher.step
 
     def timed_run_step(self, tokens, pos, n_active):
+        stream = self.mesh.stream(0)     # the rank's own stream
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         t0 = time.perf_counter()
-        ev[0].record()
-        self.pool, logits = self._step(
-            self.params, self.pool,
-            *(torch.from_numpy(a).to(self.device, torch.int64)
-              for a in (tokens, pos, n_active, self.tables)))
-        ev[1].record()
+        ev[0].record(stream)
+        logits = self._issue(0, tokens, pos, n_active, self.tables)
+        ev[1].record(stream)
         t1 = time.perf_counter()
-        host = logits.cpu().numpy()
-        ev[2].record()
+        host = self._host(0, logits)
+        ev[2].record(stream)
         ev[2].synchronize()
         t2 = time.perf_counter()
         parts["enqueue_ms"].append((t1 - t0) * 1e3)
@@ -103,7 +111,7 @@ def timed_serve(cfg, params, trace, sc):
 
     B.Batcher._run_step, B.Batcher.step = timed_run_step, timed_step
     try:
-        run_engine(cfg, params, trace, sc=sc, mode="continuous")
+        serve_once(cfg, params, trace, sc)
     finally:
         B.Batcher._run_step, B.Batcher.step = run_step, step
     return parts
@@ -125,13 +133,11 @@ def profiled_serve(cfg, params, trace, sc, top: int = 12):
     activities as (name, calls, ms))."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_p2p_torch.serve.engine import run_engine
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_engine(cfg, params, trace, sc=sc, mode="continuous")
+        serve_once(cfg, params, trace, sc)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events()
@@ -164,7 +170,7 @@ def profile(root: str) -> dict:
     CS = _smoke(root)
     from tpu_p2p_torch.models.flagship import (
         FlagshipConfig, init_flagship_params)
-    from tpu_p2p_torch.serve.engine import run_engine, synthetic_trace
+    from tpu_p2p_torch.serve.engine import synthetic_trace
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = CS.card_line()
@@ -172,7 +178,7 @@ def profile(root: str) -> dict:
     params = init_flagship_params(cfg, seed=0, device="cuda")
     sc = CS.serve_config(cfg)
     trace = synthetic_trace(sc)
-    run_engine(cfg, params, trace, sc=sc, mode="continuous")  # warm-up
+    serve_once(cfg, params, trace, sc)                      # warm-up
     parts = timed_serve(cfg, params, trace, sc)
     steps = len(parts["step_ms"])
     result = {"card": card, "root": os.path.abspath(root),

@@ -576,8 +576,9 @@ def test_serve_disagg_cli_rejections(capsys):
     assert "not ported yet" in capsys.readouterr().err
     assert TE.main(["--disagg", "--device", "cpu"]) == 1   # one rank
     assert ">= 2 devices" in capsys.readouterr().err
-    assert TE.main(["--device", "cpu", "--cpu-mesh", "2"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert TE.main(["--device", "cpu", "--cpu-mesh", "2", "--requests",
+                    "2"]) == 0         # colocated over 2 ranks: served
+    assert "serve device cpu {'dp': 2}" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="drop --batching"):
         TE.main(["--disagg", "--device", "cpu", "--cpu-mesh", "2",
                  "--batching", "static"])

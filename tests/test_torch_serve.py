@@ -332,16 +332,17 @@ def test_simulate_schedule_event_exact_vs_reference(name):
 
 def test_dry_batcher_refuses_speculation_and_oversized_requests():
     with pytest.raises(ValueError, match="VALUE-driven"):
-        TB.Batcher(None, None, slots=2, page_len=8, num_pages=8,
+        TB.Batcher(None, None, None, slots=2, page_len=8, num_pages=8,
                    max_blocks=2, chunk=2, dry=True, spec_k=2)
-    b = TB.Batcher(None, None, slots=2, page_len=8, num_pages=8,
+    b = TB.Batcher(None, None, None, slots=2, page_len=8, num_pages=8,
                    max_blocks=2, chunk=4, dry=True)
     b.submit(TB.Request(rid=0, prompt=np.zeros(40, np.int32), max_new=8))
     with pytest.raises(ValueError, match="max_blocks"):
         b.step()
     with pytest.raises(ValueError, match="dry-only"):
-        TB.Batcher(None, {"emb": torch.zeros(1)}, slots=2, page_len=8,
-                   num_pages=8, max_blocks=2, chunk=4, n_shards=2)
+        TB.Batcher(None, None, {"emb": torch.zeros(1)}, slots=2,
+                   page_len=8, num_pages=8, max_blocks=2, chunk=4,
+                   n_shards=2)
 
 
 # ------------------------------------------------------------ engine
@@ -396,8 +397,8 @@ def test_engine_streams_match_reference(name):
     j_recs, t_recs = [], []
     want = JE.run_engine(mesh, jcfg, JF.place_flagship_params(j_params, mesh),
                          j_trace, sc=jsc, mode=mode, emit=j_recs.append)
-    got = TE.run_engine(tcfg, t_params, t_trace, sc=tsc, mode=mode,
-                        emit=t_recs.append)
+    got = TE.run_engine(TE.serve_mesh(1, ["cpu"]), tcfg, t_params,
+                        t_trace, sc=tsc, mode=mode, emit=t_recs.append)
 
     def streams(out):
         return {r.rid: list(r.generated) for r in out["finished"]}
@@ -456,15 +457,18 @@ def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys):
         TE.resolve_device("cuda")
     assert TE.main(["--requests", "1"]) == 1     # default device: cuda
     assert "no CUDA device" in capsys.readouterr().err
-    for flag in (["--chaos"], ["--trace", "t.json"]):
-        assert TE.main(["--device", "cpu", *flag]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+    assert TE.main(["--chaos"]) == 1             # default device: cuda
+    assert "no CUDA device" in capsys.readouterr().err
+    assert TE.main(["--device", "cpu", "--trace", "t.json"]) == 2
+    assert "not ported yet" in capsys.readouterr().err
     assert TE.main(["--disagg", "--requests", "1"]) == 1  # cuda: no card
     assert "no CUDA device" in capsys.readouterr().err
     assert TCLI.main(["train"]) == 1                      # cuda: no card
     assert "no CUDA device" in capsys.readouterr().err
     assert TE.main(["--device", "cpu", "--reuse"]) == 0
-    assert "NULL" in capsys.readouterr().out
+    assert "serve reuse NULL: 1 device(s)" in capsys.readouterr().out
+    assert TE.main(["--device", "cpu", "--cpu-mesh", "1", "--reuse"]) == 0
+    assert "serve reuse NULL: 1 device(s)" in capsys.readouterr().out
 
 
 # ------------------------------------------------------------ imports

@@ -1,4 +1,6 @@
-"""Incremental decoding — the dense KV-cached LM step and the
+"""Incremental decoding — the dense KV-cached LM step, the LM rollout
+(:func:`generate_tokens`: greedy, or temperature / top-k / top-p
+sampling off an explicit ``torch.Generator``) and the
 speculative-decoding helpers. Port of ``tpu_p2p/models/decode.py``.
 
 The dense cache ``[stages, B, H_kv, max_len, Dh]`` is written in place,
@@ -18,7 +20,7 @@ reference.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -160,6 +162,85 @@ def make_flagship_lm_decode_step(cfg: FlagshipConfig):
         return cache, _unembed(y, params["emb"], compute)
 
     return step
+
+
+def _pick(logits, temperature: float, top_k: int, top_p: float,
+          generator: Optional[torch.Generator]):
+    """The next token of each row off ``logits [B, 1, vocab]`` → ``[B,
+    1]`` int64: the argmax (first maximum) at ``temperature == 0``, else
+    a draw from the softmax of ``logits / temperature`` restricted to
+    the ``top_k`` highest logits and then to the nucleus covering
+    ``top_p`` of the mass (a token survives iff the mass before it in
+    descending order is under ``top_p``, so the argmax always does)."""
+    z = logits[:, 0, :].float()
+    if temperature <= 0:
+        return z.argmax(-1, keepdim=True)
+    z = z / temperature
+    if top_k > 0:
+        kth = torch.topk(z, top_k, dim=-1).values[:, -1:]
+        z = torch.where(z >= kth, z, -torch.inf)
+    if 0.0 < top_p < 1.0:
+        z_sorted = torch.sort(z, dim=-1, descending=True).values
+        probs = torch.softmax(z_sorted, dim=-1)
+        before = torch.cumsum(probs, dim=-1) - probs
+        kept = torch.where(before < top_p, z_sorted, torch.inf)
+        cutoff = kept.min(dim=-1, keepdim=True).values
+        z = torch.where(z >= cutoff, z, -torch.inf)
+    return torch.multinomial(torch.softmax(z, dim=-1), 1,
+                             generator=generator)
+
+
+@torch.no_grad()
+def generate_tokens(step_fn, params, cache: Cache, prompt, *,
+                    num_tokens: int, temperature: float = 0.0,
+                    top_k: int = 0, top_p: float = 0.0,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[Cache, torch.Tensor]:
+    """LM rollout: consume the prompt ``[B, T0]`` token by token, then
+    emit ``num_tokens`` continuations, each fed back as the next step's
+    input (the last one too, so the cache ends holding it, as in the
+    reference). → ``(cache, tokens [B, T0 + num_tokens] int64)``.
+
+    ``temperature == 0`` (the default) is greedy argmax. Otherwise
+    tokens are drawn by ``torch.multinomial`` off ``generator`` (on the
+    logits' device), restricted by ``top_k`` and ``top_p`` (top-k
+    first) — the reference's rule with a ``torch.Generator`` in place
+    of its JAX key, so sampled streams are seeded but not the
+    reference's."""
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if temperature > 0 and generator is None:
+        raise ValueError("temperature sampling needs a generator")
+    if temperature == 0 and (top_k > 0 or top_p > 0
+                             or generator is not None):
+        raise ValueError(
+            "top_k/top_p/generator have no effect at temperature=0 "
+            "(greedy); pass temperature>0 to sample"
+        )
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+    dev = cache["k"].device
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
+    t0 = prompt.shape[1]
+    if t0 < 1:
+        raise ValueError("the prompt needs at least one token")
+    max_len = cache["k"].shape[3]
+    if t0 + num_tokens > max_len:
+        raise ValueError(
+            f"prompt ({t0}) + num_tokens ({num_tokens}) overruns the "
+            f"max_len={max_len} cache"
+        )
+    for i in range(t0):
+        cache, logits = step_fn(params, cache, prompt[:, i:i + 1], i)
+    tok = _pick(logits, temperature, top_k, top_p, generator)
+    out = [prompt]
+    for i in range(num_tokens):
+        out.append(tok)
+        cache, logits = step_fn(params, cache, tok, t0 + i)
+        tok = _pick(logits, temperature, top_k, top_p, generator)
+    return cache, torch.cat(out, dim=1)
 
 
 # --------------------------------------------------- speculative decode

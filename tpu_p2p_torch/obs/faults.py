@@ -7,8 +7,15 @@ is the reference's whole: the link throttle (``degrade_edge``), the
 straggler (``slow_rank``), the lost host (``lost_host``), the serving
 shapes (``page_pool_clamp``, ``storm_*``) and the storage shapes.
 
-The port applies the storage shapes, and only in the interposed writer
-of :mod:`tpu_p2p_torch.utils.checkpoint` (``_write_file`` and the
+The port applies the serving shapes, and only in
+:func:`tpu_p2p_torch.serve.resilience.apply_serve_faults`, which turns a
+plan into the batcher's page-pool clamp (``page_pool_clamp``), a
+request-storm burst (``storm_step`` + ``storm_requests``) and a per-step
+hook that calls :func:`maybe_slow_host` (``slow_rank`` + ``slow_ms``, a
+host-only sleep from ``start_step`` on).
+
+It applies the storage shapes only in the interposed writer of
+:mod:`tpu_p2p_torch.utils.checkpoint` (``_write_file`` and the
 post-publish rot):
 
 - **Crash mid-write** (``ckpt_crash_after_bytes``): the first generation
@@ -26,20 +33,21 @@ post-publish rot):
   the bounded retry (:func:`tpu_p2p_torch.utils.retry.retry_io`) absorbs
   them.
 
-The other shapes need the health monitor, the ledger-recorded
-collectives or the serving chaos harness, none of which is ported:
-:func:`non_storage_shapes` names them, and the training loop refuses a
+The training loop applies only the storage shapes: the others need the
+health monitor or the ledger-recorded collectives, neither of which is
+ported, so :func:`non_storage_shapes` names them and the loop refuses a
 plan that sets one.
 """
 
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 __all__ = ["FaultPlan", "SimulatedCrash", "injecting", "active_plan",
-           "non_storage_shapes", "ckpt_crash_budget",
+           "non_storage_shapes", "maybe_slow_host", "ckpt_crash_budget",
            "mark_ckpt_crash_fired", "take_ckpt_io_error",
            "ckpt_corrupt_due"]
 
@@ -198,6 +206,18 @@ def injecting(plan: FaultPlan):
         yield plan
     finally:
         _ACTIVE = None
+
+
+def maybe_slow_host(plan: Optional[FaultPlan], step: int,
+                    sleep=time.sleep) -> bool:
+    """Apply the straggler delay for global ``step``: a host-side sleep
+    of ``plan.slow_ms`` from ``plan.start_step`` on, nothing on the
+    card. → True when a delay was injected."""
+    if (plan is not None and plan.slow_rank is not None
+            and int(step) >= plan.start_step):
+        sleep(plan.slow_ms / 1e3)
+        return True
+    return False
 
 
 # ------------------------------------------------- storage IO faults

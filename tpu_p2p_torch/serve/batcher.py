@@ -8,6 +8,24 @@ mid-decode (one token, or a speculative window) or idle. Under
 ``mode="continuous"`` a finishing slot is refilled the same step;
 ``mode="static"`` refills only when every slot has drained.
 
+The batcher serves over a serve mesh (:func:`tpu_p2p_torch.serve.
+engine.serve_mesh`, a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh`
+with axis ``dp``), one controller driving every rank as the disagg
+engine does. With ``n = pool_shards(mesh)`` ranks, rank ``k`` holds pool
+shard ``k`` (``num_pages / n`` pages, its own trash page 0, shard-local
+tables), the slot rows ``[k·S/n, (k+1)·S/n)`` and the params (one copy
+for each distinct device). Each step splits the host input arrays by
+rows, one slice a rank (the reference's ``place_step_inputs``), issues
+every rank's mixed step on its own stream before reading any back, and
+joins the logits in rank order; the argmax stays on the host (numpy,
+first maximum wins), as in the reference.
+
+**A rank with no active row runs nothing that step** (the reference's
+SPMD step runs it and parks its writes on the trash page). Its rows'
+logits are never read — an occupied slot always has an active row — so
+the streams are the same, and the KV-write kernel launches ``stages``
+times per rank with at least one active row, per busy step.
+
 Pages are allocated lazily (admission reserves the prefill's pages,
 decode grows the table on demand) and a dry free list preempts the
 slot with the least completed work, re-enqueued for
@@ -22,9 +40,6 @@ movement, preemption, shedding or stopping), which is what keeps
 :func:`simulate_schedule` exact without a device. Speculation is the
 exception — acceptance depends on logits — so a dry batcher refuses
 ``spec_k > 0``.
-
-The host pulls each step's full float32 logits and takes the argmax
-with numpy (first maximum wins), as the reference does.
 """
 
 from __future__ import annotations
@@ -45,9 +60,10 @@ from tpu_p2p_torch.serve.paged_cache import (
     PagePool,
     PrefixIndex,
     TRASH_PAGE,
-    init_paged_pool,
+    init_pool_shards,
+    make_page_copy,
     make_paged_lm_step,
-    page_copy,
+    pool_shards,
 )
 from tpu_p2p_torch.serve.resilience import (
     OUTCOME_COMPLETED,
@@ -168,18 +184,22 @@ class Batcher:
     device state and records the schedule instead (tokens for
     not-yet-generated positions are 0 — scheduling never reads them).
 
-    The device batcher serves one pool shard on the params' device;
-    ``n_shards > 1`` is for the dry scheduler, which simulates the
-    reference's sharded pools on the host. ``pool_clamp`` clamps the
-    usable pages per shard (the page-pressure scenario)."""
+    The device batcher serves over ``mesh`` (module docstring);
+    ``n_shards`` defaults to :func:`pool_shards` of it, and a dry
+    batcher (``mesh=None``) takes it as given to simulate sharded
+    pools. ``pool_clamp`` clamps the usable pages per shard (the
+    page-pressure fault) and ``step_hook`` is called once per non-idle
+    step with the step index (the slow-step fault rides it); only
+    :mod:`tpu_p2p_torch.serve.resilience` should pass either."""
 
-    def __init__(self, cfg, params, *, slots: int, page_len: int,
+    def __init__(self, mesh, cfg, params, *, slots: int, page_len: int,
                  num_pages: int, max_blocks: int, chunk: int,
                  mode: str = "continuous", dry: bool = False,
-                 n_shards: int = 1, queue_depth: int = 0,
+                 n_shards: Optional[int] = None, queue_depth: int = 0,
                  deadline_steps: int = 0, stop: str = "length",
                  stop_seed: int = 0, eos_prob: float = 0.0,
                  pool_clamp: Optional[int] = None,
+                 step_hook: Optional[Callable[[int], None]] = None,
                  prefix_cache: bool = False, spec_k: int = 0,
                  clock: Callable[[], float] = time.monotonic) -> None:
         if mode not in BATCHING_MODES:
@@ -214,17 +234,24 @@ class Batcher:
                 "record a schedule the device engine does not follow; "
                 "refusing"
             )
+        if not dry and mesh is None:
+            raise ValueError(
+                "the device batcher serves over a mesh (serve_mesh); "
+                "mesh=None is dry-only"
+            )
+        if n_shards is None:
+            n_shards = pool_shards(mesh) if mesh is not None else 1
+        elif not dry and n_shards != pool_shards(mesh):
+            raise ValueError(
+                f"n_shards={n_shards} on a mesh of {pool_shards(mesh)} "
+                "pool shards: the device batcher has one shard a rank"
+            )
         if slots % n_shards:
             raise ValueError(
-                f"slots ({slots}) must divide by the shard count "
-                f"({n_shards})"
+                f"slots ({slots}) must divide by the dp×ep shard "
+                f"count ({n_shards})"
             )
-        if not dry and n_shards != 1:
-            raise ValueError(
-                "the device batcher serves one pool shard on one "
-                f"device; n_shards={n_shards} is dry-only"
-            )
-        self.cfg, self.params = cfg, params
+        self.mesh, self.cfg, self.params = mesh, cfg, params
         self.slots_n = slots
         self.page_len, self.max_blocks = page_len, max_blocks
         self.chunk, self.mode, self.dry = chunk, mode, dry
@@ -233,6 +260,7 @@ class Batcher:
         self.deadline_steps = deadline_steps
         self.stop, self.stop_seed = stop, stop_seed
         self.eos_prob = eos_prob
+        self.step_hook = step_hook
         self.clock = clock
         self.pool_alloc = PagePool(num_pages, page_len, n_shards)
         if pool_clamp is not None:
@@ -259,15 +287,22 @@ class Batcher:
         self.shed: List[Request] = []
         self.preempt_events: List[Dict] = []
         self.schedule: List[Dict[str, np.ndarray]] = [] if dry else None
+        self._step, self.pools, self._copy = None, None, None
+        self._params: Dict[torch.device, dict] = {}
         if dry:
-            self._step, self.pool, self.device = None, None, None
-        else:
-            self.device = params["emb"].device
-            self._step = make_paged_lm_step(
-                cfg, page_len=page_len, max_blocks=max_blocks,
-                chunk=chunk)
-            self.pool = init_paged_pool(cfg, num_pages, page_len,
-                                        self.device)
+            return
+        self._step = make_paged_lm_step(
+            cfg, page_len=page_len, max_blocks=max_blocks, chunk=chunk)
+        for dev in mesh.devices:
+            if dev not in self._params:
+                self._params[dev] = {k: v.to(dev) for k, v in
+                                     params.items()}
+        self.pools = init_pool_shards(cfg, num_pages, page_len, mesh)
+        self._copy = make_page_copy(mesh)
+        if mesh.streams[0] is not None:
+            # Pools and params were made on the caller's stream.
+            for s, dev in zip(mesh.streams, mesh.devices):
+                s.wait_stream(torch.cuda.current_stream(dev))
 
     # ------------------------------------------------------ scheduling
 
@@ -459,8 +494,11 @@ class Batcher:
             return
         shard = self._shard_of(i)
         old = s.pages[blk]
-        if self.pool is not None:
-            page_copy(self.pool, old, new)
+        if self._copy is not None:
+            src = np.full(self.n_shards, TRASH_PAGE, np.int32)
+            dst = np.full(self.n_shards, TRASH_PAGE, np.int32)
+            src[shard], dst[shard] = old, new
+            self.pools = self._copy(self.pools, src, dst)
         s.pages[blk] = new
         self.tables[i, blk] = new
         self.pool_alloc.free([old], shard)
@@ -508,16 +546,46 @@ class Batcher:
 
     # ------------------------------------------------------- stepping
 
-    def _run_step(self, tokens, pos, n_active) -> np.ndarray:
-        """One mixed step on the device; → the float32 logits on the
-        host (the full ``[B, C, vocab]`` copy, argmaxed with numpy)."""
-        def dev(a):
-            return torch.from_numpy(a).to(self.device, torch.int64)
+    def _issue(self, k: int, tokens, pos, n_active, table):
+        """Issue rank ``k``'s mixed step over its rows on its stream; →
+        its logits, still on the device."""
+        dev = self.mesh.devices[k]
 
-        self.pool, logits = self._step(
-            self.params, self.pool, dev(tokens), dev(pos),
-            dev(n_active), dev(self.tables))
-        return logits.cpu().numpy()
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                dev, torch.int64)
+
+        with self.mesh.on(k):
+            self.pools[k], logits = self._step(
+                self._params[dev], self.pools[k], put(tokens), put(pos),
+                put(n_active), put(table))
+        return logits
+
+    def _host(self, k: int, logits) -> np.ndarray:
+        """Rank ``k``'s logits on the host (waits for its stream)."""
+        with self.mesh.on(k):
+            return logits.cpu().numpy()
+
+    def _run_step(self, tokens, pos, n_active) -> np.ndarray:
+        """One mixed step over the mesh: the host arrays split by rows,
+        one slice a rank, every active rank's step issued before any
+        result is read back; → the ``[B, C, vocab]`` float32 logits on
+        the host, joined in rank order (an inactive rank's rows zero)."""
+        per = self.slots_n // self.n_shards
+        issued = []
+        for k in range(self.n_shards):
+            rows = slice(k * per, (k + 1) * per)
+            if n_active[rows].any():
+                issued.append((k, rows, self._issue(
+                    k, tokens[rows], pos[rows], n_active[rows],
+                    self.tables[rows])))
+        if self.n_shards == 1:
+            return self._host(0, issued[0][2])
+        logits = np.zeros((self.slots_n, self.chunk, self.cfg.vocab),
+                          np.float32)
+        for k, rows, lg in issued:
+            logits[rows] = self._host(k, lg)
+        return logits
 
     def step(self) -> List[Request]:
         """Admit, grow/preempt, fork, run one mixed step, advance every
@@ -532,6 +600,8 @@ class Batcher:
             self.idle_steps += 1
             self.step_idx += 1
             return []
+        if self.step_hook is not None:
+            self.step_hook(self.step_idx)
         now = self.clock()
         for s in self.slots:
             if s is not None and s.phase == "prefill" \
@@ -638,7 +708,7 @@ def simulate_schedule(trace: List[Request], *, slots: int,
     "requests", "shed", "preempt_events", "preemptions",
     "prefix_hits", "prefix_tokens_saved"}``)."""
     trace = [r.fresh() for r in trace]
-    b = Batcher(None, None,
+    b = Batcher(None, None, None,
                 slots=slots, page_len=page_len, num_pages=num_pages,
                 max_blocks=max_blocks, chunk=chunk, mode=mode,
                 dry=True, n_shards=n_shards, queue_depth=queue_depth,

@@ -3,7 +3,9 @@ serve``. Port of ``tpu_p2p/serve/engine.py``.
 
 Admits a seeded synthetic trace (Poisson arrivals in scheduler steps,
 mixed prompt/output lengths), drives the continuous batcher's mixed
-step in a host loop on one device, and reports aggregate tokens/s
+step in a host loop over the serve mesh (:func:`serve_mesh`: every
+rank on the ``dp`` axis, one pool shard and slot slice a rank, one
+controller), and reports aggregate tokens/s
 (prompt + generated), time-to-first-token p50/p99 and per-token latency
 p50/p99. ``--obs-jsonl`` appends one ``{"obs": "request"}`` span record
 per request plus one ``{"obs": "serve_summary"}`` record.
@@ -11,12 +13,15 @@ per request plus one ``{"obs": "serve_summary"}`` record.
 trace. ``--disagg`` serves the trace disaggregated (prefill on one rank,
 decode on the others, KV pages migrated between them,
 :mod:`tpu_p2p_torch.serve.disagg`), then runs the colocated continuous
-twin and exits nonzero unless every token stream is bitwise the twin's.
+twin on the full mesh and exits nonzero unless every token stream is
+bitwise the twin's. ``--reuse`` runs the graded KV-reuse smoke (from 2
+ranks up) and ``--chaos`` the injected-fault smoke
+(:func:`tpu_p2p_torch.serve.resilience.chaos_main`).
 
-Runs on ``--device cuda`` (the default; every visible card, and raises
-when there is none) or ``--device cpu`` (``--cpu-mesh N``: N CPU
-ranks). Not ported yet, and rejected: ``--chaos``, ``--trace``,
-``--prefill-tp`` above 1, and colocated serving on more than one rank.
+Runs on ``--device cuda`` (the default: every visible card, one dp rank
+each, and raises when there is none) or ``--device cpu`` (``--cpu-mesh
+N``: N CPU ranks). Not ported yet, and rejected: ``--trace`` and
+``--prefill-tp`` above 1.
 """
 
 from __future__ import annotations
@@ -40,13 +45,30 @@ from tpu_p2p_torch.config import (
     parse_range,
 )
 from tpu_p2p_torch.models.flagship import FlagshipConfig, init_flagship_params
+from tpu_p2p_torch.parallel.runtime import LocalMesh
 from tpu_p2p_torch.serve.batcher import Batcher, Request, percentile
 from tpu_p2p_torch.serve.paged_cache import kv_page_bytes
-from tpu_p2p_torch.serve.resilience import preempt_recover_steps
+from tpu_p2p_torch.serve import resilience as R
 from tpu_p2p_torch.utils.device import resolve_device
 
-__all__ = ["run_engine", "synthetic_trace", "shared_prefix_trace",
-           "resolve_device", "main"]
+__all__ = ["run_engine", "serve_mesh", "synthetic_trace",
+           "shared_prefix_trace", "resolve_device", "main"]
+
+
+def serve_mesh(n_devices: int, devices: Optional[Sequence] = None
+               ) -> LocalMesh:
+    """The serve mesh: the first ``n_devices`` of ``devices`` (default:
+    every visible card), all on the ``dp`` axis, each a rank of one
+    controller with its own stream. Devices may repeat: ranks then
+    share a card."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if not 1 <= n_devices <= len(devices):
+        raise ValueError(f"serve_mesh({n_devices}) needs 1..{len(devices)} "
+                         "devices")
+    return LocalMesh(tuple(devices[:n_devices]), ("dp",))
 
 
 def sample_request(rng, sc: ServeConfig, rid: int,
@@ -140,21 +162,26 @@ def _request_record(r: Request) -> dict:
     return rec
 
 
-def run_engine(cfg: FlagshipConfig, params, trace: List[Request], *,
-               sc: ServeConfig, mode: str = "continuous",
-               emit=None, clock=time.monotonic) -> dict:
-    """Serve ``trace`` to completion in one batching mode on the
-    params' device; → the summary dict plus the ``finished`` and
+def run_engine(mesh: LocalMesh, cfg: FlagshipConfig, params,
+               trace: List[Request], *, sc: ServeConfig,
+               mode: str = "continuous", emit=None,
+               clock=time.monotonic) -> dict:
+    """Serve ``trace`` to completion in one batching mode over ``mesh``
+    (a :func:`serve_mesh`); → the summary dict plus the ``finished`` and
     ``shed_requests`` request lists and the ``batcher`` itself (for
     graders: its page pool and counters). ``emit`` receives JSON-ready
-    obs records."""
+    obs records. An active fault plan applies through
+    :func:`tpu_p2p_torch.serve.resilience.apply_serve_faults` (the
+    page-pool clamp, a request storm, the slow-step hook)."""
     trace = [r.fresh() for r in trace]
+    trace, pool_clamp, step_hook = R.apply_serve_faults(trace, sc)
     batcher = Batcher(
-        cfg, params, slots=sc.slots, page_len=sc.page_len,
+        mesh, cfg, params, slots=sc.slots, page_len=sc.page_len,
         num_pages=sc.num_pages, max_blocks=sc.max_blocks,
         chunk=sc.chunk, mode=mode, queue_depth=sc.queue_depth,
         deadline_steps=sc.deadline_steps, stop=sc.stop,
         stop_seed=sc.seed, eos_prob=sc.eos_prob,
+        pool_clamp=pool_clamp, step_hook=step_hook,
         prefix_cache=sc.prefix_cache, spec_k=sc.spec_k, clock=clock)
     t0 = clock()
     finished = batcher.run(trace)
@@ -185,7 +212,7 @@ def run_engine(cfg: FlagshipConfig, params, trace: List[Request], *,
         "shed": len(shed),
         "shed_frac": round(len(shed) / max(len(trace), 1), 4),
         "preemptions": len(batcher.preempt_events),
-        "preempt_recover_steps": preempt_recover_steps(finished),
+        "preempt_recover_steps": R.preempt_recover_steps(finished),
     }
     if sc.prefix_cache or sc.spec_k:
         tok_bytes = kv_page_bytes(cfg, sc.page_len) // sc.page_len
@@ -254,12 +281,13 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gen-len", default="4:8", metavar="LO:HI",
                    help="generated length range, inclusive")
     p.add_argument("--slots", type=int, default=8,
-                   help="fixed-width slot batch")
+                   help="fixed-width slot batch (must divide by the dp "
+                        "ranks)")
     p.add_argument("--page-len", type=int, default=8,
                    help="tokens per KV page (multiple of 8)")
     p.add_argument("--pages", type=int, default=None,
-                   help="page-pool size (default: sized to the trace's "
-                        "worst request on every slot)")
+                   help="global page-pool size (default: sized to the "
+                        "trace's worst request on every slot)")
     p.add_argument("--chunk", type=int, default=4,
                    help="prefill chunk width (1/2/4/8 tokens per step)")
     p.add_argument("--vocab", type=int, default=128,
@@ -286,8 +314,12 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="speculative decoding: verify up to K ngram "
                         "draft tokens per decode step (0 = off)")
     p.add_argument("--reuse", action="store_true",
-                   help="the graded KV-reuse smoke (needs >= 2 pool "
-                        "shards: reports NULL on one device)")
+                   help="run the graded KV-reuse smoke instead of a "
+                        "plain trace: one shared-prefix burst trace "
+                        "served baseline / prefix-cached / speculative, "
+                        "graded on TTFT steps and accepted tokens a "
+                        "decode step under bitwise token parity (needs "
+                        ">= 2 ranks: reports NULL below)")
     p.add_argument("--obs-jsonl", default=None, metavar="PATH",
                    help="append per-request span records + the serve "
                         "summary to this JSONL timeline")
@@ -311,12 +343,14 @@ def _build_parser() -> argparse.ArgumentParser:
                         "library copy; pallas_dma = the peer-push and "
                         "fused-ship kernels)")
     p.add_argument("--chaos", action="store_true",
-                   help="not ported yet (rejected)")
+                   help="run the injected-fault chaos smoke instead of "
+                        "a plain trace (its own flags: --detect-steps, "
+                        "--device, --cpu-mesh)")
     p.add_argument("--trace", default=None, metavar="PATH",
                    help="not ported yet (rejected)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device to serve on (default cuda: every visible "
-                        "card; raises without one)")
+                        "card, one dp rank each; raises without one)")
     p.add_argument("--cpu-mesh", type=int, default=None, metavar="N",
                    help="testing: serve on N CPU ranks (with --device "
                         "cpu)")
@@ -342,31 +376,26 @@ def _serve_devices(args) -> List[torch.device]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = _build_parser().parse_args(
-        list(sys.argv[1:] if argv is None else argv))
-    for flag in ("chaos", "trace"):
-        if getattr(args, flag):
-            print(f"serve --{flag}: not ported yet", file=sys.stderr)
-            return 2
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--chaos" in argv:
+        # The chaos smoke has a parser of its own: the rest of argv goes
+        # over whole, so an engine-only flag fails loudly.
+        return R.chaos_main([a for a in argv if a != "--chaos"])
+    args = _build_parser().parse_args(argv)
+    if args.trace:
+        print("serve --trace: not ported yet", file=sys.stderr)
+        return 2
     if args.disagg and args.batching != "both":
         # The disagg engine is continuous by construction and runs its
         # own A/B against the colocated twin.
         raise SystemExit("--disagg runs continuous batching against the "
                          "colocated twin; drop --batching")
-    if (args.cpu_mesh or 1) > 1 and not args.disagg and not args.reuse:
-        print("serve --cpu-mesh N > 1 without --disagg: colocated serving "
-              "over several ranks is not ported yet", file=sys.stderr)
-        return 2
     try:
         devices = _serve_devices(args)
         if args.reuse:
-            # The reference grades prefix sharing per pool shard and
-            # prints NULL below two shards; one device is one shard.
-            print("serve reuse NULL: 1 device(s) — prefix sharing is "
-                  "per-shard, a single-shard TTFT ratio grades nothing; "
-                  "need >= 2 devices (no fake numbers)")
-            return 0
-        n_dec = 1
+            return _reuse_cli(args, devices)
+        n = len(devices)
+        n_dec = n
         if args.disagg:
             from tpu_p2p_torch.serve.disagg import build_disagg_meshes
 
@@ -377,6 +406,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 print(f"serve --disagg: {e}", file=sys.stderr)
                 return 2
             n_dec = len(dec_devs)
+        mesh = serve_mesh(n, devices)
         prompt_rng = parse_range(args.prompt_len)
         gen_rng = parse_range(args.gen_len)
         max_blocks = -(-(prompt_rng[1] + gen_rng[1]) // args.page_len)
@@ -420,7 +450,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"chunk={sc.chunk} transport={sc.transport} "
                   f"vocab={sc.vocab} {sc.dtype}{reuse_tag}")
         else:
-            print(f"serve device {kind}: slots={sc.slots} "
+            print(f"serve device {kind}{_mesh_tag(mesh)}: slots={sc.slots} "
                   f"page_len={sc.page_len} pages={sc.num_pages} "
                   f"window={sc.max_blocks * sc.page_len} "
                   f"chunk={sc.chunk} "
@@ -437,14 +467,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     fh.flush()
             if sc.disagg:
                 try:
-                    return _disagg_cli(mig, cfg, params, trace, sc, emit)
+                    return _disagg_cli(mig, mesh, cfg, params, trace, sc,
+                                       emit)
                 finally:
                     mig.close()
             modes = (("continuous", "static") if args.batching == "both"
                      else (args.batching,))
             summaries = {}
             for mode in modes:
-                s = run_engine(cfg, params, trace, sc=sc, mode=mode,
+                s = run_engine(mesh, cfg, params, trace, sc=sc, mode=mode,
                                emit=emit)
                 summaries[mode] = s
                 _print_summary(s, sc)
@@ -468,10 +499,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 1
 
 
-def _disagg_cli(mig, cfg, params, trace, sc: ServeConfig, emit) -> int:
+def _mesh_tag(mesh: LocalMesh) -> str:
+    """The header's mesh after the device word: nothing for one rank,
+    the reference's ``{'dp': N}`` for more."""
+    return f" {mesh.shape}" if mesh.size > 1 else ""
+
+
+def _disagg_cli(mig, mesh, cfg, params, trace, sc: ServeConfig,
+                emit) -> int:
     """The ``serve --disagg`` run: the disaggregated engine on the
-    ``mig`` ranks, then the colocated continuous twin on the first rank's
-    device for the A/B and the bitwise token-stream parity check; → 0
+    ``mig`` ranks, then the colocated continuous twin on the full serve
+    ``mesh`` for the A/B and the bitwise token-stream parity check; → 0
     only when every stream matches."""
     from tpu_p2p_torch.serve.disagg import run_disagg_engine
 
@@ -504,12 +542,14 @@ def _disagg_cli(mig, cfg, params, trace, sc: ServeConfig, emit) -> int:
               f"{s['spec_decode_tokens']}/"
               f"{s['spec_decode_steps']} tok/step="
               f"{_f(s['serve_spec_accept_rate'])}")
-    # The colocated continuous twin on the same trace and params, one
-    # pool on the first rank's device.
-    sc_co = dataclasses.replace(
-        sc, disagg=False, num_pages=sc.slots * sc.max_blocks + 1,
-        prefill_pages=0)
-    co = run_engine(cfg, params, trace, sc=sc_co, mode="continuous")
+    # The colocated continuous twin on the same trace and params, over
+    # the full mesh's shards.
+    n = mesh.size
+    pages = sc.slots * sc.max_blocks + n
+    pages += (-pages) % n
+    sc_co = dataclasses.replace(sc, disagg=False, num_pages=pages,
+                                prefill_pages=0)
+    co = run_engine(mesh, cfg, params, trace, sc=sc_co, mode="continuous")
     want = {r.rid: list(r.generated) for r in co["finished"]}
     got = {r.rid: list(r.generated) for r in s["finished"]}
     matched = sum(1 for rid, toks in got.items() if want.get(rid) == toks)
@@ -519,6 +559,102 @@ def _disagg_cli(mig, cfg, params, trace, sc: ServeConfig, emit) -> int:
           f"{co['steps']} steps ({co['idle_steps']} idle)  "
           f"token parity {parity} ({matched}/{len(got)} bitwise)")
     return 0 if parity == "OK" else 1
+
+
+def _ttft_steps_mean(finished: List[Request]) -> float:
+    vals = [r.first_token_step - r.enqueue_step for r in finished
+            if r.first_token_step is not None]
+    return float(np.mean(vals)) if vals else float("nan")
+
+
+def _reuse_cli(args, devices) -> int:
+    """The ``serve --reuse`` graded smoke: one seeded shared-prefix
+    burst trace served three ways over the serve mesh — baseline,
+    prefix-cached, speculative — and graded:
+
+    - prefix caching must bring the mean TTFT, in scheduler steps,
+      below 0.5× the baseline's;
+    - speculative decoding must emit more than 1.0 accepted tokens a
+      decode step with its ngram draft;
+
+    each under bitwise token-stream parity with the baseline. Below 2
+    ranks it prints NULL with the reason and exits 0: prefix sharing is
+    per shard, and one shard's TTFT ratio grades nothing."""
+    n = len(devices)
+    if n < 2:
+        print(f"serve reuse NULL: {n} device(s) — prefix sharing is "
+              "per-shard, a single-shard TTFT ratio grades nothing; "
+              "need >= 2 devices (no fake numbers)")
+        return 0
+    mesh = serve_mesh(n, devices)
+    out = run_reuse(mesh, seed=args.seed, dtype=args.dtype)
+    return 0 if out["verdict"] == "PASS" else 1
+
+
+def run_reuse(mesh: LocalMesh, *, seed: int = 0,
+              dtype: str = "float32") -> dict:
+    """The three graded runs of ``serve --reuse`` over ``mesh``, printed
+    as the reference prints them; → each run's summary and streams
+    (``base``, ``prefix``, ``spec``), both grades and the ``verdict``."""
+    n = mesh.size
+    prefix_len = 48
+    sc = ServeConfig(
+        slots=n, page_len=8, num_pages=16 * n, max_blocks=8, chunk=4,
+        requests=6 * n, seed=seed, prompt_len=(48, 54),
+        gen_len=(3, 6), vocab=64, dtype=dtype,
+    )
+    cfg = _engine_model(sc)
+    params = init_flagship_params(cfg, device=mesh.devices[0])
+    trace = shared_prefix_trace(sc, prefix_len)
+    print(f"serve reuse device {mesh.devices[0].type} {mesh.shape}: "
+          f"slots={sc.slots} page_len={sc.page_len} pages={sc.num_pages} "
+          f"window={sc.max_blocks * sc.page_len} chunk={sc.chunk} "
+          f"vocab={sc.vocab} {sc.dtype}")
+    print(f"reuse trace: {sc.requests} requests seed={sc.seed} "
+          f"shared prefix {prefix_len} prompt {sc.prompt_len[0]}-"
+          f"{sc.prompt_len[1]} gen {sc.gen_len[0]}-{sc.gen_len[1]} "
+          f"burst@0")
+    base = run_engine(mesh, cfg, params, trace, sc=sc)
+    want = {r.rid: list(r.generated) for r in base["finished"]}
+    base_ttft = _ttft_steps_mean(base["finished"])
+    print(f"baseline: {base['requests']} requests, "
+          f"{base['steps']} steps, ttft mean {base_ttft:.2f} steps")
+
+    def parity(out) -> str:
+        got = {r.rid: list(r.generated) for r in out["finished"]}
+        return "OK" if got == want and len(got) > 0 else "FAIL"
+
+    spec_k = 3
+    pre = run_engine(mesh, cfg, params, trace,
+                     sc=dataclasses.replace(sc, prefix_cache=True))
+    pre_ttft = _ttft_steps_mean(pre["finished"])
+    ratio = pre_ttft / base_ttft
+    pre_parity = parity(pre)
+    pre_grade = "PASS" if ratio < 0.5 and pre_parity == "OK" else "FAIL"
+    print(f"prefix-cache: {pre['requests']} requests, "
+          f"{pre['steps']} steps, prefix_hits={pre['prefix_hits']} "
+          f"pages_shared={pre['prefix_pages_shared']} "
+          f"tokens_saved={pre['prefix_tokens_saved']} "
+          f"({pre['prefix_saved_bytes']} B) forks={pre['cow_forks']}")
+    print(f"  ttft mean {pre_ttft:.2f} steps  ratio {ratio:.3f}  "
+          f"parity {pre_parity}  grade(<0.5) {pre_grade}")
+    spec = run_engine(mesh, cfg, params, trace,
+                      sc=dataclasses.replace(sc, spec_k=spec_k))
+    rate = spec["spec_decode_tokens"] / max(spec["spec_decode_steps"], 1)
+    spec_parity = parity(spec)
+    spec_grade = "PASS" if rate > 1.0 and spec_parity == "OK" else "FAIL"
+    print(f"spec k={spec_k}: {spec['requests']} requests, "
+          f"{spec['steps']} steps, drafts "
+          f"{spec['spec_draft_accept_frac'] or 0:.3f} accepted frac "
+          f"({spec['spec_decode_tokens']} tokens / "
+          f"{spec['spec_decode_steps']} decode steps)")
+    print(f"  tokens/decode-step {rate:.3f}  parity {spec_parity}  "
+          f"grade(>1.0) {spec_grade}")
+    verdict = "PASS" if pre_grade == spec_grade == "PASS" else "FAIL"
+    print(f"reuse grade: {verdict}")
+    return {"base": base, "prefix": pre, "spec": spec, "trace": trace,
+            "cfg": cfg, "params": params, "prefix_grade": pre_grade,
+            "spec_grade": spec_grade, "verdict": verdict}
 
 
 def _print_summary(s: dict, sc: ServeConfig) -> None:

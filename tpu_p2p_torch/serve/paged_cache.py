@@ -20,9 +20,14 @@ mixed step. Port of ``tpu_p2p/serve/paged_cache.py``.
 
 Masked keys score ``NEG_INF``, whose softmax weight underflows to an
 exact 0, so stale rows in recycled pages (and the trash page) never
-reach the output. One device holds the whole pool (one shard); the
-host-side structures keep the reference's per-shard form so the dry
-scheduler still simulates sharded pools.
+reach the output.
+
+On a serve mesh (a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh`
+with axis ``dp``) the pool splits into :func:`pool_shards` shards, one
+per rank (:func:`init_pool_shards`): shard ``k`` is a pool of its own on
+rank ``k``'s device, ``num_pages / n`` pages with its own trash page 0,
+indexed by the shard-local tables of the slots that rank serves — the
+reference's sharded pool, each shard's slice made a tensor of its own.
 """
 
 from __future__ import annotations
@@ -283,6 +288,30 @@ class PrefixIndex:
                 pass
 
 
+def pool_shards(mesh) -> int:
+    """How many ways the page axis splits: the product of the mesh's
+    ``dp`` and ``ep`` sizes."""
+    n = 1
+    for ax in ("dp", "ep"):
+        n *= mesh.shape.get(ax, 1)
+    return n
+
+
+def init_pool_shards(cfg: FlagshipConfig, num_pages: int, page_len: int,
+                     mesh) -> List[Pool]:
+    """Zeroed pool shards for ``num_pages`` global pages (which must
+    divide by the shard count): shard ``k`` holds ``num_pages / n`` pages
+    on the mesh's ``k``-th device."""
+    n_shards = pool_shards(mesh)
+    if num_pages % n_shards:
+        raise ValueError(
+            f"num_pages ({num_pages}) must divide by the dp×ep shard "
+            f"count ({n_shards})"
+        )
+    return [init_paged_pool(cfg, num_pages // n_shards, page_len, dev)
+            for dev in mesh.devices[:n_shards]]
+
+
 def init_paged_pool(cfg: FlagshipConfig, num_pages: int, page_len: int,
                     device="cuda") -> Pool:
     """Zeroed page pool, one tensor per projection."""
@@ -390,3 +419,22 @@ def page_copy(pool: Pool, src: int, dst: int) -> Pool:
     for buf in pool.values():
         buf[:, dst] = buf[:, src]
     return pool
+
+
+def make_page_copy(mesh):
+    """The per-shard page copy of the copy-on-write fork:
+
+    ``(pools, src [n_shards], dst [n_shards]) → pools``
+
+    Shard ``k`` copies its local page ``src[k] → dst[k]`` on rank ``k``'s
+    stream, in place; a shard with nothing to fork passes ``TRASH_PAGE →
+    TRASH_PAGE`` (the reference's idle no-op) and issues nothing."""
+
+    def copy(pools: List[Pool], src, dst) -> List[Pool]:
+        for k, (s, d) in enumerate(zip(src, dst)):
+            if (int(s), int(d)) != (TRASH_PAGE, TRASH_PAGE):
+                with mesh.on(k):
+                    page_copy(pools[k], int(s), int(d))
+        return pools
+
+    return copy
