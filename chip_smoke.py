@@ -15,7 +15,7 @@ the first phase that goes wrong:
    bf16 tensor-core kernels (forward, dK/dV, dq) must hold HGMMA (wgmma)
    instructions at every head dim and no bf16 SIMT flash kernel may be
    left; their registers, spills, shared memory and CTAs an SM are
-   printed, and the three peer-push kernels' registers, spills and
+   printed, and the four peer-push kernels' registers, spills and
    shared memory;
 3. kernels  — the KV-cache write kernel at the serving shapes, K and V
    in one launch from the projections as the mixed step and the decode
@@ -200,7 +200,27 @@ the first phase that goes wrong:
    ``run_chaos`` on 2 ranks sharing cuda:0: preempt, shed and step
    counts of the CPU run, ``slow_step``'s streams bitwise the fault-free
    twin's, the sampled streams against their batch-1 dense rollouts
-   under the same gate.
+   under the same gate;
+16. overlap  — (run after phase 9's ship checks) the overlap knobs: (a)
+   on a world of one, the dense step at phase 5's width and phase 11's
+   MoE step, 2 steps each with ``tp_overlap="ring"``,
+   ``ep_overlap="ring"`` and ``pp_overlap="wave"`` and without: losses
+   bitwise (every axis has size 1), each flash kernel once a block a
+   step; (b) process worlds of 2 and 4 ranks sharing cuda:0:
+   ``ring_allgather_matmul(transport="pallas_dma")`` at flagship_large's
+   tp FFN join (a [4, 4096 / n, 2048] bf16 chunk through a [2048,
+   8192 / n] wf1 shard) with one backward pass, and
+   ``chunked_ppermute_compute(transport="pallas_dma")`` over a partial
+   edge set in padded chunks: the fused ship's and the permute's
+   launches equal the calls' count (n - 1 ships a ring), every shipped
+   chunk bitwise the plain version's (gloo on ``.cpu()`` copies) and
+   ``expected_permute``'s, the ring's output bitwise the same products
+   on the card in rank order, dx within 2e-2 (normalised L-inf) of the
+   sum over ranks, a float32 ring's backward bitwise its plain
+   version's; on 2 ranks the process-mesh ship alone, the compute alone,
+   fused and their overlap (device time of time-sliced contexts, not a
+   link number) beside the slab route's bytes bound, the plain version
+   and one ``copy_``.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -373,7 +393,7 @@ def sass_check(TFA, info: dict, card: str) -> None:
 
 # The peer-push kernels (csrc/p2p_dma.cu).
 P2P_KERNELS = ("dma_permute_kernel", "dma_ship_push_kernel",
-               "dma_ship_arrive_kernel")
+               "dma_ship_arrive_kernel", "dma_ship_copy_kernel")
 
 
 def p2p_resources(info: dict, card: str) -> None:
@@ -3826,6 +3846,307 @@ def serve_mesh_phase(cfg, params, TK, phase7: dict, card: str) -> dict:
             "cache_kv_write": {"serve_chaos": chaos["cache_kv_write"]}}
 
 
+# ----------------------------------------------------------- phase 16
+
+OVERLAP_STEPS = 2
+OVERLAP_KNOBS = dict(tp_overlap="ring", ep_overlap="ring", pp_overlap="wave")
+# flagship_large's tp FFN join: a rank's token chunk [B, T / n, Dm] of
+# the attention delta, gathered through its wf1 column shard [Dm, 4 Dm / n].
+TP_DM, TP_TOKENS = 2048, 4096
+WAVE_CHUNKS = 3                          # 2048 / n tokens: padded chunks
+OVERLAP_TIMED = 10                       # calls a timed run makes
+
+
+def card_params(cfg, dev, seed: int = 0) -> dict:
+    """The flagship's leaves drawn on the card from a seeded generator,
+    scaled as the seeded init scales them: a comparison of two steps from
+    the same params needs no host init (tens of seconds at this width)."""
+    from tpu_p2p_torch.models.flagship_params import (
+        _FAN_IN_DIM, _GAIN_PARAMS, flagship_param_shapes, torch_dtype)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch_dtype(cfg.params_dtype)
+    return {name: (torch.ones(shape, dtype=dtype, device=dev)
+                   if name in _GAIN_PARAMS else
+                   (torch.randn(shape, generator=gen, device=dev)
+                    / math.sqrt(shape[_FAN_IN_DIM[name]])).to(dtype))
+            for name, shape in flagship_param_shapes(cfg).items()}
+
+
+def overlap_world_of_one(TFA, dev, card) -> dict:
+    """Phase 16 (a): on a world of one, the dense step at phase 5's width
+    and phase 11's MoE step, each ``OVERLAP_STEPS`` steps with the
+    overlap knobs on and off from the same params (:func:`card_params`)
+    and batches: the knobs'
+    losses bitwise the ``none`` step's (every axis has size 1), each
+    flash kernel once a block a step. → the knob runs' flash launches."""
+    from tpu_p2p_torch.models.flagship import AXES, FlagshipConfig
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+    from tpu_p2p_torch.train import _per_step_batches
+
+    rt = make_runtime(device=dev, mesh_shape=(1,) * len(AXES),
+                      axis_names=AXES)
+    launches = {}
+    try:
+        for what, kw in (("dense", TRAIN), ("moe", MOE_TRAIN)):
+            cfg = FlagshipConfig(**kw)
+            start = card_params(cfg, dev)
+            stream = _per_step_batches(cfg, 0, 0)
+            batches = [tuple(torch.from_numpy(np.ascontiguousarray(a))
+                             .to(dev) for a in next(stream))
+                       for _ in range(OVERLAP_STEPS)]
+            kcfg = dataclasses.replace(cfg, **OVERLAP_KNOBS)
+            none = direct_steps(cfg, start, batches, TFA, dev, mesh=rt.mesh)
+            knob = direct_steps(kcfg, start, batches, TFA, dev, mesh=rt.mesh)
+            check_launches(knob["launches"], kcfg, OVERLAP_STEPS)
+            if not torch.equal(knob["losses"], none["losses"]):
+                raise AssertionError(
+                    f"overlap knobs on a world of one ({what}): losses "
+                    f"{knob['losses'].tolist()} != the none step's "
+                    f"{none['losses'].tolist()}")
+            for name, n in knob["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            phase = 5 if what == "dense" else 11
+            say(f"overlap world of one, {what} (phase {phase}'s width, "
+                f"{OVERLAP_STEPS} steps, tp_overlap=ring "
+                f"ep_overlap=ring pp_overlap=wave on axes of size 1): losses "
+                f"{knob['losses'].tolist()} bitwise the none step's | step "
+                f"ms {[round(x) for x in knob['step_ms']]} (none "
+                f"{[round(x) for x in none['step_ms']]}) | flash launches "
+                f"{knob['launches']} | {card}")
+            del start, batches
+            torch.cuda.empty_cache()
+    finally:
+        rt.close()
+    return launches
+
+
+def _seeded(shape, seed: int, dev, dtype=torch.bfloat16) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's bits as int16, on the host (numpy has no bf16)."""
+    return t.contiguous().view(torch.int16).cpu().numpy()
+
+
+def overlap_rank_case(timed: bool) -> dict:
+    """One rank of a world sharing cuda:0: ``ring_allgather_matmul(
+    transport="pallas_dma")`` at flagship_large's tp FFN join (each
+    rank's ``[4, 4096 / n, 2048]`` bf16 token chunk through its float32-
+    widened ``[2048, 8192 / n]`` wf1 shard, as ``_tp_ring_join`` computes
+    it) with one backward pass, and ``chunked_ppermute_compute(transport=
+    "pallas_dma")`` of the chunk over the partial edge set in
+    ``WAVE_CHUNKS`` padded chunks: the main path, its launches counted
+    from zero. Then the checks (every shipped chunk bitwise the plain
+    version's, gloo on ``.cpu()`` copies, and ``expected_permute``'s; the
+    ring's output bitwise the same products run on the card in rank
+    order; the backward's dx against the sum over ranks; a float32 ring's
+    backward bitwise its plain version's) and, on request, the timing."""
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(device="cuda:0")
+    dev, n, r, line = rt.device, rt.world, rt.rank, rt.mesh
+    t, ff = TP_TOKENS // n, 4 * TP_DM // n
+    xs = [_seeded((4, t, TP_DM), 100 + j, dev) for j in range(n)]
+    ws = [_seeded((TP_DM, ff), 200 + j, dev) for j in range(n)]
+    gs = [_seeded((4, TP_TOKENS, ff), 300 + j, dev, torch.float32)
+          for j in range(n)]
+    fwd = C.ring_edges(n)
+    partial = cut_edges(EDGE_SETS_8["partial"], n)
+    out = {"rank": r, "world": n, "bad": []}
+    seen = {}
+
+    def ffn1(c, src):
+        seen[src] = c.detach()
+        return torch.matmul(c.float(), ws[r].float())
+
+    x = xs[r].clone().requires_grad_(True)
+    rt.barrier()
+    PD.reset_launches()
+    t0 = time.perf_counter()
+    y = C.ring_allgather_matmul(ffn1, x, line, 1, transport="pallas_dma")
+    (y * gs[r]).sum().backward()
+    waved = C.chunked_ppermute_compute(lambda c, i: c, xs[r], line, partial,
+                                       1, WAVE_CHUNKS, transport="pallas_dma")
+    torch.cuda.synchronize()
+    PD.check_faults()
+    out["main_path_s"] = time.perf_counter() - t0
+    out["launches"] = dict(PD.launches)
+    out["expected"] = {"dma_ship": (n - 1) + (WAVE_CHUNKS - 1),
+                       "dma_permute": (n - 1) + 1}
+    rt.barrier()
+    # Every shipped chunk: the oracle hop by hop (expected_permute), the
+    # plain version's gather (gloo on .cpu() copies, identity compute).
+    cur = np.stack([_bits(v) for v in xs])
+    plain = C.ring_allgather_matmul(lambda c, s: c, xs[r].cpu(), line, 1,
+                                    transport="pallas_dma")
+    for s in range(n):
+        src = (r - s) % n
+        if s:
+            cur = C.expected_permute(cur, fwd)
+        if not (np.array_equal(_bits(seen[src]), cur[r]) and torch.equal(
+                seen[src].cpu(), plain.narrow(1, src * t, t))):
+            out["bad"].append(f"hop {s}: the chunk of rank {src}")
+    want = torch.cat([torch.matmul(v.float(), ws[r].float()) for v in xs], 1)
+    if not torch.equal(y.detach(), want):
+        out["bad"].append("the ring's output != the products in rank order")
+    dx = sum(torch.matmul(g.narrow(1, r * t, t), w.float().t())
+             for g, w in zip(gs, ws))
+    err = norm_err(x.grad.float(), dx)
+    out["dx_err"] = err
+    if not err <= FLASH_BF16_TOL:
+        out["bad"].append(f"dx normalised L-inf {err:.3e} > {FLASH_BF16_TOL}")
+    rows = np.stack([_bits(v) for v in xs])
+    want_w = C.expected_permute(rows, partial)[r]
+    plain_w = C.chunked_ppermute_compute(lambda c, i: c, xs[r].cpu(), line,
+                                         partial, 1, WAVE_CHUNKS,
+                                         transport="pallas_dma")
+    if not (np.array_equal(_bits(waved), want_w)
+            and torch.equal(waved.cpu(), plain_w)):
+        out["bad"].append("the wave's arrival")
+    # A float32 ring's backward (the reverse hops of row 8's slab path)
+    # bitwise its plain version's.
+    gen = np.random.default_rng(7)
+    xf_all = gen.standard_normal((n, 4, 64, 32)).astype(np.float32)
+    gf_all = gen.standard_normal((n, 4, 64 * n, 32)).astype(np.float32)
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        xf = torch.from_numpy(xf_all[r]).to(where).requires_grad_(True)
+        yf = C.ring_allgather_matmul(lambda c, s: c * 3, xf, line, 1,
+                                     transport="pallas_dma")
+        (yf * torch.from_numpy(gf_all[r]).to(where)).sum().backward()
+        grads.append(xf.grad.cpu())
+    if not torch.equal(*grads):
+        out["bad"].append("the float32 ring's backward != its plain version")
+    torch.cuda.synchronize()
+    PD.check_faults()
+    out["max_abs_err"] = 0.0 if not out["bad"] else float("nan")
+    if timed:
+        calls = {
+            "ship": lambda: PD.dma_ship_compute(xs[r], line, fwd,
+                                                lambda: None),
+            "compute": lambda: torch.matmul(xs[r].float(), ws[r].float()),
+            "fused": lambda: PD.dma_ship_compute(
+                xs[r], line, fwd, lambda c: torch.matmul(c.float(),
+                                                         ws[r].float()),
+                xs[r])}
+        tm = {}
+        for name, fn in calls.items():
+            # Every rank's calls together, from a barrier to the last
+            # rank's drain: a rank's own events would also time whatever
+            # its peer's context ran in its slices.
+            fn()
+            rt.barrier()
+            t1 = time.perf_counter()
+            for _ in range(OVERLAP_TIMED):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / OVERLAP_TIMED
+            tm[name] = max(rt.gather(wall))
+        tm["overlap"] = ((tm["ship"] + tm["compute"] - tm["fused"])
+                         / min(tm["ship"], tm["compute"]))
+        xc, plain_ms = xs[r].cpu(), []
+        for _ in range(3):
+            rt.barrier()
+            t1 = time.perf_counter()
+            PD.dma_ship_compute(xc, line, fwd, lambda: None)
+            plain_ms.append((time.perf_counter() - t1) * 1e3)
+        tm["plain_ms"] = statistics.median(plain_ms)
+        if r == 0:  # the copy on a card no peer's context shares
+            dst = torch.empty_like(xs[r])
+            tm["library_ms"] = statistics.median(
+                device_ms(lambda: dst.copy_(xs[r]), OVERLAP_TIMED))
+        rt.barrier()
+        PD.check_faults()
+        out["timing"] = tm
+    rt.barrier()
+    rt.close()
+    return out
+
+
+def overlap_world(n: int, card: str, timed: bool) -> list:
+    """Spawn :func:`overlap_rank_case` on ``n`` ranks of cuda:0; raise on
+    a failed rank, a launch count off the expected one or a check that
+    disagreed."""
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    res = run_world(n, f"{__file__}:overlap_rank_case", {"timed": timed},
+                    timeout=300)
+    for r in res:
+        if r["launches"] != r["expected"] or r["bad"]:
+            raise AssertionError(
+                f"overlap world of {n}, rank {r['rank']}: launches "
+                f"{r['launches']} (expected {r['expected']}), failed "
+                f"checks {r['bad']}")
+    t = TP_TOKENS // n
+    say(f"overlap world of {n} on cuda:0: ring_allgather_matmul("
+        f"transport='pallas_dma') of [4, {t}, {TP_DM}] bf16 through [{TP_DM},"
+        f" {4 * TP_DM // n}] (float32-widened, as _tp_ring_join) + one "
+        f"backward, chunked_ppermute_compute(pallas_dma) over "
+        f"{cut_edges(EDGE_SETS_8['partial'], n)} in {WAVE_CHUNKS} padded "
+        f"chunks: main path {res[0]['main_path_s']:.2f} s, launches a rank "
+        f"{res[0]['launches']} (= expected: n - 1 ships a ring, chunks - 1 "
+        f"a wave; the backward's and the wave's last hop through "
+        f"dma_permute) | every shipped chunk == plain (gloo) == "
+        f"expected_permute bitwise, the output == the products in rank "
+        f"order bitwise, dx normalised L-inf "
+        f"{max(r['dx_err'] for r in res):.2e} (tol {FLASH_BF16_TOL}), a "
+        f"float32 ring's backward == plain bitwise | world "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    return res
+
+
+def overlap(TFA, dev, card) -> dict:
+    """Phase 16: the overlap knobs on a world of one, then the fused ship
+    on process worlds of 2 and 4 sharing cuda:0. → the flash launches of
+    (a), the process-mesh ship's row and the ranks' peer-push launches."""
+    t0 = time.perf_counter()
+    flash = overlap_world_of_one(TFA, dev, card)
+    torch.cuda.empty_cache()
+    w2 = overlap_world(2, card, timed=True)
+    w4 = overlap_world(4, card, timed=False)
+    tm = w2[0]["timing"]
+    nbytes = 4 * (TP_TOKENS // 2) * TP_DM * 2
+    # Per hop on one card, both ranks: the function moves each chunk once
+    # (read it, write the arrival), which is the bound. The slab route
+    # adds the copy-out (push: read x, write the peer's slab; arrival:
+    # read the slab, write the output), kept beside it.
+    bound = 2 * 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    slab_bound = 2 * 4 * nbytes / HBM_BYTES_PER_S * 1e3
+    m, k, f = 4 * (TP_TOKENS // 2), TP_DM, 4 * TP_DM // 2
+    say(f"kernel dma_ship on a process mesh @ [4, {TP_TOKENS // 2}, "
+        f"{TP_DM}] bf16 ({nbytes} B), the ring edge on 2 ranks of cuda:0 "
+        f"(time-sliced contexts, not a link number), compute [{m}, {k}] @ "
+        f"[{k}, {f}] float32-widened on each rank: ship alone "
+        f"{tm['ship']:.4f} ms, compute alone {tm['compute']:.4f} ms, fused "
+        f"{tm['fused']:.4f} ms, overlap (ship + compute - fused) / min = "
+        f"{tm['overlap']:.3f} (a call of both ranks: {OVERLAP_TIMED} calls "
+        f"from a barrier to the slower rank's drain) | bound "
+        f"{bound:.4f} ms (bytes: read the chunk, write the peer's arrival, "
+        f"2 x {nbytes} B a rank x 2 ranks at 3.35 TB/s; the slab route with "
+        f"its copy-out moves 4 x, {slab_bound:.4f} ms), plain "
+        f"{tm['plain_ms']:.2f} ms (gloo, host memory), copy_ "
+        f"{tm['library_ms']:.4f} ms | {card}")
+    say(f"phase 16 (overlap): {time.perf_counter() - t0:.1f} s")
+    return {"flash": flash,
+            "dma_ship": w2[0]["launches"]["dma_ship"],
+            "dma_permute": w2[0]["launches"]["dma_permute"],
+            "process_mesh": {
+                "ranks": "2 processes on cuda:0 (time-sliced)",
+                "launches": w2[0]["launches"]["dma_ship"],
+                "max_abs_err": max(r["max_abs_err"] for r in w2 + w4),
+                "ms": tm["ship"], "fused_ms": tm["fused"],
+                "compute_ms": tm["compute"], "overlap": tm["overlap"],
+                "plain_ms": tm["plain_ms"], "bound_ms": bound,
+                "slab_route_bound_ms": slab_bound,
+                "bound_by": "bytes", "library_ms": tm["library_ms"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -3923,6 +4244,9 @@ def main() -> int:
     kernels.append(ship(card, dis))
     say(f"phase 9 (the ship kernel checks): "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    ovl = overlap(TFA, dev, card)
+    kernels[-1]["process_mesh"] = ovl["process_mesh"]
     launches = {"cache_kv_write": dec["launches"]["cache_kv_write"],
                 "paged_kv_write": srv["launches"]["paged_kv_write"],
                 "dma_permute": kernels[-2]["launches"],
@@ -3932,9 +4256,14 @@ def main() -> int:
                     "moe_train": moe_launches["train"][name],
                     "patterns": pat_launches[name],
                     "train_loop": loop_launches[name],
+                    "overlap": ovl["flash"][name],
                     **{f"memory_{k}": v[name]
                        for k, v in mem_launches.items()}}
              for name, n in trn["launches"].items()}
+    paths["dma_permute"] = {"p2p": launches["dma_permute"],
+                            "overlap_process_mesh": ovl["dma_permute"]}
+    paths["dma_ship"] = {"disagg": launches["dma_ship"],
+                         "overlap_process_mesh": ovl["dma_ship"]}
     paths["cache_kv_write"] = {
         "decode": launches["cache_kv_write"],
         "moe_decode": moe_launches["decode"]["cache_kv_write"],
@@ -3956,7 +4285,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     say(json.dumps({"kernels": [
-        {key: k[key] for key in keys + ("edge_sets", "launches_by_path")
+        {key: k[key] for key in keys + ("edge_sets", "launches_by_path",
+                                        "process_mesh")
          if key in k}
         for k in kernels]}))
     say(f"card: {card}")

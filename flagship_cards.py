@@ -9,7 +9,8 @@ capacity factor 2, top-1, groups of 256): each on one card, then as one
 prints each run's records under its label, the cards' name and power
 limit first. Three sets of meshes: ``--ffn dense``, ``--ffn moe`` or
 ``--ffn zero`` runs one set alone (with the one-card runs of the FFNs
-it uses), ``--ffn all`` (the default) every set.
+it uses), ``--ffn all`` (the default) every set; ``--ffn loop`` and
+``--ffn overlap`` are sets of their own.
 
 Dense meshes on 4 cards (dp x pp x sp x tp x ep):
 
@@ -33,6 +34,21 @@ ZeRO and remat on 4 cards (``zero``):
 - dense dp 4 ``--zero-dp --overlap prefetch`` (one bucketed gather a
   block, issued a block ahead);
 - MoE dp 2 x ep 2 ``--zero-dp --overlap prefetch --remat``.
+
+The overlap knobs on 4 cards (``--ffn overlap``, not part of ``all``),
+each mesh run without and then with its knob, from the same seed:
+
+- dense tp 2 x sp 2 with ``--tp-overlap ring`` (the tp joins as ring
+  collective-matmuls over token chunks);
+- dense pp 2 x dp 2 with ``--pp-overlap wave`` (the stage hop in 4
+  token chunks);
+- MoE dp 2 x ep 2 and sp 2 x ep 2 with ``--ep-overlap ring`` (the ep
+  reshards as shift hops beside the expert products).
+
+For each pair: the step ms, peak memory and NCCL device ms of every rank
+(the profiled step), and the knob run's losses' relative difference from
+the ``none`` run's (bf16 sums in another order: a reading; the float32
+CPU tests hold the math).
 
 The training loop on 4 cards (``--ffn loop``, not part of ``all``):
 one ``torchrun`` world of dp 2 x sp 2 trains the dense FFN with AdamW
@@ -120,6 +136,16 @@ FFNS = {  # FFN -> (train's FFN flags, one-card label)
 LOOP = ["--optimizer", "adamw", "--weight-decay", "0.01", "--clip-norm",
         "1.0", "--warmup-steps", "1", "--schedule", "cosine", "--lr", "3e-4",
         "--ckpt-every", "2", "--ckpt-keep", "2"]
+OVERLAP_PAIRS = (  # (label, FFN, mesh, the knob)
+    ("dense tp2 x sp2 ring", "dense", ["--mesh-shape", "1x1x2x2x1"],
+     ["--tp-overlap", "ring"]),
+    ("dense pp2 x dp2", "dense", ["--mesh-shape", "2x2x1x1x1"],
+     ["--pp-overlap", "wave"]),
+    ("moe dp2 x ep2", "moe", ["--mesh-shape", "2x1x1x1x2"],
+     ["--ep-overlap", "ring"]),
+    ("moe sp2 x ep2 ring", "moe", ["--mesh-shape", "1x1x2x1x2"],
+     ["--ep-overlap", "ring"]),
+)
 SETS = {  # --ffn -> [(label, FFN, mesh flags)]
     "dense": [(label, "dense", m) for label, m in DENSE_MESHES],
     "moe": [(label, "moe", m) for label, m in MOE_MESHES],
@@ -335,6 +361,52 @@ def loop_cards(shape: list, env: dict, torchrun: list, tokens: int,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def nccl_ms(profile) -> list:
+    """Each rank's NCCL device ms in a profiled step, or None where the
+    profile failed: the sum of every ``nccl`` family. The ``nccl`` family
+    also holds NCCL's annotation ranges, which span its kernels, so the
+    sum is an upper bound that counts a send/recv kernel's time about
+    twice."""
+    if not isinstance(profile, list):
+        return None
+    return [sum(v for k, v in row["device_ms_by_family"].items()
+                if k.startswith("nccl")) for row in profile]
+
+
+def overlap_cards(shape: list, env: dict, torchrun: list, tokens: int,
+                  card: str) -> list:
+    """``--ffn overlap``: each mesh of ``OVERLAP_PAIRS`` without its knob,
+    then with it, each profiled → the runs' results."""
+    results = []
+    for label, ffn, mesh, knob in OVERLAP_PAIRS:
+        common = [*shape, *FFNS[ffn][0], *COMMON]
+        pair = []
+        for what, flags in (("none", mesh), (" ".join(knob),
+                                                [*mesh, *knob])):
+            name = f"{label} {what}"
+            res = run(name, [*torchrun, "-m", "tpu_p2p_torch", "train",
+                             *common, *flags], env, tokens)
+            res["profile"] = profiled(name, [
+                *torchrun, os.path.abspath(__file__), "--profile-rank",
+                *common, *flags], env)
+            res["nccl_ms_per_rank"] = nccl_ms(res["profile"])
+            pair.append(res)
+        none, on = pair
+        if "losses" in none and "losses" in on:
+            on["loss_rel_diff_vs_none"] = [
+                abs(a - b) / abs(b) for a, b in zip(on["losses"],
+                                                    none["losses"])]
+            print(f"{label}: none {none['step_ms_p50']:.1f} ms, "
+                  f"{' '.join(knob)} {on['step_ms_p50']:.1f} ms | peak GiB "
+                  f"{none['peak_gib']} / {on['peak_gib']} | NCCL device ms "
+                  f"a rank {none['nccl_ms_per_rank']} / "
+                  f"{on['nccl_ms_per_rank']} | loss rel diff "
+                  f"{[f'{d:.2e}' for d in on['loss_rel_diff_vs_none']]} | "
+                  f"{card}", flush=True)
+        results += pair
+    return results
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["--profile-rank"]:
@@ -344,9 +416,11 @@ def main(argv=None) -> int:
                    help="gloo worlds of 4 CPU ranks at a tiny width")
     p.add_argument("--json", metavar="PATH",
                    help="also write the closing JSON object to PATH")
-    p.add_argument("--ffn", choices=(*SETS, "all", "loop"), default="all",
+    p.add_argument("--ffn", choices=(*SETS, "all", "loop", "overlap"),
+                   default="all",
                    help="which set of runs (default all; loop: the "
-                        "training loop's checkpoint and resume)")
+                        "training loop's checkpoint and resume; overlap: "
+                        "the overlap knobs, each beside its none run)")
     args = p.parse_args(argv)
     if args.cpu:
         n, shape = 4, TINY
@@ -370,8 +444,10 @@ def main(argv=None) -> int:
     results, one_card = [], {}
     if args.ffn == "loop":
         results = loop_cards(shape, env, torchrun, tokens, card)
+    if args.ffn == "overlap":
+        results = overlap_cards(shape, env, torchrun, tokens, card)
     for name in (SETS if args.ffn == "all" else
-                 (args.ffn,) if args.ffn != "loop" else ()):
+                 (args.ffn,) if args.ffn in SETS else ()):
         for label, ffn, mesh in SETS[name]:
             flags, one_label = FFNS[ffn]
             common = [*shape, *flags, *COMMON]
@@ -397,6 +473,11 @@ def main(argv=None) -> int:
             print(f"{res['label']}: FAILED (rc {res['rc']})", flush=True)
             continue
         extra = ""
+        if "nccl_ms_per_rank" in res:
+            extra = f" | NCCL device ms a rank {res['nccl_ms_per_rank']}"
+        if "loss_rel_diff_vs_none" in res:
+            extra += (" | loss rel diff vs none "
+                      f"{[f'{d:.2e}' for d in res['loss_rel_diff_vs_none']]}")
         if "loss_rel_diff_steps_1_2" in res:
             extra = (f" | x{res['speedup_vs_one_card']:.2f} the one card's "
                      f"tokens/s | loss rel diff steps 1-2 "

@@ -4,7 +4,8 @@
 output on the same command (in the serialized, fused, differential and
 device modes), ``--mode device`` on ``latency`` with its records'
 ``source``, ``--validate-timing``, ``--profile-dir``, the float32
-``--check`` outcome, and the flags that still exit 2.
+``--check`` outcome, ``flagship_step``'s overlap knobs against their
+goldens, and the flags that still exit 2.
 
 The port runs as ``python -m tpu_p2p_torch --cpu-mesh N`` subprocesses
 (gloo worlds), a few at a time; the reference runs in this process on
@@ -59,6 +60,10 @@ PORT_RUNS = {
     "float32": (2, ["--pattern", "allreduce", "--check", "--dtype",
                     "float32", *SMALL]),
     "torus_flat": (2, ["--pattern", "torus2d", *SMALL]),
+    # The overlap knobs on flagship_step (build_mesh(8): dp 2 x pp 2 x sp
+    # 2, so the wave runs and the tp and ep rings degrade at size 1).
+    **{f"flagship_{name}": (8, SUMMARY_PATTERNS[f"flagship_{name}"][2:])
+       for name in ("tp_ring", "ep_ring", "pp_wave")},
 }
 
 
@@ -104,7 +109,9 @@ def _ok(port, name):
     return proc.stdout, tmp
 
 
-@pytest.mark.parametrize("name", ["torus2d", "allreduce"])
+@pytest.mark.parametrize("name", ["torus2d", "allreduce",
+                                  "flagship_tp_ring", "flagship_ep_ring",
+                                  "flagship_pp_wave"])
 def test_cli_output_equals_the_reference_golden(port, name):
     out, _ = _ok(port, name)
     with open(os.path.join(GOLDEN_DIR, f"cli_{name}_8dev.txt")) as fh:
@@ -159,9 +166,6 @@ def test_float32_check_fails_like_the_reference(port):
 
 @pytest.mark.parametrize("argv", [
     ["--hybrid"],
-    ["--pattern", "flagship_step", "--tp-overlap", "ring"],
-    ["--pattern", "flagship_step", "--ep-overlap", "ring"],
-    ["--pattern", "flagship_step", "--pp-overlap", "wave"],
     ["--pattern", "flagship_step", "--pp-schedule", "zb"],
     ["--pattern", "flagship_step", "--tick-lowering", "switch"],
 ])

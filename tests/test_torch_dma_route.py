@@ -5,9 +5,11 @@ rank's push lands (:func:`plan_hop`): straight into the receiver's
 output wherever this process holds it (every edge of a ``LocalMesh``, a
 self-edge on any mesh), into the receiver's IPC-mapped slab on an edge
 between processes, and nowhere toward a dummy arrival, whose receiver
-zero-fills. A CPU host cannot launch the kernels, so these tests stand
-a recording fake in for the built library (and fake streams and
-windows for the card's) and let CPU tensors take the kernel path: what
+zero-fills; the fused ship's arrival waits (a ``LocalMesh``) or copies
+the slab out after the compute (a process mesh). A CPU host cannot
+launch the kernels, so these tests stand a recording fake in for the
+built library (and fake streams and windows for the card's) and let CPU
+tensors take the kernel path: what
 each launch gets, how many launches a call makes, the epochs, and that
 a refused launch raises before any later one. The kernels themselves
 are held against their plain versions on the card
@@ -340,6 +342,60 @@ def test_ship_pushes_on_side_streams_and_waits_only_where_a_peer_writes(
     assert CALLER.waited[-2 * n:] == [10 + i for i in range(n)] + [
         20 + i for i in range(n)]
     assert PD.launches == {"dma_permute": 0, "dma_ship": n}
+
+
+@pytest.mark.parametrize("name,n", CASES)
+def test_process_mesh_ship_pushes_to_the_slab_and_copies_after_compute(
+        fake, name, n):
+    # A process mesh's fused ship: the push on the mesh's side stream into
+    # the peer's slab (its own output on a self-edge, nowhere toward a
+    # dummy arrival), the compute, then the copy arrival on the caller's
+    # stream where a peer writes this rank's arrival; both grids capped
+    # to a quarter of the card (share 4) beside the compute.
+    edges = edges_of(name, n)
+    dst_t, src_t, has_in = PD.complete_permutation(edges, n)
+    for rank in range(n):
+        fake.calls.clear()
+        CALLER.waited.clear()
+        PD.reset_launches()
+        mesh = process_mesh(n, rank)
+        mesh.side = FakeStream(30)
+        order = []
+        x = rows_of(n)[rank]
+        arr, y = PD.dma_ship_compute(
+            x, mesh, edges, lambda a: order.append(len(fake.calls)) or a + 1,
+            x)
+        (entry, a), *rest = fake.calls
+        assert entry == "tp_dma_ship_push" and order == [1]
+        d = int(dst_t[rank])
+        win = mesh.windows[PD.MIN_WINDOW]
+        if not has_in[d]:
+            want = (PD.PUSH["none"], None)
+        elif d == rank:
+            want = (PD.PUSH["out"], arr.data_ptr())
+        else:
+            want = (PD.PUSH["slab"], win.bases[d] + HEADER)
+        assert (a["push"], a["dest"]) == want
+        assert (a["x"], a["out"]) == (x.data_ptr(), arr.data_ptr())
+        assert (a["stream"], a["share"]) == (30, 4)
+        arrival = ("zero" if not has_in[rank] else
+                   "none" if src_t[rank] == rank else "copy")
+        assert a["arrive"] == PD.ARRIVAL[arrival]
+        if arrival == "copy":
+            (entry, b), = rest
+            assert entry == "tp_dma_ship_arrive"
+            assert b["arrive"] == PD.ARRIVAL["copy"]
+            assert (b["x"], b["dest"], b["out"]) == (None, None,
+                                                     arr.data_ptr())
+            assert (b["stream"], b["share"], b["epoch"]) == (
+                CALLER.cuda_stream, 4, a["epoch"])
+        else:
+            assert rest == []
+        # The push follows the caller's stream; the caller joins it.
+        assert mesh.side.waited == [CALLER.cuda_stream]
+        assert CALLER.waited == [30]
+        assert PD.launches == {"dma_permute": 0, "dma_ship": 1}
+        assert torch.equal(y, x + 1)
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -89,13 +89,18 @@ def test_config_capacity_and_init_match_reference():
     assert TF.FlagshipConfig(**kw).moe().capacity(256) == 128
 
 
-def test_ep_overlap_ring_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.MoEConfig(ep_overlap="ring")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TF.FlagshipConfig(ep_overlap="ring")
+def test_ep_overlap_ring_is_ported_and_validated():
+    # FlagshipConfig.moe() carries the knob into the layer's config, as
+    # the reference's does; a bad value is refused by both configs.
+    assert TM.MoEConfig(ep_overlap="ring").ep_overlap == "ring"
+    assert TF.FlagshipConfig(ep_overlap="ring").moe() == \
+        dataclasses.replace(TF.FlagshipConfig().moe(), ep_overlap="ring")
+    assert dataclasses.asdict(TF.FlagshipConfig(ep_overlap="ring").moe()) \
+        == dataclasses.asdict(JF.FlagshipConfig(ep_overlap="ring").moe())
     with pytest.raises(ValueError, match="ep_overlap"):
         TM.MoEConfig(ep_overlap="rings")
+    with pytest.raises(ValueError, match="ep_overlap"):
+        TF.FlagshipConfig(ep_overlap="Ring")
 
 
 # ----------------------------------------------------------- routing

@@ -451,7 +451,7 @@ def test_cli_sweep_fused_jsonl_resume_and_num_devices(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--hybrid"], ["--ep-overlap", "ring"], ["--tp-overlap", "ring"],
+    ["--hybrid"], ["--pp-schedule", "zb"], ["--tick-lowering", "switch"],
     ["obs"], ["topo"], ["zb"],
 ])
 def test_unported_flags_exit_2(argv, capsys):
@@ -469,8 +469,7 @@ def test_default_benchmark_needs_a_card(monkeypatch, capsys):
 def test_ship_kernel_call_takes_each_mesh_kinds_form(monkeypatch):
     # The kernel branch of dma_ship_compute (taken for CUDA tensors),
     # faked here to run without a card: on a LocalMesh it hands the
-    # kernel call the per-rank rows; on a process mesh of cards it is
-    # not ported and raises.
+    # kernel call the per-rank rows, on a process mesh this rank's.
     seen = []
 
     def fake_kernel(rows, mesh, tables, compute, timeout_s):
@@ -488,8 +487,9 @@ def test_ship_kernel_call_takes_each_mesh_kinds_form(monkeypatch):
     assert seen == [2]
     rt = _world1_cpu()
     try:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            PD.dma_ship_compute(torch.ones(3), rt.mesh, ((0, 0),),
-                                lambda a: a * 2, torch.ones(3))
+        arr, y = PD.dma_ship_compute(torch.ones(3), rt.mesh, ((0, 0),),
+                                     lambda a: a * 2, torch.ones(3))
+        assert torch.equal(y, torch.full((3,), 2.0))
+        assert arr.shape == (3,) and seen == [2, 1]
     finally:
         rt.close()

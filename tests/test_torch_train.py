@@ -12,6 +12,7 @@ between tiled and whole-row attention sums. Host logic (batches, keys)
 is exact, and the bf16 SGD update is bitwise.
 """
 
+import contextlib
 import io
 import json
 import os
@@ -296,10 +297,14 @@ _NOT_PORTED_ARGV = {
     "--fault-degrade-factor": ["4"], "--fault-slow-rank": ["0"],
     "--fault-slow-ms": ["5"], "--fault-lost-host": ["1"],
     "--obs-jsonl": ["obs.jsonl"], "--obs-window-step": ["2"],
-    "--trace": ["t.json"], "--tp-overlap": ["ring"],
-    "--ep-overlap": ["ring"], "--pp-overlap": ["wave"],
-    "--pp-chunks": ["2"],
+    "--trace": ["t.json"],
     "--pp-schedule": ["zb"], "--tick-lowering": ["switch"],
+}
+# The overlap knobs run: on a world of one each axis has size 1, so each
+# is the plain step, bitwise (the reference's size-1 degrade).
+_OVERLAP_ARGV = {
+    "--tp-overlap": ["ring"], "--ep-overlap": ["ring"],
+    "--pp-overlap": ["wave"], "--pp-chunks": ["2"],
 }
 
 
@@ -314,6 +319,31 @@ def test_train_cli_rejects_flags_not_ported(flag, capsys):
     assert TT.main(argv) == 2
     err = capsys.readouterr().err
     assert flag in err and "not ported yet" in err
+
+
+@pytest.fixture(scope="module")
+def plain_summary():
+    """The world-of-one run the overlap knobs are held to."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert TT.main(["--device", "cpu", *_ARGS]) == 0
+    return json.loads(buf.getvalue().splitlines()[-1])["summary"]
+
+
+@pytest.mark.parametrize("flag", sorted(_OVERLAP_ARGV))
+def test_train_cli_runs_the_overlap_knobs(flag, plain_summary, capsys):
+    argv = ["--device", "cpu", *_ARGS, flag, *_OVERLAP_ARGV[flag]]
+    if flag == "--pp-chunks":
+        argv += ["--pp-overlap", "wave"]
+    assert TT.main(argv) == 0
+    summary = json.loads(capsys.readouterr().out.splitlines()[-1])["summary"]
+    assert summary == plain_summary
+    cfg = TT.config_from_args(TT._build_parser().parse_args(argv))
+    want = {"--tp-overlap": ("tp_overlap", "ring"),
+            "--ep-overlap": ("ep_overlap", "ring"),
+            "--pp-overlap": ("pp_overlap", "wave"),
+            "--pp-chunks": ("pp_chunks", 2)}[flag]
+    assert getattr(cfg, want[0]) == want[1]
 
 
 def test_train_cli_rejects_moe_and_a_missing_card(monkeypatch, capsys):
@@ -338,6 +368,22 @@ def test_run_training_rejects_keywords_not_ported(name):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TT.run_training(TF.FlagshipConfig(**LM), steps=1, device="cpu",
                         **{name: value})
+
+
+@pytest.mark.parametrize("name,good,bad", [
+    ("tp_overlap", "ring", "rings"), ("ep_overlap", "ring", "Ring"),
+    ("pp_overlap", "wave", "waves"), ("pp_chunks", 2, 0)])
+def test_config_takes_the_overlap_knobs(name, good, bad):
+    # Validated as the reference validates them
+    # (tpu_p2p/models/flagship_config.py:244-267): the same message.
+    assert getattr(TF.FlagshipConfig(**{name: good}), name) == good
+    with pytest.raises(ValueError) as port:
+        TF.FlagshipConfig(**{name: bad})
+    with pytest.raises(ValueError) as ref:
+        JF.FlagshipConfig(**{name: bad})
+    assert str(port.value) == str(ref.value)
+    assert getattr(TF.FlagshipConfig(), name) == getattr(
+        JF.FlagshipConfig(), name)
 
 
 @pytest.mark.parametrize("name", sorted(TF.NOT_PORTED_FIELDS))

@@ -3,7 +3,7 @@ reference: ``python -m tpu_p2p_torch train --cpu-mesh 8`` against the
 reference's ``run_training`` on ``build_mesh(8)`` or the mesh
 ``--mesh-shape`` names (same flags and seed: losses to relative 1e-4,
 the same record keys; one case trains the MoE FFN with its experts split
-over ep 2), the flags still not
+over ep 2, two run the tp ring and the pp wave), the flags still not
 ported, the five-axis runtime (lines, planes, groups), the placement of
 params and batches against the reference's shardings, and the refusal
 of a multi-rank step on ranks that share a card (NCCL needs a card a
@@ -74,7 +74,9 @@ def _reference_records(argv):
         kv_heads=args.kv_heads, head_dim=args.head_dim, stages=args.stages,
         microbatches=args.microbatches, vocab=args.vocab,
         sp_strategy=args.sp_strategy, use_flash=args.flash, norm=args.norm,
-        dense_ffn=args.dense_ffn, rope=args.rope)
+        dense_ffn=args.dense_ffn, rope=args.rope,
+        tp_overlap=args.tp_overlap, ep_overlap=args.ep_overlap,
+        pp_overlap=args.pp_overlap, pp_chunks=args.pp_chunks)
     buf = io.StringIO()
     out = JT.run_training(mesh, cfg, steps=args.steps,
                           log_every=args.log_every, log_stream=buf)
@@ -82,9 +84,26 @@ def _reference_records(argv):
     return [json.loads(s) for s in buf.getvalue().splitlines()], out
 
 
+# The overlap knobs on 8 ranks: the tp ring on dp 2 x sp 2 x tp 2, the
+# wave on build_mesh(8)'s pp 2 in 3 chunks of T_local 16 (padded).
+OVERLAP_CASES = {
+    "tp_overlap": SHAPE + ["--mesh-shape", "2x1x2x2x1", "--norm",
+                           "--tp-overlap", "ring"],
+    "pp_overlap": SHAPE + ["--pp-overlap", "wave", "--pp-chunks", "3"],
+}
+
+
 @pytest.mark.parametrize("name", sorted(CLI_CASES))
 def test_train_cpu_mesh_cli_matches_reference(name):
-    argv = CLI_CASES[name]
+    _assert_cli_matches_reference(CLI_CASES[name])
+
+
+@pytest.mark.parametrize("name", sorted(OVERLAP_CASES))
+def test_train_cpu_mesh_cli_runs_the_overlap_knobs(name):
+    _assert_cli_matches_reference(OVERLAP_CASES[name])
+
+
+def _assert_cli_matches_reference(argv):
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_p2p_torch", "train", "--cpu-mesh", "8",
          "--device", "cpu", *argv], capture_output=True, text=True,
@@ -104,9 +123,9 @@ def test_train_cpu_mesh_cli_matches_reference(name):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--tp-overlap", "ring"], "--tp-overlap"),
-    (["--pp-overlap", "wave"], "--pp-overlap"),
-], ids=["tp_overlap", "pp_overlap"])
+    (["--pp-schedule", "zb"], "--pp-schedule"),
+    (["--tick-lowering", "switch"], "--tick-lowering"),
+], ids=["pp_schedule", "tick_lowering"])
 def test_train_cpu_mesh_still_rejects_what_is_not_ported(argv, what,
                                                          capsys):
     assert TT.main(["--cpu-mesh", "8", *SHAPE, *argv]) == 2

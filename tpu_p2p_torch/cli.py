@@ -14,14 +14,15 @@ the reference: the transfers (pairwise, latency, loopback, ring,
 torus2d over ``--mesh-shape AxB``, all_to_all, allreduce,
 reduce_scatter, all_gather) and the model patterns (ring_attention and
 ulysses_attention, with ``--flash`` and ``--attn-window``;
-flagship_step, with ``--zero-dp`` and ``--overlap``); ``--mode device``
+flagship_step, with ``--zero-dp``, ``--overlap`` and the ``--tp-overlap``
+/ ``--ep-overlap`` / ``--pp-overlap`` knobs); ``--mode device``
 publishes the card's clock, ``--validate-timing`` cross-checks it
 against the host clock after the run, ``--profile-dir DIR`` writes a
 ``torch.profiler`` trace of the run. ``serve`` runs the serving engine
 and ``train`` the training loop. The reference's flags and subcommands
-the port does not run yet (``--hybrid``, flagship_step's tp/ep/pp
-overlaps, pipeline schedule and tick lowering, ``obs``, ``topo``,
-``zb``) parse and exit 2 with "not ported yet".
+the port does not run yet (``--hybrid``, flagship_step's pipeline
+schedule and tick lowering, ``obs``, ``topo``, ``zb``) parse and exit 2
+with "not ported yet".
 """
 
 from __future__ import annotations
@@ -45,8 +46,7 @@ from tpu_p2p_torch.config import (
 from tpu_p2p_torch.utils.errors import fail_fast
 
 # Flags of the reference CLI that the port parses but does not run.
-UNPORTED_FLAGS = ("hybrid", "tp_overlap", "ep_overlap", "pp_overlap",
-                  "pp_schedule", "tick_lowering")
+UNPORTED_FLAGS = ("hybrid", "pp_schedule", "tick_lowering")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -133,11 +133,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "schedule (prefetch = each block's gather issued "
                         "one block ahead)")
     p.add_argument("--tp-overlap", choices=("none", "ring"), default="none",
-                   help="flagship_step tp-join schedule (not ported yet)")
+                   help="flagship_step: the tp-join schedule (ring = ring "
+                        "collective-matmuls, each chunk's hop in flight "
+                        "beside its neighbour's product)")
     p.add_argument("--ep-overlap", choices=("none", "ring"), default="none",
-                   help="flagship_step MoE reshard schedule (not ported yet)")
+                   help="flagship_step: the MoE reshard schedule (ring = "
+                        "shift hops beside the expert products)")
     p.add_argument("--pp-overlap", choices=("none", "wave"), default="none",
-                   help="flagship_step stage-hop schedule (not ported yet)")
+                   help="flagship_step: the stage-hop schedule (wave = the "
+                        "hop as token-chunk hops)")
     p.add_argument("--pp-schedule", choices=PP_SCHEDULES, default="1f1b",
                    help="flagship_step tick schedule (not ported yet)")
     p.add_argument("--tick-lowering", choices=TICK_LOWERINGS,
@@ -194,6 +198,9 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         attn_window=args.attn_window,
         zero_dp=args.zero_dp,
         overlap=args.overlap,
+        tp_overlap=args.tp_overlap,
+        ep_overlap=args.ep_overlap,
+        pp_overlap=args.pp_overlap,
     )
 
 

@@ -124,9 +124,9 @@ TICK_LOWERINGS = ("masked", "switch")
 @dataclass
 class BenchConfig:
     """Everything a benchmark run needs; defaults = the reference's
-    constants. The reference's tp/ep/pp overlap, pipeline-schedule and
-    tick-lowering fields are parsed by the CLI but not ported (it
-    refuses them), so they are not here."""
+    constants. The reference's pipeline-schedule and tick-lowering
+    fields are parsed by the CLI but not ported (it refuses them), so
+    they are not here."""
 
     pattern: str = "pairwise"
     # None = unset; bandwidth patterns then use the reference's 32 MiB
@@ -160,6 +160,16 @@ class BenchConfig:
     # FlagshipConfig.overlap; other patterns ignore it
     zero_dp: bool = False  # flagship_step: ZeRO-3 parameter sharding
     # over the dp axis (FlagshipConfig.zero_dp)
+    tp_overlap: str = "none"  # flagship_step: the tp joins ("ring" =
+    # ring collective-matmuls over token chunks, each hop in flight
+    # beside a chunk's product), as FlagshipConfig.tp_overlap; no-op at
+    # tp 1, other patterns ignore it
+    ep_overlap: str = "none"  # flagship_step: the MoE reshards ("ring" =
+    # shift hops beside the expert products), as
+    # FlagshipConfig.ep_overlap; no-op at ep 1
+    pp_overlap: str = "none"  # flagship_step: the pipeline's stage hop
+    # ("wave" = token-chunk hops, every chunk's in flight before the
+    # first wait), as FlagshipConfig.pp_overlap; no-op at pp 1
     transport: str = "xla"
 
     def __post_init__(self) -> None:
@@ -183,6 +193,21 @@ class BenchConfig:
             raise ValueError(
                 f"unknown overlap {self.overlap!r}; expected 'none' "
                 "or 'prefetch'"
+            )
+        if self.tp_overlap not in ("none", "ring"):
+            raise ValueError(
+                f"unknown tp_overlap {self.tp_overlap!r}; expected "
+                "'none' or 'ring'"
+            )
+        if self.ep_overlap not in ("none", "ring"):
+            raise ValueError(
+                f"unknown ep_overlap {self.ep_overlap!r}; expected "
+                "'none' or 'ring'"
+            )
+        if self.pp_overlap not in ("none", "wave"):
+            raise ValueError(
+                f"unknown pp_overlap {self.pp_overlap!r}; expected "
+                "'none' or 'wave'"
             )
         if self.transport not in TRANSPORTS:
             raise ValueError(

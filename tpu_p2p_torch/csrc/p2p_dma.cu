@@ -94,18 +94,27 @@
 // arbitrary traced compute inside the same kernel body, then waits. A
 // PyTorch compute cannot be fused into a CUDA kernel, so the hop is split
 // at the point where the TPU kernel puts its compute, into two launches
-// on two streams of the rank (its only card path is a LocalMesh, so every
-// push is ``out``):
+// on two streams of the rank:
 //   dma_ship_push_kernel    (side stream) the ready handshake, the push
-//                           into dst's output, a dummy arrival's
-//                           zero-fill; the last CTA releases arrived;
+//                           (into dst's output on a LocalMesh, into its
+//                           slab between processes), a dummy arrival's
+//                           zero-fill; after an ``out`` push the last
+//                           CTA releases arrived;
 //   dma_ship_arrive_kernel  (the rank's own stream, after the compute was
 //                           issued there) one warp: waits on
-//                           arrived[src]. Launched only where a peer
-//                           writes the rank's output.
-// The caller orders the side stream after everything its own stream
-// issued before (the ship's producer and the previous arrival); the
-// caller's stream then waits for both of the rank's streams. Two
+//                           arrived[src]. A LocalMesh's arrival: its
+//                           peer stored into the output;
+//   dma_ship_copy_kernel    (the same place) a process mesh's arrival:
+//                           the permute's segment arrival, each slab
+//                           segment copied out once its seg[s] reads the
+//                           epoch. The push kernel leaves the copy to it,
+//                           so the copy-out runs after the compute and
+//                           not beside the push on the side stream.
+// Each arrival launches only where a peer writes the rank's arrival. The
+// caller orders the side stream after everything its own stream issued
+// before (the ship's producer and the previous arrival, which the push's
+// ready signal vouches for: the slab's earlier segments are copied out);
+// the caller's stream then waits for both of the rank's streams. Two
 // launches, not one with a stream join in place of the arrival: traced,
 // the kernels and not the joins set a 128 KiB ship's device time
 // (PERF.md, section 6).
@@ -116,7 +125,10 @@
 // filled the card would keep a peer's kernel from ever starting, so the
 // caller passes ``share``: the grid is at most resident / share CTAs
 // (share = 2 x the ranks on the card: every rank's push and arrival fit
-// at once with room to spare for the compute).
+// at once with room to spare for the compute). A process mesh's ship
+// runs its push and its copy beside its own compute in one context, so
+// there share = 4: both fit at once, and half the card stays for the
+// compute.
 //
 // What bounds it: bytes. The function moves the buffer once (read x,
 // write the peer's copy: 2 x nbytes over device memory on one card, or
@@ -346,10 +358,10 @@ __device__ void push_role(const Args& a) {
 }
 
 // Arrival CTA ``j`` of ``narr``: zero-fill, one thread's wait for the
-// ``out`` push (``kWaits``: not in the ship's push kernel, which leaves
-// it to the arrival kernel), or the segments j, j + narr, ... of the
-// slab, each copied out once it has landed.
-template <bool kWaits>
+// ``out`` push, or the segments j, j + narr, ... of the slab, each copied
+// out once it has landed. ``kArrives``: this launch owns the wait or the
+// copy (not the ship's push kernel, which leaves both to its arrival).
+template <bool kArrives>
 __device__ void arrival_role(const Args& a, int j, int narr) {
   if (a.arrive == kArriveZero) {
     copy_span(a.out, nullptr, a.nbytes,
@@ -358,12 +370,12 @@ __device__ void arrival_role(const Args& a, int j, int narr) {
     return;
   }
   if (a.arrive == kArriveWait) {
-    if (kWaits && j == 0 && threadIdx.x == 0 &&
+    if (kArrives && j == 0 && threadIdx.x == 0 &&
         !wait_epoch(a, &a.self->arrived[a.src]))
       report(a, 2, a.src_rank);
     return;
   }
-  if (a.arrive != kArriveCopy) return;
+  if (a.arrive != kArriveCopy || !kArrives) return;
   __shared__ int landed;
   for (int s = j; s < a.nseg; s += narr) {
     if (threadIdx.x == 0) {
@@ -382,7 +394,7 @@ __device__ void arrival_role(const Args& a, int j, int narr) {
 }
 
 // One hop: the ready store, then each CTA's role.
-template <bool kWaits>
+template <bool kArrives>
 __device__ __forceinline__ void hop(const Args& a) {
   if (blockIdx.x == 0 && threadIdx.x == 0 &&
       (a.arrive == kArriveWait || a.arrive == kArriveCopy))
@@ -390,7 +402,7 @@ __device__ __forceinline__ void hop(const Args& a) {
   if ((int)blockIdx.x < a.npush)
     push_role(a);
   else
-    arrival_role<kWaits>(a, blockIdx.x - a.npush, gridDim.x - a.npush);
+    arrival_role<kArrives>(a, blockIdx.x - a.npush, gridDim.x - a.npush);
 }
 
 __global__ void __launch_bounds__(kThreads) dma_permute_kernel(Args a) {
@@ -406,8 +418,13 @@ __global__ void __launch_bounds__(kWarp) dma_ship_arrive_kernel(Args a) {
     report(a, 2, a.src_rank);
 }
 
-enum Kind { kPermute = 0, kShipPush = 1, kShipArrive = 2 };
-int g_grid[64][2];  // resident CTAs per device and hop kernel, 0 = not asked
+__global__ void __launch_bounds__(kThreads) dma_ship_copy_kernel(Args a) {
+  arrival_role<true>(a, blockIdx.x, gridDim.x);
+}
+
+// kShipCopy is the grid of kShipArrive's copy form (a slab arrival).
+enum Kind { kPermute = 0, kShipPush = 1, kShipCopy = 2, kShipArrive = 3 };
+int g_grid[64][3];  // resident CTAs per device and grid kernel, 0 = not asked
 
 int resident_grid(Kind kind, int* grid) {
   int dev = 0;
@@ -415,8 +432,8 @@ int resident_grid(Kind kind, int* grid) {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!g_grid[dev][kind]) {
-    static void (*const fns[2])(Args) = {dma_permute_kernel,
-                                         dma_ship_push_kernel};
+    static void (*const fns[3])(Args) = {
+        dma_permute_kernel, dma_ship_push_kernel, dma_ship_copy_kernel};
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -437,29 +454,37 @@ unsigned long long cdiv(unsigned long long a, unsigned long long b) {
 // and arrival CTAs as the bytes need (8 KiB a CTA for a grid-stride copy,
 // one a slab segment, one for a wait), at most the resident CTAs / share,
 // split between the two roles when both need more. The ship's push
-// kernel leaves a wait to the arrival kernel. Returns cudaGetLastError().
+// kernel leaves a wait or a copy to the arrival kernel: one warp for a
+// wait, a grid of segment CTAs for a copy. Returns cudaGetLastError().
 int launch(Kind kind, Args a, int share, cudaStream_t st) {
   a.seg_bytes = cdiv(cdiv(a.nbytes, kMaxSegs), 16) * 16;
   if (a.seg_bytes < kSegMin) a.seg_bytes = kSegMin;
   a.nseg = (int)cdiv(a.nbytes, a.seg_bytes);
-  if (kind == kShipArrive) {
-    a.npush = 0;
+  a.npush = 0;
+  if (kind == kShipArrive && a.arrive != kArriveCopy) {
     dma_ship_arrive_kernel<<<1, kWarp, 0, st>>>(a);
     return cudaGetLastError();
   }
+  if (kind == kShipArrive) kind = kShipCopy;
   int cap = 0;
   cudaError_t err = (cudaError_t)resident_grid(kind, &cap);
   if (err != cudaSuccess) return err;
   if (share > 1) cap = cap / share > 0 ? cap / share : 1;
+  if (kind == kShipCopy) {
+    const int grid = a.nseg < cap ? a.nseg : cap;
+    dma_ship_copy_kernel<<<grid > 0 ? grid : 1, kThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  }
   const unsigned long long per_cta = (unsigned long long)kThreads * 16;
   const unsigned long long stride_ctas = cdiv(a.nbytes, per_cta);
   unsigned long long push = a.push == kPushOut    ? stride_ctas
                             : a.push == kPushSlab ? a.nseg
                                                   : 0;
   unsigned long long arr = a.arrive == kArriveZero ? stride_ctas
+                           : kind == kShipPush     ? 0
                            : a.arrive == kArriveCopy ? a.nseg
-                           : a.arrive == kArriveWait && kind == kPermute ? 1
-                                                                         : 0;
+                           : a.arrive == kArriveWait ? 1
+                                                     : 0;
   if (a.push != kPushNone && push == 0) push = 1;  // nbytes 0
   if (a.arrive == kArriveZero && arr == 0) arr = 1;
   const unsigned long long c = cap;
@@ -601,7 +626,8 @@ int tp_dma_ship_push(TP_DMA_ARGS) {
   return launch_kind(kShipPush, TP_DMA_PASS);
 }
 
-// The arrival half of a fused ship (on the rank's own stream).
+// The arrival half of a fused ship (on the rank's own stream): a wait
+// (one warp) or a copy out of the slab (segment CTAs).
 int tp_dma_ship_arrive(TP_DMA_ARGS) {
   return launch_kind(kShipArrive, TP_DMA_PASS);
 }

@@ -2,15 +2,15 @@
 ``tpu_p2p/models/flagship_config.py``.
 
 The model-shape fields, ``use_flash``, the sequence-parallel strategy,
-ZeRO storage (``zero_dp``) and its prefetch schedule (``overlap``),
-rematerialization (``remat``, ``remat_policy``), every training field
-the reference's train CLI sets, and the MoE FFN's config
-(:meth:`FlagshipConfig.moe`). Field names and defaults match the
+ZeRO storage (``zero_dp``) and its prefetch schedule (``overlap``), the
+tp/ep/pp overlap knobs (``tp_overlap``, ``ep_overlap``, ``pp_overlap``
+with ``pp_chunks``), rematerialization (``remat``, ``remat_policy``),
+every training field the reference's train CLI sets, and the MoE FFN's
+config (:meth:`FlagshipConfig.moe`). Field names and defaults match the
 reference, so one keyword set builds both configs. The mesh has the
 reference's five axes (``AXES``); :func:`build_mesh` factors a world
-over them. The tp/ep/pp overlaps, the pipeline schedule and its
-lowering are not ported yet: a non-default value raises rather than
-being ignored.
+over them. The pipeline schedule and its lowering are not ported yet: a
+non-default value raises rather than being ignored.
 """
 
 from __future__ import annotations
@@ -25,10 +25,7 @@ AXES = ("dp", "pp", "sp", "tp", "ep")
 SP_STRATEGIES = ("ring", "ring_zigzag", "ulysses")
 
 # Fields whose machinery is not ported, with the reference's default.
-NOT_PORTED_FIELDS = {
-    "tp_overlap": "none", "ep_overlap": "none", "pp_overlap": "none",
-    "pp_chunks": 4, "pp_schedule": "1f1b", "tick_lowering": "masked",
-}
+NOT_PORTED_FIELDS = {"pp_schedule": "1f1b", "tick_lowering": "masked"}
 
 
 @dataclass(frozen=True)
@@ -108,6 +105,27 @@ class FlagshipConfig:
                 "overlap='prefetch' requires zero_dp=True (the prefetch "
                 "schedule is a ZeRO parameter-gather schedule; without "
                 "FSDP storage there is nothing to prefetch)"
+            )
+        # Strict like overlap: a typo would train on the blocking path
+        # while the run's logs claim the overlapped one.
+        if self.tp_overlap not in ("none", "ring"):
+            raise ValueError(
+                f"unknown tp_overlap {self.tp_overlap!r}; expected "
+                "'none' or 'ring'"
+            )
+        if self.ep_overlap not in ("none", "ring"):
+            raise ValueError(
+                f"unknown ep_overlap {self.ep_overlap!r}; expected "
+                "'none' or 'ring'"
+            )
+        if self.pp_overlap not in ("none", "wave"):
+            raise ValueError(
+                f"unknown pp_overlap {self.pp_overlap!r}; expected "
+                "'none' or 'wave'"
+            )
+        if self.pp_chunks < 1:
+            raise ValueError(
+                f"pp_chunks must be >= 1, got {self.pp_chunks}"
             )
         # The reference accepts the names of jax.checkpoint_policies'
         # POLICIES and refuses the factories that build one.

@@ -11,9 +11,11 @@ local attention when the sequence is whole), the Megatron psum joins
 after ``wo`` and ``wf2``, and their conjugates where the replicated
 activation enters the column-split products; or, with ``dense_ffn``
 off, the MoE FFN with its experts split over ``ep``
-(:mod:`tpu_p2p_torch.models.moe`). Microbatches go through
-the GPipe schedule over pp (:mod:`tpu_p2p_torch.models.pipeline`), or
-one after another when pp has size 1. Attention goes through the flash
+(:mod:`tpu_p2p_torch.models.moe`). ``tp_overlap="ring"`` replaces
+both tp joins with ring collective-matmuls over token chunks
+(:func:`_tp_ring_join`). Microbatches go through the GPipe schedule over
+pp (:mod:`tpu_p2p_torch.models.pipeline`, with ``pp_overlap``'s wave),
+or one after another when pp has size 1. Attention goes through the flash
 kernels or dense attention by ``cfg.use_flash``. Under ``cfg.remat``
 each block runs under ``torch.utils.checkpoint``
 (:func:`tpu_p2p_torch.utils.remat.remat_block`, ``cfg.remat_policy``);
@@ -52,7 +54,12 @@ from tpu_p2p_torch.ops.flash_attention import flash_attention
 from tpu_p2p_torch.ops.rope import apply_rope
 from tpu_p2p_torch.ops.ulysses import ulysses_attention_local
 from tpu_p2p_torch.parallel import fsdp
-from tpu_p2p_torch.parallel.collectives import psum_conjugate, psum_join
+from tpu_p2p_torch.parallel.collectives import (
+    matmul_ring_reducescatter,
+    psum_conjugate,
+    psum_join,
+    ring_allgather_matmul,
+)
 from tpu_p2p_torch.utils.remat import product, remat_block
 
 
@@ -150,6 +157,9 @@ def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
     a = _attention(q, k, v, cfg, sp)
+    if cfg.tp_overlap == "ring" and _size(tp) > 1:
+        # tp 1 (or no tp axis) keeps the psum path below, bitwise.
+        return _tp_ring_join(sub, x, a, cfg, tp, ep)
     with product("wo", batch_dims=False):
         o = torch.einsum("bhtd,hdm->btm", a, sub["wo"])
     x = x + psum_join(o, tp)
@@ -157,6 +167,86 @@ def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
     if cfg.dense_ffn:
         return x + _dense_ffn(sub, h2, tp)
     return x + _moe_ffn(sub, h2, cfg, ep)
+
+
+def _tp_ring_join(sub: Params, x: torch.Tensor, a: torch.Tensor,
+                  cfg: FlagshipConfig, tp, ep=None) -> torch.Tensor:
+    """The block's tail under ``tp_overlap="ring"`` (reference
+    ``flagship_forward.py:132-244``): both Megatron joins as ring
+    collective-matmuls over token chunks of the local sequence.
+
+    - The out-projection: :func:`matmul_ring_reducescatter` of the
+      per-chunk ``a @ wo`` partials leaves this rank token chunk ``idx``
+      of the joined attention delta.
+    - The dense FFN's first product: :func:`ring_allgather_matmul`
+      gathers that delta *through* ``wf1``; each arriving chunk is added
+      to the residual's chunk sliced locally at its source position (and
+      pre-normed) inside the per-chunk compute, so only the new bytes
+      ride the ring and every rank consumes the replicated ``x`` and
+      ``ln2`` for every token, as the psum path does.
+    - The second product: another :func:`matmul_ring_reducescatter`,
+      with ``wf2``.
+    - The joined delta (attention plus FFN) returns to the replicated
+      residual by :func:`unshard`: the rank's chunk scattered into zeros
+      and summed over tp (:func:`psum_join`), not gathered, so the
+      residual path stays local and every join crosses a psum, the psum
+      path's gradient structure. A MoE block re-replicates right after
+      the attention join, so routing sees the psum path's tokens.
+
+    Gradient accounting, as the psum path's: ``x`` and ``ln2`` enter the
+    column-split first product through :func:`psum_conjugate` (each
+    rank's cotangent is the part of its columns); the arriving delta
+    chunks need none, since the gather ring's backward already sums
+    their cotangents over the ranks that consumed them. A sequence that
+    does not split into the ring's chunks is padded with zero tokens,
+    which stay zero through every op and are sliced off at the end. The
+    products widen their operands as :func:`_dense_ffn` does, under the
+    same marks."""
+    n, idx = tp.size, tp.index
+    t_loc = x.shape[1]
+    t_pad = -(-t_loc // n) * n
+    if t_pad != t_loc:
+        x = F.pad(x, (0, 0, 0, t_pad - t_loc))
+        a = F.pad(a, (0, 0, 0, t_pad - t_loc))
+    ct = t_pad // n
+
+    def unshard(delta_chunk):
+        """Chunk ``idx`` of a joined delta → the whole ``[b, t_pad, m]``
+        delta, replicated over tp."""
+        b, _, m = delta_chunk.shape
+        buf = torch.cat([delta_chunk.new_zeros((b, idx * ct, m)),
+                         delta_chunk,
+                         delta_chunk.new_zeros((b, (n - 1 - idx) * ct, m))],
+                        dim=1)
+        return psum_join(buf, tp)
+
+    def wo_chunk(c, _src):
+        with product("wo", batch_dims=False):
+            return torch.einsum("bhtd,hdm->btm", c, sub["wo"])
+
+    y_shard = matmul_ring_reducescatter(wo_chunk, a, tp, chunk_dim=2)
+    if not cfg.dense_ffn:
+        x = (x + unshard(y_shard))[:, :t_loc]
+        h2 = _rms_norm(x, sub["ln2"]) if cfg.norm else x
+        return x + _moe_ffn(sub, h2, cfg, ep)
+    xc = psum_conjugate(x, tp)
+    ln2 = psum_conjugate(sub["ln2"], tp) if cfg.norm else None
+
+    def ffn1_chunk(y_c, src):
+        x1_c = xc.narrow(1, src * ct, ct) + y_c
+        h = _rms_norm(x1_c, ln2) if cfg.norm else x1_c
+        with product("wf1", batch_dims=False):
+            return torch.matmul(h.float(), sub["wf1"].float())
+
+    def ffn2_chunk(c, _src):
+        with product("wf2", batch_dims=False):
+            return torch.matmul(c, sub["wf2"].float())
+
+    f_h = F.gelu(ring_allgather_matmul(ffn1_chunk, y_shard, tp, 1),
+                 approximate="tanh")
+    f_out = matmul_ring_reducescatter(ffn2_chunk, f_h, tp, chunk_dim=1)
+    delta = y_shard + f_out.to(x.dtype)
+    return (x + unshard(delta))[:, :t_loc]
 
 
 def _block_body(cfg: FlagshipConfig):
@@ -175,7 +265,10 @@ def _block_body(cfg: FlagshipConfig):
                for k, v in sub.items()}
         return _stage_sub_block(sub, x, cfg, sp, tp, ep)
 
-    return remat_block(cast_and_run, cfg.remat, cfg.remat_policy)
+    rings = "ring" in (cfg.tp_overlap, cfg.ep_overlap)  # hops left in
+    # flight inside the block: its recompute must run whole
+    return remat_block(cast_and_run, cfg.remat, cfg.remat_policy,
+                       stop_early=not rings)
 
 
 def _stage_block(stage_params: Params, x: torch.Tensor,
@@ -223,7 +316,9 @@ def _pipeline_schedule(stage_params: Params, x_mb: torch.Tensor,
     if _size(pp) == 1:
         return torch.stack([block_fn(stage_params, x_mb[i])
                             for i in range(x_mb.shape[0])])
-    return pipeline_apply_local(block_fn, stage_params, x_mb, pp)
+    return pipeline_apply_local(block_fn, stage_params, x_mb, pp,
+                                pp_overlap=cfg.pp_overlap,
+                                pp_chunks=cfg.pp_chunks)
 
 
 def _forward_local(params: Params, x: torch.Tensor, cfg: FlagshipConfig,

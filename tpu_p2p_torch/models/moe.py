@@ -20,7 +20,13 @@ may be split over a mesh line, as ``ops/ulysses.py`` splits heads:
   inverse all-to-all brings the outputs home
   (:func:`~tpu_p2p_torch.parallel.collectives.axis_all_to_all`; each
   reshard's backward is its inverse). Every member issues both on
-  every call, so a pipeline's bubble ticks keep the order.
+  every call, so a pipeline's bubble ticks keep the order. With
+  ``ep_overlap="ring"`` both reshards unroll into shift hops
+  (``ring_all_to_all_matmul`` and ``matmul_ring_all_to_all``): each
+  arriving ``[E/n, N·C, D]`` slab's first product runs while the next
+  hop is in flight, and each destination's second product while the
+  previous one flies home. The FFN is batched over (expert, slot), so no
+  sum crosses a chunk boundary.
 - **Combine** gathers each choice's slot output and weights it by its
   gate, rounded to the payload dtype first as the reference does.
 
@@ -40,7 +46,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_p2p_torch.parallel.collectives import axis_all_to_all
+from tpu_p2p_torch.parallel.collectives import (
+    axis_all_to_all,
+    matmul_ring_all_to_all,
+    ring_all_to_all_matmul,
+)
 from tpu_p2p_torch.utils.remat import product
 
 Params = Dict[str, torch.Tensor]
@@ -60,7 +70,7 @@ class MoEConfig:
     group_size: int = 1024   # routing-group width: capacity holds per
     # group of this many tokens (0: one group of every token)
     ep_overlap: str = "none"  # "none": the two blocking all-to-alls;
-    # "ring" (the overlapped reshards) is not ported yet
+    # "ring": the reshards as shift hops under the expert products
 
     def __post_init__(self) -> None:
         if self.ep_overlap not in ("none", "ring"):
@@ -68,10 +78,6 @@ class MoEConfig:
                 f"unknown ep_overlap {self.ep_overlap!r}; expected "
                 "'none' or 'ring'"
             )
-        if self.ep_overlap == "ring":
-            raise NotImplementedError(
-                "MoEConfig.ep_overlap='ring' (the overlapped ep reshards) "
-                "is not ported yet")
 
     def capacity(self, tokens: int) -> int:
         """Per-expert slot count for ``tokens`` routed tokens (each
@@ -239,18 +245,33 @@ def moe_layer_local(params: Params, x: torch.Tensor, cfg: MoEConfig,
     n_slots = e * ng * cap
     slot = _slot_ids(route, e, cap)
     slots = _dispatch(xg, slot, n_slots).reshape(e, ng * cap, d)
-    # Each expert's slots to its owner: [E, NC, D] -> [E/n, n·NC, D].
-    slots = axis_all_to_all(slots, ep, 0, 1) if n > 1 else slots
-    # The expert FFN: ``ecd,edf->ecf`` in the reference, a product with
-    # the expert as a batch dim.
-    with product("we1", batch_dims=True):
-        h = torch.matmul(slots.float(), params["w1"].float())
-    h = F.gelu(h, approximate="tanh")
-    with product("we2", batch_dims=True):
-        y = torch.matmul(h.to(x.dtype).float(), params["w2"].float())
-    y = y.to(x.dtype)
-    # The inverse reshard: [E/n, n·NC, D] -> [E, NC, D] at the source.
-    y = axis_all_to_all(y, ep, 1, 0) if n > 1 else y
+
+    # The expert FFN: ``ecd,edf->ecf`` and ``ecf,efd->ecd`` in the
+    # reference, products with the expert as a batch dim.
+    def ffn1(slab):
+        with product("we1", batch_dims=True):
+            h = torch.matmul(slab.float(), params["w1"].float())
+        return F.gelu(h, approximate="tanh")
+
+    def ffn2(slab):
+        with product("we2", batch_dims=True):
+            y = torch.matmul(slab.to(x.dtype).float(), params["w2"].float())
+        return y.to(x.dtype)
+
+    if n > 1 and cfg.ep_overlap == "ring":
+        # Both reshards as shift hops, each slab's product beside the
+        # next hop: [E, NC, D] -> [E/n, n·NC, F] -> [E, NC, D].
+        h = ring_all_to_all_matmul(lambda slab, _src: ffn1(slab), slots,
+                                   ep, 0, 1)
+        y = matmul_ring_all_to_all(lambda slab, _dst: ffn2(slab), h, ep,
+                                   1, 0)
+    elif n > 1:
+        # Each expert's slots to its owner: [E, NC, D] -> [E/n, n·NC, D];
+        # then the inverse reshard at the source.
+        y = axis_all_to_all(ffn2(ffn1(axis_all_to_all(slots, ep, 0, 1))),
+                            ep, 1, 0)
+    else:
+        y = ffn2(ffn1(slots))
     out = _combine(y.reshape(n_slots, d), slot,
                    route.gates.reshape(ng * gs, k))
     return out[:g] if pad else out

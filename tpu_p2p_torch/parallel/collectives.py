@@ -36,7 +36,14 @@
   collective a dtype bucket, its backward the summing reduce-scatter.
 - the chunk wave :func:`chunked_ppermute_compute` (reference :627): a
   computed buffer shipped as ``chunks`` hops, each chunk's ship in flight
-  while the next chunk computes, over either transport.
+  while the next chunk computes, over either transport;
+- the ring collective-matmuls of the overlap knobs along one line
+  (reference :344-600): :func:`ring_allgather_matmul` (over either
+  transport), :func:`matmul_ring_reducescatter`,
+  :func:`ring_all_to_all_matmul` and :func:`matmul_ring_all_to_all`,
+  each hop issued (:func:`axis_ppermute_start`) before the chunk in hand
+  is computed, and their :class:`CollectiveCache` twins
+  ``tp_ring_chain``, ``ep_ring_chain`` and ``pp_wave_chain``.
 - On a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh` (every rank in
   this process) the permutes take and return one tensor per rank; the
   ``xla`` transport there is a ``Tensor.copy_`` into the destination
@@ -325,23 +332,36 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
     shape across chunks. The result is exactly ``ppermute(concat_c(
     compute_chunk(x_c, c)), edges)``: the same bytes, no extra hops.
 
-    ``transport="xla"`` ships each chunk with :func:`ppermute` the moment
-    its compute is issued. ``"pallas_dma"`` makes ``chunks - 1`` calls
-    to :func:`pallas_dma.dma_ship_compute` (chunk ``c``'s push in flight
-    while chunk ``c + 1`` computes) and ships the last chunk with
-    :func:`dma_ppermute`. ``chunks <= 1`` degrades to one ship of
-    ``compute_chunk(x, 0)``. ``x`` and the result are this rank's tensor
-    on a process mesh and per-rank lists on a ``LocalMesh``, where each
-    rank's compute runs on the rank's own stream.
+    ``transport="xla"`` ships each chunk the moment its compute is
+    issued: on a process mesh (one line of a mesh) with
+    :func:`axis_ppermute_start`, every chunk's hop in flight before the
+    first wait, on a ``LocalMesh`` with :func:`ppermute`. ``"pallas_dma"``
+    makes ``chunks - 1`` calls to :func:`pallas_dma.dma_ship_compute`
+    (chunk ``c``'s push in flight while chunk ``c + 1`` computes) and
+    ships the last chunk with :func:`dma_ppermute`. ``chunks <= 1``
+    degrades to one ship of ``compute_chunk(x, 0)``. ``x`` and the
+    result are this rank's tensor on a process mesh and per-rank lists on
+    a ``LocalMesh``, where each rank's compute runs on the rank's own
+    stream. On a process mesh the wave is differentiable over either
+    transport: each hop's backward is the same hop over the reversed
+    edges (the reference's transpose), run when autograd reaches it.
     """
     _check_transport(transport)
     edges = _canon_edges(edges, mesh.size)
     rows = mesh.rows(x)
     pallas = transport == "pallas_dma"
-    hop = PD.dma_ppermute if pallas else ppermute
 
     def ship(per_rank):
-        return mesh.rows(hop(mesh.unrows(per_rank), mesh, edges))
+        """Issue one chunk's hop → a callable that returns its arrivals:
+        on a process mesh over the library collective, the differentiable
+        hop left in flight until the caller waits (every chunk's is
+        issued before the first wait); else the finished hop."""
+        if not pallas and not mesh.in_process:
+            wait = axis_ppermute_start(per_rank[0], mesh, edges)
+            return lambda: [wait()]
+        hop = PD.dma_ppermute if pallas else ppermute
+        got = mesh.rows(hop(mesh.unrows(per_rank), mesh, edges))
+        return lambda: got
 
     def computed(parts, c):
         out = []
@@ -354,7 +374,7 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
     chunks = max(1, min(int(chunks), max(1, size)))
     if chunks <= 1:
         mesh.enter()
-        return mesh.unrows(ship(computed(rows, 0)))
+        return mesh.unrows(ship(computed(rows, 0))())
     ct = -(-size // chunks)
     pad = ct * chunks - size
     if pad:
@@ -375,10 +395,10 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
                 mesh.unrows(chunk_of(c)))
             arrivals.append(mesh.rows(arr))
             y_prev = mesh.rows(y)
-        arrivals.append(ship(y_prev))
+        arrivals.append(ship(y_prev)())
     else:
-        for c in range(chunks):
-            arrivals.append(ship(computed(chunk_of(c), c)))
+        waits = [ship(computed(chunk_of(c), c)) for c in range(chunks)]
+        arrivals = [wait() for wait in waits]
     out = []
     for k in range(len(rows)):
         o = torch.cat([a[k] for a in arrivals], dim=chunk_dim)
@@ -433,19 +453,6 @@ class _PsumConjugate(torch.autograd.Function):
         return _all_reduce_copy(g, ctx.line, "psum_conjugate"), None
 
 
-class _Ppermute(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, line, edges):
-        ctx.line, ctx.edges = line, edges
-        axis_group(line, "ppermute")
-        return ppermute(x, line, edges, what="ppermute")
-
-    @staticmethod
-    def backward(ctx, g):
-        back = [(d, s) for s, d in ctx.edges]
-        return ppermute(g, ctx.line, back, what="ppermute"), None, None
-
-
 def _a2a(x: torch.Tensor, line, split_dim: int, concat_dim: int):
     group = axis_group(line, "all_to_all")
     parts = torch.stack(x.chunk(line.size, dim=split_dim)).contiguous()
@@ -488,11 +495,9 @@ def psum_conjugate(x: torch.Tensor, line) -> torch.Tensor:
 
 def axis_ppermute(x: torch.Tensor, line, edges: Sequence[Edge]):
     """:func:`ppermute` along the line, differentiable: the backward is
-    the same hop over the reversed edges (the reference's transpose)."""
-    if line.size == 1:
-        return x.clone() if any(s == d for s, d in edges) else \
-            torch.zeros_like(x)
-    return _Ppermute.apply(x, line, tuple(edges))
+    the same hop over the reversed edges (the reference's transpose).
+    :func:`axis_ppermute_start`, waited for at once."""
+    return axis_ppermute_start(x, line, edges)()
 
 
 def axis_all_to_all(x: torch.Tensor, line, split_dim: int,
@@ -508,6 +513,213 @@ def axis_all_to_all(x: torch.Tensor, line, split_dim: int,
         raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
                          f"split into {line.size} chunks")
     return _AllToAll.apply(x, line, split_dim, concat_dim)
+
+
+class _HopInFlight:
+    """One :func:`ppermute` along a line, issued from ``x``'s value (no
+    autograd) and not yet waited on; ``x`` and the landing buffer stay
+    referenced here until :class:`_HopArrival` has waited."""
+
+    def __init__(self, x: torch.Tensor, line, edges) -> None:
+        axis_group(line, "ppermute")  # ranks sharing a card: no traffic
+        self.line, self.edges = line, tuple(edges)
+        self.x = x.detach().contiguous()
+        self.out, self.pending = ppermute_start(self.x, line, self.edges,
+                                                what="ppermute")
+
+
+class _HopArrival(torch.autograd.Function):
+    """Wait for a :class:`_HopInFlight` → its arrival. The backward is
+    the same hop over the reversed edges (the reference's transpose)."""
+
+    @staticmethod
+    def forward(ctx, inflight, x):
+        ctx.line, ctx.edges = inflight.line, inflight.edges
+        out = ppermute_wait(inflight.out, inflight.pending)
+        inflight.x = inflight.out = inflight.pending = None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.edges]
+        return None, ppermute(g, ctx.line, back, what="ppermute")
+
+
+def axis_ppermute_start(x: torch.Tensor, line, edges: Sequence[Edge]
+                        ) -> Callable[[], torch.Tensor]:
+    """Issue :func:`axis_ppermute` without waiting → a function that
+    waits and returns the arrival. Work issued in between runs while the
+    hop is in flight (on a card: NCCL's stream; on the CPU: gloo's
+    thread); the arrival is differentiable, its backward the blocking
+    reverse hop. ``x`` must stay unchanged until the wait. On a line of
+    one rank a self-edge copies ``x`` and no edge gives zeros."""
+    if line.size == 1:
+        y = x.clone() if any(s == d for s, d in edges) else \
+            torch.zeros_like(x)
+        return lambda: y
+    inflight = _HopInFlight(x, line, edges)
+    return lambda: _HopArrival.apply(inflight, x)
+
+
+# ------------------------------------ ring collective-matmuls along a line
+#
+# The reference's decompositions of a collective into shift hops that
+# each overlap a chunk's compute (collectives.py :344-600, after Wang et
+# al., ASPLOS 2023): each next hop is issued before the current chunk's
+# compute (:func:`axis_ppermute_start`), the eager counterpart of the
+# reference's reliance on XLA's latency-hiding scheduler. ``line`` is a
+# process mesh (this rank's line along one axis of a mesh); a line of
+# one rank degrades to ``compute_chunk(x, 0)``. ``compute_chunk(chunk,
+# src)`` gets the chunk's ring index ``src`` (or ``dst``) as a Python
+# int. The chunk order, the ``src`` indices and the padding error are
+# the reference's; the backward of every hop is the blocking reverse hop
+# (it does not overlap the backward's compute).
+
+
+def _shift_edges(n: int, s: int) -> Tuple[Edge, ...]:
+    """Shift-by-``s`` permutation edges: one hop of the decomposed
+    all-to-all (hop ``s`` carries every rank's chunk for the rank ``s``
+    positions downstream)."""
+    return tuple((j, (j + s) % n) for j in range(n))
+
+
+def ring_allgather_matmul(compute_chunk: Callable, x_shard: torch.Tensor,
+                          line, gather_dim: int, *,
+                          transport: str = "xla") -> torch.Tensor:
+    """All-gather ``x_shard`` along the line *through* ``compute_chunk``
+    (reference :344): ``n - 1`` shift-by-1 hops, each issued before the
+    chunk in hand is consumed, so each arriving chunk's compute runs
+    while the next is in flight. → the rank-order concatenation of
+    every rank's ``compute_chunk(chunk, src)`` along ``gather_dim``:
+    exactly ``compute(all_gather(x_shard))`` for a per-chunk-independent
+    compute. ``compute_chunk`` must be shape-uniform across chunks and
+    keep ``gather_dim``'s position; ``src`` is the rank the chunk came
+    from (hop ``s`` delivers rank ``idx - s``'s).
+
+    ``transport="pallas_dma"`` swaps each hop for the fused ship
+    (:func:`pallas_dma.dma_ship_compute`): the chunk's compute runs
+    while the peer-push kernel moves the next chunk. Differentiable:
+    each hop's transpose is the reverse hop, so a chunk's cotangent
+    returns to its owner summed over the ranks that consumed it."""
+    _check_transport(transport)
+    n = line.size
+    if n == 1:
+        return compute_chunk(x_shard, 0)
+    fwd = ring_edges(n)
+    ys = [None] * n
+    cur, src = x_shard, line.index
+    for s in range(n):
+        if transport == "pallas_dma" and s + 1 < n:
+            nxt, y = PD.dma_ship_compute(cur, line, fwd, compute_chunk, cur,
+                                         src)
+        else:
+            wait = axis_ppermute_start(cur, line, fwd) if s + 1 < n \
+                else None
+            y = compute_chunk(cur, src)
+            nxt = wait() if wait is not None else None
+        ys[src] = y
+        cur, src = nxt, (src - 1) % n
+    return torch.cat(ys, dim=gather_dim)
+
+
+def matmul_ring_reducescatter(compute_chunk: Callable, x: torch.Tensor,
+                              line, chunk_dim: int) -> torch.Tensor:
+    """``psum(compute(x))``'s chunk ``idx`` along ``chunk_dim``, with the
+    partial products combined hop by hop (reference :431): the
+    accumulator starts at the chunk that travels furthest, takes one
+    local partial a hop, and each hop of the accumulator is in flight
+    while the next partial computes. ``x`` is full along ``chunk_dim``,
+    which must divide by the line's size (callers pad);
+    ``compute_chunk(chunk, c)`` is chunk ``c``'s partial product against
+    this rank's shard. Differentiable (the transpose is the mirrored
+    gather ring)."""
+    n = line.size
+    if n == 1:
+        return compute_chunk(x, 0)
+    if x.shape[chunk_dim] % n:
+        raise ValueError(
+            f"chunk dim {chunk_dim} of size {x.shape[chunk_dim]} does not "
+            f"divide by ring size {n} — pad before the ring")
+    idx, ct = line.index, x.shape[chunk_dim] // n
+
+    def part(c):
+        return compute_chunk(x.narrow(chunk_dim, c * ct, ct), c)
+
+    rev = tuple((j, (j - 1) % n) for j in range(n))
+    acc = part((idx + 1) % n)
+    for s in range(1, n):
+        wait = axis_ppermute_start(acc, line, rev)
+        p = part((idx + 1 + s) % n)
+        acc = wait() + p
+    return acc
+
+
+def ring_all_to_all_matmul(compute_chunk: Callable, x: torch.Tensor, line,
+                           split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all of ``x`` along the line *through*
+    ``compute_chunk`` (reference :488): ``n - 1`` shift-by-``s`` hops
+    (:func:`_shift_edges`), hop ``s + 1`` issued before the arrival of
+    hop ``s`` is consumed. ``x`` is full along ``split_dim`` (divisible
+    by the line's size), its chunk ``d`` bound for rank ``d``;
+    ``compute_chunk(chunk, src)`` consumes the chunk that came from rank
+    ``src``, and the outputs concatenate along ``concat_dim`` in source
+    order: exactly ``compute(all_to_all(x))`` for a
+    per-source-chunk-independent compute (the MoE expert FFN).
+    Differentiable: each hop's transpose is the inverse hop."""
+    n = line.size
+    if n == 1:
+        return compute_chunk(x, 0)
+    if x.shape[split_dim] % n:
+        raise ValueError(
+            f"split dim {split_dim} of size {x.shape[split_dim]} does not "
+            f"divide by axis size {n}")
+    idx, ce = line.index, x.shape[split_dim] // n
+
+    def send_chunk(s):
+        return x.narrow(split_dim, (idx + s) % n * ce, ce)
+
+    ys = [None] * n
+    cur = send_chunk(0)
+    for s in range(n):
+        wait = (axis_ppermute_start(send_chunk(s + 1), line,
+                                    _shift_edges(n, s + 1))
+                if s + 1 < n else None)
+        src = (idx - s) % n  # hop s delivers the rank s upstream
+        ys[src] = compute_chunk(cur, src)
+        cur = wait() if wait is not None else None
+    return torch.cat(ys, dim=concat_dim)
+
+
+def matmul_ring_all_to_all(compute_chunk: Callable, x: torch.Tensor, line,
+                           split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The combine direction of :func:`ring_all_to_all_matmul`
+    (reference :569): each per-destination chunk is computed and its hop
+    home issued at once (shift ``n - s``), the next chunk computing while
+    it flies; → ``all_to_all(compute(x))``, the arrivals concatenated
+    along ``concat_dim`` in source order. ``compute_chunk(chunk, dst)``
+    computes the chunk bound for rank ``dst``."""
+    n = line.size
+    if n == 1:
+        return compute_chunk(x, 0)
+    if x.shape[split_dim] % n:
+        raise ValueError(
+            f"split dim {split_dim} of size {x.shape[split_dim]} does not "
+            f"divide by axis size {n}")
+    idx, ct = line.index, x.shape[split_dim] // n
+
+    def part(d):
+        return compute_chunk(x.narrow(split_dim, d * ct, ct), d)
+
+    waits = []
+    for s in range(1, n):
+        y = part((idx - s) % n)
+        waits.append((axis_ppermute_start(y, line, _shift_edges(n, n - s)),
+                      (idx + s) % n))
+    ys = [None] * n
+    ys[idx] = part(idx)
+    for wait, src in waits:
+        ys[src] = wait()
+    return torch.cat(ys, dim=concat_dim)
 
 
 def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh,
@@ -843,6 +1055,87 @@ class CollectiveCache:
         return self._collective(
             "ag_chain", mesh, axis, count, "all_gather",
             lambda x, m, g: all_gather_own(x, m, group=g))
+
+    # -- the overlap knobs' ring collective-matmuls ----------------------
+
+    def _ring(self, name: str, mesh, axis: str, count: int, k: int, hop,
+              *extra):
+        """A cached callable of ``count`` shape-preserving ``hop(x, line,
+        w)`` round trips along ``axis``, ``w`` the ``[k, k]`` identity in
+        the payload's dtype (values pass through: the chain times the
+        transport and the per-chunk products)."""
+        if axis not in mesh.axis_names:
+            raise ValueError(f"axis {axis!r} not in {mesh.axis_names}")
+
+        def build():
+            line = mesh.line(axis)
+
+            def chain(x):
+                w = torch.eye(k, dtype=x.dtype, device=x.device)
+                for _ in range(count):
+                    x = hop(x, line, w).to(x.dtype).reshape(x.shape)
+                return x
+
+            return chain
+
+        return self._get((name, mesh, axis, count, k, *extra), build)
+
+    def tp_ring_chain(self, mesh, axis: str, count: int, k: int = 64):
+        """``count`` ring collective-matmul round trips (reference
+        :1357): :func:`ring_allgather_matmul` of the payload's token
+        chunks through a ``[k, k]`` product, then
+        :func:`matmul_ring_reducescatter` back to this rank's chunk; the
+        twin of the flagship's ``tp_overlap="ring"`` joins. The payload's
+        last dim is viewed as ``[elems // k, k]`` tokens x features."""
+        def hop(x, line, w):
+            if x.shape[-1] % k:
+                raise ValueError(f"payload {x.shape[-1]} elems not "
+                                 f"divisible by feature dim {k}")
+            full = ring_allgather_matmul(lambda c, _s: c @ w,
+                                         x.reshape(-1, k), line, 0)
+            return matmul_ring_reducescatter(lambda c, _s: c @ w, full,
+                                             line, 0)
+
+        return self._ring("tp_ring_chain", mesh, axis, count, k, hop)
+
+    def ep_ring_chain(self, mesh, axis: str, count: int, k: int = 64):
+        """``count`` ring all-to-all-matmul round trips (reference
+        :1407): :func:`ring_all_to_all_matmul` (the MoE dispatch through a
+        ``[k, k]`` product, one expert row a rank), then
+        :func:`matmul_ring_all_to_all` home; the twin of
+        ``ep_overlap="ring"``. The payload's last dim is viewed as ``[n,
+        elems / (n k), k]`` experts x slots x features."""
+        n = mesh.shape[axis] if axis in mesh.axis_names else 1
+
+        def hop(x, line, w):
+            if x.shape[-1] % (n * k):
+                raise ValueError(f"payload {x.shape[-1]} elems not "
+                                 f"divisible by experts x features ({n} "
+                                 f"x {k})")
+            h = ring_all_to_all_matmul(lambda c, _s: c @ w,
+                                       x.reshape(n, -1, k), line, 0, 1)
+            return matmul_ring_all_to_all(lambda c, _d: c @ w, h, line, 1,
+                                          0)
+
+        return self._ring("ep_ring_chain", mesh, axis, count, k, hop)
+
+    def pp_wave_chain(self, mesh, axis: str, count: int, chunks: int = 4,
+                      k: int = 64):
+        """``count`` wave stage hops (reference :1459):
+        :func:`chunked_ppermute_compute` over the shift-by-1 ring (the
+        pipeline hop with its wraparound, so ``axis_size`` hops bring
+        every payload home) of the payload's ``[elems // k, k]`` token
+        view through a ``[k, k]`` product in ``chunks`` chunks; the twin
+        of ``pp_overlap="wave"``."""
+        def hop(x, line, w):
+            if x.shape[-1] % k:
+                raise ValueError(f"payload {x.shape[-1]} elems not "
+                                 f"divisible by feature dim {k}")
+            return chunked_ppermute_compute(
+                lambda c, _i: c @ w, x.reshape(-1, k), line,
+                ring_edges(line.size), chunk_dim=0, chunks=chunks)
+
+        return self._ring("pp_wave_chain", mesh, axis, count, k, hop, chunks)
 
     def __len__(self) -> int:
         return len(self._cache)

@@ -16,11 +16,12 @@ kernel of the port:
   :func:`_dma_ppermute_plain` (gloo on a process mesh, in-process copies
   on a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh`).
 - :func:`dma_ship_compute` — the fused per-chunk unit of the chunk
-  waves: the push of ``ship`` is in flight while ``compute_fn`` runs,
-  then the arrival lands (the reference's :364, custom_vjp :331-356).
-  Kernel: :func:`_dma_transport_ship_call`, whose push and arrival (a
-  wait for the peer's flag) are two launches on two streams of the rank
-  (the ``.cu`` file says why); plain version: the compute, then
+  waves and the gather ring: the push of ``ship`` is in flight while
+  ``compute_fn`` runs, then the arrival lands (the reference's :364,
+  custom_vjp :331-356). Kernel: :func:`_dma_transport_ship_call`, whose
+  push and arrival (a wait for the peer's flag, or the copy out of the
+  slab) are two launches on two streams of the rank (the ``.cu`` file
+  says why); plain version: the compute, then
   :func:`_dma_ppermute_plain`.
 
 Where each rank's push lands is decided per hop by :func:`plan_hop`:
@@ -41,9 +42,12 @@ same questions (``rows``/``unrows``, ``local_ranks``, ``on``,
 ``stream``, ``share``, ``enter``/``exit``), so the code here does not
 ask which kind it has, apart from the windows and the plain copies. A
 ``LocalMesh``'s ranks' kernels run concurrently, so their grids are
-capped to leave room for each other (``share``). The fused ship's kernel
-runs on a ``LocalMesh`` (the disaggregated engine's); on a process mesh
-only its plain version is ported.
+capped to leave room for each other (``share``), as are the fused
+ship's push and arrival beside the compute of a process mesh's rank.
+The fused ship runs on both kinds: on a ``LocalMesh`` (the
+disaggregated engine's KV migration) and on a process mesh (one line of
+the flagship's mesh, under ``ring_allgather_matmul(transport=
+"pallas_dma")`` and the chunk waves).
 
 Edge sets are completed to a total permutation first
 (:func:`complete_permutation`, copied from the reference with equal
@@ -436,7 +440,9 @@ def _launch(entry: str, hop: Hop, x, out, mesh, win, i: int, tables,
     """One launch of the library's ``entry`` for mesh index ``i`` on
     ``stream``: ``x`` is what the rank pushes (None for the ship's
     arrival), ``out`` where its arrival lands, ``hop`` what
-    :func:`plan_hop` decided. Raises when the launch is refused."""
+    :func:`plan_hop` decided; the fused ship's launches take the mesh's
+    ``share`` for a kernel beside the rank's compute. Raises when the
+    launch is refused."""
     dst_t, src_t, _ = tables
     me, d, s = mesh.ranks[i], mesh.ranks[dst_t[i]], mesh.ranks[src_t[i]]
     with torch.cuda.device(out.device):
@@ -447,7 +453,8 @@ def _launch(entry: str, hop: Hop, x, out, mesh, win, i: int, tables,
             win.bases[s], win.slot[me], win.slot[d], win.slot[s], me, d, s,
             PUSH[hop.push], ARRIVAL[hop.arrival], int(win.sys_scope),
             win.epoch,
-            int(timeout_s * 1e9), _fault_record()[1], mesh.share(i),
+            int(timeout_s * 1e9), _fault_record()[1],
+            mesh.share(i, fused=entry != "tp_dma_permute"),
             stream.cuda_stream)
     if err:
         raise BackendError(
@@ -494,53 +501,62 @@ def _dma_transport_permute_call(x, mesh, tables, *,
 
 def _dma_transport_ship_call(rows, mesh, tables, compute: Callable,
                              timeout_s: float = SPIN_TIMEOUT_S):
-    """The fused ship on the cards of a ``LocalMesh``: every rank's push
-    of its row of ``rows`` straight into its destination's output (a
-    dummy arrival's zeros with it) starts on the rank's side stream,
-    then ``compute(i)`` runs on the rank's own stream while the pushes
-    are in flight, then, where a peer writes the rank's output, the
-    arrival kernel (after the compute, on the same stream) waits for
-    that peer's flag. → ``(arrived, ys)``, per-rank lists, ``ys[i] =
-    compute(i)``.
+    """The fused ship on the card: every rank this process drives starts
+    the push of its row of ``rows`` on its side stream, then
+    ``compute(k)`` runs on the rank's own stream while the pushes are in
+    flight, then, where a peer writes the rank's arrival, the arrival
+    kernel runs after the compute on the same stream. → ``(arrived,
+    ys)``, lists over ``mesh.local_ranks``, ``ys[k] = compute(k)``.
+
+    On a ``LocalMesh`` every push stores straight into its destination's
+    output and the arrival is one warp that waits for the peer's flag.
+    On a process mesh a push to another rank goes into that rank's slab
+    (:func:`plan_hop`), and the arrival copies each slab segment out as
+    soon as it has landed (the permute's segment arrival), so the copy
+    waits for the compute, not the push. A dummy arrival's zeros come
+    with the push, on the side stream.
 
     Replaces ``tpu_p2p/parallel/pallas_dma.py::_dma_transport_ship_call``
     (:280; kernel body ``dma_transport_ship_compute`` :289). Every push
-    is launched before any arrival, so a rank's arrival never holds the
-    card while a peer's push waits to start."""
+    of this process is launched before any of its arrivals, so an
+    arrival never holds the card while a push waits to start; on a
+    process mesh both grids are capped (``share``) to fit beside each
+    other and the compute."""
     caller = [torch.cuda.current_stream(r.device) for r in rows]
     outs = [torch.empty_like(r) for r in rows]
     win = _begin(mesh, rows)
     hops = _plan(mesh, win, tables, outs)
-    for i in mesh.local_ranks:
-        own, side = mesh.streams[i], mesh.side_streams[i]
+    for k, i in enumerate(mesh.local_ranks):
+        own, side = mesh.stream(i), mesh.side_stream(i)
         with torch.cuda.stream(own):
-            x = rows[i].contiguous()
+            x = rows[k].contiguous()
         # The push follows what the rank's own stream issued before: the
         # ship's producer, and the previous epoch's arrival that its
         # ready signal vouches for.
         side.wait_stream(own)
-        _launch("tp_dma_ship_push", hops[i], x, outs[i], mesh, win, i,
+        _launch("tp_dma_ship_push", hops[i], x, outs[k], mesh, win, i,
                 tables, timeout_s, side)
         launches["dma_ship"] += 1
         if x.is_cuda:
             x.record_stream(side)  # the allocator's reuse waits for it
     ys = []
-    for i in mesh.local_ranks:
-        own, side = mesh.streams[i], mesh.side_streams[i]
+    for k, i in enumerate(mesh.local_ranks):
+        own = mesh.stream(i)
         with torch.cuda.stream(own):
-            y = compute(i)
+            y = compute(k)
         for t in _tensors(y):
-            if t.is_cuda and t.device == rows[i].device:
-                t.record_stream(caller[i])
+            if t.is_cuda and t.device == rows[k].device:
+                t.record_stream(caller[k])
         ys.append(y)
-        if hops[i].arrival == "wait":
-            _launch("tp_dma_ship_arrive", hops[i], None, outs[i], mesh,
+        if hops[i].arrival in ("wait", "copy"):
+            _launch("tp_dma_ship_arrive", hops[i], None, outs[k], mesh,
                     win, i, tables, timeout_s, own)
     mesh.exit()
-    # The caller joins each push itself, beside its arrival: the pushes
-    # wrote the outputs, which are the caller's to free.
-    for i in mesh.local_ranks:
-        caller[i].wait_stream(mesh.side_streams[i])
+    # The caller joins each push itself, beside its arrival: a push wrote
+    # an output (a peer's, or a dummy arrival's zeros), which is the
+    # caller's to free.
+    for k, i in enumerate(mesh.local_ranks):
+        caller[k].wait_stream(mesh.side_stream(i))
     return outs, ys
 
 
@@ -648,13 +664,12 @@ def dma_ship_compute(ship, mesh, edges: Sequence[Edge],
 
     On a ``LocalMesh``, ``ship`` and every operand are per-rank lists,
     ``compute_fn`` runs once per rank on that rank's operands and
-    stream, and both results are per-rank lists. Differentiable: the
-    ship's cotangent is the reverse-edge :func:`dma_ppermute`, the
-    compute's is its own autograd graph (the reference's custom_vjp,
-    :345-356). For CUDA tensors on a ``LocalMesh`` the push and the
-    compute overlap on the card; for CPU tensors the plain version runs
-    the compute, then the copies. CUDA tensors on a process mesh raise:
-    no entry point ships over one, so that kernel path is not ported."""
+    stream, and both results are per-rank lists; on a process mesh they
+    are this rank's. Differentiable: the ship's cotangent is the
+    reverse-edge :func:`dma_ppermute`, the compute's is its own autograd
+    graph (the reference's custom_vjp, :345-356). For CUDA tensors the
+    push and the compute overlap on the card (the kernel path); for CPU
+    tensors the plain version runs the compute, then the copies."""
     edges = tuple((int(s), int(d)) for s, d in edges)
     if tables is None:
         tables = complete_permutation(edges, mesh.size)
@@ -668,10 +683,6 @@ def dma_ship_compute(ship, mesh, edges: Sequence[Edge],
 
     arrived = None
     if _device_type(rows) == "cuda" and not (mesh.size == 1 and not edges):
-        if not mesh.in_process:
-            raise NotImplementedError(
-                "dma_ship_compute on a process mesh of cards is not ported "
-                "yet: its kernel runs on a LocalMesh")
         arrived, ys = _dma_transport_ship_call(
             [r.detach() for r in rows], mesh, tables, compute, timeout_s)
     else:

@@ -93,6 +93,8 @@ class Mesh:
     planes: Dict[Tuple[str, ...], "Mesh"] = field(default_factory=dict)
     # of a multi-axis mesh: this rank's plane over each axis set made so
     # far (a line is the plane over one axis)
+    side: Optional[object] = field(default=None, repr=False)  # the
+    # fused ship's push stream on the card, made at its first use
 
     def __post_init__(self) -> None:
         if not self.dims:
@@ -190,10 +192,21 @@ class Mesh:
         """The stream this rank's kernels launch on: the current one."""
         return torch.cuda.current_stream(self.device)
 
-    def share(self, i: int) -> int:
-        """Divisor of a spinning kernel's resident grid: 1, since ranks
-        of separate processes time-slice a shared card."""
-        return 1
+    def side_stream(self, i: int):
+        """The stream the fused ship's push launches on, beside the
+        caller's: one a mesh, made at first use."""
+        if self.side is None:
+            self.side = torch.cuda.Stream(device=self.device)
+        return self.side
+
+    def share(self, i: int, fused: bool = False) -> int:
+        """Divisor of a spinning kernel's resident grid: 1 for a hop,
+        since ranks of separate processes time-slice a shared card; 4
+        for the fused ship's push and arrival (``fused``), which run in
+        this process beside the rank's own compute: each takes at most a
+        quarter of the resident CTAs, so they fit at once and half the
+        card stays free for the compute."""
+        return 4 if fused else 1
 
     def enter(self) -> None:
         """Nothing to join: this rank's work is on the caller's stream."""
@@ -294,10 +307,15 @@ class LocalMesh:
         """The stream rank ``i``'s kernels launch on: its own."""
         return self.streams[i]
 
-    def share(self, i: int) -> int:
-        """Divisor of a spinning kernel's resident grid for rank ``i``:
-        twice the ranks on its card, so every rank's push and arrival
-        fit on the card at once with room for the compute beside them."""
+    def side_stream(self, i: int):
+        """Rank ``i``'s stream for the fused ship's push."""
+        return self.side_streams[i]
+
+    def share(self, i: int, fused: bool = False) -> int:
+        """Divisor of a spinning kernel's resident grid for rank ``i``,
+        a hop or the fused ship alike: twice the ranks on its card, so
+        every rank's push and arrival fit on the card at once with room
+        for the compute beside them."""
         return 2 * sum(1 for d in self.devices if d == self.devices[i])
 
     def enter(self) -> None:

@@ -26,10 +26,12 @@ reference's format (:mod:`tpu_p2p_torch.utils.checkpoint`),
 re-enters after a simulated crash mid-save (the ``--fault-ckpt-*``
 flags). ``--zero-dp`` keeps each rank's dp shard of the params and
 moments (ZeRO-3, gathered on use; ``--overlap prefetch`` gathers one
-block ahead) and ``--remat`` recomputes each block inside the backward.
-Every reference flag parses; the flags whose machinery is not ported
-(``--heal``, the link/straggler/lost-host faults, observability, the
-tp/ep/pp overlaps and the pipeline schedules) exit with "not ported
+block ahead), ``--remat`` recomputes each block inside the backward, and
+``--tp-overlap ring``, ``--ep-overlap ring`` and ``--pp-overlap wave``
+(with ``--pp-chunks N``) overlap the tp joins, the MoE reshards and the
+stage hops with compute. Every reference flag parses; the flags whose
+machinery is not ported (``--heal``, the link/straggler/lost-host
+faults, observability and the pipeline schedules) exit with "not ported
 yet" when set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and
 ``--moe-mult`` are the port's own: a mesh other than ``build_mesh``'s
 factoring, and the FFN width of the 4x-FFN configurations.
@@ -67,9 +69,7 @@ _FLAGS_NOT_PORTED = (
     ("fault_slow_ms", "--fault-slow-ms"),
     ("fault_lost_host", "--fault-lost-host"),
     ("obs_jsonl", "--obs-jsonl"), ("obs_window_step", "--obs-window-step"),
-    ("trace", "--trace"), ("tp_overlap", "--tp-overlap"),
-    ("ep_overlap", "--ep-overlap"), ("pp_overlap", "--pp-overlap"),
-    ("pp_chunks", "--pp-chunks"),
+    ("trace", "--trace"),
     ("pp_schedule", "--pp-schedule"), ("tick_lowering", "--tick-lowering"),
 )
 
@@ -667,12 +667,16 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="ZeRO gather schedule: prefetch gathers each "
                         "block's params one block ahead (needs --zero-dp)")
     p.add_argument("--tp-overlap", default="none", choices=("none", "ring"),
-                   help=nyp)
+                   help="tp joins as ring collective-matmuls over token "
+                        "chunks (a no-op at tp 1)")
     p.add_argument("--ep-overlap", default="none", choices=("none", "ring"),
-                   help=nyp)
+                   help="MoE reshards as shift hops beside the expert "
+                        "products (a no-op at ep 1)")
     p.add_argument("--pp-overlap", default="none", choices=("none", "wave"),
-                   help=nyp)
-    p.add_argument("--pp-chunks", type=int, default=4, help=nyp)
+                   help="the stage hop as a wave of token chunks (a no-op "
+                        "at pp 1)")
+    p.add_argument("--pp-chunks", type=int, default=4,
+                   help="chunks of a --pp-overlap wave hop")
     p.add_argument("--pp-schedule", default="1f1b", choices=PP_SCHEDULES,
                    help=nyp)
     p.add_argument("--tick-lowering", default="masked",
@@ -703,6 +707,8 @@ def config_from_args(args: argparse.Namespace):
         sp_strategy=args.sp_strategy, use_flash=args.flash,
         norm=args.norm, dense_ffn=args.dense_ffn, rope=args.rope,
         remat=args.remat, zero_dp=args.zero_dp, overlap=args.overlap,
+        tp_overlap=args.tp_overlap, ep_overlap=args.ep_overlap,
+        pp_overlap=args.pp_overlap, pp_chunks=args.pp_chunks,
     )
 
 

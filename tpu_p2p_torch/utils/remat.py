@@ -33,6 +33,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
+    set_checkpoint_early_stop,
 )
 
 # The ``jax.checkpoint_policies`` names the reference's validator
@@ -87,12 +88,18 @@ def _policy_fn(saved: str):
     return policy
 
 
-def remat_block(fn: Callable, remat: bool, policy: str = "") -> Callable:
+def remat_block(fn: Callable, remat: bool, policy: str = "",
+                stop_early: bool = True) -> Callable:
     """``fn`` under rematerialization: with ``remat``, only the block's
     inputs (and what ``policy`` saves) stay for the backward, and the
     rest is recomputed inside it. ``everything_saveable`` saves every
     residual, which is the plain block. The block draws no random
-    numbers, so no RNG state is kept for the recompute."""
+    numbers, so no RNG state is kept for the recompute. The recompute
+    stops once it has the tensors the backward needs, unless
+    ``stop_early`` is False: a block that issues a hop and waits for it
+    later (the overlap knobs' rings) must run whole, or the recompute
+    can stop with a hop issued and never waited for, whose receive then
+    takes the next hop's bytes."""
     saved = REMAT_POLICIES[policy] if policy else "nothing"
     if not remat or saved == "everything":
         return fn
@@ -102,6 +109,7 @@ def remat_block(fn: Callable, remat: bool, policy: str = "") -> Callable:
             create_selective_checkpoint_contexts, _policy_fn(saved))
 
     def run(*args):
-        return checkpoint(fn, *args, **kw)
+        with set_checkpoint_early_stop(stop_early):
+            return checkpoint(fn, *args, **kw)
 
     return run

@@ -11,11 +11,13 @@ The benchmark world's ranks are laid over the five axes by
 :func:`~tpu_p2p_torch.models.flagship_config.build_mesh` on the world
 the CLI already joined (its groups reused, the new lines' groups made
 in one order on every rank). Shapes come from
-``FlagshipConfig().tiny(mesh)``, with ``--dtype float32|bfloat16`` and
-``--zero-dp [--overlap prefetch]`` applied; pass ``model_cfg`` for
-other shapes. The reference's tick-IR executor (``--pp-schedule zb``,
-``--tick-lowering switch``) and the tp/ep/pp overlaps are not ported:
-the CLI refuses them, so the step is the masked GPipe-autodiff one.
+``FlagshipConfig().tiny(mesh)``, with ``--dtype float32|bfloat16``,
+``--zero-dp [--overlap prefetch]`` and the ``--tp-overlap ring``,
+``--ep-overlap ring`` and ``--pp-overlap wave`` knobs applied (each a
+no-op where its axis has size 1); pass ``model_cfg`` for other shapes.
+The reference's tick-IR executor (``--pp-schedule zb``,
+``--tick-lowering switch``) is not ported: the CLI refuses it, so the
+step is the masked GPipe-autodiff one.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ def run_flagship_step(ctx: WorkloadContext, model_cfg=None) -> dict:
         mc = dataclasses.replace(mc, dtype=cfg.dtype)
     if model_cfg is None and (cfg.zero_dp or cfg.overlap != "none"):
         mc = dataclasses.replace(mc, zero_dp=True, overlap=cfg.overlap)
+    if model_cfg is None:
+        mc = dataclasses.replace(mc, tp_overlap=cfg.tp_overlap,
+                                 ep_overlap=cfg.ep_overlap,
+                                 pp_overlap=cfg.pp_overlap)
     # mc places the params, so a zero_dp config's leaves hold their dp
     # shard from the start.
     params = F.place_flagship_params(
@@ -66,13 +72,15 @@ def run_flagship_step(ctx: WorkloadContext, model_cfg=None) -> dict:
     tok_s = tokens / s.p50 if s.p50 == s.p50 and s.p50 > 0 else float("nan")
     axes = mesh.shape
     if ctx.is_printer:
-        # The reference appends its overlap / schedule / lowering knobs
-        # when they differ from their defaults; the port runs only the
-        # defaults, so the line never carries them.
+        # Each overlap knob rides the line only when active, as the
+        # reference's does (the schedule and lowering are not ported).
+        knobs = "".join(f" {k}={v}" for k, v in (
+            ("tp_overlap", mc.tp_overlap), ("ep_overlap", mc.ep_overlap),
+            ("pp_overlap", mc.pp_overlap)) if v != "none")
         sys.stdout.write(
             f"flagship_step mesh {axes} {mc.sp_strategy}-SP "
             f"B{mc.batch} T{mc.seq} H{mc.heads} E{mc.num_experts} "
-            f"S{mc.stages}x{mc.microbatches}mb {mc.dtype}: "
+            f"S{mc.stages}x{mc.microbatches}mb {mc.dtype}{knobs}: "
             f"p50 {s.p50 * 1e3:.2f}ms/step  {tok_s:,.0f} tokens/s\n"
         )
         sys.stdout.flush()
