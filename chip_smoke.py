@@ -220,7 +220,33 @@ the first phase that goes wrong:
    version's; on 2 ranks the process-mesh ship alone, the compute alone,
    fused and their overlap (device time of time-sliced contexts, not a
    link number) beside the slab route's bytes bound, the plain version
-   and one ``copy_``.
+   and one ``copy_``;
+17. tp/ep serving — (run right after phase 15) serve meshes of
+   in-process ranks sharing cuda:0, one thread a rank meeting at
+   rendezvous for the tp and ep joins: (a) ``run_engine`` over (dp 1, tp
+   2) and (dp 1, tp 4) at phase 7's width and trace, continuous: every
+   request finishes, steps equal ``simulate_schedule``, the pool drains
+   full, the fused paged write launched stages x busy steps x tp ranks;
+   tokens/s, TTFT and per-token p50/p99; one tp rank's paged write
+   (its heads of its weight shard's projections) bitwise the plain
+   version; (b) phase 11's MoE model (capacity factor 4: no drops)
+   decoding over (dp 1, ep 2) against ep 1, 16 teacher-forced positions:
+   every token's expert equal wherever its top-2 router margin exceeds
+   twice its router-logit difference between the runs, the logits
+   within ``GRAD_TOL`` (relative L2); (c) flagship_large's
+   decode with ZeRO-stored params over dp 2, bitwise the replicated dp
+   2 decode; (d) ``run_disagg_engine`` with a tp 2 prefill (2 + 1 ranks,
+   32 + 4 slots, ``pallas_dma`` x4): phase 9's gates, the migration
+   bytes equal phase 9's tp 1 run's, the peer-push launches migrations x
+   2 x 2 prefill ranks x 3 ranks; one migration from 2 prefill tp ranks
+   at flagship_large's pages bitwise the plain version's (CPU ranks)
+   over ``pallas_dma`` x1, x2 and ``xla``; every token of (a)'s and
+   (d)'s streams held to phase 9's teacher-forced gate; ``serve
+   --disagg`` through ``engine.main`` on 4 ranks of cuda:0 (prefill tp
+   2 + decode dp 2) over ``xla`` and ``pallas_dma --migrate-chunks 2``,
+   its own token parity against the colocated twin OK; (e) ``serve
+   --trace PATH`` through ``engine.main`` on phase 7's trace:
+   ``validate_chrome_trace`` finds no problem.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -2144,7 +2170,8 @@ def disagg_run(mesh, cfg, params, sc, trace, what: str, card: str) -> dict:
         trace, slots=sc.slots, prefill_slots=sc.prefill_slots,
         page_len=sc.page_len, num_pages=sc.num_pages,
         prefill_pages=sc.prefill_pages, max_blocks=sc.max_blocks,
-        chunk=sc.chunk, n_decode_shards=mesh.size - 1, cfg=cfg)
+        chunk=sc.chunk, n_decode_shards=mesh.size - (sc.prefill_tp or 1),
+        cfg=cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = run_disagg_engine(mesh, cfg, params, trace, sc=sc)
@@ -2189,15 +2216,17 @@ def disagg_run(mesh, cfg, params, sc, trace, what: str, card: str) -> dict:
 
 
 def expect_launches(counts: dict, out: dict, ranks: int, chunks: int,
-                    what: str) -> None:
-    """Each migration ships K and V: ``chunks - 1`` fused ships and one
-    last permute each, every call launching once per rank."""
+                    what: str, srcs: int = 1) -> None:
+    """Each migration ships K and V from each of ``srcs`` prefill ranks:
+    ``chunks - 1`` fused ships and one last permute each, every call
+    launching once per rank."""
     mig = out["kv_migrated"]
-    want = {"dma_ship": mig * 2 * (chunks - 1) * ranks,
-            "dma_permute": mig * 2 * ranks}
+    want = {"dma_ship": mig * 2 * srcs * (chunks - 1) * ranks,
+            "dma_permute": mig * 2 * srcs * ranks}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want} "
-                             f"({mig} migrations x 2 tensors x {ranks} "
+                             f"({mig} migrations x 2 tensors x {srcs} "
+                             f"prefill ranks x {ranks} "
                              f"ranks, {chunks} chunks)")
 
 
@@ -2383,7 +2412,8 @@ def disagg(cfg, params, colocated: dict, card: str) -> dict:
         f"pallas_dma == xla bitwise ({len(trace4)} streams), launches "
         f"{counts4} | {card}")
     profile_disagg(cfg, params, card)
-    return {"launches": counts}
+    return {"launches": counts, "streams": run["streams"],
+            "kv_migrate_bytes": run["kv_migrate_bytes"]}
 
 
 DISAGG_FAMILIES = (
@@ -4147,6 +4177,485 @@ def overlap(TFA, dev, card) -> dict:
                 "bound_by": "bytes", "library_ms": tm["library_ms"]}}
 
 
+# ----------------------------------------------------------- phase 17
+
+
+TP_SERVE = (2, 4)                # tp ranks of a (dp 1, tp n) serve mesh
+EP_DECODE = 2                    # ep ranks of the MoE decode (dp 1)
+ZERO_DP = 2                      # dp ranks of the ZeRO-stored decode
+PREFILL_TP = 2                   # the disagg prefill's tp ranks
+TP_MIGRATE_CHUNKS = 2            # --migrate-chunks of the CLI runs
+
+
+def serve_local_mesh(dev, dp: int = 1, tp: int = 1, ep: int = 1):
+    """A ``(dp, tp, ep)`` serve mesh of in-process ranks on ``dev``."""
+    from tpu_p2p_torch.parallel.runtime import LocalMesh
+
+    return LocalMesh([dev] * (dp * tp * ep), ("dp", "tp", "ep"),
+                     (dp, tp, ep))
+
+
+def tp_rank_write(cfg, params, TK, tp: int, card: str) -> None:
+    """One tp rank's paged write at the shapes its mixed step gives the
+    kernel (its ``H_kv / tp`` heads of the projections of its weight
+    shard, K roped, into its block of the pool) against
+    ``paged_kv_write_plain``, bitwise."""
+    from tpu_p2p_torch.models.flagship import place_local_params
+    from tpu_p2p_torch.ops.rope import apply_rope
+
+    dev = params["emb"].device
+    mesh = serve_local_mesh(dev, tp=tp)
+    shard = place_local_params(params, mesh, cfg)[tp - 1]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    h = torch.randn((SLOTS, CHUNK, cfg.model_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    stage, heads = 5, cfg.num_kv_heads // tp
+    b = torch.arange(SLOTS, device=dev)
+    n = torch.tensor([(0, 1, 8)[i % 3] for i in range(SLOTS)],
+                     dtype=torch.int32, device=dev)
+    r0 = torch.where(n == 8, 0, b % 8).to(torch.int32)
+    page = torch.where(n > 0, 1 + 5 * b, 0).to(torch.int32)
+    band = (b % (PAGE_LEN // 8)).to(torch.int32)
+    qpos = (band.long() * 8 + r0.long())[:, None] + torch.arange(
+        CHUNK, device=dev)[None, :]
+    k = apply_rope(torch.einsum("btm,hmd->bhtd", h, shard["wk"][stage]),
+                   qpos)
+    v = torch.einsum("btm,hmd->bhtd", h, shard["wv"][stage])
+    pools = [torch.randn((cfg.stages, NUM_PAGES, heads, PAGE_LEN,
+                          cfg.head_dim), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2)]
+    args = (k, v, page, band, r0, n, stage)
+    want = TK.paged_kv_write_plain(*(p.clone() for p in pools), *args)
+    got = [p.clone() for p in pools]
+    TK.paged_kv_write(*got, *args)
+    torch.cuda.synchronize()
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"tp {tp} rank {tp - 1}'s paged write differs "
+                             "from its plain version")
+    say(f"kernel paged_kv_write, tp {tp} rank {tp - 1}: K {tuple(k.shape)} "
+        f"(strides {k.stride()}) and V into its pool block "
+        f"{tuple(pools[0].shape)}, n in (0, 1, 8): bitwise == plain | "
+        f"{card}")
+
+
+def tp_serving(cfg, params, TK, phase7: dict, card: str) -> dict:
+    """(a) ``run_engine`` over (dp 1, tp 2) and (dp 1, tp 4) meshes of
+    cuda:0 at phase 7's width and trace, continuous: every request
+    finishes, steps equal ``simulate_schedule``, the pool drains full,
+    the KV write launched stages x busy steps x tp ranks and nothing
+    else; → the streams and the launches by mesh."""
+    from tpu_p2p_torch.serve.batcher import simulate_schedule
+    from tpu_p2p_torch.serve.engine import run_engine, synthetic_trace
+
+    dev = params["emb"].device
+    sc = serve_config(cfg)
+    trace = synthetic_trace(sc)
+    sim = simulate_schedule(
+        trace, slots=sc.slots, page_len=sc.page_len,
+        num_pages=sc.num_pages, max_blocks=sc.max_blocks, chunk=sc.chunk,
+        mode="continuous")
+    runs, launches = {}, {}
+    for tp in TP_SERVE:
+        mesh = serve_local_mesh(dev, tp=tp)
+        run_engine(mesh, cfg, params, short_trace(trace, 1, 2), sc=sc)
+        torch.cuda.synchronize()
+        TK.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = run_engine(mesh, cfg, params, trace, sc=sc)
+        torch.cuda.synchronize()
+        counts = dict(TK.launches)
+        b, fin = out["batcher"], out["finished"]
+        busy = out["steps"] - out["idle_steps"]
+        if len(fin) != len(trace) or any(len(r.generated) != r.max_new
+                                          for r in fin):
+            raise AssertionError(f"tp {tp}: {len(fin)}/{len(trace)} "
+                                 "requests finished in full")
+        if (busy, out["idle_steps"]) != (sim["steps"], sim["idle_steps"]):
+            raise AssertionError(f"tp {tp}: {busy} busy steps, the dry "
+                                 f"schedule says {sim['steps']}")
+        if b.pool_alloc.available(0) != b.pool_alloc.capacity:
+            raise AssertionError(f"tp {tp}: page leak")
+        want = cfg.stages * busy * tp
+        if counts != {"paged_kv_write": want, "cache_kv_write": 0,
+                      "paged_rows_write": 0, "cache_row_write": 0}:
+            raise AssertionError(f"tp {tp}: launches {counts}, expected "
+                                 f"paged_kv_write {want} = stages x busy "
+                                 "steps x tp ranks, and nothing else")
+        runs[f"tp {tp}"] = {r.rid: list(r.generated) for r in fin}
+        launches[f"serve_tp{tp}"] = want
+        same = sum(runs[f"tp {tp}"][r] == phase7["streams"][r]
+                   for r in phase7["streams"])
+        say(f"serve tp {tp} (dp 1, {tp} ranks of cuda:0, {cfg.heads // tp} "
+            f"heads and {cfg.num_kv_heads // tp} KV heads a rank): "
+            f"{out['requests']} requests, {out['prompt_tokens']} prompt + "
+            f"{out['gen_tokens']} generated tokens, {busy} steps (= "
+            f"simulate_schedule) | {out['serve_tokens_per_s']} tokens/s "
+            f"ttft p50 {out['serve_ttft_ms_p50']} ms p99 "
+            f"{out['serve_ttft_ms_p99']} ms | per-token p50 "
+            f"{out['serve_tok_ms_p50']} ms p99 {out['serve_tok_ms_p99']} ms "
+            f"| {out['wall_s'] * 1e3 / out['steps']:.1f} ms a step | peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
+            f"kv_rows_kernel launches {want} ({want // tp} a rank) | "
+            f"{same}/{len(trace)} streams bitwise tp 1's (phase 7) | "
+            f"{card}")
+        mesh.close()
+        torch.cuda.empty_cache()
+    tp_rank_write(cfg, params, TK, TP_SERVE[-1], card)
+    return {"streams": runs, "launches": launches}
+
+
+def route_spy(TM):
+    """Record every ``moe._route`` call's top-1 experts and router
+    logits, by rank thread, until ``stop()``."""
+    import threading
+
+    calls, orig = [], TM._route
+
+    def spy(x, router_w, *args, **kw):
+        route = orig(x, router_w, *args, **kw)
+        z = torch.matmul(x.float(), router_w.float())
+        calls.append((threading.current_thread().name,
+                      route.expert[..., 0].reshape(-1).cpu(),
+                      z.reshape(-1, z.shape[-1]).cpu()))
+        return route
+
+    TM._route = spy
+
+    def stop():
+        TM._route = orig
+        return calls
+
+    return stop
+
+
+def ep_decode(TK, dev, card: str) -> dict:
+    """(b) phase 11's MoE model (4 experts, capacity factor 4: no drops)
+    decoding over a (dp 1, ep 2) mesh of cuda:0 against the same decode
+    at ep 1, 16 teacher-forced positions of 32 slots: each token's
+    expert equal wherever its top-1/top-2 router-logit margin exceeds
+    twice the largest difference of its router logits between the two
+    runs (only the rounding of a batch of 16 against 32 rows moves the
+    router's input, and below that margin it, not the dispatch, decides
+    the expert), and the logits within ``GRAD_TOL`` (relative L2). → the
+    launches."""
+    from tpu_p2p_torch.models import decode as D
+    from tpu_p2p_torch.models import moe as TM
+    from tpu_p2p_torch.models.flagship import (
+        FlagshipConfig, init_flagship_params, place_local_params)
+
+    cfg = FlagshipConfig(batch=SLOTS, **{**MODEL, "dense_ffn": False,
+                                         "num_experts": 4,
+                                         "capacity_factor": 4.0})
+    params = init_flagship_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (SLOTS, DECODE_POSITIONS))).to(dev)
+    outs, routes, counts = {}, {}, {}
+    for ep in (1, EP_DECODE):
+        mesh = serve_local_mesh(dev, ep=ep)
+        step = D.make_flagship_lm_decode_step(mesh, cfg)
+        shards = place_local_params(params, mesh, cfg)
+        cache = D.init_kv_cache(cfg, MAX_BLOCKS * PAGE_LEN, mesh=mesh)
+        torch.cuda.synchronize()
+        TK.reset_launches()
+        stop = route_spy(TM)
+        try:
+            rows = []
+            for t in range(DECODE_POSITIONS):
+                cache, lg = step(shards, cache,
+                                 D.split_rows(mesh, toks[:, t:t + 1]), t)
+                rows.append(D.join_rows(mesh, lg)[:, 0].float())
+            torch.cuda.synchronize()
+        finally:
+            calls = stop()
+        counts[ep] = dict(TK.launches)
+        outs[ep] = torch.stack(rows, 1)
+        # A position's layer calls: ep 1 routes the 32 rows at once, each
+        # ep rank its 16; the ranks' calls joined in rank order.
+        by_rank = {}
+        for name, e, z in calls:
+            by_rank.setdefault(name, []).append((e, z))
+        ranked = [by_rank[k] for k in sorted(by_rank)]
+        routes[ep] = [(torch.cat([r[i][0] for r in ranked]),
+                       torch.cat([r[i][1] for r in ranked]))
+                      for i in range(len(ranked[0]))]
+        want = cfg.stages * DECODE_POSITIONS * ep
+        if counts[ep] != {"cache_kv_write": want, "paged_kv_write": 0,
+                          "cache_row_write": 0, "paged_rows_write": 0}:
+            raise AssertionError(f"ep {ep} decode launches {counts[ep]}, "
+                                 f"expected cache_kv_write {want}")
+        mesh.close()
+    if len(routes[1]) != len(routes[EP_DECODE]):
+        raise AssertionError("ep decode: routing calls differ in number")
+    flips, moved, worst = [], 0, 0.0
+    for (e1, z1), (e2, z2) in zip(routes[1], routes[EP_DECODE]):
+        top2 = z1.topk(2, -1).values
+        margin = top2[:, 0] - top2[:, 1]
+        dz = (z1 - z2).abs().max(-1).values
+        worst = max(worst, dz.max().item())
+        diff = e1 != e2
+        moved += int(diff.sum())
+        for j in torch.nonzero(diff & (margin > 2 * dz))[:, 0].tolist():
+            flips.append((margin[j].item(), dz[j].item()))
+    rel = ((outs[EP_DECODE] - outs[1]).norm() / outs[1].norm()).item()
+    tokens = sum(e.numel() for e, _ in routes[1])
+    say(f"ep decode: MoE ({cfg.num_experts} experts, capacity factor "
+        f"{cfg.capacity_factor}) over (dp 1, ep {EP_DECODE}) of cuda:0 vs "
+        f"ep 1, {DECODE_POSITIONS} positions x {SLOTS} slots: {tokens} "
+        f"routed tokens, {moved} expert choices differ, each with its "
+        f"top-2 router margin within twice its router-logit difference "
+        f"between the runs (largest difference {worst:.3g}), {len(flips)} "
+        f"outside it; logits relative L2 {rel:.3g} (tol {GRAD_TOL}), "
+        f"bitwise {torch.equal(outs[1], outs[EP_DECODE])} | launches "
+        f"{counts[EP_DECODE]['cache_kv_write']} "
+        f"({counts[EP_DECODE]['cache_kv_write'] // EP_DECODE} a rank) | "
+        f"{card}")
+    if flips or rel > GRAD_TOL or not torch.isfinite(outs[EP_DECODE]).all():
+        raise AssertionError(f"ep decode: routing flips (margin, router "
+                             f"logit difference) {flips[:8]}, relative L2 "
+                             f"{rel}")
+    return counts[EP_DECODE]["cache_kv_write"]
+
+
+def zero_decode(cfg, params, TK, card: str) -> int:
+    """(c) flagship_large's dense decode with ZeRO-stored params over dp
+    2 ranks of cuda:0 against the same decode with the params
+    replicated: bitwise (the gather moves bits). → the launches."""
+    from tpu_p2p_torch.models import decode as D
+    from tpu_p2p_torch.models.flagship import place_local_params
+
+    dev = params["emb"].device
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (SLOTS, DECODE_POSITIONS))).to(dev)
+    outs, launches, stored = {}, 0, {}
+    for zero in (False, True):
+        c = dataclasses.replace(cfg, zero_dp=zero)
+        mesh = serve_local_mesh(dev, dp=ZERO_DP)
+        shards = place_local_params(params, mesh, c)
+        stored[zero] = sum(v.numel() for v in shards[0].values())
+        step = D.make_flagship_lm_decode_step(mesh, c)
+        cache = D.init_kv_cache(c, MAX_BLOCKS * PAGE_LEN, mesh=mesh)
+        torch.cuda.synchronize()
+        TK.reset_launches()
+        t0 = time.perf_counter()
+        rows = []
+        for t in range(DECODE_POSITIONS):
+            cache, lg = step(shards, cache,
+                             D.split_rows(mesh, toks[:, t:t + 1]), t)
+            rows.append(D.join_rows(mesh, lg))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DECODE_POSITIONS
+        outs[zero] = (torch.cat(rows, 1), ms)
+        if zero:
+            launches = TK.launches["cache_kv_write"]
+        mesh.close()
+        del shards, cache
+        torch.cuda.empty_cache()
+    same = torch.equal(outs[False][0], outs[True][0])
+    say(f"zero decode: flagship_large over dp {ZERO_DP} ranks of cuda:0, "
+        f"params ZeRO-stored ({stored[True] / 1e6:.1f} M a rank, "
+        f"{stored[False] / 1e6:.1f} M replicated), gathered at step entry: "
+        f"{DECODE_POSITIONS} positions x {SLOTS} slots bitwise the "
+        f"replicated decode: {same} | {outs[True][1]:.1f} ms a step (host "
+        f"wall) vs {outs[False][1]:.1f} replicated | launches {launches} "
+        f"| {card}")
+    if not same or launches != cfg.stages * DECODE_POSITIONS * ZERO_DP:
+        raise AssertionError(f"zero decode: bitwise {same}, launches "
+                             f"{launches}")
+    return launches
+
+
+def disagg_cli_on_card(card: str) -> dict:
+    """``serve --disagg`` through ``engine.main`` with its devices set
+    to 4 ranks of cuda:0 (the CLI gives every visible card a rank): the
+    default partition, prefill tp 2 + decode dp 2, over ``xla`` and over
+    ``pallas_dma`` with ``--migrate-chunks 2``; the CLI's own token
+    parity against the colocated twin must say OK. → the peer-push
+    launches of the second."""
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.serve import engine as TE
+
+    dev = torch.device("cuda", 0)
+    real, TE._serve_devices = TE._serve_devices, lambda args: [dev] * 4
+    counts = {}
+    try:
+        for extra in ([], ["--transport", "pallas_dma", "--migrate-chunks",
+                           str(TP_MIGRATE_CHUNKS)]):
+            buf = io.StringIO()
+            PD.reset_launches()
+            with contextlib.redirect_stdout(buf):
+                rc = TE.main(["--disagg", "--requests", "6", "--seed", "0",
+                              *extra])
+            torch.cuda.synchronize()
+            lines = buf.getvalue().splitlines()
+            for line in lines:
+                say(f"  | {line}")
+            if rc != 0 or "token parity OK" not in lines[-1]:
+                raise AssertionError(f"serve --disagg {extra}: rc {rc}, "
+                                     f"{lines[-1:]}")
+            counts = dict(PD.launches)
+            mig = int(re.search(r"kv_migrate: (\d+) migrations",
+                                buf.getvalue()).group(1))
+    finally:
+        TE._serve_devices = real
+    want = {"dma_ship": mig * 2 * PREFILL_TP * 4 * (TP_MIGRATE_CHUNKS - 1),
+            "dma_permute": mig * 2 * PREFILL_TP * 4}
+    if counts != want:
+        raise AssertionError(f"serve --disagg pallas_dma: launches {counts},"
+                             f" expected {want} (migrations x 2 tensors x "
+                             f"{PREFILL_TP} prefill ranks x 4 ranks)")
+    say(f"serve --disagg on 4 ranks of cuda:0 (prefill tp {PREFILL_TP} + "
+        f"decode dp 2): token parity OK over xla and pallas_dma x"
+        f"{TP_MIGRATE_CHUNKS} | launches {counts} | {card}")
+    return counts
+
+
+def tp_migrator_check(card: str) -> None:
+    """One migration of 5 flagship_large pages from 2 prefill tp ranks
+    (4 KV heads each) to decode shard 0 of 1 + 1 decode ranks, all on
+    cuda:0, over ``pallas_dma`` in 1 and 2 chunks and ``xla``: each
+    shard's arrival (the deposited pages) bitwise the plain version's
+    (the same migration on CPU ranks) and the prefill pages' heads in
+    order."""
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+    from tpu_p2p_torch.parallel.runtime import LocalMesh
+    from tpu_p2p_torch.serve.disagg import KvMigrator
+
+    cfg = FlagshipConfig(batch=SLOTS, **MODEL)
+    gen = torch.Generator().manual_seed(18)
+    heads = cfg.num_kv_heads // PREFILL_TP
+    shape = (cfg.stages, 9, heads, PAGE_LEN, cfg.head_dim)
+    pre = [{k: torch.randn(shape, generator=gen).to(torch.bfloat16)
+            for k in "kv"} for _ in range(PREFILL_TP)]
+    src, dst = [4, 2, 7, 1, 8], [3, 1, 2, 4, 5]
+    dec_shape = (cfg.stages, 6, cfg.num_kv_heads, PAGE_LEN, cfg.head_dim)
+    want = {k: torch.cat([p[k][:, src] for p in pre], dim=2) for k in "kv"}
+    cases = []
+    for transport, chunks in (("pallas_dma", 1), ("pallas_dma", 2),
+                              ("xla", 1)):
+        dec = {}
+        for dev in ("cpu", "cuda"):
+            mig = LocalMesh([torch.device(dev)] * (PREFILL_TP + 1))
+            d = [{k: torch.zeros(dec_shape, dtype=torch.bfloat16,
+                                 device=dev) for k in "kv"}]
+            KvMigrator(mig, cfg, page_len=PAGE_LEN, transport=transport,
+                       chunks=chunks, n_prefill=PREFILL_TP).migrate(
+                [{k: v.to(dev) for k, v in p.items()} for p in pre], src,
+                d, dst, 0)
+            mig.close()
+            dec[dev] = d[0]
+        for k in "kv":
+            got = dec["cuda"][k].cpu()
+            if not (bits_equal(got, dec["cpu"][k])
+                    and bits_equal(got[:, dst], want[k])):
+                raise AssertionError(f"tp migration {transport} x{chunks} "
+                                     f"{k}: the arrival differs")
+        cases.append(f"{transport} x{chunks}")
+    say(f"kv migration from {PREFILL_TP} prefill tp ranks ({heads} of "
+        f"{cfg.num_kv_heads} KV heads each, [{cfg.stages}, 5, {heads}, "
+        f"{PAGE_LEN}, {cfg.head_dim}] bf16 a rank a projection) to decode "
+        f"shard 0: the arrival bitwise the plain version's (CPU ranks) "
+        f"and the heads in order over {', '.join(cases)} | {card}")
+
+
+def serve_trace_cli(card: str) -> None:
+    """(e) ``serve --trace PATH`` through ``engine.main`` on the card on
+    phase 7's trace (its seed, rate, lengths, slots, page_len, chunk and
+    vocab; the CLI's own model): ``validate_chrome_trace`` must find no
+    problem."""
+    import tempfile
+
+    from tpu_p2p_torch.obs.trace import validate_chrome_trace
+    from tpu_p2p_torch.serve import engine as TE
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve_trace.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = TE.main(["--requests", "16", "--seed", "0", "--rate", "4",
+                          "--prompt-len", "16:96", "--gen-len", "16:64",
+                          "--slots", str(SLOTS), "--page-len",
+                          str(PAGE_LEN), "--chunk", str(CHUNK), "--vocab",
+                          str(MODEL["vocab"]), "--dtype", "bfloat16",
+                          "--batching", "continuous", "--trace", path])
+        problems = validate_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or problems or not lines[-1].startswith(
+            "# wrote chrome trace"):
+        raise AssertionError(f"serve --trace: rc {rc}, problems "
+                             f"{problems[:5]}, {lines[-1:]}")
+    lanes = {e["tid"] for e in events if e["pid"] == 4 and e["ph"] == "X"}
+    say(f"serve --trace on phase 7's trace (cuda:0, the CLI's model): "
+        f"{len(events)} events on {len(lanes)} slot lanes, "
+        f"validate_chrome_trace: no problems | {lines[1]} | {card}")
+
+
+def tp_phase(cfg, params, TK, phase7: dict, dis: dict, card: str) -> dict:
+    """Phase 17: tensor- and expert-parallel serving over serve meshes of
+    in-process ranks sharing cuda:0 at flagship_large's width. → the
+    launches by path of rows 1, 2, 8 and 9."""
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.serve.engine import synthetic_trace
+
+    t0 = time.perf_counter()
+    dev = params["emb"].device
+    tp = tp_serving(cfg, params, TK, phase7, card)
+    torch.cuda.empty_cache()
+    ep_launches = ep_decode(TK, dev, card)
+    torch.cuda.empty_cache()
+    zero_launches = zero_decode(cfg, params, TK, card)
+    # (d) the disagg engine with a tp 2 prefill: 2 + 1 ranks of cuda:0.
+    from tpu_p2p_torch.parallel.runtime import LocalMesh
+
+    mesh = LocalMesh([dev] * (PREFILL_TP + 1))
+    sc = disagg_config(cfg, 4, "pallas_dma", prefill_tp=PREFILL_TP)
+    trace = synthetic_trace(sc)
+    TK.reset_launches()
+    PD.reset_launches()
+    run = disagg_run(mesh, cfg, params, sc, trace,
+                     f"{PREFILL_TP} prefill tp + 1 decode ranks on cuda:0, "
+                     f"{SLOTS}+4 slots, pallas_dma x{MIGRATE_CHUNKS} "
+                     "chunks", card)
+    dma = dict(PD.launches)
+    kv = dict(TK.launches)
+    mesh.close()
+    expect_launches(dma, run, PREFILL_TP + 1, MIGRATE_CHUNKS,
+                    "disagg tp 2", srcs=PREFILL_TP)
+    if run["kv_migrate_bytes"] != dis["kv_migrate_bytes"]:
+        raise AssertionError(f"disagg tp 2: {run['kv_migrate_bytes']} "
+                             f"bytes migrated, the tp 1 run "
+                             f"{dis['kv_migrate_bytes']}")
+    b = run["batcher"]
+    say(f"disagg tp {PREFILL_TP}: migration bytes {run['kv_migrate_bytes']}"
+        f" == phase 9's tp 1 run's; {b.migrate_wall_s * 1e3 / max(run['kv_migrated'], 1):.2f}"
+        f" ms a migration, {run['serve_kv_migrate_gbps']} Gbps (on-card "
+        f"copies) | launches dma_permute {dma['dma_permute']}, dma_ship "
+        f"{dma['dma_ship']} (migrations x 2 x {PREFILL_TP} prefill ranks x "
+        f"3 ranks x 1 and x {MIGRATE_CHUNKS - 1}), kv_rows_kernel "
+        f"{kv['paged_kv_write']} | {card}")
+    tp_migrator_check(card)
+    stream_witness(cfg, params, trace,
+                   {"tp 1 (phase 7)": phase7["streams"], **tp["streams"],
+                    f"disagg tp {PREFILL_TP} {SLOTS}+4": run["streams"],
+                    f"disagg tp 1 {SLOTS}+4 (phase 9)": dis["streams"]},
+                   card)
+    cli = disagg_cli_on_card(card)
+    TK.reset_launches()
+    serve_trace_cli(card)
+    trace_launches = TK.launches["paged_kv_write"]
+    say(f"phase 17 (tp/ep serving): {time.perf_counter() - t0:.1f} s")
+    return {"paged_kv_write": {**tp["launches"],
+                               f"disagg_tp{PREFILL_TP}": kv["paged_kv_write"],
+                               "serve_trace": trace_launches},
+            "cache_kv_write": {"ep_decode": ep_launches,
+                               "zero_decode": zero_launches},
+            "dma_permute": {f"disagg_tp{PREFILL_TP}": dma["dma_permute"],
+                            "disagg_tp2_cli": cli["dma_permute"]},
+            "dma_ship": {f"disagg_tp{PREFILL_TP}": dma["dma_ship"],
+                         "disagg_tp2_cli": cli["dma_ship"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -4238,6 +4747,8 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_paths = serve_mesh_phase(cfg, params, TK, srv, card)
     say(f"phase 15 (serve mesh): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    tp_paths = tp_phase(cfg, params, TK, srv, dis, card)
     t0 = time.perf_counter()
     del params
     torch.cuda.empty_cache()
@@ -4261,17 +4772,19 @@ def main() -> int:
                        for k, v in mem_launches.items()}}
              for name, n in trn["launches"].items()}
     paths["dma_permute"] = {"p2p": launches["dma_permute"],
-                            "overlap_process_mesh": ovl["dma_permute"]}
+                            "overlap_process_mesh": ovl["dma_permute"],
+                            **tp_paths["dma_permute"]}
     paths["dma_ship"] = {"disagg": launches["dma_ship"],
-                         "overlap_process_mesh": ovl["dma_ship"]}
+                         "overlap_process_mesh": ovl["dma_ship"],
+                         **tp_paths["dma_ship"]}
     paths["cache_kv_write"] = {
         "decode": launches["cache_kv_write"],
         "moe_decode": moe_launches["decode"]["cache_kv_write"],
-        **mesh_paths["cache_kv_write"]}
+        **mesh_paths["cache_kv_write"], **tp_paths["cache_kv_write"]}
     paths["paged_kv_write"] = {
         "serve": launches["paged_kv_write"],
         "moe_decode": moe_launches["decode"]["paged_kv_write"],
-        **mesh_paths["paged_kv_write"]}
+        **mesh_paths["paged_kv_write"], **tp_paths["paged_kv_write"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if not k["launches"]:

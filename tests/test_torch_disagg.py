@@ -104,10 +104,10 @@ def _streams(out):
 
 def test_build_disagg_meshes_partition_and_messages():
     pre, dec, mig = TD.build_disagg_meshes(1, ["cpu"] * 4)
-    assert (len(pre), len(dec), mig.size) == (1, 3, 4)
+    assert (pre.size, dec.size, mig.size) == (1, 3, 4)
     assert mig.axis_names == ("mig",) and mig.ranks == (0, 1, 2, 3)
     pre, dec, mig = TD.build_disagg_meshes(0, ["cpu"] * 2)  # auto = 1
-    assert (len(pre), len(dec)) == (1, 1)
+    assert (pre.size, dec.size) == (1, 1)
     jdev = jax.devices()
     for tp, n in ((8, 8), (9, 8), (1, 1)):
         with pytest.raises(ValueError) as want:
@@ -115,10 +115,13 @@ def test_build_disagg_meshes_partition_and_messages():
         with pytest.raises(ValueError) as got:
             TD.build_disagg_meshes(tp, ["cpu"] * n)
         assert str(got.value) == str(want.value)
-    for tp, n in ((2, 4), (0, 4)):
-        JD.build_disagg_meshes(tp, devices=jdev[:n])   # the reference runs
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TD.build_disagg_meshes(tp, ["cpu"] * n)
+    # Tensor-parallel prefill: the partition equals the reference's,
+    # the auto value included (half the devices).
+    for tp, n in ((2, 4), (0, 4), (3, 4), (4, 8), (0, 8)):
+        jpre, jdec, jmig = JD.build_disagg_meshes(tp, devices=jdev[:n])
+        pre, dec, mig = TD.build_disagg_meshes(tp, ["cpu"] * n)
+        for j, t in ((jpre, pre), (jdec, dec), (jmig, mig)):
+            assert t.shape == dict(zip(j.axis_names, j.devices.shape))
 
 
 @pytest.mark.parametrize("bad", [
@@ -569,11 +572,18 @@ def test_serve_disagg_cli_matches_reference(reference_cli, extra):
 
 
 def test_serve_disagg_cli_rejections(capsys):
-    assert TE.main(["--disagg", "--device", "cpu", "--cpu-mesh", "4"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # A tensor-parallel prefill (the default partition on 4 ranks, and
+    # --prefill-tp 2 on 3) serves, and its streams are the colocated
+    # twin's, as the reference's are.
+    assert TE.main(["--disagg", "--device", "cpu", "--cpu-mesh", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "prefill {'dp': 1, 'tp': 2} + decode {'dp': 2}" in out
+    assert "token parity OK (8/8 bitwise)" in out
     assert TE.main(["--disagg", "--device", "cpu", "--cpu-mesh", "3",
-                    "--prefill-tp", "2"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+                    "--prefill-tp", "2", "--slots", "6"]) == 0
+    out = capsys.readouterr().out
+    assert "prefill {'dp': 1, 'tp': 2} + decode {'dp': 1}" in out
+    assert "token parity OK (8/8 bitwise)" in out
     assert TE.main(["--disagg", "--device", "cpu"]) == 1   # one rank
     assert ">= 2 devices" in capsys.readouterr().err
     assert TE.main(["--device", "cpu", "--cpu-mesh", "2", "--requests",

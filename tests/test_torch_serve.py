@@ -451,7 +451,8 @@ def test_serve_cli_output_matches_reference(args):
     assert got_lines[1:] == want_lines[1:]
 
 
-def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys):
+def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys,
+                                               tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TE.resolve_device("cuda")
@@ -459,8 +460,10 @@ def test_serve_cli_never_falls_back_to_the_cpu(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
     assert TE.main(["--chaos"]) == 1             # default device: cuda
     assert "no CUDA device" in capsys.readouterr().err
-    assert TE.main(["--device", "cpu", "--trace", "t.json"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    trace = tmp_path / "t.json"   # --trace is ported: the CPU run writes it
+    assert TE.main(["--device", "cpu", "--requests", "1", "--trace",
+                    str(trace)]) == 0
+    assert f"# wrote chrome trace {trace}" in capsys.readouterr().out
     assert TE.main(["--disagg", "--requests", "1"]) == 1  # cuda: no card
     assert "no CUDA device" in capsys.readouterr().err
     assert TCLI.main(["train"]) == 1                      # cuda: no card

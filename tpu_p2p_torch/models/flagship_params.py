@@ -14,14 +14,14 @@ ZeRO plan (:func:`_fsdp_plan`) adds ``dp`` to each planned leaf's spec.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from tpu_p2p_torch.models.flagship_config import FlagshipConfig, _axis
 from tpu_p2p_torch.parallel import fsdp
+from tpu_p2p_torch.parallel.collectives import axis_all_gather
 from tpu_p2p_torch.parallel.runtime import _dim_axes, local_shard
 
 Params = Dict[str, torch.Tensor]
@@ -185,13 +185,44 @@ def place_flagship_params(params, mesh,
     return out
 
 
-def _gather_dim(x: torch.Tensor, line, dim: int) -> torch.Tensor:
-    from tpu_p2p_torch.parallel.collectives import axis_group
+def _decode_param_specs(mesh, cfg: Optional[FlagshipConfig] = None
+                        ) -> Dict[str, Spec]:
+    """:func:`_placement_specs` with the pp stage sharding stripped (the
+    reference's ``tpu_p2p/models/decode.py::_decode_param_specs``):
+    decoding forces pp to size 1, where a stage split is the whole."""
+    return {k: tuple(None if e == "pp" else e for e in spec)
+            for k, spec in _placement_specs(mesh, cfg).items()}
 
-    group = axis_group(line, "all_gather")
-    parts = [torch.empty_like(x) for _ in range(line.size)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+
+def place_local_params(params, mesh, cfg: Optional[FlagshipConfig] = None
+                       ) -> List[Params]:
+    """Every rank's shard of the global ``params`` on a
+    :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh`, under
+    :func:`_decode_param_specs` (``cfg``'s ZeRO dims included), each on
+    its rank's device: → one dict a rank. A leaf the mesh does not split
+    is one tensor for each distinct device, shared by the ranks there."""
+    specs = _decode_param_specs(mesh, cfg)
+    whole: Dict[tuple, torch.Tensor] = {}
+    out = []
+    for i in range(mesh.size):
+        rank = mesh.rank(i)
+        dev = rank.device
+        shard = {}
+        for k, v in params.items():
+            piece = local_shard(v, rank, specs[k])
+            if tuple(piece.shape) == tuple(v.shape):
+                if (dev, k) not in whole:
+                    whole[dev, k] = _on_device(v, dev)
+                shard[k] = whole[dev, k]
+            else:
+                shard[k] = _on_device(piece, dev)
+        out.append(shard)
+    return out
+
+
+def _on_device(x, dev: torch.device) -> torch.Tensor:
+    return (x.contiguous().to(dev) if isinstance(x, torch.Tensor)
+            else tensor_from_numpy(x, dev))
 
 
 def gather_flagship_params(params: Params, mesh,
@@ -210,9 +241,7 @@ def gather_leaf(x: torch.Tensor, mesh, spec) -> torch.Tensor:
     (collective over the lines of its split axes)."""
     for dim, entry in enumerate(spec):
         for a in reversed(_dim_axes(entry)):
-            line = mesh.line(a)
-            if line.size > 1:
-                x = _gather_dim(x, line, dim)
+            x = axis_all_gather(x, mesh.line(a), dim)
     return x
 
 

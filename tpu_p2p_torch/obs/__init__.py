@@ -1,3 +1,4 @@
-"""Observability and fault injection of the port: so far the
-deterministic storage faults the durable checkpoint is graded on
-(:mod:`tpu_p2p_torch.obs.faults`)."""
+"""Observability and fault injection of the port: the deterministic
+storage faults the durable checkpoint is graded on
+(:mod:`tpu_p2p_torch.obs.faults`) and the Chrome-trace exporter behind
+``serve --trace`` (:mod:`tpu_p2p_torch.obs.trace`)."""

@@ -35,6 +35,7 @@ rows, and writes K and V in one launch.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -52,11 +53,21 @@ def reset_launches() -> None:
 
 _LIB = None
 _raw_stream = None
+# Ranks of an in-process mesh launch from threads of their own: the
+# library loads once and each launch counts once.
+_LOCK = threading.Lock()
 
 
 def _lib():
     """The built kernel library with its C signatures declared, and the
     current-stream getter; both resolved once."""
+    if _LIB is None:
+        with _LOCK:
+            _load_lib()
+    return _LIB
+
+
+def _load_lib() -> None:
     global _LIB, _raw_stream
     if _LIB is None:
         from tpu_p2p_torch.utils.cuda_build import load
@@ -77,7 +88,6 @@ def _lib():
             torch._C, "_cuda_getCurrentRawStream",
             lambda idx: torch.cuda.current_stream(idx).cuda_stream)
         _LIB = lib
-    return _LIB
 
 
 def _launch(fn, dev: torch.device, *args) -> int:
@@ -203,7 +213,8 @@ def _launch_rows(what, entry, dsts, rows, idx, nstrides, ints, c):
         *[t.data_ptr() for t in idx], *ints, row_bytes, vec,
         _threads(c, row_bytes, vec))
     _check_launch(err, what)
-    launches[what] += 1
+    with _LOCK:
+        launches[what] += 1
 
 
 # ------------------------------------------------------------ paged pool

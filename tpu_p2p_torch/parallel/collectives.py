@@ -47,7 +47,14 @@
 - On a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh` (every rank in
   this process) the permutes take and return one tensor per rank; the
   ``xla`` transport there is a ``Tensor.copy_`` into the destination
-  rank's buffer, on the destination's stream.
+  rank's buffer, on the destination's stream. Along one line of a
+  multi-axis ``LocalMesh`` (a
+  :class:`~tpu_p2p_torch.parallel.runtime.LocalLine`, inside
+  ``LocalMesh.run``) :func:`psum`, :func:`psum_join`,
+  :func:`axis_all_to_all`, :func:`axis_all_gather` and the bucketed
+  ZeRO gather run as rendezvous of the line's rank threads, the sum in
+  line order; the ring collective-matmuls and the reductions over a
+  whole ``LocalMesh`` run on process meshes only.
 - ``cudaMalloc`` + ``cudaMemset`` buffers (``p2p_matrix.cc:124-130``) →
   :func:`make_payload`, each rank's row of a rank-tagged payload whose
   bytes equal the reference's ``_payload_np`` bit for bit, so transfers
@@ -210,7 +217,11 @@ def _reduction_group(mesh, what: str):
 def psum(x: torch.Tensor, mesh, *, group=None, inplace: bool = False):
     """The sum of every member's ``x`` (reference :748): a new tensor
     unless ``inplace``; integers wrap in two's complement, as XLA's and
-    numpy's do."""
+    numpy's do. ``mesh`` may be a ``LocalMesh`` line (the sum in line
+    order)."""
+    if hasattr(mesh, "all_reduce"):
+        y = mesh.all_reduce(x)
+        return x.copy_(y) if inplace else y
     group = group or _reduction_group(mesh, "all_reduce")
     y = x if inplace else x.clone()
     dist.all_reduce(y, group=group)
@@ -420,11 +431,17 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
 
 def axis_group(line, what: str):
     """The library group of ``line`` on its own device (raises
-    :class:`BackendError` where its ranks share a card)."""
+    :class:`BackendError` where its ranks share a card, ValueError on a
+    ``LocalMesh`` line, which has no group)."""
+    if line.in_process:
+        raise ValueError(f"{what} runs on a line of a process mesh, not "
+                         "of a LocalMesh")
     return _library_group(line, line.device, what)
 
 
 def _all_reduce_copy(x: torch.Tensor, line, what: str) -> torch.Tensor:
+    if line.in_process:
+        return line.all_reduce(x)
     group = axis_group(line, what)
     y = x.contiguous().clone()
     dist.all_reduce(y, group=group)
@@ -454,6 +471,8 @@ class _PsumConjugate(torch.autograd.Function):
 
 
 def _a2a(x: torch.Tensor, line, split_dim: int, concat_dim: int):
+    if line.in_process:
+        return line.all_to_all(x, split_dim, concat_dim)
     group = axis_group(line, "all_to_all")
     parts = torch.stack(x.chunk(line.size, dim=split_dim)).contiguous()
     out = torch.empty_like(parts)
@@ -513,6 +532,22 @@ def axis_all_to_all(x: torch.Tensor, line, split_dim: int,
         raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
                          f"split into {line.size} chunks")
     return _AllToAll.apply(x, line, split_dim, concat_dim)
+
+
+def axis_all_gather(x: torch.Tensor, line, dim: int) -> torch.Tensor:
+    """Tiled all-gather along the line: every member's ``x``
+    concatenated along ``dim`` in member order (the inverse of a split
+    of ``dim`` over the line). Not differentiable; ``line=None`` or a
+    line of one: ``x``."""
+    if line is None or line.size == 1:
+        return x
+    if line.in_process:
+        parts = line.all_gather(x.contiguous())
+    else:
+        group = axis_group(line, "all_gather")
+        parts = [torch.empty_like(x) for _ in range(line.size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 class _HopInFlight:
@@ -774,6 +809,12 @@ class _BucketInFlight:
         with torch.no_grad():
             self.flat = torch.cat([v.detach().reshape(-1)
                                    for _, v, _ in bucket])
+        if line.in_process:
+            # A LocalMesh line: a rendezvous, done when it returns.
+            with torch.no_grad():
+                self.rows = torch.cat(line.all_gather(self.flat))
+            self.work = None
+            return
         self.rows = self.flat.new_empty(line.size * self.flat.numel())
         self.work = dist.all_gather_into_tensor(
             self.rows, self.flat, group=group, async_op=True)
@@ -790,7 +831,8 @@ class _BucketGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, inflight, *shards):
-        inflight.work.wait()
+        if inflight.work is not None:
+            inflight.work.wait()
         n = inflight.line.size
         rows = inflight.rows.view(n, -1)
         ctx.line, ctx.group = inflight.line, inflight.group
@@ -813,8 +855,12 @@ class _BucketGather(torch.autograd.Function):
             g.reshape(shape[:d] + (n, shape[d]) + shape[d + 1:])
             .movedim(d, 0).reshape(n, -1)
             for g, (shape, d) in zip(grads, ctx.meta)], dim=1).contiguous()
-        flat = rows.new_empty(rows.shape[1])
-        dist.reduce_scatter_tensor(flat, rows.view(-1), group=ctx.group)
+        if ctx.line.in_process:
+            flat = ctx.line.all_reduce(rows)[ctx.line.index]
+        else:
+            flat = rows.new_empty(rows.shape[1])
+            dist.reduce_scatter_tensor(flat, rows.view(-1),
+                                       group=ctx.group)
         out, off = [], 0
         for shape, _ in ctx.meta:
             size = math.prod(shape)
@@ -857,7 +903,8 @@ def start_bucketed_all_gather(shards, line, bucket_bytes=None
     if line is None or line.size == 1:
         return PendingGather(list(shards),
                              {k: v for k, (v, _) in shards.items()}, ())
-    group = axis_group(line, "bucketed_all_gather")
+    group = (None if line.in_process
+             else axis_group(line, "bucketed_all_gather"))
     by_dtype: Dict[torch.dtype, list] = {}
     for k, (v, d) in shards.items():
         by_dtype.setdefault(v.dtype, []).append((k, v, d))

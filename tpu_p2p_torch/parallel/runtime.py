@@ -29,11 +29,21 @@ One process per rank, as in the reference program (``mpirun -n N``,
   every collective is the identity.
 - :meth:`Mesh.barrier` is a stream sync on the card, then a barrier of
   the host group: ``MPI_Barrier`` (``p2p_matrix.cc:146,201``).
-- :class:`LocalMesh` is the in-process counterpart of a 1-D
+- :class:`LocalMesh` is the in-process counterpart of a
   ``jax.sharding.Mesh`` that one controller drives whole, as the
   reference's disaggregated engine drives its ``mig`` mesh: each rank is
   a (device, stream) pair of this process, the same card may repeat, and
-  a collective takes one tensor per rank and returns one per rank.
+  a collective over the whole mesh takes one tensor per rank and returns
+  one per rank. It may have several named axes (the serve mesh's
+  ``("dp", "tp", "ep")``, row-major as a :class:`Mesh`): then
+  :meth:`LocalMesh.run` drives one thread a rank, each on the rank's
+  stream, through a per-rank body written for a process mesh, one rank
+  issuing at a time, from one rendezvous to the next. The body sees its
+  rank as a :class:`LocalRank` (``shape``, ``coords``, ``device``,
+  ``line(axis)``), and a collective along a line (:class:`LocalLine`: a
+  sum, an all-to-all, an all-gather) meets the line's other ranks at a
+  rendezvous with a timeout, so a rank that fails or never arrives fails
+  the run instead of hanging it.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import contextlib
 import datetime
 import math
 import os
+import threading
 from dataclasses import dataclass, field
 from typing import ClassVar, Dict, Optional, Sequence, Tuple
 
@@ -55,6 +66,8 @@ MESH_AXIS = "d"  # the one axis of the benchmark's 1-D meshes
 MESH_AXES_2D = ("x", "y")  # the axes of a 2-D mesh (--mesh-shape AxB)
 PG_TIMEOUT = datetime.timedelta(seconds=600)  # a collective waits this
 # long for a peer before failing, instead of gloo's half hour
+RENDEZVOUS_TIMEOUT_S = 120.0  # a LocalMesh rank waits this long at a
+# collective for the other ranks of its line
 
 
 def init_distributed() -> bool:
@@ -229,21 +242,200 @@ class Mesh:
         return int(t.item()) == 0
 
 
+class RendezvousError(RuntimeError):
+    """A :class:`LocalMesh` rank gave up at a collective: another rank of
+    its line failed, or did not arrive within the timeout."""
+
+
+class _Turns:
+    """Whose turn it is to issue: one rank thread of a
+    :class:`LocalMesh` runs at a time, from its start or a rendezvous to
+    the next, while the others sleep on this lock or at a rendezvous.
+    Every torch op drops and retakes the GIL; with the other ranks
+    asleep it is never contended, where ranks racing for it hand it back
+    and forth at every op (on an H100, a tp 4 serving step's host issue
+    took about twice as long that way as with the ranks in turns)."""
+
+    def __init__(self, timeout: float) -> None:
+        self.timeout = timeout
+        self.lock = threading.Lock()
+        self.mine = threading.local()
+
+    def take(self) -> None:
+        if not self.lock.acquire(timeout=self.timeout):
+            raise RendezvousError(f"a rank waited {self.timeout:g} s for "
+                                  "its turn to issue")
+        self.mine.held = True
+
+    def give(self) -> bool:
+        """Release this thread's turn; → whether it held one."""
+        if not getattr(self.mine, "held", False):
+            return False
+        self.mine.held = False
+        self.lock.release()
+        return True
+
+
+class _Rendezvous:
+    """Where the ranks of one line of a :class:`LocalMesh` meet: each
+    deposits its value, and after all have, each reads every value. The
+    slots alternate between two buffers by exchange: a rank's next
+    deposit goes to the other buffer, and the one after that waits at
+    the next meeting until every rank has read this one. A rank gives up
+    its turn to issue while it waits."""
+
+    def __init__(self, members: Tuple[int, ...], name: str,
+                 timeout: float, turns: _Turns) -> None:
+        self.members, self.name, self.timeout = members, name, timeout
+        self.turns = turns
+        self.barrier = threading.Barrier(len(members), timeout=timeout)
+        self.slots: list = [[None] * len(members) for _ in range(2)]
+        self.count: list = [0] * len(members)   # exchanges made, a rank
+
+    def reset(self) -> None:
+        self.barrier.reset()
+        self.count = [0] * len(self.members)
+
+    def exchange(self, i: int, value) -> list:
+        slots = self.slots[self.count[i] % 2]
+        self.count[i] += 1
+        slots[i] = value
+        held = self.turns.give()
+        try:
+            self.barrier.wait()
+        except threading.BrokenBarrierError:
+            raise RendezvousError(
+                f"rank {self.members[i]} at a collective of line "
+                f"{self.name} {self.members}: another rank failed or did "
+                f"not arrive within {self.timeout:g} s") from None
+        finally:
+            if held:
+                self.turns.take()
+        return list(slots)
+
+
+@dataclass(eq=False)
+class LocalLine:
+    """One rank's line of a :class:`LocalMesh` along an axis, the
+    in-process counterpart of a process mesh's ``line(axis)``: the
+    collectives of :mod:`tpu_p2p_torch.parallel.collectives` take it
+    wherever they take a line. Each collective is a rendezvous of the
+    line's ranks: on a card every rank's stream waits for the event its
+    peers recorded after making their inputs, and reads them (a copy
+    across cards); sums run in line order, so every rank's sum is
+    bitwise the same."""
+
+    rendezvous: _Rendezvous
+    index: int                     # this rank's index within the line
+    device: torch.device
+    in_process: ClassVar[bool] = True
+
+    @property
+    def size(self) -> int:
+        return len(self.rendezvous.members)
+
+    def _exchange(self, tensors: list) -> list:
+        """Deposit this rank's tensors; → every member's, in line order,
+        each readable on this rank's device and current stream."""
+        cuda = self.device.type == "cuda"
+        event = (torch.cuda.current_stream(self.device).record_event()
+                 if cuda else None)
+        got = self.rendezvous.exchange(self.index, (tensors, event))
+        if not cuda:
+            return [ts for ts, _ in got]
+        here = torch.cuda.current_stream(self.device)
+        out = []
+        for ts, ev in got:
+            mine = []
+            for t in ts:
+                here.wait_event(ev)
+                if t.device != self.device:
+                    # The copy orders after the source card's current
+                    # stream in this thread: it waits for the peer too.
+                    torch.cuda.current_stream(t.device).wait_event(ev)
+                    t = t.to(self.device)
+                else:
+                    t.record_stream(here)
+                mine.append(t)
+            out.append(mine)
+        return out
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the line, in line order, in ``x``'s dtype."""
+        parts = [p for (p,) in self._exchange([x.contiguous()])]
+        acc = parts[0].clone()
+        for p in parts[1:]:
+            acc.add_(p)
+        return acc
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """Tiled all-to-all: chunk ``j`` of ``x`` along ``split_dim`` to
+        member ``j``; the chunks received concatenated along
+        ``concat_dim`` in line order."""
+        chunks = list(x.chunk(self.size, dim=split_dim))
+        got = self._exchange(chunks)
+        return torch.cat([ts[self.index] for ts in got], dim=concat_dim)
+
+    def all_gather(self, x: torch.Tensor) -> list:
+        """Every member's ``x``, in line order."""
+        return [p for (p,) in self._exchange([x])]
+
+
+@dataclass(eq=False)
+class LocalRank:
+    """Rank ``index`` of a :class:`LocalMesh` as its per-rank body sees
+    it: the face of a process :class:`Mesh` seen from one rank
+    (``axis_names``, ``shape``, ``coords``, ``device``, ``line``), so
+    the placement helpers and the per-rank model code take either."""
+
+    mesh: "LocalMesh"
+    index: int
+    in_process: ClassVar[bool] = True
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.mesh.axis_names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return self.mesh.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices[self.index]
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return self.mesh.coords(self.index)
+
+    def line(self, axis: str) -> LocalLine:
+        return self.mesh.line(axis, self.index)
+
+
 @dataclass(eq=False)
 class LocalMesh:
-    """A 1-D mesh whose ranks all live in this process: rank ``i`` is
+    """A mesh whose ranks all live in this process: rank ``i`` is
     ``devices[i]`` with its own CUDA stream (and a side stream for the
     fused ship's push), or a CPU rank with neither. Ranks may share a
-    card; their kernels then run concurrently. Collectives over it take
-    and return one tensor per rank (``tpu_p2p_torch.parallel.pallas_dma``
-    and ``collectives``)."""
+    card; their kernels then run concurrently. Collectives over the
+    whole mesh take and return one tensor per rank
+    (``tpu_p2p_torch.parallel.pallas_dma`` and ``collectives``).
+
+    ``dims`` lays the ranks out row-major over ``axis_names`` (default:
+    one axis over all of them). :meth:`run` drives a per-rank body on
+    every rank at once, a thread a rank; a body's collectives along an
+    axis run on :meth:`line`, a rendezvous of the ranks that differ only
+    in that coordinate."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = (MESH_AXIS,)
+    dims: Tuple[int, ...] = ()     # extent per axis; () = (size,)
     windows: Dict = field(default_factory=dict)  # pallas_dma windows,
     # by capacity, one slab per rank
-    streams: Tuple = field(init=False)
-    side_streams: Tuple = field(init=False)
+    timeout: float = RENDEZVOUS_TIMEOUT_S
+    streams: Tuple = ()            # one a rank on cards; () = new ones
+    side_streams: Tuple = ()
     in_process: ClassVar[bool] = True
 
     def __post_init__(self) -> None:
@@ -259,11 +451,26 @@ class LocalMesh:
         check(len({d.type for d in devs}) == 1,
               f"LocalMesh ranks on mixed device types {devs}")
         self.devices = tuple(devs)
+        self.axis_names = tuple(self.axis_names)
+        self.dims = tuple(int(d) for d in self.dims) or (len(devs),)
+        check(len(self.dims) == len(self.axis_names)
+              and len(set(self.axis_names)) == len(self.axis_names),
+              f"LocalMesh shape {self.dims} over axes {self.axis_names}: "
+              "one distinct name per axis")
+        check(math.prod(self.dims) == len(devs),
+              f"LocalMesh shape {self.dims} != {len(devs)} ranks")
         cuda = devs[0].type == "cuda"
-        self.streams = tuple(torch.cuda.Stream(device=d) if cuda else None
-                             for d in devs)
-        self.side_streams = tuple(
-            torch.cuda.Stream(device=d) if cuda else None for d in devs)
+        if not self.streams:
+            self.streams = tuple(
+                torch.cuda.Stream(device=d) if cuda else None for d in devs)
+        if not self.side_streams:
+            self.side_streams = tuple(
+                torch.cuda.Stream(device=d) if cuda else None for d in devs)
+        check(len(self.streams) == len(self.side_streams) == len(devs),
+              "a LocalMesh takes one stream and one side stream a rank")
+        self._lines: Dict[Tuple[str, Tuple[int, ...]], _Rendezvous] = {}
+        self._lines_lock = threading.Lock()
+        self._turns = _Turns(self.timeout)
 
     @property
     def size(self) -> int:
@@ -276,7 +483,131 @@ class LocalMesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: self.size}
+        return dict(zip(self.axis_names, self.dims))
+
+    def coords(self, i: int) -> Dict[str, int]:
+        """Rank ``i``'s coordinate along each axis (row-major)."""
+        out = {}
+        for a, d in zip(reversed(self.axis_names), reversed(self.dims)):
+            out[a] = i % d
+            i //= d
+        return {a: out[a] for a in self.axis_names}
+
+    def index_of(self, coords: Dict[str, int]) -> int:
+        """The rank at ``coords`` (axes left out: coordinate 0)."""
+        i = 0
+        for a, d in zip(self.axis_names, self.dims):
+            i = i * d + int(coords.get(a, 0))
+        return i
+
+    def line_members(self, axis: str, i: int) -> Tuple[int, ...]:
+        """The ranks that differ from rank ``i`` only along ``axis``, in
+        order of that coordinate."""
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} not in {self.axis_names}")
+        c = self.coords(i)
+        return tuple(self.index_of({**c, axis: k})
+                     for k in range(self.shape[axis]))
+
+    def line(self, axis: str, i: int) -> LocalLine:
+        """Rank ``i``'s line along ``axis``; its rendezvous is made once
+        and shared by the line's ranks."""
+        members = self.line_members(axis, i)
+        key = (axis, members)
+        with self._lines_lock:
+            rv = self._lines.get(key)
+            if rv is None:
+                rv = _Rendezvous(members, axis, self.timeout, self._turns)
+                self._lines[key] = rv
+        return LocalLine(rv, members.index(i), self.devices[i])
+
+    def submesh(self, ranks: Sequence[int],
+                axis_names: Tuple[str, ...] = (MESH_AXIS,),
+                dims: Tuple[int, ...] = ()) -> "LocalMesh":
+        """The mesh of ``ranks`` of this one, laid out over
+        ``axis_names``/``dims``, each rank keeping its streams, so work
+        issued through either mesh as that rank is ordered on one
+        stream."""
+        ranks = list(ranks)
+        return LocalMesh(tuple(self.devices[r] for r in ranks),
+                         axis_names, dims, timeout=self.timeout,
+                         streams=tuple(self.streams[r] for r in ranks),
+                         side_streams=tuple(self.side_streams[r]
+                                            for r in ranks))
+
+    def rank(self, i: int) -> LocalRank:
+        """Rank ``i`` as its per-rank body sees it."""
+        if not 0 <= i < self.size:
+            raise ValueError(f"rank {i} of a LocalMesh of {self.size}")
+        return LocalRank(self, i)
+
+    def run(self, fn, *rows, ranks: Optional[Sequence[int]] = None,
+            threads: bool = True, sync: bool = True) -> list:
+        """``fn(self.rank(i), rows[0][i], rows[1][i], ...)`` for each
+        rank ``i`` of ``ranks`` (default: all), each issued on the rank's
+        stream (:meth:`on`) under the caller's grad mode, one rank issuing
+        at a time (``_Turns``); → the results in ``ranks`` order. With
+        ``sync`` the ranks' streams wait for the
+        caller's first and the caller's for theirs after (:meth:`enter`,
+        :meth:`exit`); without, the caller orders the inputs and reads
+        the results on the ranks' streams itself, so the ranks' work
+        does not wait for other work on the caller's stream. With
+        ``threads`` (and more than one rank) each
+        rank runs in a thread of its own, so the bodies meet at their
+        collectives; the ranks that take part in a collective must all be
+        in ``ranks``. A rank that raises breaks its peers' rendezvous,
+        and the first error that is not a :class:`RendezvousError` is
+        raised. Without ``threads`` the bodies run one after another
+        here, which is for bodies without a collective."""
+        ranks = list(range(self.size)) if ranks is None else list(ranks)
+        for r in rows:
+            self.rows(r, "LocalMesh.run")
+        grad = torch.is_grad_enabled()
+        out: list = [None] * len(ranks)
+
+        def body(k: int, i: int) -> None:
+            with torch.set_grad_enabled(grad), self.on(i):
+                out[k] = fn(self.rank(i), *(r[i] for r in rows))
+
+        if sync:
+            self.enter()
+        if not threads or len(ranks) <= 1:
+            for k, i in enumerate(ranks):
+                body(k, i)
+            if sync:
+                self.exit()
+            return out
+        errors: list = [None] * len(ranks)
+
+        def target(k: int, i: int) -> None:
+            try:
+                self._turns.take()
+                body(k, i)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors[k] = e
+                with self._lines_lock:
+                    for rv in self._lines.values():
+                        rv.barrier.abort()
+            finally:
+                self._turns.give()
+
+        workers = [threading.Thread(target=target, args=(k, i),
+                                    name=f"local-rank-{i}", daemon=True)
+                   for k, i in enumerate(ranks)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        failed = [e for e in errors if e is not None]
+        if failed:
+            with self._lines_lock:
+                for rv in self._lines.values():
+                    rv.reset()
+            raise next((e for e in failed
+                        if not isinstance(e, RendezvousError)), failed[0])
+        if sync:
+            self.exit()
+        return out
 
     @property
     def local_ranks(self) -> Tuple[int, ...]:

@@ -10,21 +10,27 @@ mid-decode (one token, or a speculative window) or idle. Under
 
 The batcher serves over a serve mesh (:func:`tpu_p2p_torch.serve.
 engine.serve_mesh`, a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh`
-with axis ``dp``), one controller driving every rank as the disagg
-engine does. With ``n = pool_shards(mesh)`` ranks, rank ``k`` holds pool
-shard ``k`` (``num_pages / n`` pages, its own trash page 0, shard-local
-tables), the slot rows ``[k·S/n, (k+1)·S/n)`` and the params (one copy
-for each distinct device). Each step splits the host input arrays by
-rows, one slice a rank (the reference's ``place_step_inputs``), issues
-every rank's mixed step on its own stream before reading any back, and
-joins the logits in rank order; the argmax stays on the host (numpy,
+over ``dp``, or over ``dp``/``tp``/``ep``), one controller driving
+every rank as the disagg engine does. With ``n = pool_shards(mesh)``
+(dp×ep) batch shards, shard ``k`` owns pool pages ``num_pages / n``
+(its own trash page 0, shard-local tables) and the slot rows
+``[k·S/n, (k+1)·S/n)``; the ranks of its tp line run the same rows,
+each holding its KV heads of the shard's pages and its shard of the
+params (a leaf the mesh does not split: one copy for each distinct
+device). Each step splits the host input arrays by rows, one slice a
+rank (the reference's ``place_step_inputs``), issues every rank's mixed
+step on its own stream (a thread a rank where the step meets at tp or
+ep joins) before reading any back, and joins the logits of each
+shard's lead rank in shard order; the argmax stays on the host (numpy,
 first maximum wins), as in the reference.
 
-**A rank with no active row runs nothing that step** (the reference's
-SPMD step runs it and parks its writes on the trash page). Its rows'
+**A shard with no active row runs nothing that step** (the reference's
+SPMD step runs it and parks its writes on the trash page), unless it
+shares a dp coordinate with an active shard: the ep line's all-to-alls
+need every member (and ZeRO-stored params need every rank). Such rows'
 logits are never read — an occupied slot always has an active row — so
 the streams are the same, and the KV-write kernel launches ``stages``
-times per rank with at least one active row, per busy step.
+times per running rank, per busy step.
 
 Pages are allocated lazily (admission reserves the prefill's pages,
 decode grows the table on demand) and a dry free list preempts the
@@ -54,7 +60,13 @@ import numpy as np
 import torch
 
 from tpu_p2p_torch.config import SERVE_STOPS
-from tpu_p2p_torch.models.decode import ngram_propose, spec_verify
+from tpu_p2p_torch.models.decode import (
+    lead_ranks,
+    ngram_propose,
+    rank_shard,
+    spec_verify,
+)
+from tpu_p2p_torch.models.flagship import place_local_params
 from tpu_p2p_torch.serve.paged_cache import (
     OutOfPages,
     PagePool,
@@ -289,14 +301,17 @@ class Batcher:
         self.schedule: List[Dict[str, np.ndarray]] = [] if dry else None
         self._step, self.pools, self._copy = None, None, None
         self._params: Dict[torch.device, dict] = {}
+        self._shards: List[dict] = []
         if dry:
             return
         self._step = make_paged_lm_step(
-            cfg, page_len=page_len, max_blocks=max_blocks, chunk=chunk)
-        for dev in mesh.devices:
-            if dev not in self._params:
-                self._params[dev] = {k: v.to(dev) for k, v in
-                                     params.items()}
+            mesh, cfg, page_len=page_len, max_blocks=max_blocks,
+            chunk=chunk)
+        self._shards = place_local_params(params, mesh, cfg)
+        for dev, shard in zip(mesh.devices, self._shards):
+            # A dp-only mesh's shard is the whole params: one copy a
+            # distinct device, shared by its ranks.
+            self._params.setdefault(dev, shard)
         self.pools = init_pool_shards(cfg, num_pages, page_len, mesh)
         self._copy = make_page_copy(mesh)
         if mesh.streams[0] is not None:
@@ -546,46 +561,37 @@ class Batcher:
 
     # ------------------------------------------------------- stepping
 
-    def _issue(self, k: int, tokens, pos, n_active, table):
-        """Issue rank ``k``'s mixed step over its rows on its stream; →
-        its logits, still on the device."""
-        dev = self.mesh.devices[k]
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                dev, torch.int64)
-
-        with self.mesh.on(k):
-            self.pools[k], logits = self._step(
-                self._params[dev], self.pools[k], put(tokens), put(pos),
-                put(n_active), put(table))
-        return logits
-
-    def _host(self, k: int, logits) -> np.ndarray:
-        """Rank ``k``'s logits on the host (waits for its stream)."""
-        with self.mesh.on(k):
+    def _host(self, i: int, logits) -> np.ndarray:
+        """Rank ``i``'s logits on the host (waits for its stream)."""
+        with self.mesh.on(i):
             return logits.cpu().numpy()
 
     def _run_step(self, tokens, pos, n_active) -> np.ndarray:
         """One mixed step over the mesh: the host arrays split by rows,
-        one slice a rank, every active rank's step issued before any
-        result is read back; → the ``[B, C, vocab]`` float32 logits on
-        the host, joined in rank order (an inactive rank's rows zero)."""
-        per = self.slots_n // self.n_shards
-        issued = []
-        for k in range(self.n_shards):
-            rows = slice(k * per, (k + 1) * per)
-            if n_active[rows].any():
-                issued.append((k, rows, self._issue(
-                    k, tokens[rows], pos[rows], n_active[rows],
-                    self.tables[rows])))
+        one slice a rank (its shard's), every running rank's step issued
+        before any result is read back; → the ``[B, C, vocab]`` float32
+        logits on the host, joined in shard order from each shard's
+        lead rank (an inactive shard's rows zero)."""
+        mesh, per = self.mesh, self.slots_n // self.n_shards
+        rows = [slice(rank_shard(mesh, i) * per,
+                      (rank_shard(mesh, i) + 1) * per)
+                for i in range(mesh.size)]
+        active = [k for k in range(self.n_shards)
+                  if n_active[k * per:(k + 1) * per].any()]
+        self.pools, logits = self._step(
+            self._shards, self.pools, [tokens[r] for r in rows],
+            [pos[r] for r in rows], [n_active[r] for r in rows],
+            [self.tables[r] for r in rows],
+            ranks=self._step.ranks_for(active), sync=False)
+        lead = lead_ranks(mesh)
         if self.n_shards == 1:
-            return self._host(0, issued[0][2])
-        logits = np.zeros((self.slots_n, self.chunk, self.cfg.vocab),
-                          np.float32)
-        for k, rows, lg in issued:
-            logits[rows] = self._host(k, lg)
-        return logits
+            return self._host(lead[0], logits[lead[0]])
+        out = np.zeros((self.slots_n, self.chunk, self.cfg.vocab),
+                       np.float32)
+        for k in active:
+            out[k * per:(k + 1) * per] = self._host(lead[k],
+                                                    logits[lead[k]])
+        return out
 
     def step(self) -> List[Request]:
         """Admit, grow/preempt, fork, run one mixed step, advance every

@@ -5,18 +5,23 @@ The colocated batcher runs every slot's chunked prefill and its decode
 in one mixed step, so a burst of long prompts steals step time from
 every decode in flight. Here the ranks split (:func:`build_disagg_meshes`):
 
-- **prefill** runs on rank 0: chunked prefill only, its own page pool
-  tagged ``"prefill"``;
-- **decode** runs on ranks ``1..n-1``, one replica each: single-token
+- **prefill** runs on ranks ``0..p-1``, a ``1 × tp`` mesh with
+  ``p = prefill_tp``: chunked prefill only, tensor-parallel (KV heads,
+  attention heads and the FFN split over tp, the joins in the ranks'
+  threads), its own page pool tagged ``"prefill"`` with each rank
+  holding its heads;
+- **decode** runs on ranks ``p..n-1``, one replica each: single-token
   decode (or a speculative window) only, one pool shard per replica,
   tagged ``"decode"``, the decode slots split evenly over the replicas;
 - **migration**: when a request's prefill completes (its first token
   comes off the last chunk's logits), its KV pages move prefill →
-  decode as an explicit transfer over the ``mig`` mesh
-  (:class:`KvMigrator`): the edge ``(0, 1 + shard)`` through
+  decode as explicit transfers over the ``mig`` mesh
+  (:class:`KvMigrator`): one edge ``(src, p + shard)`` per prefill rank
+  ``src`` per projection, each carrying the rank's head slice, through
   :func:`tpu_p2p_torch.parallel.collectives.chunked_ppermute_compute`,
   over ``transport="xla"`` (a library copy) or ``"pallas_dma"`` (the
-  peer-push and fused-ship kernels).
+  peer-push and fused-ship kernels); the arrivals join on the head axis
+  at the destination.
 
 One controller drives every rank, as in the reference: the ``mig`` mesh
 is a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh` of this
@@ -47,6 +52,7 @@ import torch
 
 from tpu_p2p_torch.config import SERVE_STOPS, TRANSPORTS
 from tpu_p2p_torch.models.decode import ngram_propose, spec_verify
+from tpu_p2p_torch.models.flagship import place_local_params
 from tpu_p2p_torch.parallel import collectives as C
 from tpu_p2p_torch.parallel.runtime import LocalMesh
 from tpu_p2p_torch.serve.batcher import (
@@ -60,7 +66,7 @@ from tpu_p2p_torch.serve.paged_cache import (
     PagePool,
     PrefixIndex,
     TRASH_PAGE,
-    init_paged_pool,
+    init_pool_shards,
     kv_page_bytes,
     make_paged_lm_step,
     page_copy,
@@ -85,18 +91,17 @@ __all__ = [
 MIG_AXIS = "mig"
 
 
-def build_disagg_meshes(prefill_tp: int = 0,
-                        devices: Sequence = ()) -> Tuple[list, list,
-                                                         LocalMesh]:
+def build_disagg_meshes(prefill_tp: int = 0, devices: Sequence = ()
+                        ) -> Tuple[LocalMesh, LocalMesh, LocalMesh]:
     """Partition ``devices`` into the disagg ranks, validated as the
-    reference validates its submeshes: → ``(prefill devices, decode
-    devices, mig mesh)``, the mig mesh a ``LocalMesh`` over all of them,
-    prefill ranks first (the migration edges' numbering).
+    reference validates its submeshes: → ``(prefill mesh (1×tp over
+    ("dp", "tp")), decode mesh (dp replicas), mig mesh)``, the mig mesh
+    a ``LocalMesh`` over all of them, prefill ranks first (the migration
+    edges' numbering), the other two its submeshes (the same ranks and
+    streams).
 
     ``prefill_tp`` is the prefill side's tp size and rank count; 0 =
-    auto, half the devices. Tensor-parallel serving is not ported, so
-    only ``prefill_tp == 1`` runs (the auto value reaches it at 2
-    devices only)."""
+    auto, half the devices."""
     devices = list(devices)
     n = len(devices)
     if n < 2:
@@ -111,13 +116,15 @@ def build_disagg_meshes(prefill_tp: int = 0,
             f"1×tp prefill submesh and >= 1 decode replica "
             f"(1 <= prefill_tp <= {n - 1})"
         )
-    if p > 1:
-        raise NotImplementedError(
-            f"prefill_tp={p}: tensor-parallel prefill is not ported yet; "
-            "pass --prefill-tp 1 (the auto value, half the devices, is 1 "
-            f"only on 2 devices; this run has {n})"
-        )
-    return devices[:p], devices[p:], LocalMesh(devices, (MIG_AXIS,))
+    mig = LocalMesh(devices, (MIG_AXIS,))
+    return _split_mig(mig, p) + (mig,)
+
+
+def _split_mig(mig: LocalMesh, p: int) -> Tuple[LocalMesh, LocalMesh]:
+    """The prefill (``1 × p`` over dp, tp) and decode (dp) submeshes of
+    the ``mig`` mesh, its first ``p`` ranks and the rest."""
+    return (mig.submesh(range(p), ("dp", "tp"), (1, p)),
+            mig.submesh(range(p, mig.size), ("dp",)))
 
 
 def free_pages_first(blocks: int, candidates: Sequence[Tuple[int, int]],
@@ -131,63 +138,88 @@ def free_pages_first(blocks: int, candidates: Sequence[Tuple[int, int]],
 
 class KvMigrator:
     """KV-page migration from the prefill pool to a decode shard's pool
-    over the ``mig`` mesh: **extract** (the request's pages out of the
-    prefill pool, ``[stages, blocks, H_kv, page_len, Dh]`` per
-    projection, on the prefill rank's stream), **ship** (one directed
-    edge ``(0, 1 + shard)`` per projection through
+    over the ``mig`` mesh, whose first ``n_prefill`` ranks are the
+    prefill side's tp ranks: **extract** (the request's pages out of
+    each prefill rank's pool block, ``[stages, blocks, H_kv / tp,
+    page_len, Dh]`` per projection, on the rank's stream), **ship** (one
+    directed edge ``(src, n_prefill + shard)`` per prefill rank ``src``
+    per projection through
     :func:`~tpu_p2p_torch.parallel.collectives.chunked_ppermute_compute`
     over ``page_len`` in ``chunks`` hops; the decode ranks' inputs are
     cached zero rows, the no-arrival rows of the reference's
-    ``_to_mig_rows``), and **deposit** (the arrival into the
+    ``_to_mig_rows``), the arrivals joined on the head axis in prefill
+    rank order, and **deposit** (the full-head block into the
     destination shard's fresh pages, the other shards' zero arrivals
     into their trash page). A migration ends when every rank's stream
     has drained, as the reference's ends in ``block_until_ready``."""
 
     def __init__(self, mig: LocalMesh, cfg, *, page_len: int,
-                 transport: str = "xla", chunks: int = 1) -> None:
+                 transport: str = "xla", chunks: int = 1,
+                 n_prefill: int = 1) -> None:
         if transport not in TRANSPORTS:
             raise ValueError(
                 f"unknown transport {transport!r}; expected one of "
                 f"{TRANSPORTS}"
             )
+        if not 1 <= n_prefill < mig.size:
+            raise ValueError(
+                f"{n_prefill} prefill ranks on a mig mesh of {mig.size}")
         self.mig = mig
         self.cfg = cfg
         self.page_len = int(page_len)
         self.transport = transport
         self.chunks = max(1, int(chunks))
-        self.n_prefill = 1
+        self.n_prefill = int(n_prefill)
         self._zero_rows: Dict[tuple, torch.Tensor] = {}
 
     def block_bytes(self, blocks: int) -> int:
         """Bytes one migration of ``blocks`` pages ships: K and V, full
-        heads."""
+        heads (the sum over the prefill ranks' head slices)."""
         return kv_page_bytes(self.cfg, self.page_len) * int(blocks)
 
-    def _extract(self, pre_pool, pages: Sequence[int]):
-        dev = self.mig.devices[0]
-        with self.mig.on(0):
-            idx = torch.tensor(list(pages), dtype=torch.int64, device=dev)
-            return [pre_pool[k].index_select(1, idx) for k in ("k", "v")]
+    def _extract(self, pre_pools, pages: Sequence[int]) -> list:
+        """Per projection, each prefill rank's head slice of the pages,
+        made on its stream; the caller's stream then waits for them."""
+        out = {"k": [], "v": []}
+        for i, pool in enumerate(pre_pools):
+            dev = self.mig.devices[i]
+            with self.mig.on(i):
+                idx = torch.tensor(list(pages), dtype=torch.int64,
+                                   device=dev)
+                for proj in out:
+                    out[proj].append(pool[proj].index_select(1, idx))
+            if self.mig.streams[i] is not None:
+                torch.cuda.current_stream(dev).wait_stream(
+                    self.mig.streams[i])
+        return [out["k"], out["v"]]
 
-    def _rows(self, block: torch.Tensor) -> list:
-        """The ship's per-rank input: the prefill block on rank 0, cached
-        zeros of its shape on every decode rank."""
-        rows = [block]
-        for r in range(1, self.mig.size):
-            key = (tuple(block.shape), block.dtype, r)
+    def _rows(self, blocks: list) -> list:
+        """The ship's per-rank input: each prefill rank's head slice, and
+        cached zeros of that shape on every decode rank."""
+        rows = list(blocks)
+        for r in range(self.n_prefill, self.mig.size):
+            key = (tuple(blocks[0].shape), blocks[0].dtype, r)
             z = self._zero_rows.get(key)
             if z is None:
-                z = torch.zeros(block.shape, dtype=block.dtype,
+                z = torch.zeros(blocks[0].shape, dtype=blocks[0].dtype,
                                 device=self.mig.devices[r])
                 self._zero_rows[key] = z
             rows.append(z)
         return rows
 
-    def _ship(self, block: torch.Tensor, dst_rank: int) -> list:
-        return C.chunked_ppermute_compute(
-            lambda c, _i: c, self._rows(block), self.mig,
-            ((0, int(dst_rank)),), chunk_dim=3, chunks=self.chunks,
-            transport=self.transport)
+    def _ship(self, blocks: list, dst_rank: int) -> list:
+        """Every prefill rank's slice to ``dst_rank``, one edge a prefill
+        rank; → per mig rank, the arrivals joined on the head axis."""
+        rows = self._rows(blocks)
+        parts = [C.chunked_ppermute_compute(
+            lambda c, _i: c, rows, self.mig, ((src, int(dst_rank)),),
+            chunk_dim=3, chunks=self.chunks, transport=self.transport)
+            for src in range(self.n_prefill)]
+        if self.n_prefill == 1:
+            return parts[0]
+        return [None if r < self.n_prefill
+                else torch.cat([p[r] for p in parts], dim=2)
+                for r in range(self.mig.size)]
 
     def _deposit(self, dec_pools, arrived, dec_pages: Sequence[int],
                  dst_shard: int) -> None:
@@ -209,20 +241,23 @@ class KvMigrator:
                         rows[r].record_stream(own)
                     pool[proj][:, idx] = rows[r].to(pool[proj].dtype)
 
-    def migrate(self, pre_pool, prefill_pages: List[int], dec_pools,
+    def migrate(self, pre_pools, prefill_pages: List[int], dec_pools,
                 dec_pages: List[int], dst_shard: int) -> None:
         """Move one request's resident KV pages across, into
-        ``dec_pools[dst_shard]`` in place. ``prefill_pages`` /
-        ``dec_pages`` are the shard-local page indices on each side (same
-        length)."""
+        ``dec_pools[dst_shard]`` in place. ``pre_pools``: each prefill
+        rank's pool block (one pool alone for one prefill rank);
+        ``prefill_pages`` / ``dec_pages`` are the shard-local page
+        indices on each side (same length)."""
+        if isinstance(pre_pools, dict):
+            pre_pools = [pre_pools]
+        if len(pre_pools) != self.n_prefill:
+            raise ValueError(f"{len(pre_pools)} prefill pool blocks for "
+                             f"{self.n_prefill} prefill ranks")
         if len(dec_pages) != len(prefill_pages):
             raise ValueError(
                 f"migration of {len(prefill_pages)} prefill pages into "
                 f"{len(dec_pages)} decode pages")
-        blocks = self._extract(pre_pool, prefill_pages)
-        if self.mig.streams[0] is not None:
-            torch.cuda.current_stream(self.mig.devices[0]).wait_stream(
-                self.mig.streams[0])
+        blocks = self._extract(pre_pools, prefill_pages)
         arrived = [self._ship(b, self.n_prefill + int(dst_shard))
                    for b in blocks]
         self._deposit(dec_pools, arrived, dec_pages, int(dst_shard))
@@ -255,7 +290,7 @@ class DisaggBatcher:
                  stop: str = "length", stop_seed: int = 0,
                  eos_prob: float = 0.0, prefix_cache: bool = False,
                  spec_k: int = 0, transport: str = "xla",
-                 migrate_chunks: int = 1,
+                 migrate_chunks: int = 1, prefill_tp: int = 1,
                  clock: Callable[[], float] = time.monotonic) -> None:
         if stop not in SERVE_STOPS:
             raise ValueError(
@@ -281,7 +316,7 @@ class DisaggBatcher:
         if n_decode_shards is None:
             if mig is None:
                 raise ValueError("dry DisaggBatcher needs n_decode_shards")
-            n_decode_shards = mig.size - 1
+            n_decode_shards = mig.size - prefill_tp
         if slots % n_decode_shards:
             raise ValueError(
                 f"decode slots ({slots}) must divide by the decode "
@@ -334,40 +369,39 @@ class DisaggBatcher:
         self.kv_migrate_bytes = 0
         self.migrate_wall_s = 0.0
         self.migrator = None
-        self.pre_pool = self.dec_pools = None
-        self._step = None
-        self._params: Dict[torch.device, dict] = {}
+        self.pre_pools = self.dec_pools = None
+        self._step_p = self._step_d = None
+        self.n_pre = int(prefill_tp)
         if dry:
             self._dry_block_bytes = (kv_page_bytes(cfg, page_len)
                                      if cfg is not None else 0)
             return
-        if mig is None or mig.size != 1 + n_decode_shards:
+        if mig is None or mig.size != self.n_pre + n_decode_shards:
             raise ValueError(
-                f"a mig mesh of 1 prefill + {n_decode_shards} decode "
-                "ranks is needed")
+                f"a mig mesh of {self.n_pre} prefill + {n_decode_shards} "
+                "decode ranks is needed")
         if num_pages % n_decode_shards:
             raise ValueError(
                 f"num_pages ({num_pages}) must divide by the decode "
                 f"replica count ({n_decode_shards})")
-        self._step = make_paged_lm_step(cfg, page_len=page_len,
-                                        max_blocks=max_blocks, chunk=chunk)
-        for dev in mig.devices:
-            if dev not in self._params:
-                self._params[dev] = {k: v.to(dev) for k, v in
-                                     params.items()}
-        self.pre_pool = init_paged_pool(cfg, prefill_pages, page_len,
-                                        mig.devices[0])
-        self.dec_pools = [
-            init_paged_pool(cfg, num_pages // n_decode_shards, page_len,
-                            mig.devices[1 + d])
-            for d in range(n_decode_shards)]
+        pre_mesh, dec_mesh = _split_mig(mig, self.n_pre)
+        geo = dict(page_len=page_len, max_blocks=max_blocks, chunk=chunk)
+        self._step_p = make_paged_lm_step(pre_mesh, cfg, **geo)
+        self._step_d = make_paged_lm_step(dec_mesh, cfg, **geo)
+        self._params_p = place_local_params(params, pre_mesh, cfg)
+        self._params_d = place_local_params(params, dec_mesh, cfg)
+        self.pre_pools = init_pool_shards(cfg, prefill_pages, page_len,
+                                          pre_mesh)
+        self.dec_pools = init_pool_shards(cfg, num_pages, page_len,
+                                          dec_mesh)
         if mig.streams[0] is not None:
             # Pools and params were made on the caller's stream.
             for i, s in enumerate(mig.streams):
                 s.wait_stream(torch.cuda.current_stream(mig.devices[i]))
         self.migrator = KvMigrator(mig, cfg, page_len=page_len,
                                    transport=transport,
-                                   chunks=migrate_chunks)
+                                   chunks=migrate_chunks,
+                                   n_prefill=self.n_pre)
 
     # ------------------------------------------------------ scheduling
 
@@ -520,9 +554,9 @@ class DisaggBatcher:
         worth the loud OutOfPages."""
         new = self._alloc_evict_p(1)[0]
         old = s.pages[blk]
-        if self.pre_pool is not None:
-            with self.mig.on(0):
-                page_copy(self.pre_pool, old, new)
+        for i, pool in enumerate(self.pre_pools or ()):
+            with self.mig.on(i):
+                page_copy(pool, old, new)
         s.pages[blk] = new
         self.tables_p[i, blk] = new
         self.pool_p.free([old], 0)
@@ -643,8 +677,8 @@ class DisaggBatcher:
             dec_pages = self.pool_d.alloc_n(blocks, shard)
             if not self.dry:
                 t0 = self.clock()
-                self.migrator.migrate(self.pre_pool, pages, self.dec_pools,
-                                      dec_pages, shard)
+                self.migrator.migrate(self.pre_pools, pages,
+                                      self.dec_pools, dec_pages, shard)
                 self.migrate_wall_s += self.clock() - t0
             self.pool_p.free(pages, 0)
             s = _Slot(req, dec_pages, entry["prefill_len"])
@@ -671,20 +705,6 @@ class DisaggBatcher:
 
     # ------------------------------------------------------- stepping
 
-    def _run_side(self, rank: int, pool, tokens, pos, n_active, table):
-        """Issue one mixed step as ``rank`` on its stream; → the logits
-        still on the device."""
-        dev = self.mig.devices[rank]
-
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                dev, torch.int64)
-
-        with self.mig.on(rank):
-            _, logits = self._step(self._params[dev], pool, put(tokens),
-                                   put(pos), put(n_active), put(table))
-        return logits
-
     def _host(self, rank: int, logits) -> np.ndarray:
         with self.mig.on(rank):
             return logits.cpu().numpy()
@@ -692,27 +712,31 @@ class DisaggBatcher:
     def _run_steps(self, tok_p, pos_p, act_p, tok_d, pos_d, act_d):
         """Both sides' mixed steps, every rank's issued before any
         result is read back; → host logits of each bank (None where the
-        bank was idle). A decode shard with no active row runs nothing."""
-        logits_p = pending = None
+        bank was idle). The prefill side's tp ranks run at once (a
+        thread each); a decode shard with no active row runs nothing."""
+        logits_p = None
+        pre = []
         if int(act_p.sum()):
-            pending = self._run_side(0, self.pre_pool, tok_p, pos_p, act_p,
-                                     self.tables_p)
+            n = self.n_pre
+            _, pre = self._step_p(self._params_p, self.pre_pools,
+                                  [tok_p] * n, [pos_p] * n, [act_p] * n,
+                                  [self.tables_p] * n, sync=False)
         per = self.slots_n // self.n_dec
-        shards = []
-        for d in range(self.n_dec):
-            rows = slice(d * per, (d + 1) * per)
-            if int(act_d[rows].sum()):
-                shards.append((d, rows, self._run_side(
-                    1 + d, self.dec_pools[d], tok_d[rows], pos_d[rows],
-                    act_d[rows], self.tables_d[rows])))
-        if pending is not None:
-            logits_p = self._host(0, pending)
+        rows = [slice(d * per, (d + 1) * per) for d in range(self.n_dec)]
+        active = [d for d in range(self.n_dec) if int(act_d[rows[d]].sum())]
+        _, dec = self._step_d(
+            self._params_d, self.dec_pools, [tok_d[r] for r in rows],
+            [pos_d[r] for r in rows], [act_d[r] for r in rows],
+            [self.tables_d[r] for r in rows],
+            ranks=self._step_d.ranks_for(active), sync=False)
+        if pre:
+            logits_p = self._host(0, pre[0])
         logits_d = None
-        if shards:
+        if active:
             logits_d = np.zeros((self.slots_n, self.chunk, self.cfg.vocab),
                                 np.float32)
-            for d, rows, lg in shards:
-                logits_d[rows] = self._host(1 + d, lg)
+            for d in active:
+                logits_d[rows[d]] = self._host(self.n_pre + d, dec[d])
         return logits_p, logits_d
 
     def step(self) -> List[Request]:
@@ -879,8 +903,9 @@ def simulate_disagg_schedule(trace: List[Request], *, slots: int,
 def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
                       sc, emit=None, clock=time.monotonic) -> dict:
     """Serve ``trace`` to completion on the disaggregated ranks of
-    ``mig`` (rank 0 prefill, the rest decode replicas); ``params`` on
-    any device are copied once to each card of the mesh. → the
+    ``mig`` (the first ``sc.prefill_tp`` ranks, or 1 where it is 0, the
+    tensor-parallel prefill; the rest decode replicas); ``params`` on
+    any device are placed on each rank (its shard). → the
     colocated engine's summary schema plus ``kv_migrated`` /
     ``kv_migrate_blocks`` / ``kv_migrate_bytes`` /
     ``serve_kv_migrate_gbps`` (shipped bits over migration wall) /
@@ -896,7 +921,8 @@ def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
         deadline_steps=sc.deadline_steps, stop=sc.stop, stop_seed=sc.seed,
         eos_prob=sc.eos_prob, prefix_cache=sc.prefix_cache,
         spec_k=sc.spec_k, transport=sc.transport,
-        migrate_chunks=sc.migrate_chunks, clock=clock)
+        migrate_chunks=sc.migrate_chunks, prefill_tp=sc.prefill_tp or 1,
+        clock=clock)
     t0 = clock()
     finished = batcher.run(trace)
     mig.synchronize()

@@ -8,20 +8,21 @@ rank on the ``dp`` axis, one pool shard and slot slice a rank, one
 controller), and reports aggregate tokens/s
 (prompt + generated), time-to-first-token p50/p99 and per-token latency
 p50/p99. ``--obs-jsonl`` appends one ``{"obs": "request"}`` span record
-per request plus one ``{"obs": "serve_summary"}`` record.
-``--batching both`` runs continuous and static batching on the same
-trace. ``--disagg`` serves the trace disaggregated (prefill on one rank,
-decode on the others, KV pages migrated between them,
-:mod:`tpu_p2p_torch.serve.disagg`), then runs the colocated continuous
-twin on the full mesh and exits nonzero unless every token stream is
-bitwise the twin's. ``--reuse`` runs the graded KV-reuse smoke (from 2
-ranks up) and ``--chaos`` the injected-fault smoke
-(:func:`tpu_p2p_torch.serve.resilience.chaos_main`).
+per request plus one ``{"obs": "serve_summary"}`` record; ``--trace
+PATH`` writes the same records as a Chrome trace
+(:mod:`tpu_p2p_torch.obs.trace`). ``--batching both`` runs continuous
+and static batching on the same trace. ``--disagg`` serves the trace
+disaggregated (a tensor-parallel prefill on the first ``--prefill-tp``
+ranks, half of them by default, decode replicas on the others, KV pages
+migrated between them, :mod:`tpu_p2p_torch.serve.disagg`), then runs
+the colocated continuous twin on the full mesh and exits nonzero unless
+every token stream is bitwise the twin's. ``--reuse`` runs the graded
+KV-reuse smoke (from 2 ranks up) and ``--chaos`` the injected-fault
+smoke (:func:`tpu_p2p_torch.serve.resilience.chaos_main`).
 
-Runs on ``--device cuda`` (the default: every visible card, one dp rank
+Runs on ``--device cuda`` (the default: every visible card, one rank
 each, and raises when there is none) or ``--device cpu`` (``--cpu-mesh
-N``: N CPU ranks). Not ported yet, and rejected: ``--trace`` and
-``--prefill-tp`` above 1.
+N``: N CPU ranks).
 """
 
 from __future__ import annotations
@@ -253,12 +254,15 @@ def _r3(v):
     return round(v, 3) if v is not None else None
 
 
-def _engine_model(sc: ServeConfig) -> FlagshipConfig:
+def _engine_model(sc: ServeConfig, prefill_tp: int = 1) -> FlagshipConfig:
     """The CLI's serving model: a small dense-FFN LM (RoPE + RMSNorm,
     GQA 2:1) — the reference CLI's model, so the two engines serve the
-    same weights."""
+    same weights. ``prefill_tp`` (the disagg prefill side's tp size)
+    widens the head counts just enough that the KV heads divide it, as
+    the reference does: ``prefill_tp <= 2`` keeps the 4:2 model."""
+    kv = 2 if prefill_tp <= 2 else int(prefill_tp)
     return FlagshipConfig(
-        batch=sc.slots, seq=16, heads=4, kv_heads=2, head_dim=16,
+        batch=sc.slots, seq=16, heads=2 * kv, kv_heads=kv, head_dim=16,
         stages=2, microbatches=1, dense_ffn=True, moe_mult=2,
         vocab=sc.vocab, norm=True, rope=True, dtype=sc.dtype,
     )
@@ -324,15 +328,14 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="append per-request span records + the serve "
                         "summary to this JSONL timeline")
     p.add_argument("--disagg", action="store_true",
-                   help="disaggregated prefill/decode: prefill on the "
-                        "first rank, decode replicas on the others, "
-                        "each request's KV pages migrated across; also "
-                        "runs the colocated continuous twin and checks "
-                        "token-stream parity")
+                   help="disaggregated prefill/decode: a tensor-parallel "
+                        "prefill on the first ranks, decode replicas on "
+                        "the others, each request's KV pages migrated "
+                        "across; also runs the colocated continuous twin "
+                        "and checks token-stream parity")
     p.add_argument("--prefill-tp", type=int, default=0,
                    help="--disagg: prefill submesh tp size == its "
-                        "device count (0 = half the devices; only 1 is "
-                        "ported)")
+                        "device count (0 = half the devices)")
     p.add_argument("--prefill-slots", type=int, default=4,
                    help="--disagg: prefill-side slot batch")
     p.add_argument("--migrate-chunks", type=int, default=1,
@@ -347,7 +350,11 @@ def _build_parser() -> argparse.ArgumentParser:
                         "a plain trace (its own flags: --detect-steps, "
                         "--device, --cpu-mesh)")
     p.add_argument("--trace", default=None, metavar="PATH",
-                   help="not ported yet (rejected)")
+                   help="export the run's request lifecycles (queue/"
+                        "prefill/decode spans, one track per slot lane, "
+                        "disagg migration waits) as a Chrome-trace/"
+                        "Perfetto JSON timeline; works with or without "
+                        "--obs-jsonl")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device to serve on (default cuda: every visible "
                         "card, one dp rank each; raises without one)")
@@ -382,9 +389,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # over whole, so an engine-only flag fails loudly.
         return R.chaos_main([a for a in argv if a != "--chaos"])
     args = _build_parser().parse_args(argv)
-    if args.trace:
-        print("serve --trace: not ported yet", file=sys.stderr)
-        return 2
     if args.disagg and args.batching != "both":
         # The disagg engine is continuous by construction and runs its
         # own A/B against the colocated twin.
@@ -396,16 +400,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return _reuse_cli(args, devices)
         n = len(devices)
         n_dec = n
+        prefill_tp = 0
         if args.disagg:
             from tpu_p2p_torch.serve.disagg import build_disagg_meshes
 
-            try:
-                _, dec_devs, mig = build_disagg_meshes(args.prefill_tp,
-                                                       devices)
-            except NotImplementedError as e:
-                print(f"serve --disagg: {e}", file=sys.stderr)
-                return 2
-            n_dec = len(dec_devs)
+            # Validate the partition before anything is built.
+            pre, dec, mig = build_disagg_meshes(args.prefill_tp, devices)
+            prefill_tp, n_dec = pre.shape["tp"], dec.size
         mesh = serve_mesh(n, devices)
         prompt_rng = parse_range(args.prompt_len)
         gen_rng = parse_range(args.gen_len)
@@ -425,7 +426,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             queue_depth=args.queue_depth,
             deadline_steps=args.deadline_steps, stop=args.stop,
             eos_prob=args.eos_prob, disagg=args.disagg,
-            prefill_tp=1 if args.disagg else 0,
+            prefill_tp=prefill_tp,
             prefill_slots=args.prefill_slots,
             # The prefill pool holds active prefills plus the
             # migration queue's residents waiting on decode capacity.
@@ -434,15 +435,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             migrate_chunks=args.migrate_chunks, transport=args.transport,
             prefix_cache=args.prefix_cache, spec_k=args.spec_k,
         )
-        cfg = _engine_model(sc)
+        cfg = _engine_model(sc, prefill_tp=max(prefill_tp, 1))
         params = init_flagship_params(cfg, device=devices[0])
         trace = synthetic_trace(sc)
         reuse_tag = ((" prefix_cache=on" if sc.prefix_cache else "")
                      + (f" spec_k={sc.spec_k}" if sc.spec_k else ""))
         kind = devices[0].type
         if sc.disagg:
-            print(f"serve device {kind} disagg prefill {{'dp': 1, 'tp': 1}}"
-                  f" + decode {{'dp': {n_dec}}}: slots={sc.slots}"
+            print(f"serve device {kind} disagg prefill {pre.shape} + "
+                  f"decode {dec.shape}: slots={sc.slots}"
                   f"(+{sc.prefill_slots} prefill) "
                   f"page_len={sc.page_len} "
                   f"pages={sc.num_pages}+{sc.prefill_pages} "
@@ -459,18 +460,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"rate={sc.rate}/step prompt {prompt_rng[0]}-"
               f"{prompt_rng[1]} gen {gen_rng[0]}-{gen_rng[1]}")
         fh = open(args.obs_jsonl, "a") if args.obs_jsonl else None
+        records = [] if args.trace else None
         try:
             emit = None
-            if fh is not None:
+            if fh is not None or records is not None:
                 def emit(rec):
-                    fh.write(json.dumps(rec) + "\n")
-                    fh.flush()
+                    if fh is not None:
+                        fh.write(json.dumps(rec) + "\n")
+                        fh.flush()
+                    if records is not None:
+                        records.append(rec)
             if sc.disagg:
                 try:
-                    return _disagg_cli(mig, mesh, cfg, params, trace, sc,
-                                       emit)
+                    rc = _disagg_cli(mig, mesh, cfg, params, trace, sc,
+                                     emit)
                 finally:
                     mig.close()
+                _write_serve_trace(args.trace, records)
+                return rc
             modes = (("continuous", "static") if args.batching == "both"
                      else (args.batching,))
             summaries = {}
@@ -489,6 +496,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"{busy['continuous']} steps vs static "
                   f"{busy['static']} steps "
                   f"({busy['static'] / max(busy['continuous'], 1):.2f}x)")
+        _write_serve_trace(args.trace, records)
         return 0
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
@@ -497,6 +505,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"Failed: {type(e).__name__} '{e}'", file=sys.stderr)
         traceback.print_exception(e, file=sys.stderr)
         return 1
+
+
+def _write_serve_trace(path, records) -> None:
+    """``--trace``: the run's emitted obs records (request lifecycles
+    and summaries) as a Chrome-trace timeline."""
+    if not path:
+        return
+    from tpu_p2p_torch.obs.trace import write_chrome_trace
+
+    obj = write_chrome_trace(path, obs_records=records or (),
+                             meta={"source": "serve"})
+    print(f"# wrote chrome trace {path} "
+          f"({len(obj['traceEvents'])} events)")
 
 
 def _mesh_tag(mesh: LocalMesh) -> str:

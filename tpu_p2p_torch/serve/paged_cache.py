@@ -23,11 +23,16 @@ exact 0, so stale rows in recycled pages (and the trash page) never
 reach the output.
 
 On a serve mesh (a :class:`~tpu_p2p_torch.parallel.runtime.LocalMesh`
-with axis ``dp``) the pool splits into :func:`pool_shards` shards, one
-per rank (:func:`init_pool_shards`): shard ``k`` is a pool of its own on
-rank ``k``'s device, ``num_pages / n`` pages with its own trash page 0,
-indexed by the shard-local tables of the slots that rank serves — the
-reference's sharded pool, each shard's slice made a tensor of its own.
+over ``dp``, and ``tp``/``ep`` where the model splits) the pool splits
+as the reference's ``paged_pool_spec`` splits it: pages over dp×ep into
+:func:`pool_shards` shards, KV heads over tp. Each rank holds its block
+as a tensor of its own (:func:`init_pool_shards`): shard ``k``'s
+``num_pages / n`` pages with their own trash page 0, indexed by the
+shard-local tables of the slots the shard serves, and the rank's
+``H_kv / tp`` heads. The mixed step over the mesh
+(:func:`make_paged_lm_step` with a mesh) runs every rank's step in a
+thread of its own when it meets at a collective (tp or ep joins, ZeRO
+gathers), each rank writing its heads of its shard's rows.
 """
 
 from __future__ import annotations
@@ -40,12 +45,20 @@ import torch
 
 from tpu_p2p_torch.models.decode import (
     _attend_ffn,
+    _check_decode_mesh,
     _stage_params,
     _unembed,
+    batch_shards,
     check_serving_cfg,
+    gather_zero,
+    mesh_and_cfg,
+    rank_shard,
+    step_lines,
+    step_threads,
 )
 from tpu_p2p_torch.models.flagship import (
     FlagshipConfig,
+    _fsdp_plan,
     _rms_norm,
     torch_dtype,
 )
@@ -291,36 +304,48 @@ class PrefixIndex:
 def pool_shards(mesh) -> int:
     """How many ways the page axis splits: the product of the mesh's
     ``dp`` and ``ep`` sizes."""
-    n = 1
-    for ax in ("dp", "ep"):
-        n *= mesh.shape.get(ax, 1)
-    return n
+    return batch_shards(mesh)
 
 
 def init_pool_shards(cfg: FlagshipConfig, num_pages: int, page_len: int,
                      mesh) -> List[Pool]:
-    """Zeroed pool shards for ``num_pages`` global pages (which must
-    divide by the shard count): shard ``k`` holds ``num_pages / n`` pages
-    on the mesh's ``k``-th device."""
+    """Zeroed pool blocks for ``num_pages`` global pages (which must
+    divide by the dp×ep shard count), one a rank on its device: rank
+    ``i`` holds ``num_pages / n`` pages of its shard
+    (:func:`~tpu_p2p_torch.models.decode.rank_shard`) and its
+    ``H_kv / tp`` KV heads."""
+    _check_decode_mesh(mesh, cfg)
+    if page_len <= 0 or page_len % 8:
+        raise ValueError(
+            f"page_len must be a positive multiple of 8, got {page_len}"
+        )
     n_shards = pool_shards(mesh)
     if num_pages % n_shards:
         raise ValueError(
             f"num_pages ({num_pages}) must divide by the dp×ep shard "
             f"count ({n_shards})"
         )
-    return [init_paged_pool(cfg, num_pages // n_shards, page_len, dev)
-            for dev in mesh.devices[:n_shards]]
+    heads = cfg.num_kv_heads // mesh.shape.get("tp", 1)
+    return [_zero_pool(cfg, num_pages // n_shards, page_len, heads, dev)
+            for dev in mesh.devices]
 
 
 def init_paged_pool(cfg: FlagshipConfig, num_pages: int, page_len: int,
-                    device="cuda") -> Pool:
-    """Zeroed page pool, one tensor per projection."""
+                    device="cuda", *, mesh=None):
+    """Zeroed page pool, one tensor per projection; with ``mesh``, the
+    per-rank blocks of :func:`init_pool_shards`."""
     if page_len <= 0 or page_len % 8:
         raise ValueError(
             f"page_len must be a positive multiple of 8, got {page_len}"
         )
-    shape = (cfg.stages, num_pages, cfg.num_kv_heads, page_len,
-             cfg.head_dim)
+    if mesh is not None:
+        return init_pool_shards(cfg, num_pages, page_len, mesh)
+    return _zero_pool(cfg, num_pages, page_len, cfg.num_kv_heads, device)
+
+
+def _zero_pool(cfg: FlagshipConfig, num_pages: int, page_len: int,
+               heads: int, device) -> Pool:
+    shape = (cfg.stages, num_pages, heads, page_len, cfg.head_dim)
     dtype = torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -334,24 +359,15 @@ def _gather_pages(pool_s, table):
     return g.permute(0, 2, 1, 3, 4).reshape(b, h, mb * l, dh)
 
 
-def make_paged_lm_step(cfg: FlagshipConfig, *, page_len: int,
-                       max_blocks: int, chunk: int):
-    """The mixed prefill/decode step over a fixed-width slot batch:
+def _ints(a, dev) -> torch.Tensor:
+    """A step's integer input as int64 on ``dev``: a tensor moved, or a
+    host array copied in."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, torch.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, torch.int64)
 
-    ``(params, pool, tokens [B, C], pos [B], n_active [B],
-    table [B, max_blocks]) → (pool, logits [B, C, vocab] float32)``
 
-    Integer inputs are int64 tensors on the pool's device. Slot ``b``'s
-    tokens ``tokens[b, :n_active[b]]`` sit at positions ``pos[b] ..
-    pos[b] + n_active[b] - 1``: a prefill chunk, one decode token (or a
-    speculative window), or nothing (``n_active = 0``: the write parks on
-    the trash page and every key is masked). Each slot's K/V rows are
-    written into its pages first, in place, then attention runs over
-    the page-gathered view with the causal mask ``key_pos ≤
-    query_pos``. Rows ``c ≥ n_active[b]`` give logits the caller
-    ignores. Multi-token chunks start at ``pos ≡ 0 (mod chunk)``, so a
-    step's rows never leave one 8-row band.
-    """
+def _check_paged(cfg: FlagshipConfig, page_len: int, chunk: int) -> None:
     check_serving_cfg(cfg)
     if chunk not in (1, 2, 4, 8):
         raise ValueError(
@@ -367,47 +383,146 @@ def make_paged_lm_step(cfg: FlagshipConfig, *, page_len: int,
             "the paged step masks by position; attn_window is not "
             "supported (size the page window instead)"
         )
+
+
+def _paged_body(cfg: FlagshipConfig, page_len: int, t_win: int, params,
+                pool: Pool, tokens, pos, n_active, table, tp=None, ep=None):
+    """One rank's mixed step over its rows (one device: every row): the
+    K/V rows written into the slots' pages, then attention over the
+    page-gathered view and the FFN through the shared
+    :func:`~tpu_p2p_torch.models.decode._attend_ffn`, its joins on the
+    rank's ``tp``/``ep`` lines. → ``(pool, logits)``."""
     compute = torch_dtype(cfg.dtype)
+    x = params["emb"][tokens].to(compute)
+    k_pool, v_pool = pool["k"], pool["v"]
+    dev = tokens.device
+    c = tokens.shape[1]
+    offs = torch.arange(c, device=dev)
+    qpos = pos[:, None] + offs[None, :]                 # [B, C]
+    # Write coordinates: one band per slot per step; idle slots park on
+    # the trash page with n = 0.
+    blk = pos // page_len
+    page = torch.where(n_active > 0,
+                       table.gather(1, blk[:, None])[:, 0],
+                       TRASH_PAGE).to(torch.int32)
+    band = ((pos % page_len) // 8).to(torch.int32)
+    r0 = (pos % 8).to(torch.int32)
+    n32 = n_active.to(torch.int32)
+    kp = torch.arange(t_win, device=dev)
+    live = (kp[None, None, :] <= qpos[:, :, None]) \
+        & (offs[None, :] < n_active[:, None])[:, :, None]
+    live = live[:, None, None]                          # [B,1,1,C,T]
+    for s in range(cfg.stages):
+        sub = _stage_params(params, s, compute)
+        h = _rms_norm(x, sub["ln1"]) if cfg.norm else x
+        k_t = torch.einsum("btm,hmd->bhtd", h, sub["wk"])
+        v_t = torch.einsum("btm,hmd->bhtd", h, sub["wv"])
+        if cfg.rope:
+            k_t = apply_rope(k_t, qpos)
+        paged_kv_write(k_pool, v_pool, k_t, v_t, page, band, r0, n32, s)
+        kb = _gather_pages(k_pool[s], table)
+        vb = _gather_pages(v_pool[s], table)
+        q = torch.einsum("btm,hmd->bhtd", h, sub["wq"])
+        if cfg.rope:
+            q = apply_rope(q, qpos)
+        x = _attend_ffn(sub, x, q, kb, vb, live, cfg, tp, ep)
+    if cfg.norm:
+        x = _rms_norm(x, params["lnf"])
+    return pool, _unembed(x, params["emb"], compute)
+
+
+class MeshPagedStep:
+    """The mixed step over a serve mesh: ``(params, pools, tokens, pos,
+    n_active, table, ranks=None) → (pools, logits)``, every argument
+    and result a per-rank list (the rank's params shard, pool block and
+    its shard's rows, :func:`~tpu_p2p_torch.models.decode.split_rows`);
+    a rank left out of ``ranks`` runs nothing and gets ``None`` logits.
+    ``sync=False``: the caller orders the inputs for the ranks' streams
+    and reads the logits on them (``LocalMesh.run``). The ranks that meet at a collective run at once, a thread each
+    (``threads``); :meth:`ranks_for` says which must run together."""
+
+    def __init__(self, mesh, cfg: FlagshipConfig, page_len: int,
+                 max_blocks: int) -> None:
+        self.mesh, self.cfg = mesh, cfg
+        self.page_len, self.t_win = page_len, max_blocks * page_len
+        self.plan = _fsdp_plan(mesh, cfg)
+        self.threads = step_threads(mesh, cfg)
+
+    def ranks_for(self, shards) -> List[int]:
+        """The ranks that run a step in which the batch shards
+        ``shards`` have active rows: every rank of a dp coordinate one
+        of them sits on (its tp and ep lines meet), every rank at all
+        when the params are ZeRO-stored (the dp line meets too), none
+        when no shard is active."""
+        shards = set(shards)
+        if not shards:
+            return []
+        mesh = self.mesh
+        if self.plan is not None:
+            return list(range(mesh.size))
+        ep = mesh.shape.get("ep", 1)
+        dps = {s // ep for s in shards}
+        return [i for i in range(mesh.size)
+                if rank_shard(mesh, i) // ep in dps]
+
+    @torch.no_grad()
+    def __call__(self, params, pools, tokens, pos, n_active, table,
+                 ranks=None, sync: bool = True):
+        cfg, plan = self.cfg, self.plan
+
+        def body(rank, p, pool, tk, ps, na, tb):
+            tp, ep, dp = step_lines(rank)
+            dev = rank.device
+            return _paged_body(cfg, self.page_len, self.t_win,
+                               gather_zero(p, dp, plan), pool,
+                               _ints(tk, dev), _ints(ps, dev),
+                               _ints(na, dev), _ints(tb, dev), tp, ep)
+
+        ranks = list(range(self.mesh.size)) if ranks is None else ranks
+        out = self.mesh.run(body, params, pools, tokens, pos, n_active,
+                            table, ranks=ranks, threads=self.threads,
+                            sync=sync)
+        pools, logits = list(pools), [None] * self.mesh.size
+        for i, (pool, lg) in zip(ranks, out):
+            pools[i], logits[i] = pool, lg
+        return pools, logits
+
+
+def make_paged_lm_step(mesh, cfg: Optional[FlagshipConfig] = None, *,
+                       page_len: int, max_blocks: int, chunk: int):
+    """The mixed prefill/decode step over a fixed-width slot batch:
+
+    ``(params, pool, tokens [B, C], pos [B], n_active [B],
+    table [B, max_blocks]) → (pool, logits [B, C, vocab] float32)``
+
+    Integer inputs are int64 tensors on the pool's device. Slot ``b``'s
+    tokens ``tokens[b, :n_active[b]]`` sit at positions ``pos[b] ..
+    pos[b] + n_active[b] - 1``: a prefill chunk, one decode token (or a
+    speculative window), or nothing (``n_active = 0``: the write parks on
+    the trash page and every key is masked). Each slot's K/V rows are
+    written into its pages first, in place, then attention runs over
+    the page-gathered view with the causal mask ``key_pos ≤
+    query_pos``. Rows ``c ≥ n_active[b]`` give logits the caller
+    ignores. Multi-token chunks start at ``pos ≡ 0 (mod chunk)``, so a
+    step's rows never leave one 8-row band.
+
+    ``make_paged_lm_step(cfg, ...)``: one device. ``make_paged_lm_step(
+    mesh, cfg, ...)``: the same step over a serve mesh, a
+    :class:`MeshPagedStep` over per-rank lists (slots and tables over
+    dp×ep with shard-local page ids, KV heads over tp, ZeRO-stored
+    params gathered at entry), as the reference's ``shard_map``.
+    """
+    mesh, cfg = mesh_and_cfg(mesh, cfg)
+    _check_paged(cfg, page_len, chunk)
+    if mesh is not None:
+        _check_decode_mesh(mesh, cfg)
+        return MeshPagedStep(mesh, cfg, page_len, max_blocks)
     t_win = max_blocks * page_len
 
     @torch.no_grad()
     def step(params, pool: Pool, tokens, pos, n_active, table):
-        x = params["emb"][tokens].to(compute)
-        k_pool, v_pool = pool["k"], pool["v"]
-        dev = tokens.device
-        c = tokens.shape[1]
-        offs = torch.arange(c, device=dev)
-        qpos = pos[:, None] + offs[None, :]                 # [B, C]
-        # Write coordinates: one band per slot per step; idle slots
-        # park on the trash page with n = 0.
-        blk = pos // page_len
-        page = torch.where(n_active > 0,
-                           table.gather(1, blk[:, None])[:, 0],
-                           TRASH_PAGE).to(torch.int32)
-        band = ((pos % page_len) // 8).to(torch.int32)
-        r0 = (pos % 8).to(torch.int32)
-        n32 = n_active.to(torch.int32)
-        kp = torch.arange(t_win, device=dev)
-        live = (kp[None, None, :] <= qpos[:, :, None]) \
-            & (offs[None, :] < n_active[:, None])[:, :, None]
-        live = live[:, None, None]                          # [B,1,1,C,T]
-        for s in range(cfg.stages):
-            sub = _stage_params(params, s, compute)
-            h = _rms_norm(x, sub["ln1"]) if cfg.norm else x
-            k_t = torch.einsum("btm,hmd->bhtd", h, sub["wk"])
-            v_t = torch.einsum("btm,hmd->bhtd", h, sub["wv"])
-            if cfg.rope:
-                k_t = apply_rope(k_t, qpos)
-            paged_kv_write(k_pool, v_pool, k_t, v_t, page, band, r0, n32, s)
-            kb = _gather_pages(k_pool[s], table)
-            vb = _gather_pages(v_pool[s], table)
-            q = torch.einsum("btm,hmd->bhtd", h, sub["wq"])
-            if cfg.rope:
-                q = apply_rope(q, qpos)
-            x = _attend_ffn(sub, x, q, kb, vb, live, cfg)
-        if cfg.norm:
-            x = _rms_norm(x, params["lnf"])
-        return pool, _unembed(x, params["emb"], compute)
+        return _paged_body(cfg, page_len, t_win, params, pool, tokens, pos,
+                           n_active, table)
 
     return step
 
@@ -421,20 +536,25 @@ def page_copy(pool: Pool, src: int, dst: int) -> Pool:
     return pool
 
 
-def make_page_copy(mesh):
+def make_page_copy(mesh, cfg: Optional[FlagshipConfig] = None):
     """The per-shard page copy of the copy-on-write fork:
 
     ``(pools, src [n_shards], dst [n_shards]) → pools``
 
-    Shard ``k`` copies its local page ``src[k] → dst[k]`` on rank ``k``'s
-    stream, in place; a shard with nothing to fork passes ``TRASH_PAGE →
-    TRASH_PAGE`` (the reference's idle no-op) and issues nothing."""
+    Every rank of shard ``k`` copies its block of local page ``src[k] →
+    dst[k]`` (its KV heads) on its own stream, in place; a shard with
+    nothing to fork passes ``TRASH_PAGE → TRASH_PAGE`` (the reference's
+    idle no-op) and issues nothing. ``pools`` is the per-rank list."""
+    if cfg is not None:
+        _check_decode_mesh(mesh, cfg)
 
     def copy(pools: List[Pool], src, dst) -> List[Pool]:
-        for k, (s, d) in enumerate(zip(src, dst)):
-            if (int(s), int(d)) != (TRASH_PAGE, TRASH_PAGE):
-                with mesh.on(k):
-                    page_copy(pools[k], int(s), int(d))
+        for i in range(mesh.size):
+            k = rank_shard(mesh, i)
+            s, d = int(src[k]), int(dst[k])
+            if (s, d) != (TRASH_PAGE, TRASH_PAGE):
+                with mesh.on(i):
+                    page_copy(pools[i], s, d)
         return pools
 
     return copy
