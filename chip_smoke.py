@@ -139,8 +139,9 @@ the first phase that goes wrong:
    batches: the remat losses bitwise the plain ones (or else the
    difference printed and held within 1e-6 relative), the flash forward
    launched twice a block a step (the recompute), peak memory of each;
-   (b) ``run_training`` with phase 11's MoE config under ``remat=True``
-   and under ``remat_policy="dots_with_no_batch_dims_saveable"``, 2
+   (b) the LM train step with phase 11's MoE config (one set of
+   card-drawn params) under ``remat=True`` and under
+   ``remat_policy="dots_with_no_batch_dims_saveable"``, 2
    steps each, with phase 5's gates, step ms, tokens/s and peak memory,
    each peak below phase 11's plain MoE peak; (c) ``zero_dp=True`` on a
    world of one through the mesh code: an empty ZeRO plan, losses
@@ -167,14 +168,15 @@ the first phase that goes wrong:
    flash kernel launched once a block a step; then with ``zero_dp``
    and ``overlap="prefetch"``: an empty ZeRO plan and no NCCL kernel.
 14. loop    — (run right after phase 13) the training loop's optimizer,
-   evaluation and durable checkpoints at phase 5's width: (a)
+   evaluation and durable checkpoints at phase 5's width, cut to 2 of
+   its 8 blocks (the generations' bytes and the steps a quarter): (a)
    ``run_training`` with AdamW (weight decay 0.01), global-norm
    clipping at 1.0, one warmup step and the cosine schedule for 4
    steps, eval every 2 steps on one held-out batch, a generation every
    2 steps keeping 2: finite losses, the first near ln V, eval records
    at steps 2 and 4, both generations verify, each flash kernel once a
    block a step (the forward once more a block an evaluation); step ms
-   beside phase 5's SGD p50, peak memory, each save's ms, bytes and
+   (phase 5's 8-block SGD p50 beside it), peak memory, each save's ms, bytes and
    GB/s, the verifying load's ms; (b) a resume to step 4 from a copy of
    the directory without ``gen-000004``: start step 2, the loss and
    every param bitwise (a)'s (else the largest difference, held within
@@ -247,6 +249,26 @@ the first phase that goes wrong:
    its own token parity against the colocated twin OK; (e) ``serve
    --trace PATH`` through ``engine.main`` on phase 7's trace:
    ``validate_chrome_trace`` finds no problem.
+18. schedules — (run after phase 16) the tick-IR executor: (a) on a
+   world of one, the flagship step (``make_flagship_train_step_1f1b``)
+   at phase 5's width without the vocabulary (the MSE objective), 4
+   microbatches, 2 steps each of fused 1F1B masked, 1F1B switch, zb
+   switch (the fused program on one stage) and interleaved ``chunks=2``,
+   beside the GPipe autograd step from the same params and batch:
+   losses and params bitwise across zb/1f1b and switch/masked, one
+   step's gradients and loss within ``GRAD_TOL`` (relative L2) of the
+   GPipe step's, each flash kernel launched as the program's ticks call
+   it; step ms, tokens/s and peak memory; (b) process worlds of 2 and 4
+   ranks sharing cuda:0: ``make_tick_train_step`` with ``mlp_block`` at
+   flagship_large's widths (d_model 2048, d_ff 8192; 16 MiB hops) over
+   ``transport="pallas_dma"``, GPipe, 1F1B, interleaved and zb under
+   both lowerings and 1F1B as a wave of 2 chunks: zb bitwise 1f1b,
+   switch bitwise masked, the wave bitwise the one-shot ship, each
+   update within ``GRAD_TOL`` of ``pipeline_reference``'s on the card,
+   the peer-push launches a rank equal to the lowered hop tables'; step
+   ms (time-sliced processes, not a link number); (c) ``python -m
+   tpu_p2p_torch zb`` in this process: its JSON line, ``loss_bitwise``
+   true, the ratio and the program's own grade.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -2852,12 +2874,12 @@ def moe_train(TFA, dev, card) -> dict:
 def moe_decode(TK, dev, card) -> dict:
     """Phase 11 (c): the MoE model's dense-cache decode against its paged
     step at chunk 1 (phase 6's check) on ``SLOTS`` slots. → launches."""
-    from tpu_p2p_torch.models.flagship import (
-        FlagshipConfig, init_flagship_params)
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
 
     cfg = FlagshipConfig(batch=SLOTS, **{**MODEL, "dense_ffn": False,
                                          "num_experts": 4})
-    params = init_flagship_params(cfg, seed=0, device=dev)
+    params = card_params(cfg, dev)  # both sides take these params: no
+    # host init of 1.24 G draws
     dec = decode_parity(cfg, params, dev, TK)
     say(f"moe decode: paged (chunk 1) vs dense over {DECODE_POSITIONS} "
         f"positions x {SLOTS} slots ({cfg.num_experts} experts, "
@@ -3008,17 +3030,27 @@ def memory_dense(TFA, dev, card) -> dict:
 
 
 def memory_moe(TFA, dev, card, plain_peak: float) -> dict:
-    """Phase 12 (b): ``run_training`` with the MoE FFN (phase 11's
+    """Phase 12 (b): the LM train step with the MoE FFN (phase 11's
     config) under ``remat=True`` and under ``remat_policy=
-    REMAT_POLICY``, ``MEMORY_STEPS`` steps each, with phase 5's gates;
-    each peak must stay below phase 11's plain MoE peak. → launches."""
+    REMAT_POLICY``, ``MEMORY_STEPS`` steps each from one set of
+    :func:`card_params` over the training loop's batches, with phase 5's
+    gates; each peak must stay below phase 11's plain MoE peak. →
+    launches."""
     from tpu_p2p_torch.models.flagship import FlagshipConfig
+    from tpu_p2p_torch.train import _per_step_batches
 
     out = {}
     tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    # Host copies, so a run's peak counts its own params alone.
+    start = {k: v.cpu() for k, v in
+             card_params(FlagshipConfig(**MOE_TRAIN), dev).items()}
+    stream = _per_step_batches(FlagshipConfig(**MOE_TRAIN), 0, 0)
+    batches = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in next(stream)) for _ in range(MEMORY_STEPS)]
     for what, policy in (("remat", ""), ("remat_policy", REMAT_POLICY)):
         cfg = FlagshipConfig(**MOE_TRAIN, remat=True, remat_policy=policy)
-        run = run_train(cfg, MEMORY_STEPS, TFA, dev)
+        run = direct_steps(cfg, start, batches, TFA, dev)
+        run["losses"] = run["losses"].tolist()
         check_train_run(run, cfg, MEMORY_STEPS)
         ln_v = math.log(cfg.vocab)
         if not ln_v - 1 <= run["losses"][0] <= ln_v + 2:
@@ -3388,6 +3420,8 @@ LOOP = dict(optimizer="adamw", weight_decay=0.01, clip_norm=1.0,
             warmup_steps=1, schedule="cosine", eval_every=2, eval_batches=1,
             ckpt_every=2, ckpt_keep=2)
 LOOP_STEPS = 4
+LOOP_STAGES = 2                   # of flagship_large's 8 blocks: the
+# loop's three runs and their 0.65 GB generations, not its width
 RESUME_RTOL = 1e-6
 
 
@@ -3486,7 +3520,7 @@ def train_loop(TFA, dev, card, sgd_p50: float) -> dict:
     from tpu_p2p_torch.utils import checkpoint as C
 
     t0 = time.perf_counter()
-    cfg = FlagshipConfig(**TRAIN)
+    cfg = FlagshipConfig(**{**TRAIN, "stages": LOOP_STAGES})
     root = tempfile.mkdtemp(prefix="chip_smoke_loop_")
     try:
         # (a) the full loop
@@ -3527,13 +3561,14 @@ def train_loop(TFA, dev, card, sgd_p50: float) -> dict:
         saves = "; ".join(
             f"step {s}: {ms:.0f} ms, {b} B = {b / ms / 1e6:.2f} GB/s"
             for s, ms, b in a["saves"])
-        say(f"train loop (a) flagship_large (B{cfg.batch} T{cfg.seq}, bf16, "
-            f"flash), AdamW wd 0.01, clip 1.0, warmup 1 + cosine, lr {LOOP_LR}, "
-            f"{LOOP_STEPS} steps: losses {[losses[s] for s in sorted(losses)]}"
+        say(f"train loop (a) flagship_large at {cfg.stages} of 8 blocks "
+            f"(B{cfg.batch} T{cfg.seq}, bf16, flash), AdamW wd 0.01, clip "
+            f"1.0, warmup 1 + cosine, lr {LOOP_LR}, {LOOP_STEPS} steps: "
+            f"losses {[losses[s] for s in sorted(losses)]}"
             f" | eval {evals} | step ms of steps {len(clean)} clean "
             f"{[round(x) for x in clean]}, p50 {p50:.0f} ms = "
-            f"{tokens / p50 * 1e3:.0f} tokens/s (phase 5 SGD p50 "
-            f"{sgd_p50:.0f} ms: the optimizer {p50 - sgd_p50:+.0f} ms) | "
+            f"{tokens / p50 * 1e3:.0f} tokens/s (phase 5's SGD p50 at 8 "
+            f"blocks {sgd_p50:.0f} ms) | "
             f"peak memory {a['peak_gib']:.2f} GiB | saves {saves} | "
             f"verifying load of {gens[0]} {load_ms:.0f} ms, "
             f"{load_bytes} B = {load_bytes / load_ms / 1e6:.2f} GB/s | "
@@ -4656,6 +4691,358 @@ def tp_phase(cfg, params, TK, phase7: dict, dis: dict, card: str) -> dict:
                          "disagg_tp2_cli": cli["dma_ship"]}}
 
 
+# ----------------------------------------------------------- phase 18
+
+# flagship_large without the vocabulary (the tick-IR step trains the MSE
+# objective; its LM head has no stage axis), in 4 microbatches.
+SCHED_CFG = {**{k: v for k, v in TRAIN.items() if k != "vocab"},
+             "microbatches": 4}
+SCHED_STEPS = 2
+SCHED_VARIANTS = (  # (name, pp_schedule, tick_lowering, chunks)
+    ("1f1b masked", "1f1b", "masked", 1),
+    ("1f1b switch", "1f1b", "switch", 1),
+    ("zb switch", "zb", "switch", 1),
+    ("interleaved chunks=2", "1f1b", "masked", 2),
+)
+# The generic executor at flagship_large's widths: a microbatch [2,
+# 1024, 2048] float32, 16 MiB a hop.
+MLP_DM, MLP_FF, MLP_MB, MLP_T, MLP_M = 2048, 8192, 2, 1024, 4
+MLP_LR = 5e-2
+SCHED_PROGRAMS = ("gpipe", "1f1b", "interleaved", "zb")
+
+
+def tick_flash_launches(lowered, layers: int, steps: int, rank: int = 0
+                        ) -> dict:
+    """The flash launches ``rank``'s ticks make in ``steps`` steps of a
+    lowered program whose chunk holds ``layers`` blocks: under the masked
+    lowering every tick runs the forward body (one forward) and the
+    backward body (the remat forward, dK/dV and dq); under switch a
+    ``fwd`` tick one forward, a ``bwd``/``bwd_input`` tick the remat
+    forward and both backward kernels, a ``bwd_weight`` or idle tick
+    none."""
+    fwd = bwd = 0
+    for t in range(lowered.program.num_ticks):
+        if lowered.lowering == "masked":
+            fwd, bwd = fwd + 2, bwd + 1
+            continue
+        kind = lowered.op_table[int(lowered.tables["op_code"][t, rank])]
+        fwd += kind in ("fwd", "bwd", "bwd_input")
+        bwd += kind in ("bwd", "bwd_input")
+    f, b = fwd * layers * steps, bwd * layers * steps
+    return {"flash_fwd": f, "flash_bwd_dkdv": b, "flash_bwd_dq": b}
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def schedule_world_of_one(TFA, dev, card) -> dict:
+    """Phase 18 (a): the flagship step under the tick-IR executor
+    (``make_flagship_train_step_1f1b``) on a world of one at
+    flagship_large's width without the vocabulary, 4 microbatches:
+    ``SCHED_STEPS`` steps of each of ``SCHED_VARIANTS`` from the same
+    params and batch, beside the GPipe-autograd step. Gates: losses and
+    params bitwise across zb/1f1b and switch/masked; one step's gradients
+    (``make_flagship_grad_fn_1f1b``) and loss within ``GRAD_TOL``
+    (relative L2) of the GPipe step's; each flash kernel launched as the
+    program's ticks call it. → the flash launches of the variants."""
+    from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.models import schedule as S
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(device=dev, mesh_shape=(1,) * len(F.AXES),
+                      axis_names=F.AXES)
+    mesh = rt.mesh
+    cfg = F.FlagshipConfig(**SCHED_CFG)
+    tokens = cfg.batch * cfg.seq
+    start = card_params(cfg, dev)
+    x, t = (a.to(dev) for a in F.flagship_host_batch(
+        cfg, np.random.default_rng(1)))
+    launches: dict = {}
+    try:
+        def run(step, params):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            TFA.reset_launches()
+            losses, ms = [], []
+            for _ in range(SCHED_STEPS):
+                t0 = time.perf_counter()
+                params, loss = step(params, x, t)
+                losses.append(loss.float().cpu())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return {"params": params, "losses": torch.stack(losses),
+                    "ms": ms, "launches": dict(TFA.launches),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+        gp = run(F.make_flagship_train_step(cfg, mesh=mesh),
+                 {k: v.clone() for k, v in start.items()})
+        del gp["params"]
+        g_gp, l_gp = F.make_flagship_grad_fn(cfg, mesh)(start, x, t)
+        say(f"schedule world of one: GPipe autograd step (phase 5's path, "
+            f"B{cfg.batch} T{cfg.seq}, {cfg.stages} blocks, bf16, flash, "
+            f"{cfg.microbatches} microbatches, MSE): losses "
+            f"{gp['losses'].tolist()} | step ms "
+            f"{[round(v, 1) for v in gp['ms']]} = "
+            f"{tokens / gp['ms'][-1] * 1e3:.0f} tokens/s | peak "
+            f"{gp['peak_gib']:.2f} GiB | {card}")
+        ref = None
+        for name, sched, lowering, chunks in SCHED_VARIANTS:
+            vcfg = dataclasses.replace(cfg, pp_schedule=sched,
+                                       tick_lowering=lowering)
+            prog = (S.compile_zb(cfg.microbatches, 1) if sched == "zb"
+                    else S.compile_interleaved(cfg.microbatches, 1, chunks))
+            want = tick_flash_launches(S.lower(prog, lowering),
+                                       cfg.stages // chunks, SCHED_STEPS)
+            placed = F.place_flagship_params_pipelined(start, mesh, vcfg,
+                                                       chunks)
+            got = run(F.make_flagship_train_step_1f1b(mesh, vcfg, lr=1e-2,
+                                                      chunks=chunks), placed)
+            if got["launches"] != want:
+                raise AssertionError(
+                    f"schedule {name}: flash launches {got['launches']}, "
+                    f"the program's ticks call {want}")
+            if not all(math.isfinite(v) for v in got["losses"].tolist()):
+                raise AssertionError(f"schedule {name}: losses "
+                                     f"{got['losses'].tolist()}")
+            note = ""
+            if chunks == 1 and ref is None:
+                ref = got
+            elif chunks == 1:
+                same = torch.equal(got["losses"], ref["losses"]) and all(
+                    torch.equal(got["params"][k], ref["params"][k])
+                    for k in ref["params"])
+                if not same:
+                    raise AssertionError(
+                        f"schedule {name}: losses {got['losses'].tolist()} "
+                        f"or params differ from 1f1b masked's "
+                        f"{ref['losses'].tolist()} (must be bitwise)")
+                note = "losses and params bitwise 1f1b masked's | "
+            if name in ("1f1b masked", "interleaved chunks=2"):
+                g, loss = F.make_flagship_grad_fn_1f1b(
+                    mesh, vcfg, chunks)(placed, x, t)
+                rel = {k: rel_l2(g[k], g_gp[k]) for k in g_gp}
+                worst = max(rel, key=rel.get)
+                lrel = abs(loss.item() - l_gp.item()) / abs(l_gp.item())
+                if not (rel[worst] <= GRAD_TOL and lrel <= GRAD_TOL
+                        and torch.equal(loss.float().cpu() / (
+                            tokens * cfg.model_dim), got["losses"][0])):
+                    raise AssertionError(
+                        f"schedule {name}: grads vs GPipe relative L2 {rel}"
+                        f", loss {loss.item()} vs {l_gp.item()} (tol "
+                        f"{GRAD_TOL})")
+                note = (f"one step's grads vs GPipe: per-leaf relative L2 "
+                        f"max {rel[worst]:.2e} ({worst}), summed loss "
+                        f"{lrel:.2e} relative (tol {GRAD_TOL}) | ")
+                del g
+            say(f"schedule {name} (make_flagship_train_step_1f1b, world of "
+                f"one, {prog.num_ticks} ticks): losses "
+                f"{got['losses'].tolist()} | {note}step ms "
+                f"{[round(v, 1) for v in got['ms']]} = "
+                f"{tokens / got['ms'][-1] * 1e3:.0f} tokens/s (GPipe "
+                f"{gp['ms'][-1]:.1f} ms) | peak {got['peak_gib']:.2f} GiB "
+                f"(GPipe {gp['peak_gib']:.2f}) | flash launches "
+                f"{got['launches']} (= the ticks') | {card}")
+            for k, n in got["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            if got is not ref:
+                del got["params"]
+            del placed
+            torch.cuda.empty_cache()
+    finally:
+        rt.close()
+    return launches
+
+
+def mlp_expected_hops(lowered, chunks: int) -> dict:
+    """Per rank and step, the peer-push launches of a lowered program's
+    hops: a program with backward ticks ships on each tick its
+    ``ship_y``/``ship_g`` flags say; GPipe ships the activation every
+    tick but the last and autograd sends each hop's gradient back. A
+    ship is one ``dma_permute``, or in a wave of ``chunks`` chunks
+    ``chunks - 1`` ``dma_ship`` calls and one ``dma_permute``; each chunk's
+    backward is one ``dma_permute``."""
+    if lowered.forward_only:
+        hops = lowered.program.num_ticks - 1
+        return {"dma_ship": hops * (chunks - 1),
+                "dma_permute": hops * (1 + chunks)}
+    hops = int(lowered.tables["ship_y"].sum() + lowered.tables["ship_g"].sum())
+    return {"dma_ship": hops * (chunks - 1), "dma_permute": hops}
+
+
+def schedule_rank_case() -> dict:
+    """One rank of a world sharing cuda:0: ``make_tick_train_step`` with
+    ``mlp_block`` at flagship_large's widths over ``transport=
+    "pallas_dma"`` (``stages`` = n, 2n for interleaved), every program of
+    ``SCHED_PROGRAMS`` under both lowerings and 1F1B once as a wave of 2
+    chunks, each one step from the same params and batch, its peer-push
+    launches counted from zero. Checks on this rank's rows: zb bitwise
+    1f1b, switch bitwise masked, the wave bitwise the one-shot ship; each
+    update within ``GRAD_TOL`` (relative L2) of ``pipeline_reference``'s
+    autograd update in this process; the launches the hop tables give."""
+    from tpu_p2p_torch.models import pipeline as PL
+    from tpu_p2p_torch.models import pipeline_interleaved as IL
+    from tpu_p2p_torch.models import schedule as S
+    from tpu_p2p_torch.models.flagship_steps import _sgd_update
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(device="cuda:0", axis_names=("pp",))
+    dev, n, r, mesh = rt.device, rt.world, rt.rank, rt.mesh
+    b = MLP_MB * MLP_M
+    x = _seeded((b, MLP_T, MLP_DM), 11, dev, torch.float32)
+    tgt = _seeded((b, MLP_T, MLP_DM), 12, dev, torch.float32)
+    out = {"rank": r, "world": n, "bad": [], "ms": {}, "launches": {},
+           "expected": {}, "rel": {}}
+    oracle, full = {}, {}
+    for v in (1, 2):
+        cfg = PL.PipelineConfig(d_model=MLP_DM, d_ff=MLP_FF, stages=n * v,
+                                microbatches=MLP_M)
+        p = {"w1": _seeded((n * v, MLP_DM, MLP_FF), 21, dev, torch.float32)
+             / math.sqrt(MLP_DM),
+             "w2": _seeded((n * v, MLP_FF, MLP_DM), 22, dev, torch.float32)
+             / math.sqrt(MLP_FF)}
+        full[v] = (cfg, p)
+        leaves = {k: w.clone().requires_grad_(True) for k, w in p.items()}
+        y = PL.pipeline_reference(leaves, x, cfg)
+        loss = torch.sum((y - tgt) ** 2)
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+        oracle[v] = (loss.item() / x.numel(),
+                     _sgd_update(p, grads, MLP_LR, float(x.numel())))
+    cases = [(prog, low, "none") for prog in SCHED_PROGRAMS
+             for low in ("masked", "switch")] + [("1f1b", "masked", "wave")]
+    got = {}
+    for prog, low, overlap in cases:
+        v = 2 if prog == "interleaved" else 1
+        cfg, p = full[v]
+        program = {"gpipe": S.compile_gpipe, "1f1b": S.compile_1f1b,
+                   "zb": S.compile_zb}[prog](MLP_M, n) \
+            if prog != "interleaved" else S.compile_interleaved(MLP_M, n, 2)
+        chunks = 2 if overlap == "wave" else 1
+        step = S.make_tick_train_step(
+            mesh, cfg, program, lr=MLP_LR, pp_overlap=overlap,
+            pp_chunks=chunks, transport="pallas_dma", tick_lowering=low)
+        placed = IL.place_interleaved_params(p, mesh, v)
+        name = f"{prog} {low}" + (" wave" if overlap == "wave" else "")
+        rt.barrier()
+        PD.reset_launches()
+        new, loss = step(placed, x, tgt)
+        torch.cuda.synchronize()
+        PD.check_faults()
+        out["launches"][name] = dict(PD.launches)
+        out["expected"][name] = mlp_expected_hops(S.lower(program, low),
+                                                  chunks)
+        # The same step again, timed from a barrier to the slower rank's
+        # drain (the first call also made the peer-push windows).
+        rt.barrier()
+        t0 = time.perf_counter()
+        again, _ = step(placed, x, tgt)
+        torch.cuda.synchronize()
+        PD.check_faults()
+        out["ms"][name] = max(rt.gather((time.perf_counter() - t0) * 1e3))
+        if not all(torch.equal(again[k], new[k]) for k in new):
+            out["bad"].append(f"{name}: a second step from the same params "
+                              "differs")
+        del again
+        want_loss, want_p = oracle[v]
+        rows = IL.place_interleaved_params(want_p, mesh, v)
+        rel = max(rel_l2(placed[k] - new[k], placed[k] - rows[k])
+                  for k in new)
+        out["rel"][name] = rel
+        if not (rel <= GRAD_TOL
+                and abs(loss.item() - want_loss) <= GRAD_TOL * want_loss):
+            out["bad"].append(f"{name}: update relative L2 {rel:.3e}, loss "
+                              f"{loss.item()} vs {want_loss}")
+        got[name] = (loss.cpu(), new)
+    pairs = [("zb masked", "1f1b masked"), ("zb switch", "1f1b masked"),
+             ("1f1b masked wave", "1f1b masked")]
+    pairs += [(f"{p} switch", f"{p} masked") for p in SCHED_PROGRAMS]
+    for a, b2 in pairs:
+        la, pa = got[a]
+        lb, pb = got[b2]
+        if not (torch.equal(la, lb)
+                and all(torch.equal(pa[k], pb[k]) for k in pa)):
+            out["bad"].append(f"{a} != {b2} (must be bitwise)")
+    out["max_abs_err"] = 0.0 if not out["bad"] else float("nan")
+    rt.barrier()
+    rt.close()
+    return out
+
+
+def schedule_world(n: int, card: str) -> list:
+    """Spawn :func:`schedule_rank_case` on ``n`` ranks of cuda:0; raise on
+    a failed rank, a launch count off the hop tables' or a failed
+    check."""
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    res = run_world(n, f"{__file__}:schedule_rank_case", {}, timeout=600)
+    for r in res:
+        if r["launches"] != r["expected"] or r["bad"]:
+            raise AssertionError(
+                f"schedule world of {n}, rank {r['rank']}: launches "
+                f"{r['launches']} (the hop tables give {r['expected']}), "
+                f"failed checks {r['bad']}")
+    hop = MLP_MB * MLP_T * MLP_DM * 4
+    say(f"schedule world of {n} on cuda:0 (time-sliced processes, not a "
+        f"link number): make_tick_train_step(mlp_block) at d_model "
+        f"{MLP_DM}, d_ff {MLP_FF}, {MLP_M} microbatches of [{MLP_MB}, "
+        f"{MLP_T}, {MLP_DM}] float32 ({hop} B a hop), transport="
+        f"'pallas_dma', one step each: ms (slower rank) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res[0]["ms"].items())
+        + f" (the second step of each; the first builds the windows) | zb "
+        f"== 1f1b, switch == masked, wave == one-shot bitwise on every "
+        f"rank, a second step bitwise the first; updates vs pipeline_reference relative L2 max "
+        f"{max(max(r['rel'].values()) for r in res):.2e} (tol {GRAD_TOL})"
+        f" | peer-push launches a rank = the hop tables': "
+        + ", ".join(f"{k} {v}" for k, v in res[0]["launches"].items())
+        + f" | world {time.perf_counter() - t0:.1f} s | {card}")
+    return res
+
+
+def zb_cli_on_card(card: str) -> dict:
+    """Phase 18 (c): ``python -m tpu_p2p_torch zb`` on the card (a world
+    of one): its JSON line, ``loss_bitwise`` true; the ratio reported,
+    the grade the program's own (exit 0 when ``ok``, else 1)."""
+    from tpu_p2p_torch import cli
+
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli.main(["zb"])
+    sys.stdout.write(buf.getvalue())
+    lines = buf.getvalue().splitlines()
+    res = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else None
+    if res is None or rc != (0 if res["ok"] else 1) \
+            or not res["loss_bitwise"]:
+        raise AssertionError(f"python -m tpu_p2p_torch zb exited {rc}: "
+                             f"{res} {err.getvalue()[-2000:]}")
+    say(f"zb smoke on the card: fused {res['pp_step_ms_fused']} ms, zb "
+        f"{res['pp_step_ms_zb']} ms, ratio {res['pp_zb_vs_fused_ratio']}, "
+        f"loss_bitwise {res['loss_bitwise']}, grade ok={res['ok']} (one "
+        f"device: zb within 1.10x of fused) | {card}")
+    return res
+
+
+def schedule_phase(TFA, dev, card) -> dict:
+    """Phase 18: (a) the flagship 1F1B step on a world of one, (b) the
+    generic executor on worlds of 2 and 4 processes sharing cuda:0 over
+    the peer-push transport, (c) the zb smoke. → the flash launches of
+    (a) and the peer-push launches of (b)'s world of 2."""
+    t0 = time.perf_counter()
+    flash = schedule_world_of_one(TFA, dev, card)
+    torch.cuda.empty_cache()
+    w2 = schedule_world(2, card)
+    schedule_world(4, card)
+    zb = zb_cli_on_card(card)
+    say(f"phase 18 (schedules): {time.perf_counter() - t0:.1f} s")
+    total = {k: sum(v[k] for v in w2[0]["launches"].values())
+             for k in ("dma_permute", "dma_ship")}
+    return {"flash": flash, "zb": zb, **total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -4758,6 +5145,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ovl = overlap(TFA, dev, card)
     kernels[-1]["process_mesh"] = ovl["process_mesh"]
+    torch.cuda.empty_cache()
+    sched = schedule_phase(TFA, dev, card)
     launches = {"cache_kv_write": dec["launches"]["cache_kv_write"],
                 "paged_kv_write": srv["launches"]["paged_kv_write"],
                 "dma_permute": kernels[-2]["launches"],
@@ -4768,14 +5157,17 @@ def main() -> int:
                     "patterns": pat_launches[name],
                     "train_loop": loop_launches[name],
                     "overlap": ovl["flash"][name],
+                    "schedule": sched["flash"][name],
                     **{f"memory_{k}": v[name]
                        for k, v in mem_launches.items()}}
              for name, n in trn["launches"].items()}
     paths["dma_permute"] = {"p2p": launches["dma_permute"],
                             "overlap_process_mesh": ovl["dma_permute"],
+                            "schedule_process_mesh": sched["dma_permute"],
                             **tp_paths["dma_permute"]}
     paths["dma_ship"] = {"disagg": launches["dma_ship"],
                          "overlap_process_mesh": ovl["dma_ship"],
+                         "schedule_process_mesh": sched["dma_ship"],
                          **tp_paths["dma_ship"]}
     paths["cache_kv_write"] = {
         "decode": launches["cache_kv_write"],

@@ -9,8 +9,8 @@ capacity factor 2, top-1, groups of 256): each on one card, then as one
 prints each run's records under its label, the cards' name and power
 limit first. Three sets of meshes: ``--ffn dense``, ``--ffn moe`` or
 ``--ffn zero`` runs one set alone (with the one-card runs of the FFNs
-it uses), ``--ffn all`` (the default) every set; ``--ffn loop`` and
-``--ffn overlap`` are sets of their own.
+it uses), ``--ffn all`` (the default) every set; ``--ffn loop``,
+``--ffn overlap`` and ``--ffn sched`` are sets of their own.
 
 Dense meshes on 4 cards (dp x pp x sp x tp x ep):
 
@@ -59,6 +59,18 @@ checkpoint directory without ``gen-000004`` to step 4. It prints both
 runs' records, each save's seconds and the resumed final loss's
 relative difference from the 4 cards' (bf16 on another mesh: a
 reading; the CPU tests hold the cross-mesh resume to 1e-4 in float32).
+
+The tick-IR schedules on 4 cards (``--ffn sched``, not part of ``all``):
+the flagship step at flagship_large's width without the vocabulary (the
+tick-IR step trains the MSE objective), dense FFN, on pp 2 x dp 2 (2
+microbatches: a dp rank's batch of 2) and on pp 4 (4 microbatches), each
+mesh one ``torchrun`` world
+(``--sched-rank``, this script under ``torchrun``) running in turn the
+GPipe autograd step, fused 1F1B masked, 1F1B switch and zb switch from
+the same params and batch: 4 steps each (the median of steps 2-4), then
+one profiled step; every rank's step ms, NCCL device ms and peak memory,
+and the schedules' losses held bitwise to 1F1B masked's. Then ``python
+-m tpu_p2p_torch zb`` on the 4 cards, with its grade.
 
 For each mesh: the step ms (median of steps 2-4, each read when its loss
 reached the host), tokens/s, the peak device memory and flash kernel
@@ -232,6 +244,187 @@ def profile_rank(argv) -> int:
     if rows[0]["rank"] == mine["rank"]:
         print(json.dumps({"profile": rows}), flush=True)
     return 0
+
+
+SCHED_MESHES = (  # (label, mesh, microbatches: the local batch of B 4)
+    ("sched pp2 x dp2", "2x2x1x1x1", 2), ("sched pp4", "1x4x1x1x1", 4))
+SCHED_VARIANTS = (  # (label, pp_schedule, tick_lowering); GPipe first
+    ("gpipe", None, None), ("1f1b masked", "1f1b", "masked"),
+    ("1f1b switch", "1f1b", "switch"), ("zb switch", "zb", "switch"))
+
+
+def _profile_rows(prof, wall: float) -> dict:
+    """A profiled step's device time: busy (the union of the kernel
+    spans), idle share and ms by kernel family."""
+    from torch.autograd import DeviceType
+
+    spans, fam = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        family = next((f for f, keys in FAMILIES
+                       if any(k in ev.name for k in keys)), "other")
+        fam[family] = fam.get(family, 0.0) + ev.time_range.elapsed_us() / 1e3
+    busy = union_ms(spans)
+    return {"wall_ms": wall, "device_events": len(spans), "busy_ms": busy,
+            "idle_share": 1 - busy / wall, "device_ms_by_family": fam}
+
+
+def sched_rank(argv) -> int:
+    """One rank of a ``--ffn sched`` world, under ``torchrun``: ``argv``
+    are ``train``'s shape and mesh arguments. Each of ``SCHED_VARIANTS``
+    from the same seeded params and batch: ``STEPS`` steps (each read
+    when its loss reaches the host), then one more under
+    ``torch.profiler``; rank 0 prints every rank's numbers as one
+    ``{"sched": [...]}`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_p2p_torch import train as T
+    from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    args = T._build_parser().parse_args(argv)
+    cfg = T.config_from_args(args)
+    rt = make_runtime(
+        device="cpu" if args.device == "cpu" else None, axis_names=F.AXES,
+        mesh_shape=T.mesh_shape(args.mesh_shape,
+                                int(os.environ["WORLD_SIZE"])))
+    mesh, dev = rt.mesh, rt.mesh.device
+    card = dev.type == "cuda"
+    host = F.init_flagship_params(cfg, seed=args.seed, device="cpu")
+    spec = F.flagship_data_spec(mesh)
+    x, t = (F.local_shard(a, mesh, spec).contiguous().to(dev)
+            for a in F.flagship_host_batch(cfg, np.random.default_rng(1)))
+    rows = []
+    for label, sched, lowering in SCHED_VARIANTS:
+        if sched is None:
+            params = F.place_flagship_params(host, mesh, cfg)
+            step = F.make_flagship_train_step(cfg, lr=args.lr, mesh=mesh)
+        else:
+            vcfg = dataclasses.replace(cfg, pp_schedule=sched,
+                                       tick_lowering=lowering)
+            params = F.place_flagship_params_pipelined(host, mesh, vcfg)
+            step = F.make_flagship_train_step_1f1b(mesh, vcfg, lr=args.lr)
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        rt.barrier()
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            params, loss = step(params, x, t)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rt.barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, loss = step(params, x, t)
+            float(loss)
+            wall = (time.perf_counter() - t0) * 1e3
+        row = {"label": label, "rank": rt.rank, "coords": mesh.coords,
+               "losses": losses, "step_ms": ms,
+               "step_ms_p50": statistics.median(ms[1:]),
+               "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if card else None),
+               **_profile_rows(prof, wall)}
+        rows.append(row)
+        del params, step
+        if card:
+            torch.cuda.empty_cache()
+    got = rt.gather(rows)
+    rt.close()
+    if got[0][0]["rank"] == rows[0]["rank"]:
+        print(json.dumps({"sched": got}), flush=True)
+    return 0
+
+
+def sched_cards(shape: list, env: dict, torchrun: list, tokens: int,
+                card: str) -> list:
+    """``--ffn sched``: a world a mesh of ``SCHED_MESHES`` running every
+    variant, then the zb smoke on the cards → the results."""
+    results = []
+    i = shape.index("--vocab")
+    width = shape[:i] + shape[i + 2:]
+    width[width.index("--stages") + 1] = "8"  # 2 or 4 blocks a pp rank
+    for label, dims, micro in SCHED_MESHES:
+        width[width.index("--microbatches") + 1] = str(micro)
+        t0 = time.perf_counter()
+        cmd = [*torchrun, os.path.abspath(__file__), "--sched-rank", *width,
+               "--dense-ffn", *COMMON, "--mesh-shape", dims]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  env=env, timeout=RUN_TIMEOUT_S * 2,
+                                  start_new_session=True)
+            rc, out, err = proc.returncode, proc.stdout, proc.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = 124, "", f"timed out: {e}"
+        print(f"== {label} (rc {rc}, {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        got = [json.loads(s)["sched"] for s in out.splitlines()
+               if s.startswith('{"sched"')]
+        if rc or not got:
+            print(err[-3000:], flush=True)
+            results.append({"label": label, "rc": rc or 1,
+                            "error": err[-3000:]})
+            continue
+        ranks = got[0]
+        ref = {rows[1]["rank"]: rows[1]["losses"]  # 1f1b masked's
+               for rows in ranks}
+        for i, (name, _, _) in enumerate(SCHED_VARIANTS):
+            per = [rows[i] for rows in ranks]
+            p50 = max(r["step_ms_p50"] for r in per)
+            nccl = [sum(v for k, v in r["device_ms_by_family"].items()
+                        if k.startswith("nccl")) for r in per]
+            res = {"label": f"{label} {name}", "rc": 0,
+                   "losses": per[0]["losses"], "step_ms_p50": p50,
+                   "tokens_per_s": tokens / p50 * 1e3,
+                   "step_ms_per_rank": [r["step_ms_p50"] for r in per],
+                   "peak_gib": [r["peak_gib"] for r in per],
+                   "nccl_ms_per_rank": nccl,
+                   "idle_share_per_rank": [r["idle_share"] for r in per],
+                   "device_events": [r["device_events"] for r in per]}
+            if i > 1:
+                res["losses_bitwise_1f1b_masked"] = all(
+                    r["losses"] == ref[r["rank"]] for r in per)
+                if not res["losses_bitwise_1f1b_masked"]:
+                    res["rc"] = 1
+                    res["error"] = "losses differ from 1f1b masked's"
+            print(f"{res['label']}: step {p50:.1f} ms (slowest rank's "
+                  f"median of steps 2-{STEPS}) = {res['tokens_per_s']:.0f} "
+                  f"tokens/s | per rank {[round(v, 1) for v in res['step_ms_per_rank']]}"
+                  f" ms | NCCL device ms a rank "
+                  f"{[round(v, 1) for v in nccl]} | peak GiB "
+                  f"{[round(v, 2) if v else v for v in res['peak_gib']]} | "
+                  f"losses {res['losses']}"
+                  + (f" | bitwise 1f1b masked: "
+                     f"{res['losses_bitwise_1f1b_masked']}" if i > 1 else "")
+                  + f" | {card}", flush=True)
+            results.append(res)
+    t0 = time.perf_counter()
+    zb = [*torchrun, "-m", "tpu_p2p_torch", "zb"]
+    if "--device" in shape:
+        zb = [sys.executable, "-m", "tpu_p2p_torch", "zb", "--cpu-mesh",
+              "4", "--seq", "32", "--iters", "2", "--repeats", "1"]
+    proc = subprocess.run(zb, capture_output=True, text=True, env=env,
+                          timeout=RUN_TIMEOUT_S, start_new_session=True)
+    lines = proc.stdout.splitlines()
+    sys.stdout.write(proc.stdout)
+    grade = json.loads(lines[-1]) if lines and lines[-1].startswith("{")         else None
+    res = {"label": "zb smoke on the cards", "rc": proc.returncode,
+           "grade": grade}
+    if grade is None or not grade["loss_bitwise"] or \
+            proc.returncode != (0 if grade["ok"] else 1):
+        res["rc"] = res["rc"] or 1
+        res["error"] = proc.stderr[-3000:]
+    print(f"== zb smoke (rc {proc.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s): {grade} | {card}", flush=True)
+    results.append(res)
+    return results
 
 
 def card_line() -> str:
@@ -411,16 +604,20 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["--profile-rank"]:
         return profile_rank(argv[1:])
+    if argv[:1] == ["--sched-rank"]:
+        return sched_rank(argv[1:])
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--cpu", action="store_true",
                    help="gloo worlds of 4 CPU ranks at a tiny width")
     p.add_argument("--json", metavar="PATH",
                    help="also write the closing JSON object to PATH")
-    p.add_argument("--ffn", choices=(*SETS, "all", "loop", "overlap"),
+    p.add_argument("--ffn", choices=(*SETS, "all", "loop", "overlap",
+                                      "sched"),
                    default="all",
                    help="which set of runs (default all; loop: the "
                         "training loop's checkpoint and resume; overlap: "
-                        "the overlap knobs, each beside its none run)")
+                        "the overlap knobs, each beside its none run; "
+                        "sched: the tick-IR schedules beside GPipe)")
     args = p.parse_args(argv)
     if args.cpu:
         n, shape = 4, TINY
@@ -446,6 +643,8 @@ def main(argv=None) -> int:
         results = loop_cards(shape, env, torchrun, tokens, card)
     if args.ffn == "overlap":
         results = overlap_cards(shape, env, torchrun, tokens, card)
+    if args.ffn == "sched":
+        results = sched_cards(shape, env, torchrun, tokens, card)
     for name in (SETS if args.ffn == "all" else
                  (args.ffn,) if args.ffn in SETS else ()):
         for label, ffn, mesh in SETS[name]:
@@ -471,6 +670,8 @@ def main(argv=None) -> int:
     for res in results:
         if "error" in res:
             print(f"{res['label']}: FAILED (rc {res['rc']})", flush=True)
+            continue
+        if "step_ms_p50" not in res:
             continue
         extra = ""
         if "nccl_ms_per_rank" in res:

@@ -143,7 +143,6 @@ def test_overlap_and_remat_knobs_are_validated():
                              remat_policy="dots_saveable")
     for f in ("zero_dp", "overlap", "remat", "remat_policy"):
         assert getattr(cfg, f) == getattr(jcfg, f)
-        assert f not in TF.NOT_PORTED_FIELDS
 
 
 # ------------------------------------------------- the bucketed gather

@@ -298,8 +298,11 @@ _NOT_PORTED_ARGV = {
     "--fault-slow-ms": ["5"], "--fault-lost-host": ["1"],
     "--obs-jsonl": ["obs.jsonl"], "--obs-window-step": ["2"],
     "--trace": ["t.json"],
-    "--pp-schedule": ["zb"], "--tick-lowering": ["switch"],
 }
+# The tick-IR knobs parse and reach the config; the loop's GPipe step
+# then refuses them with the reference's own error (exit 1), as the
+# reference's loop does.
+_GPIPE_REFUSED_ARGV = {"--pp-schedule": ["zb"], "--tick-lowering": ["switch"]}
 # The overlap knobs run: on a world of one each axis has size 1, so each
 # is the plain step, bitwise (the reference's size-1 degrade).
 _OVERLAP_ARGV = {
@@ -313,8 +316,27 @@ def test_not_ported_table_covers_every_rejected_flag():
                                               TT._FLAGS_NOT_PORTED)
 
 
-@pytest.mark.parametrize("flag", sorted(_NOT_PORTED_ARGV))
+def _reference_refusal(**cfg_kw) -> str:
+    """The reference GPipe step's refusal of a tick-IR knob."""
+    from tpu_p2p.models.flagship_steps import _reject_zb_schedule
+
+    with pytest.raises(ValueError) as e:
+        _reject_zb_schedule(JF.FlagshipConfig(**cfg_kw))
+    return str(e.value)
+
+
+@pytest.mark.parametrize("flag", sorted({**_NOT_PORTED_ARGV,
+                                         **_GPIPE_REFUSED_ARGV}))
 def test_train_cli_rejects_flags_not_ported(flag, capsys):
+    if flag in _GPIPE_REFUSED_ARGV:
+        argv = ["--device", "cpu", "--dense-ffn", flag,
+                *_GPIPE_REFUSED_ARGV[flag]]
+        assert TT.main(argv) == 1
+        kw = {"--pp-schedule": {"pp_schedule": "zb"},
+              "--tick-lowering": {"tick_lowering": "switch"}}[flag]
+        assert f"Failed: ValueError '{_reference_refusal(**kw)}'" in \
+            capsys.readouterr().err
+        return
     argv = ["--device", "cpu", "--dense-ffn", flag, *_NOT_PORTED_ARGV[flag]]
     assert TT.main(argv) == 2
     err = capsys.readouterr().err
@@ -386,11 +408,16 @@ def test_config_takes_the_overlap_knobs(name, good, bad):
         JF.FlagshipConfig(), name)
 
 
-@pytest.mark.parametrize("name", sorted(TF.NOT_PORTED_FIELDS))
+@pytest.mark.parametrize("name", ["pp_schedule", "tick_lowering"])
 def test_config_rejects_fields_not_ported(name):
-    default = TF.NOT_PORTED_FIELDS[name]
-    value = {4: 2}.get(default, "other")
-    with pytest.raises(NotImplementedError, match=f"{name}.*not ported"):
-        TF.FlagshipConfig(**{name: value})
+    # Ported: the config takes the tick-IR knobs (the reference's
+    # defaults and values), and the GPipe steps refuse them with the
+    # reference's message (the tick-IR executor runs them).
+    value = {"pp_schedule": "zb", "tick_lowering": "switch"}[name]
+    cfg = TF.FlagshipConfig(dense_ffn=True, **{name: value})
+    assert getattr(cfg, name) == value
+    with pytest.raises(ValueError) as e:
+        TF.make_flagship_train_step(cfg)
+    assert str(e.value) == _reference_refusal(**{name: value})
     assert getattr(TF.FlagshipConfig(), name) == getattr(
         JF.FlagshipConfig(), name)

@@ -127,10 +127,19 @@ def _assert_cli_matches_reference(argv):
     (["--tick-lowering", "switch"], "--tick-lowering"),
 ], ids=["pp_schedule", "tick_lowering"])
 def test_train_cpu_mesh_still_rejects_what_is_not_ported(argv, what,
-                                                         capsys):
-    assert TT.main(["--cpu-mesh", "8", *SHAPE, *argv]) == 2
-    err = capsys.readouterr().err
-    assert what in err and "not ported yet" in err
+                                                         capfd):
+    # The knobs are ported (the tick-IR executor runs them); the loop's
+    # GPipe step refuses them on every rank with the reference's own
+    # error and exit code, as the reference's loop does.
+    from tpu_p2p.models.flagship_steps import _reject_zb_schedule
+
+    assert TT.main(["--cpu-mesh", "8", *SHAPE, *argv]) == 1
+    kw = {"--pp-schedule": {"pp_schedule": "zb"},
+          "--tick-lowering": {"tick_lowering": "switch"}}[what]
+    with pytest.raises(ValueError) as want:
+        _reject_zb_schedule(JF.FlagshipConfig(**kw))
+    err = capfd.readouterr().err
+    assert f"Failed: ValueError '{want.value}'" in err
 
 
 def test_bad_mesh_shape_fails_fast(capsys):

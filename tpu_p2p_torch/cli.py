@@ -14,15 +14,16 @@ the reference: the transfers (pairwise, latency, loopback, ring,
 torus2d over ``--mesh-shape AxB``, all_to_all, allreduce,
 reduce_scatter, all_gather) and the model patterns (ring_attention and
 ulysses_attention, with ``--flash`` and ``--attn-window``;
-flagship_step, with ``--zero-dp``, ``--overlap`` and the ``--tp-overlap``
-/ ``--ep-overlap`` / ``--pp-overlap`` knobs); ``--mode device``
+flagship_step, with ``--zero-dp``, ``--overlap``, the ``--tp-overlap``
+/ ``--ep-overlap`` / ``--pp-overlap`` knobs, and ``--pp-schedule zb`` /
+``--tick-lowering switch`` on the tick-IR executor); ``--mode device``
 publishes the card's clock, ``--validate-timing`` cross-checks it
 against the host clock after the run, ``--profile-dir DIR`` writes a
-``torch.profiler`` trace of the run. ``serve`` runs the serving engine
-and ``train`` the training loop. The reference's flags and subcommands
-the port does not run yet (``--hybrid``, flagship_step's pipeline
-schedule and tick lowering, ``obs``, ``topo``, ``zb``) parse and exit 2
-with "not ported yet".
+``torch.profiler`` trace of the run. ``serve`` runs the serving engine,
+``train`` the training loop and ``zb`` the graded zero-bubble smoke. The
+reference's flags and subcommands the port does not run yet
+(``--hybrid``, ``obs``, ``topo``) parse and exit 2 with "not ported
+yet".
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from tpu_p2p_torch.config import (
 from tpu_p2p_torch.utils.errors import fail_fast
 
 # Flags of the reference CLI that the port parses but does not run.
-UNPORTED_FLAGS = ("hybrid", "pp_schedule", "tick_lowering")
+UNPORTED_FLAGS = ("hybrid",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,10 +144,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flagship_step: the stage-hop schedule (wave = the "
                         "hop as token-chunk hops)")
     p.add_argument("--pp-schedule", choices=PP_SCHEDULES, default="1f1b",
-                   help="flagship_step tick schedule (not ported yet)")
+                   help="flagship_step: the pipeline tick schedule (zb = "
+                        "the zero-bubble dB/dW split on the tick-IR "
+                        "executor)")
     p.add_argument("--tick-lowering", choices=TICK_LOWERINGS,
                    default="masked",
-                   help="flagship_step tick lowering (not ported yet)")
+                   help="flagship_step: the tick lowering (switch = each "
+                        "rank dispatches its own tick, idle ranks skip "
+                        "the compute)")
     p.add_argument("--cpu-mesh", type=int, default=None, metavar="N",
                    help="run as a gloo world of N CPU ranks (spawned here)")
     p.add_argument("--list-devices", action="store_true",
@@ -201,6 +206,8 @@ def config_from_args(args: argparse.Namespace) -> BenchConfig:
         tp_overlap=args.tp_overlap,
         ep_overlap=args.ep_overlap,
         pp_overlap=args.pp_overlap,
+        pp_schedule=args.pp_schedule,
+        tick_lowering=args.tick_lowering,
     )
 
 
@@ -367,9 +374,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_p2p_torch.train import main as train_main
 
         return train_main(argv[1:])
-    if argv and argv[0] in ("obs", "topo", "zb"):
+    if argv and argv[0] == "zb":
+        from tpu_p2p_torch.models.zb_smoke import main as zb_main
+
+        return zb_main(argv[1:])
+    if argv and argv[0] in ("obs", "topo"):
         print(f"python -m tpu_p2p_torch: {argv[0]} is not ported yet; "
-              "available: the benchmark (no subcommand), serve, train",
+              "available: the benchmark (no subcommand), serve, train, zb",
               file=sys.stderr)
         return 2
     return bench_main(argv)

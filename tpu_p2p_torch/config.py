@@ -124,9 +124,7 @@ TICK_LOWERINGS = ("masked", "switch")
 @dataclass
 class BenchConfig:
     """Everything a benchmark run needs; defaults = the reference's
-    constants. The reference's pipeline-schedule and tick-lowering
-    fields are parsed by the CLI but not ported (it refuses them), so
-    they are not here."""
+    constants."""
 
     pattern: str = "pairwise"
     # None = unset; bandwidth patterns then use the reference's 32 MiB
@@ -170,6 +168,13 @@ class BenchConfig:
     pp_overlap: str = "none"  # flagship_step: the pipeline's stage hop
     # ("wave" = token-chunk hops, every chunk's in flight before the
     # first wait), as FlagshipConfig.pp_overlap; no-op at pp 1
+    pp_schedule: str = "1f1b"  # flagship_step: the pipeline tick
+    # schedule ("zb" = the zero-bubble dB/dW split), as
+    # FlagshipConfig.pp_schedule; a non-default value routes the step
+    # through the tick-IR executor
+    tick_lowering: str = "masked"  # flagship_step: the tick lowering
+    # ("switch" = per-rank dispatch), as FlagshipConfig.tick_lowering;
+    # a non-default value routes the step through the tick-IR executor
     transport: str = "xla"
 
     def __post_init__(self) -> None:
@@ -208,6 +213,16 @@ class BenchConfig:
             raise ValueError(
                 f"unknown pp_overlap {self.pp_overlap!r}; expected "
                 "'none' or 'wave'"
+            )
+        if self.pp_schedule not in PP_SCHEDULES:
+            raise ValueError(
+                f"unknown pp_schedule {self.pp_schedule!r}; expected "
+                f"one of {PP_SCHEDULES}"
+            )
+        if self.tick_lowering not in TICK_LOWERINGS:
+            raise ValueError(
+                f"unknown tick_lowering {self.tick_lowering!r}; "
+                f"expected one of {TICK_LOWERINGS}"
             )
         if self.transport not in TRANSPORTS:
             raise ValueError(

@@ -5,12 +5,12 @@ The model-shape fields, ``use_flash``, the sequence-parallel strategy,
 ZeRO storage (``zero_dp``) and its prefetch schedule (``overlap``), the
 tp/ep/pp overlap knobs (``tp_overlap``, ``ep_overlap``, ``pp_overlap``
 with ``pp_chunks``), rematerialization (``remat``, ``remat_policy``),
-every training field the reference's train CLI sets, and the MoE FFN's
-config (:meth:`FlagshipConfig.moe`). Field names and defaults match the
-reference, so one keyword set builds both configs. The mesh has the
-reference's five axes (``AXES``); :func:`build_mesh` factors a world
-over them. The pipeline schedule and its lowering are not ported yet: a
-non-default value raises rather than being ignored.
+every training field the reference's train CLI sets, the tick-IR
+executor's schedule and lowering (``pp_schedule``, ``tick_lowering``),
+and the MoE FFN's config (:meth:`FlagshipConfig.moe`). Field names and
+defaults match the reference, so one keyword set builds both configs.
+The mesh has the reference's five axes (``AXES``); :func:`build_mesh`
+factors a world over them.
 """
 
 from __future__ import annotations
@@ -18,14 +18,12 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Dict, Optional, Sequence, Tuple
 
+from tpu_p2p_torch.config import PP_SCHEDULES, TICK_LOWERINGS
 from tpu_p2p_torch.models.moe import MoEConfig
 from tpu_p2p_torch.utils.remat import REMAT_POLICIES
 
 AXES = ("dp", "pp", "sp", "tp", "ep")
 SP_STRATEGIES = ("ring", "ring_zigzag", "ulysses")
-
-# Fields whose machinery is not ported, with the reference's default.
-NOT_PORTED_FIELDS = {"pp_schedule": "1f1b", "tick_lowering": "masked"}
 
 
 @dataclass(frozen=True)
@@ -78,12 +76,6 @@ class FlagshipConfig:
                 f"unknown sp_strategy {self.sp_strategy!r}; expected "
                 "'ring', 'ring_zigzag', or 'ulysses'"
             )
-        for name, default in NOT_PORTED_FIELDS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"FlagshipConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (only {name}={default!r} is)"
-                )
         if self.attn_window < 0:
             raise ValueError(
                 f"attn_window must be >= 0, got {self.attn_window}"
@@ -126,6 +118,19 @@ class FlagshipConfig:
         if self.pp_chunks < 1:
             raise ValueError(
                 f"pp_chunks must be >= 1, got {self.pp_chunks}"
+            )
+        # Strict like the overlap knobs: a typo ("ZB", "zero_bubble")
+        # would train the fused schedule while the logs claim
+        # zero-bubble; one definition with config.py and the CLI.
+        if self.pp_schedule not in PP_SCHEDULES:
+            raise ValueError(
+                f"unknown pp_schedule {self.pp_schedule!r}; expected "
+                f"one of {PP_SCHEDULES}"
+            )
+        if self.tick_lowering not in TICK_LOWERINGS:
+            raise ValueError(
+                f"unknown tick_lowering {self.tick_lowering!r}; "
+                f"expected one of {TICK_LOWERINGS}"
             )
         # The reference accepts the names of jax.checkpoint_policies'
         # POLICIES and refuses the factories that build one.

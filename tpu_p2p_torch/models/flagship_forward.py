@@ -43,6 +43,7 @@ from tpu_p2p_torch.models.flagship_params import (
     _fsdp_plan,
     torch_dtype,
 )
+from tpu_p2p_torch.models import zb_split
 from tpu_p2p_torch.models.moe import moe_layer_local
 from tpu_p2p_torch.models.pipeline import pipeline_apply_local
 from tpu_p2p_torch.ops.attention import (
@@ -85,10 +86,10 @@ def _dense_ffn(sub: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
     back to ``h``'s dtype."""
     h = psum_conjugate(h, tp)
     with product("wf1", batch_dims=False):
-        f_h = torch.matmul(h.float(), sub["wf1"].float())
+        f_h = zb_split.stored_matmul(h.float(), sub["wf1"], "wf1")
     f_h = F.gelu(f_h, approximate="tanh")
     with product("wf2", batch_dims=False):
-        out = torch.matmul(f_h, sub["wf2"].float())
+        out = zb_split.stored_matmul(f_h, sub["wf2"], "wf2")
     return psum_join(out, tp).to(h.dtype)
 
 
@@ -131,7 +132,7 @@ def _attention(q, k, v, cfg: FlagshipConfig, sp) -> torch.Tensor:
 def _project(h: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
     """A q/k/v projection of this rank's heads, ``btm,hmd->bhtd``."""
     with product(name, batch_dims=False):
-        return torch.einsum("btm,hmd->bhtd", h, w)
+        return zb_split.stored_product("proj", h, w, name)
 
 
 def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
@@ -161,7 +162,7 @@ def _stage_sub_block(sub: Params, x: torch.Tensor, cfg: FlagshipConfig,
         # tp 1 (or no tp axis) keeps the psum path below, bitwise.
         return _tp_ring_join(sub, x, a, cfg, tp, ep)
     with product("wo", batch_dims=False):
-        o = torch.einsum("bhtd,hdm->btm", a, sub["wo"])
+        o = zb_split.stored_product("out", a, sub["wo"], "wo")
     x = x + psum_join(o, tp)
     h2 = _rms_norm(x, sub["ln2"]) if cfg.norm else x
     if cfg.dense_ffn:
@@ -222,7 +223,7 @@ def _tp_ring_join(sub: Params, x: torch.Tensor, a: torch.Tensor,
 
     def wo_chunk(c, _src):
         with product("wo", batch_dims=False):
-            return torch.einsum("bhtd,hdm->btm", c, sub["wo"])
+            return zb_split.stored_product("out", c, sub["wo"], "wo")
 
     y_shard = matmul_ring_reducescatter(wo_chunk, a, tp, chunk_dim=2)
     if not cfg.dense_ffn:
@@ -236,11 +237,11 @@ def _tp_ring_join(sub: Params, x: torch.Tensor, a: torch.Tensor,
         x1_c = xc.narrow(1, src * ct, ct) + y_c
         h = _rms_norm(x1_c, ln2) if cfg.norm else x1_c
         with product("wf1", batch_dims=False):
-            return torch.matmul(h.float(), sub["wf1"].float())
+            return zb_split.stored_matmul(h.float(), sub["wf1"], "wf1")
 
     def ffn2_chunk(c, _src):
         with product("wf2", batch_dims=False):
-            return torch.matmul(c, sub["wf2"].float())
+            return zb_split.stored_matmul(c, sub["wf2"], "wf2")
 
     f_h = F.gelu(ring_allgather_matmul(ffn1_chunk, y_shard, tp, 1),
                  approximate="tanh")
@@ -260,10 +261,11 @@ def _block_body(cfg: FlagshipConfig):
     cast from the masters is free."""
     compute = torch_dtype(cfg.dtype)
 
-    def cast_and_run(sub, x, sp, tp, ep):
+    def cast_and_run(sub, x, sp, tp, ep, row=0, store=None):
         sub = {k: (v.to(compute) if v.dtype != compute else v)
                for k, v in sub.items()}
-        return _stage_sub_block(sub, x, cfg, sp, tp, ep)
+        with zb_split.scope(store, row):
+            return _stage_sub_block(sub, x, cfg, sp, tp, ep)
 
     rings = "ring" in (cfg.tp_overlap, cfg.ep_overlap)  # hops left in
     # flight inside the block: its recompute must run whole
@@ -286,10 +288,11 @@ def _stage_block(stage_params: Params, x: torch.Tensor,
     again, and the gathered slice is a block input, live as the bulk
     gather's would be."""
     body = _block_body(cfg)
+    store = zb_split.current_store()  # the tick executor's, or None
     if prefetch is None:
         for i in range(s_local):
             x = body({k: v[i] for k, v in stage_params.items()}, x,
-                     sp, tp, ep)
+                     sp, tp, ep, i, store)
         return x
     line, plan = prefetch
     cur = fsdp.gather_stage(stage_params, 0, line, plan)
@@ -299,7 +302,7 @@ def _stage_block(stage_params: Params, x: torch.Tensor,
         got = cur.wait()
         sub = {k: (got[k] if k in got else v[i])
                for k, v in stage_params.items()}
-        x = body(sub, x, sp, tp, ep)
+        x = body(sub, x, sp, tp, ep, i, store)
         cur = nxt
     return x
 

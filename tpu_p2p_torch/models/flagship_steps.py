@@ -79,20 +79,28 @@ def _sgd_update(params: Params, grads: Dict[str, torch.Tensor], lr: float,
 
 
 def _reject_zb_schedule(cfg: FlagshipConfig) -> None:
-    """The GPipe steps differentiate through the schedule, so there are
-    no backward ticks to split (``pp_schedule="zb"``) or dispatch
-    (``tick_lowering="switch"``): those run on the reference's tick-IR
-    executor, which the port does not have yet. A label here would time
-    the autodiff schedule under another name. (The config refuses both
-    values before this; the check keeps the reference's contract.)"""
+    """The GPipe steps differentiate through the schedule, so there is
+    no backward tick to split (``pp_schedule="zb"``) or dispatch
+    (``tick_lowering="switch"``): a run here would time the autograd
+    schedule under another name. Both run on the tick-IR executor
+    (:func:`~tpu_p2p_torch.models.flagship_1f1b.
+    make_flagship_train_step_1f1b`). The reference's messages."""
     if cfg.pp_schedule == "zb":
         raise ValueError(
-            "pp_schedule='zb' runs on the tick-IR executor; the GPipe "
-            "autodiff steps have no backward ticks to split")
+            "pp_schedule='zb' runs on the switch-lowered tick-IR "
+            "executor (make_flagship_train_step_1f1b, which compiles "
+            "zb through schedule.lower() with the ZB-H1 weight "
+            "split); the GPipe autodiff steps have no backward ticks "
+            "to split"
+        )
     if cfg.tick_lowering != "masked":
         raise ValueError(
             f"tick_lowering={cfg.tick_lowering!r} runs on the tick-IR "
-            "executor; the GPipe autodiff steps run a masked schedule")
+            "executor (make_flagship_train_step_1f1b, which lowers "
+            "every schedule through schedule.lower()); the GPipe "
+            "autodiff steps run a masked scan with no per-rank tick "
+            "timeline to dispatch over"
+        )
 
 
 class _GradPlanes:

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_p2p_torch.models.zb_split import stored_matmul
 from tpu_p2p_torch.parallel.collectives import (
     axis_all_to_all,
     matmul_ring_all_to_all,
@@ -250,12 +251,12 @@ def moe_layer_local(params: Params, x: torch.Tensor, cfg: MoEConfig,
     # reference, products with the expert as a batch dim.
     def ffn1(slab):
         with product("we1", batch_dims=True):
-            h = torch.matmul(slab.float(), params["w1"].float())
+            h = stored_matmul(slab.float(), params["w1"], "we1")
         return F.gelu(h, approximate="tanh")
 
     def ffn2(slab):
         with product("we2", batch_dims=True):
-            y = torch.matmul(slab.to(x.dtype).float(), params["w2"].float())
+            y = stored_matmul(slab.to(x.dtype).float(), params["w2"], "we2")
         return y.to(x.dtype)
 
     if n > 1 and cfg.ep_overlap == "ring":

@@ -70,7 +70,6 @@ _FLAGS_NOT_PORTED = (
     ("fault_lost_host", "--fault-lost-host"),
     ("obs_jsonl", "--obs-jsonl"), ("obs_window_step", "--obs-window-step"),
     ("trace", "--trace"),
-    ("pp_schedule", "--pp-schedule"), ("tick_lowering", "--tick-lowering"),
 )
 
 
@@ -678,9 +677,18 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pp-chunks", type=int, default=4,
                    help="chunks of a --pp-overlap wave hop")
     p.add_argument("--pp-schedule", default="1f1b", choices=PP_SCHEDULES,
-                   help=nyp)
+                   help="pipeline tick schedule (zb = the zero-bubble "
+                        "dB/dW split, tick-IR executor only: the training "
+                        "loop runs GPipe autograd and refuses it, as the "
+                        "reference does, pointing at "
+                        "make_flagship_train_step_1f1b / the "
+                        "flagship_step workload)")
     p.add_argument("--tick-lowering", default="masked",
-                   choices=TICK_LOWERINGS, help=nyp)
+                   choices=TICK_LOWERINGS,
+                   help="tick lowering of compiled pipeline programs "
+                        "(switch = per-rank dispatch, tick-IR executor "
+                        "only: refused by the training loop like "
+                        "--pp-schedule zb)")
     return p
 
 
@@ -709,6 +717,7 @@ def config_from_args(args: argparse.Namespace):
         remat=args.remat, zero_dp=args.zero_dp, overlap=args.overlap,
         tp_overlap=args.tp_overlap, ep_overlap=args.ep_overlap,
         pp_overlap=args.pp_overlap, pp_chunks=args.pp_chunks,
+        pp_schedule=args.pp_schedule, tick_lowering=args.tick_lowering,
     )
 
 

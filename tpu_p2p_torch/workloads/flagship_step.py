@@ -15,9 +15,13 @@ in one order on every rank). Shapes come from
 ``--zero-dp [--overlap prefetch]`` and the ``--tp-overlap ring``,
 ``--ep-overlap ring`` and ``--pp-overlap wave`` knobs applied (each a
 no-op where its axis has size 1); pass ``model_cfg`` for other shapes.
-The reference's tick-IR executor (``--pp-schedule zb``,
-``--tick-lowering switch``) is not ported: the CLI refuses it, so the
-step is the masked GPipe-autodiff one.
+``--pp-schedule zb`` or ``--tick-lowering switch`` routes the step
+through the tick-IR executor (:func:`~tpu_p2p_torch.models.
+flagship_1f1b.make_flagship_train_step_1f1b`, device-major params), as
+the reference does; under ``switch`` the block-internal axes (sp, tp,
+ep) fold onto dp, since that executor refuses a stage block with
+permute-family collectives there. Otherwise the step is the GPipe
+autograd one.
 """
 
 from __future__ import annotations
@@ -37,7 +41,16 @@ def run_flagship_step(ctx: WorkloadContext, model_cfg=None) -> dict:
     from tpu_p2p_torch.models import flagship as F
 
     rt, cfg = ctx.rt, ctx.cfg
-    mesh = F.build_mesh(rt.num_devices, runtime=rt)
+    dims = F.mesh_dims(rt.num_devices)
+    if model_cfg is None and cfg.tick_lowering != "masked":
+        # The switch dispatch refuses permute-family collectives inside
+        # the stage block, so the block-internal axes (sp/tp/ep) land on
+        # dp: every rank stays in the mesh, pp keeps its factor, and the
+        # printed mesh shows the refolding (the reference's rule).
+        pp = dims[F.AXES.index("pp")]
+        dims = tuple(rt.num_devices // pp if a == "dp"
+                     else (pp if a == "pp" else 1) for a in F.AXES)
+    mesh = F.build_mesh(rt.num_devices, dims=dims, runtime=rt)
     mc = model_cfg or F.FlagshipConfig().tiny(mesh)
     if model_cfg is None and cfg.dtype in ("bfloat16", "float32"):
         mc = dataclasses.replace(mc, dtype=cfg.dtype)
@@ -46,12 +59,20 @@ def run_flagship_step(ctx: WorkloadContext, model_cfg=None) -> dict:
     if model_cfg is None:
         mc = dataclasses.replace(mc, tp_overlap=cfg.tp_overlap,
                                  ep_overlap=cfg.ep_overlap,
-                                 pp_overlap=cfg.pp_overlap)
-    # mc places the params, so a zero_dp config's leaves hold their dp
-    # shard from the start.
-    params = F.place_flagship_params(
-        F.init_flagship_params(mc, device="cpu"), mesh, mc)
-    step = F.make_flagship_train_step(mc, mesh=mesh)
+                                 pp_overlap=cfg.pp_overlap,
+                                 pp_schedule=cfg.pp_schedule,
+                                 tick_lowering=cfg.tick_lowering)
+    host_params = F.init_flagship_params(mc, device="cpu")
+    if mc.pp_schedule != "1f1b" or mc.tick_lowering != "masked":
+        # The tick-IR executor owns the schedules and the lowerings:
+        # device-major params, manual backward a tick.
+        params = F.place_flagship_params_pipelined(host_params, mesh, mc)
+        step = F.make_flagship_train_step_1f1b(mesh, mc)
+    else:
+        # mc places the params, so a zero_dp config's leaves hold their
+        # dp shard from the start.
+        params = F.place_flagship_params(host_params, mesh, mc)
+        step = F.make_flagship_train_step(mc, mesh=mesh)
     spec = F.flagship_data_spec(mesh)
     x, t = (F.local_shard(a, mesh, spec).contiguous().to(rt.device)
             for a in F.flagship_host_batch(mc, np.random.default_rng(1)))
@@ -72,11 +93,14 @@ def run_flagship_step(ctx: WorkloadContext, model_cfg=None) -> dict:
     tok_s = tokens / s.p50 if s.p50 == s.p50 and s.p50 > 0 else float("nan")
     axes = mesh.shape
     if ctx.is_printer:
-        # Each overlap knob rides the line only when active, as the
-        # reference's does (the schedule and lowering are not ported).
-        knobs = "".join(f" {k}={v}" for k, v in (
-            ("tp_overlap", mc.tp_overlap), ("ep_overlap", mc.ep_overlap),
-            ("pp_overlap", mc.pp_overlap)) if v != "none")
+        # Each knob rides the line only when it is not the default, as
+        # the reference's does.
+        knobs = "".join(f" {k}={v}" for k, v, default in (
+            ("tp_overlap", mc.tp_overlap, "none"),
+            ("ep_overlap", mc.ep_overlap, "none"),
+            ("pp_overlap", mc.pp_overlap, "none"),
+            ("pp_schedule", mc.pp_schedule, "1f1b"),
+            ("tick_lowering", mc.tick_lowering, "masked")) if v != default)
         sys.stdout.write(
             f"flagship_step mesh {axes} {mc.sp_strategy}-SP "
             f"B{mc.batch} T{mc.seq} H{mc.heads} E{mc.num_experts} "
