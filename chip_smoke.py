@@ -269,6 +269,24 @@ the first phase that goes wrong:
    ms (time-sliced processes, not a link number); (c) ``python -m
    tpu_p2p_torch zb`` in this process: its JSON line, ``loss_bitwise``
    true, the ratio and the program's own grade.
+19. Observability and health, each part in processes of its own (the
+   profiler loses device events in an old process): (a) a world of one
+   at phase 5's width, 2 of its 8 blocks: ``run_training`` for 4 steps
+   with ``obs_jsonl`` and ``obs_window_step=2`` beside the same run
+   without the stream: losses bitwise, one step row a step, one
+   ``device_window`` record with ``device_track`` true and
+   ``device_busy_frac`` in (0, 1], the summary; the flash launches of
+   the profiled step equal to its flash kernel events in the window;
+   ``obs watch`` over the stream exits 0; step ms with and without the
+   stream; (b) process worlds of 2 and 4 ranks sharing cuda:0 run
+   ``python -m tpu_p2p_torch obs --msg-size 32MiB --count 8 --no-gate
+   --artifacts-dir <tmp>``: the ledger totals equal the CPU world's of
+   the same size, every ``dma`` issue joined to a ``dma_permute_kernel``
+   event (none ragged or unmatched), each ring edge of the peer-push
+   matrix finite and the matrix labelled time-sliced, the library rows
+   host-only; (c) ``python -m tpu_p2p_torch obs smoke`` on 4 processes
+   sharing cuda:0: ``ok``, detection within 5 steps, the heal on 2 ranks
+   and ``heal_loss_delta_rel`` <= 0.05.
 
 Then one JSON line with every kernel's numbers, one with the card, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -5043,6 +5061,318 @@ def schedule_phase(TFA, dev, card) -> dict:
     return {"flash": flash, "zb": zb, **total}
 
 
+# ----------------------------------------------------------- phase 19: obs
+
+OBS_STEPS = 4
+OBS_WINDOW = 2
+OBS_MSG = "32MiB"
+OBS_COUNT = 8
+
+
+def obs_train_case() -> dict:
+    """Phase 19 (a), in a process of its own: ``run_training`` on a
+    world of one at phase 5's width (``LOOP_STAGES`` blocks), with and
+    without the obs stream, from the same seed. The profiled window is
+    watched: its flash launches (the wrappers' counts) against the flash
+    kernel events its trace holds."""
+    import tempfile
+
+    from tpu_p2p_torch.models.flagship import FlagshipConfig
+    from tpu_p2p_torch.obs import health
+    from tpu_p2p_torch.ops import flash_attention as TFA
+    from tpu_p2p_torch.train import run_training
+    from tpu_p2p_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = FlagshipConfig(**{**TRAIN, "stages": LOOP_STAGES})
+    window = {}
+    real = profiling.profile_window
+
+    def watched(fn, directory, **kw):
+        before = dict(TFA.launches)
+        path = real(fn, directory, **kw)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        window["launches"] = {k: TFA.launches[k] - before[k]
+                              for k in before}
+        names = [str(e.get("name", "")) for e in events
+                 if e.get("cat") == "kernel"]
+        window["events"] = {k: sum(1 for nm in names
+                                   if k + "_kernel" in nm)
+                            for k in before}
+        window["names"] = sorted({nm[:80] for nm in names
+                                  if "flash" in nm})
+        window["nccl"] = sum(1 for e in events if e.get("cat") == "kernel"
+                             and "nccl" in str(e.get("name", "")).lower())
+        return path
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as td:
+        for arm in ("plain", "obs"):
+            buf = io.StringIO()
+            kw = {}
+            if arm == "obs":
+                kw = {"obs_jsonl": os.path.join(td, "obs.jsonl"),
+                      "obs_window_step": OBS_WINDOW}
+                profiling.profile_window = watched
+            try:
+                run_training(cfg, steps=OBS_STEPS, lr=LOOP_LR, seed=0,
+                             log_every=1, log_stream=buf, device=dev, **kw)
+            finally:
+                profiling.profile_window = real
+            recs = [json.loads(s) for s in buf.getvalue().splitlines()
+                    if s.startswith("{")]
+            steps = [r for r in recs if "loss" in r]
+            out[arm] = {"losses": [r["loss"] for r in steps],
+                        "wall_s": [r["wall_s"] for r in steps]}
+            torch.cuda.empty_cache()
+        path = os.path.join(td, "obs.jsonl")
+        with open(path) as fh:
+            out["stream"] = [json.loads(s) for s in fh if s.strip()]
+        watch = io.StringIO()
+        out["watch_rc"] = health.watch_main([path], stream=watch)
+        out["watch"] = watch.getvalue()
+    out["window"] = window
+    return out
+
+
+def obs_train_phase(card: str) -> dict:
+    """Phase 19 (a): check :func:`obs_train_case`'s run → the flash
+    launches of its window."""
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    (res,) = run_world(1, f"{__file__}:obs_train_case", {}, timeout=600)
+    plain, obs = res["plain"], res["obs"]
+    if plain["losses"] != obs["losses"] or len(obs["losses"]) != OBS_STEPS:
+        raise AssertionError(f"obs stream changed the losses: {plain} vs "
+                             f"{obs}")
+    stream = res["stream"]
+    rows = [r for r in stream if r["obs"] == "step"]
+    dev = [r for r in stream if r["obs"] == "device_window"]
+    if [r["step"] for r in rows] != list(range(1, OBS_STEPS + 1)) \
+            or len(dev) != 1 or stream[-1]["obs"] != "summary":
+        raise AssertionError(f"obs stream kinds {[(r['obs'], r.get('step')) for r in stream]}")
+    d = dev[0]
+    busy = d["device_busy_frac"]
+    if not (d["device_track"] and busy is not None and 0 < busy <= 1
+            and d["step"] == OBS_WINDOW + 1):
+        raise AssertionError(f"device window {d}")
+    win = res["window"]
+    if not win.get("launches") or not all(win["launches"].values()) \
+            or win["launches"] != win["events"]:
+        raise AssertionError(f"window flash launches {win.get('launches')}"
+                             f" vs its trace's flash kernel events "
+                             f"{win.get('events')} (events lost?) "
+                             f"{win.get('names')}")
+    if res["watch_rc"] != 0:
+        raise AssertionError(f"obs watch exited {res['watch_rc']}: "
+                             f"{res['watch']}")
+
+    # The steady steps: past the first (the builds) and outside the
+    # profiled window.
+    steady = [s for s in range(2, OBS_STEPS + 1) if s != OBS_WINDOW + 1]
+    wall = [0.0] + plain["wall_s"]
+    plain_ms = statistics.median(1e3 * (wall[s] - wall[s - 1])
+                                 for s in steady)
+    obs_ms = statistics.median(rows[s - 1]["step_ms"] for s in steady)
+    window_ms = rows[OBS_WINDOW]["step_ms"]
+    say(f"obs train (world of one, phase 5's width, {LOOP_STAGES} blocks, "
+        f"{OBS_STEPS} steps): losses bitwise with and without the stream "
+        f"{obs['losses']}; step ms p50 of steps {steady} {plain_ms:.1f} "
+        f"without, {obs_ms:.1f} with the stream (the obs cost, drained "
+        f"every step); the profiled step {window_ms:.1f} ms; "
+        f"device window step {d['step']}: busy {busy}, span "
+        f"{d['device_span_ms']} ms, tp_overlap {d['tp_overlap_frac']}, "
+        f"collectives {d.get('collectives')}, ledger issues "
+        f"{d.get('ledger_issues')}, NCCL kernels {win['nccl']}; flash "
+        f"launches in the window {win['launches']} = flash kernel events "
+        f"{win['events']}; obs watch rc 0 | "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    return {"flash_window": win["launches"], "plain_ms": plain_ms,
+            "obs_ms": obs_ms, "window_ms": window_ms, "busy": busy}
+
+
+def _ledger_rows(text: str) -> dict:
+    """The ledger table of an ``obs`` report → ``kind/axis`` → (issues,
+    payload, wire, events, gbps)."""
+    out = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) == 8 and parts[0] == "#" and parts[3].isdigit() \
+                and parts[4].isdigit():
+            out[f"{parts[1]}/{parts[2]}"] = (int(parts[3]), int(parts[4]),
+                                             int(parts[5]), int(parts[6]),
+                                             parts[7])
+    return out
+
+
+def obs_rank_case(artifacts_dir: str) -> dict:
+    """Phase 19 (b), one rank of a world sharing cuda:0: the ``obs`` CLI
+    as a launcher's rank runs it (the first rank prints and writes the
+    artifact) → its output and this rank's peer-push launches."""
+    from tpu_p2p_torch import cli
+    from tpu_p2p_torch.parallel import pallas_dma as PD
+
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli.main(["obs", "--device", "cuda:0", "--msg-size", OBS_MSG,
+                       "--count", str(OBS_COUNT), "--no-gate",
+                       "--artifacts-dir", artifacts_dir])
+    return {"rc": rc, "out": buf.getvalue(), "err": err.getvalue()[-3000:],
+            "dma_permute": PD.launches["dma_permute"]}
+
+
+def obs_cpu_world(n: int) -> subprocess.Popen:
+    """Start the CPU world of ``n`` gloo ranks running phase 19 (b)'s
+    command (the totals the card's worlds are held to), beside the card's
+    work; its output goes to temporary files (``proc.out``,
+    ``proc.err``), so a full pipe never stops it."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_p2p_torch", "obs", "--cpu-mesh",
+         str(n), "--msg-size", OBS_MSG, "--count", str(OBS_COUNT),
+         "--no-gate"], stdout=out, stderr=err, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc.out, proc.err = out, err
+    return proc
+
+
+def obs_world(n: int, card: str, cpu: subprocess.Popen) -> dict:
+    """Phase 19 (b) on ``n`` processes of cuda:0, held to the CPU world
+    ``cpu`` (:func:`obs_cpu_world`) of ``n`` gloo ranks."""
+    import tempfile
+
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as td:
+        res = run_world(n, f"{__file__}:obs_rank_case",
+                        {"artifacts_dir": td}, timeout=600)
+        arts = sorted(f for f in os.listdir(td)
+                      if f.startswith("MULTICHIP_r"))
+        art = None
+        if arts:
+            with open(os.path.join(td, arts[-1])) as fh:
+                art = json.load(fh)
+    first = res[0]
+    if any(r["rc"] for r in res):
+        raise AssertionError(f"obs world of {n}: exit codes "
+                             f"{[r['rc'] for r in res]}: {first['err']}")
+    if any(r["dma_permute"] != 2 * OBS_COUNT for r in res):
+        raise AssertionError(
+            f"obs world of {n}: dma_permute launches "
+            f"{[r['dma_permute'] for r in res]}, expected {2 * OBS_COUNT} "
+            "a rank (the recorded pass and the profiled one)")
+    cpu.wait(timeout=300)
+    cpu.out.seek(0)
+    cpu.err.seek(0)
+    if cpu.returncode:
+        raise AssertionError(f"obs --cpu-mesh {n}: {cpu.err.read()[-2000:]}")
+    want = _ledger_rows(cpu.out.read())
+    out = first["out"]
+    got = _ledger_rows(out)
+    if {k: v[:3] for k, v in got.items()} != \
+            {k: v[:3] for k, v in want.items()}:
+        raise AssertionError(f"obs world of {n}: ledger totals {got} vs "
+                             f"the CPU world's {want}")
+    dma_issues = got["dma/d"][0]
+    if art is None:
+        raise AssertionError(f"obs world of {n} wrote no artifact:\n{out}")
+    dma = art["per_kind"].get("dma", {})
+    if (dma.get("events") != dma_issues or art["ragged"]
+            or art["unmatched"]):
+        raise AssertionError(
+            f"obs world of {n}: dma events {dma.get('events')} for "
+            f"{dma_issues} issues, ragged {art['ragged']}, unmatched "
+            f"{art['unmatched']}")
+    m = art.get("matrix_gbps_dma")
+    ring = [m[i][(i + 1) % n] for i in range(n)] if m else []
+    if len(ring) != n or not all(
+            isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+            for v in ring):
+        raise AssertionError(f"obs world of {n}: peer-push ring edges "
+                             f"{ring}")
+    host_rows = [k for k, v in got.items() if not k.startswith("dma/")
+                 and (v[3] != 0 or v[4] != "n/a")]
+    if host_rows or "# host-only:" not in out or "# time-sliced:" \
+            not in out or not art.get("time_sliced"):
+        raise AssertionError(f"obs world of {n}: library rows with device "
+                             f"events {host_rows}, or the host-only / "
+                             f"time-sliced labels missing:\n{out}")
+    say(f"obs world of {n} on cuda:0 (time-sliced processes, not a link "
+        f"number; {OBS_MSG} x {OBS_COUNT} rings, the peer-push ring at "
+        f"64 KiB a hop): ledger totals == the CPU world's "
+        f"({len(got)} rows); dma issues {dma_issues} joined one for one "
+        f"to dma_permute_kernel events ({dma.get('achieved_gbps')} Gbps "
+        f"per kind), none ragged or unmatched; peer-push ring edges Gbps "
+        + ", ".join(f"{v:.2f}" for v in ring)
+        + f"; library rows host-only; dma_permute launches a rank "
+        f"{[r['dma_permute'] for r in res]} | "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    return {"dma_permute": first["dma_permute"], "ring_gbps": ring}
+
+
+def obs_smoke_rank_case() -> dict:
+    """Phase 19 (c), one rank of a world of 4 sharing cuda:0: ``python
+    -m tpu_p2p_torch obs smoke`` as a launcher's rank runs it."""
+    from tpu_p2p_torch import cli
+
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli.main(["obs", "smoke", "--device", "cuda:0"])
+    return {"rc": rc, "out": buf.getvalue(), "err": err.getvalue()[-3000:]}
+
+
+def obs_smoke_phase(card: str) -> dict:
+    from tpu_p2p_torch.parallel.launch import run_world
+
+    t0 = time.perf_counter()
+    res = run_world(4, f"{__file__}:obs_smoke_rank_case", {}, timeout=600)
+    lines = res[0]["out"].strip().splitlines()
+    got = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else None
+    if (any(r["rc"] for r in res) or got is None or not got["ok"]
+            or got["health_detect_steps"] > 5
+            or got["heal_devices"] != 2
+            or got["heal_loss_delta_rel"] > 0.05):
+        raise AssertionError(f"obs smoke on 4 ranks of cuda:0: exit "
+                             f"{[r['rc'] for r in res]}, {got}: "
+                             f"{res[0]['out']} {res[0]['err']}")
+    for line in lines[:-1]:
+        say(line)
+    say(f"obs smoke on 4 processes of cuda:0 (library collectives on the "
+        f"host group): {json.dumps(got)} | "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+    return got
+
+
+def obs_phase(card: str) -> dict:
+    """Phase 19: (a) the obs stream on a world of one, (b) the obs
+    report on worlds of 2 and 4 processes of cuda:0, (c) the health
+    smoke on 4. → the flash launches of (a)'s window and the peer-push
+    launches of (b)'s world of 2."""
+    t0 = time.perf_counter()
+    cpu = {n: obs_cpu_world(n) for n in (2, 4)}
+    try:
+        a = obs_train_phase(card)
+        w2 = obs_world(2, card, cpu[2])
+        obs_world(4, card, cpu[4])
+    finally:
+        for p in cpu.values():  # stop what a failure left running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    c = obs_smoke_phase(card)
+    say(f"phase 19 (obs): {time.perf_counter() - t0:.1f} s")
+    return {"flash": a["flash_window"], "dma_permute": w2["dma_permute"],
+            "smoke": c, "train": a}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on an "
@@ -5147,6 +5477,8 @@ def main() -> int:
     kernels[-1]["process_mesh"] = ovl["process_mesh"]
     torch.cuda.empty_cache()
     sched = schedule_phase(TFA, dev, card)
+    torch.cuda.empty_cache()
+    obs = obs_phase(card)
     launches = {"cache_kv_write": dec["launches"]["cache_kv_write"],
                 "paged_kv_write": srv["launches"]["paged_kv_write"],
                 "dma_permute": kernels[-2]["launches"],
@@ -5158,12 +5490,14 @@ def main() -> int:
                     "train_loop": loop_launches[name],
                     "overlap": ovl["flash"][name],
                     "schedule": sched["flash"][name],
+                    "obs_window": obs["flash"],
                     **{f"memory_{k}": v[name]
                        for k, v in mem_launches.items()}}
              for name, n in trn["launches"].items()}
     paths["dma_permute"] = {"p2p": launches["dma_permute"],
                             "overlap_process_mesh": ovl["dma_permute"],
                             "schedule_process_mesh": sched["dma_permute"],
+                            "obs_process_mesh": obs["dma_permute"],
                             **tp_paths["dma_permute"]}
     paths["dma_ship"] = {"disagg": launches["dma_ship"],
                          "overlap_process_mesh": ovl["dma_ship"],

@@ -394,10 +394,11 @@ PLANS = [
 def test_fault_plan_describes_as_the_reference(kw):
     assert TFaults.FaultPlan(**kw).describe() == \
         JFaults.FaultPlan(**kw).describe()
-    nonstorage = TFaults.non_storage_shapes(TFaults.FaultPlan(**kw))
-    assert bool(nonstorage) == any(
-        k in kw for k in ("degrade_edge", "slow_rank", "lost_host",
-                          "page_pool_clamp", "storm_step"))
+    # Every shape applies now; the lost host's heartbeats agree.
+    for host in range(4):
+        for step in range(6):
+            assert TFaults.host_lost(TFaults.FaultPlan(**kw), host, step) \
+                == JFaults.host_lost(JFaults.FaultPlan(**kw), host, step)
 
 
 def test_storage_fault_state_is_per_plan_instance():

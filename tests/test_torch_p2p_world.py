@@ -455,9 +455,19 @@ def test_cli_sweep_fused_jsonl_resume_and_num_devices(tmp_path):
     ["obs"], ["topo"], ["zb"],
 ])
 def test_unported_flags_exit_2(argv, capsys, monkeypatch):
-    if argv[0] in ("--hybrid", "obs", "topo"):
+    if argv[0] in ("--hybrid", "topo"):
         assert TCLI.main(argv) == 2
         assert "not ported yet" in capsys.readouterr().err
+        return
+    if argv == ["obs"]:
+        # Ported since: the live capture takes the default card path,
+        # which this host does not have.
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+        monkeypatch.delenv("RANK", raising=False)
+        assert TCLI.main(argv) == 255
+        err = capsys.readouterr().err
+        assert "0 CUDA device" in err and "not ported yet" not in err
         return
     # Ported since: the schedule knobs parse into the config (a no-op
     # for the default pairwise pattern) and `zb` runs the smoke; each

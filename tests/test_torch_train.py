@@ -294,7 +294,7 @@ def test_train_cli_dispatch_and_log_file(tmp_path, capsys):
 
 _NOT_PORTED_ARGV = {
     "--heal": [], "--fault-degrade-edge": ["0:1"],
-    "--fault-degrade-factor": ["4"], "--fault-slow-rank": ["0"],
+    "--fault-degrade-factor": ["1"], "--fault-slow-rank": ["0"],
     "--fault-slow-ms": ["5"], "--fault-lost-host": ["1"],
     "--obs-jsonl": ["obs.jsonl"], "--obs-window-step": ["2"],
     "--trace": ["t.json"],
@@ -312,8 +312,16 @@ _OVERLAP_ARGV = {
 
 
 def test_not_ported_table_covers_every_rejected_flag():
-    assert sorted(_NOT_PORTED_ARGV) == sorted(f for _, f in
-                                              TT._FLAGS_NOT_PORTED)
+    # Every flag of the table is ported now: the table of refused flags
+    # is empty, and each flag parses to its reference destination.
+    assert TT._FLAGS_NOT_PORTED == () and TT._RUN_NOT_PORTED == {}
+    for flag, vals in _NOT_PORTED_ARGV.items():
+        t = TT._build_parser().parse_args([flag, *vals])
+        j = JT._build_parser().parse_args([flag, *vals])
+        dest = flag[2:].replace("-", "_")
+        assert getattr(t, dest) == getattr(j, dest) != \
+            TT._build_parser().get_default(dest)
+        assert TT._not_ported(t) is None
 
 
 def _reference_refusal(**cfg_kw) -> str:
@@ -325,9 +333,32 @@ def _reference_refusal(**cfg_kw) -> str:
     return str(e.value)
 
 
+# The fault flags' invalid values, as the reference's FaultPlan refuses
+# them: (extra argv, the reference's plan keywords).
+_OBS_REFUSALS = {
+    "--fault-degrade-edge": (["--fault-degrade-edge", "1:1"],
+                             {"degrade_edge": (1, 1)}),
+    "--fault-degrade-factor": (["--fault-degrade-edge", "0:1"],
+                               {"degrade_edge": (0, 1),
+                                "degrade_factor": 1}),
+    "--fault-slow-rank": (["--fault-slow-ms", "0"],
+                          {"slow_rank": 0, "slow_ms": 0.0}),
+    "--fault-slow-ms": (["--fault-slow-rank", "0", "--fault-slow-ms",
+                         "-1"], {"slow_rank": 0, "slow_ms": -1.0}),
+}
+
+
+def _reference_error(plan_kw) -> str:
+    from tpu_p2p.obs.faults import FaultPlan
+
+    with pytest.raises(ValueError) as e:
+        FaultPlan(**plan_kw)
+    return str(e.value)
+
+
 @pytest.mark.parametrize("flag", sorted({**_NOT_PORTED_ARGV,
                                          **_GPIPE_REFUSED_ARGV}))
-def test_train_cli_rejects_flags_not_ported(flag, capsys):
+def test_train_cli_rejects_flags_not_ported(flag, capsys, tmp_path):
     if flag in _GPIPE_REFUSED_ARGV:
         argv = ["--device", "cpu", "--dense-ffn", flag,
                 *_GPIPE_REFUSED_ARGV[flag]]
@@ -337,10 +368,38 @@ def test_train_cli_rejects_flags_not_ported(flag, capsys):
         assert f"Failed: ValueError '{_reference_refusal(**kw)}'" in \
             capsys.readouterr().err
         return
-    argv = ["--device", "cpu", "--dense-ffn", flag, *_NOT_PORTED_ARGV[flag]]
-    assert TT.main(argv) == 2
-    err = capsys.readouterr().err
-    assert flag in err and "not ported yet" in err
+    # Ported: the flag runs (a world of one, the small LM), and what the
+    # reference refuses of it is refused in the reference's words.
+    argv = [*_ARGS, "--device", "cpu", flag, *_NOT_PORTED_ARGV[flag]]
+    refusal = _OBS_REFUSALS.get(flag)
+    if flag == "--trace":
+        with pytest.raises(SystemExit) as t:
+            TT.main(argv)
+        with pytest.raises(SystemExit) as j:
+            JT.main([flag, *_NOT_PORTED_ARGV[flag]])
+        assert str(t.value) == str(j.value)
+        return
+    if refusal is not None:
+        assert TT.main(argv + refusal[0]) == 1
+        want = _reference_error(refusal[1])
+        assert f"Failed: ValueError '{want}'" in capsys.readouterr().err
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        assert TT.main(argv) == (1 if flag == "--heal" else 0)
+    finally:
+        os.chdir(cwd)
+    out = capsys.readouterr()
+    if flag == "--heal":
+        assert "heal=True needs obs_jsonl" in out.err
+        return
+    summary = json.loads(out.out.splitlines()[-1])["summary"]
+    assert summary["steps_run"] == 4
+    if flag == "--obs-jsonl":
+        kinds = [json.loads(s)["obs"] for s in
+                 (tmp_path / "obs.jsonl").read_text().splitlines()]
+        assert kinds == ["step", "step", "device_window", "step", "step",
+                         "summary"]
 
 
 @pytest.fixture(scope="module")
@@ -383,13 +442,37 @@ def test_train_cli_rejects_moe_and_a_missing_card(monkeypatch, capsys):
         TT.run_training(cfg, steps=1)
 
 
-@pytest.mark.parametrize("name", sorted(TT._RUN_NOT_PORTED))
-def test_run_training_rejects_keywords_not_ported(name):
-    default = TT._RUN_NOT_PORTED[name]
-    value = {None: "x", False: True, 0: 3, 0.0: 0.5}.get(default, "other")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TT.run_training(TF.FlagshipConfig(**LM), steps=1, device="cpu",
-                        **{name: value})
+@pytest.mark.parametrize("name", ["health_config", "heal", "obs_jsonl",
+                                  "obs_window_step"])
+def test_run_training_rejects_keywords_not_ported(name, tmp_path):
+    # The obs keywords are ported: each runs on a world of one as the
+    # reference's loop runs it; heal without its monitor and checkpoints
+    # is refused in the reference's words; an unknown keyword is not
+    # taken.
+    cfg = TF.FlagshipConfig(**LM)
+    if name == "heal":
+        with pytest.raises(ValueError) as t:
+            TT.run_training(cfg, steps=1, device="cpu", heal=True)
+        with pytest.raises(ValueError) as j:
+            JT.run_training(_mesh1(), JF.FlagshipConfig(**LM), steps=1,
+                            heal=True)
+        assert str(t.value) == str(j.value)
+        with pytest.raises(TypeError, match="unexpected keyword"):
+            TT.run_training(cfg, steps=1, device="cpu", bogus=1)
+        return
+    path = tmp_path / "obs.jsonl"
+    kw = {"obs_jsonl": str(path)}
+    if name == "health_config":
+        from tpu_p2p_torch.obs.health import HealthConfig
+
+        kw[name] = HealthConfig(lost_after=1)
+    elif name == "obs_window_step":
+        kw[name] = 0
+    out = TT.run_training(cfg, steps=2, device="cpu", log_every=0, **kw)
+    recs = [json.loads(s) for s in path.read_text().splitlines()]
+    window = [r["step"] for r in recs if r["obs"] == "device_window"]
+    assert window == [1 if name == "obs_window_step" else 2]
+    assert out["health_verdicts"] == 0 and recs[-1]["obs"] == "summary"
 
 
 @pytest.mark.parametrize("name,good,bad", [

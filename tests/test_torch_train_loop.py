@@ -414,10 +414,27 @@ def test_rotted_generation_resumes_from_the_one_before(tmp_path):
                      "reason": "checksum mismatch in params.npz"}]}
 
 
-def test_non_storage_fault_plans_are_not_ported():
-    with pytest.raises(NotImplementedError, match="lost_host.*not ported"):
-        TT.run_training(TF.FlagshipConfig(**MSE), steps=1, device="cpu",
-                        fault_plan=TFaults.FaultPlan(lost_host=1))
+def test_non_storage_fault_plans_are_not_ported(tmp_path):
+    # Ported: a lost-host plan on a world of one silences host 0's
+    # heartbeats from its start step, and the monitor's verdict is the
+    # reference's on its one-device mesh.
+    recs = {}
+    for side in ("port", "ref"):
+        path = tmp_path / f"{side}.jsonl"
+        kw = dict(steps=4, log_every=0, obs_jsonl=str(path))
+        if side == "port":
+            TT.run_training(TF.FlagshipConfig(**MSE), device="cpu",
+                            fault_plan=TFaults.FaultPlan(lost_host=0,
+                                                         start_step=1),
+                            **kw)
+        else:
+            JT.run_training(JMesh(np.asarray(jax.devices()[:1]).reshape(
+                1, 1, 1, 1, 1), JF.AXES), JF.FlagshipConfig(**MSE),
+                fault_plan=JFaults.FaultPlan(lost_host=0, start_step=1),
+                **kw)
+        recs[side] = [json.loads(s) for s in path.read_text().splitlines()
+                      if json.loads(s)["obs"] == "health"]
+    assert recs["port"] == recs["ref"] != []
 
 
 # -------------------------------------------------------------- CLI

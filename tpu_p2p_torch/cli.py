@@ -20,10 +20,11 @@ flagship_step, with ``--zero-dp``, ``--overlap``, the ``--tp-overlap``
 publishes the card's clock, ``--validate-timing`` cross-checks it
 against the host clock after the run, ``--profile-dir DIR`` writes a
 ``torch.profiler`` trace of the run. ``serve`` runs the serving engine,
-``train`` the training loop and ``zb`` the graded zero-bubble smoke. The
-reference's flags and subcommands the port does not run yet
-(``--hybrid``, ``obs``, ``topo``) parse and exit 2 with "not ported
-yet".
+``train`` the training loop, ``zb`` the graded zero-bubble smoke and
+``obs`` the live collective-ledger report and the regress gate (``obs
+watch`` tails an obs stream, ``obs smoke`` grades the health detectors).
+The reference's flags and subcommands the port does not run yet
+(``--hybrid``, ``topo``) parse and exit 2 with "not ported yet".
 """
 
 from __future__ import annotations
@@ -378,9 +379,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_p2p_torch.models.zb_smoke import main as zb_main
 
         return zb_main(argv[1:])
-    if argv and argv[0] in ("obs", "topo"):
-        print(f"python -m tpu_p2p_torch: {argv[0]} is not ported yet; "
-              "available: the benchmark (no subcommand), serve, train, zb",
-              file=sys.stderr)
+    if argv and argv[0] == "obs":
+        from tpu_p2p_torch.obs.regress import main as obs_main
+
+        return obs_main(argv[1:])
+    if argv and argv[0] == "topo":
+        print("python -m tpu_p2p_torch: topo is not ported yet; "
+              "available: the benchmark (no subcommand), serve, train, "
+              "zb, obs (obs watch, obs smoke)", file=sys.stderr)
         return 2
     return bench_main(argv)

@@ -242,15 +242,17 @@ def build_mesh(n_devices: int, device=None,
     of every axis of size > 1. ``device`` as
     :func:`tpu_p2p_torch.parallel.runtime.make_runtime` takes it.
     ``runtime``: lay the mesh over that world instead (the benchmark's,
-    whose process group exists already); its groups are reused where a
-    line's ranks match a group it made."""
+    whose process group exists already, or a :meth:`~tpu_p2p_torch.
+    parallel.runtime.Runtime.restrict`-ed one over some of its ranks:
+    the heal's survivors); its groups are reused where a line's ranks
+    match a group it made."""
     from tpu_p2p_torch.parallel.runtime import make_runtime
 
     dims = tuple(dims or mesh_dims(n_devices))
     if runtime is not None:
-        if runtime.world != n_devices:
+        if runtime.mesh.size != n_devices:
             raise ValueError(f"a mesh of {n_devices} devices over a world "
-                             f"of {runtime.world}")
+                             f"of {runtime.mesh.size}")
         return runtime.axis_mesh(dims, AXES)
     rt = make_runtime(num_devices=n_devices, device=device,
                       mesh_shape=dims, axis_names=AXES)

@@ -44,7 +44,8 @@ from tpu_p2p_torch.models.flagship_params import (
     _fsdp_plan,
     flagship_param_specs,
 )
-from tpu_p2p_torch.parallel.collectives import all_reduce_flat
+from tpu_p2p_torch.obs import ledger as _obs
+from tpu_p2p_torch.parallel.collectives import _record, all_reduce_flat
 from tpu_p2p_torch.parallel.runtime import _dim_axes
 
 Step = Callable[..., Tuple[Params, torch.Tensor]]
@@ -139,6 +140,8 @@ def _value_and_grad(loss_fn, params: Params,
     loss = loss.detach()
     if planes is None:
         return loss, grads
+    if planes.loss.size > 1:
+        _record("all_reduce", planes.loss, loss, label="loss_allreduce")
     by_plane = {planes.loss.ranks: (planes.loss, [loss.reshape(1)])}
     for k, g in grads.items():
         plane = planes.leaf[k]
@@ -184,7 +187,7 @@ def make_flagship_train_step(cfg: FlagshipConfig, lr: float = 1e-2,
         return (_sgd_update(params, grads, lr, n_out, in_place=donate),
                 loss / n_out)
 
-    return step
+    return _obs.program(step)
 
 
 def make_flagship_lm_grad_fn(cfg: FlagshipConfig, mesh=None):
@@ -230,7 +233,7 @@ def make_flagship_lm_train_step(cfg: FlagshipConfig, lr: float = 1e-2,
         return (_sgd_update(params, grads, lr, n_tok, in_place=donate),
                 loss / n_tok)
 
-    return step
+    return _obs.program(step)
 
 
 # ------------------------------------------------ the optax-style step
@@ -269,7 +272,7 @@ def make_flagship_optax_step(cfg: FlagshipConfig, tx, lm: bool = False,
             params = apply_updates(params, updates, in_place=donate)
         return params, opt_state, loss / n_out
 
-    return step
+    return _obs.program(step)
 
 
 def init_optimizer(tx, params: Params):

@@ -269,8 +269,10 @@ def moe_layer_local(params: Params, x: torch.Tensor, cfg: MoEConfig,
     elif n > 1:
         # Each expert's slots to its owner: [E, NC, D] -> [E/n, n·NC, D];
         # then the inverse reshard at the source.
-        y = axis_all_to_all(ffn2(ffn1(axis_all_to_all(slots, ep, 0, 1))),
-                            ep, 1, 0)
+        y = axis_all_to_all(
+            ffn2(ffn1(axis_all_to_all(slots, ep, 0, 1,
+                                      label="moe_dispatch"))),
+            ep, 1, 0, label="moe_combine")
     else:
         y = ffn2(ffn1(slots))
     out = _combine(y.reshape(n_slots, d), slot,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_p2p_torch.obs.ledger import ScanBody, program
 from tpu_p2p_torch.parallel.collectives import (
     axis_ppermute,
     chunked_ppermute_compute,
@@ -70,19 +71,22 @@ def pipeline_apply_local(block_fn: Callable, params_local, x_mb: torch.Tensor,
     zero = torch.zeros_like(x_mb[0])
     prev_in = zero
     outs = []
+    body = ScanBody()  # the tick scan: its ship records once
     for t in range(m + s_count - 1):
         feed = x_mb[t] if t < m else zero
         y = block_fn(params_local, torch.where(first, feed, prev_in))
         if t < m + s_count - 2 and s_count > 1:  # the last hop feeds no one
-            prev_in = (chunked_ppermute_compute(
-                lambda c, _i: c, y, line, edges, chunk_dim=1,
-                chunks=pp_chunks) if wave
-                else axis_ppermute(y, line, edges))
+            with body.site("ship"):
+                prev_in = (chunked_ppermute_compute(
+                    lambda c, _i: c, y, line, edges, chunk_dim=1,
+                    chunks=pp_chunks, label="pp_stage_ship") if wave
+                    else axis_ppermute(y, line, edges,
+                                       label="pp_stage_ship"))
         out_t = t - (s_count - 1)
         if out_t >= 0:
             last = torch.tensor(my == s_count - 1, device=y.device)
             outs.append(torch.where(last, y, zero))
-    return psum_join(torch.stack(outs), line)
+    return psum_join(torch.stack(outs), line, label="pp_output_replicate")
 
 
 # ------------------------------------------ the generic residual-MLP pipeline
@@ -185,7 +189,7 @@ def make_pipeline_forward(mesh, cfg: PipelineConfig,
                                   pp_chunks=pp_chunks)
         return y_mb.reshape(x.shape)
 
-    return forward
+    return program(forward)
 
 
 def make_pipeline_train_step(mesh, cfg: PipelineConfig,

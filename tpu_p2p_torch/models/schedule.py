@@ -731,7 +731,7 @@ def _no_tick_times(tick_times) -> None:
 
 
 def _ship(y: torch.Tensor, line, edges, wave: bool, pp_chunks: int,
-          transport: str) -> torch.Tensor:
+          transport: str, label: str = "pp_stage_ship") -> torch.Tensor:
     """The one stage-hop ship site: every hop goes through
     :func:`chunked_ppermute_compute` with the identity compute, so the
     wave (``pp_chunks`` token chunks along dim 1) and the peer-push
@@ -741,7 +741,8 @@ def _ship(y: torch.Tensor, line, edges, wave: bool, pp_chunks: int,
 
     return chunked_ppermute_compute(
         lambda c, _i: c, y, line, edges, chunk_dim=1,
-        chunks=(pp_chunks if wave else 1), transport=transport)
+        chunks=(pp_chunks if wave else 1), transport=transport,
+        label=label)
 
 
 class _HostSum(torch.autograd.Function):
@@ -763,16 +764,18 @@ class _HostSum(torch.autograd.Function):
         return g, None
 
 
-def _line_sum(x: torch.Tensor, line) -> torch.Tensor:
+def _line_sum(x: torch.Tensor, line, label: str) -> torch.Tensor:
     """The replicating sum over the pp line (the loss, GPipe's recorded
     outputs): :func:`psum_join`, or :class:`_HostSum` on ranks that share
-    a card, so the executor runs there over the peer-push transport."""
-    from tpu_p2p_torch.parallel.collectives import psum_join
+    a card, so the executor runs there over the peer-push transport.
+    Ledger-recorded under ``label`` either way."""
+    from tpu_p2p_torch.parallel.collectives import _record, psum_join
 
     if (line.size > 1 and x.is_cuda and not line.in_process
             and line.device_group is None):
+        _record("all_reduce", line, x, label=label)
         return _HostSum.apply(x, line)
-    return psum_join(x, line)
+    return psum_join(x, line, label=label)
 
 
 class _Idle(torch.autograd.Function):
@@ -826,6 +829,7 @@ def tick_forward_local(block_fn: Callable, params_local, x_mb: torch.Tensor,
                   zero)
     prev_in = zero
     outs: List[Optional[torch.Tensor]] = [None] * x_mb.shape[0]
+    body = _ledger.ScanBody()  # the tick scan: its ship records once
     for t in range(T):
         f = int(feed_mb[t])
         x_in = torch.where(first, x_mb[f] if f >= 0 else zero, prev_in)
@@ -837,9 +841,10 @@ def tick_forward_local(block_fn: Callable, params_local, x_mb: torch.Tensor,
         if rec >= 0:
             outs[rec] = torch.where(last, y, zero)
         if n > 1 and t < T - 1:
-            prev_in = _ship(y, line, lowered.fwd_edges, wave, pp_chunks,
-                            transport)
-    return _line_sum(torch.stack(outs), line)
+            with body.site("ship"):
+                prev_in = _ship(y, line, lowered.fwd_edges, wave,
+                                pp_chunks, transport)
+    return _line_sum(torch.stack(outs), line, "pp_output_replicate")
 
 
 def _clip(i: int, hi: int) -> int:
@@ -984,6 +989,7 @@ def tick_grads_local(block_fn: Callable, loss_grad_fn: Callable,
         return y_f if switch else torch.where(flag[on], y_f, zero_mb)
 
     y_recv, g_recv = zero_mb, zero_g
+    body = _ledger.ScanBody()  # the tick scan: each ship records once
     for t in range(prog.num_ticks):
         rs, gs = pick("recv_slot", t), pick("grecv_slot", t)
         if rs >= 0:
@@ -1005,13 +1011,18 @@ def tick_grads_local(block_fn: Callable, loss_grad_fn: Callable,
                 backward_weight(t)
             y_f = forward(t)
         if n > 1:
-            y_recv = (_ship(y_f, line, lowered.fwd_edges, wave, pp_chunks,
-                            transport) if tb["ship_y"][t] else y_f)
-            g_recv = (_ship(dx, line, lowered.bwd_edges, wave, pp_chunks,
-                            transport) if tb["ship_g"][t] else dx)
+            y_recv, g_recv = y_f, dx
+            if tb["ship_y"][t]:
+                with body.site("fwd"):
+                    y_recv = _ship(y_f, line, lowered.fwd_edges, wave,
+                                   pp_chunks, transport, "pp_fwd_ship")
+            if tb["ship_g"][t]:
+                with body.site("bwd"):
+                    g_recv = _ship(dx, line, lowered.bwd_edges, wave,
+                                   pp_chunks, transport, "pp_bwd_ship")
         else:
             y_recv, g_recv = y_f, dx
-    return _line_sum(loss_acc, line), dparams
+    return _line_sum(loss_acc, line, "pp_loss_replicate"), dparams
 
 
 def make_tick_train_step(mesh, cfg, program: TickProgram,
@@ -1088,4 +1099,4 @@ def make_tick_train_step(mesh, cfg, program: TickProgram,
                 transport=transport)
         return _sgd_update(params, grads, lr, denom), loss / denom
 
-    return step
+    return _ledger.program(step)

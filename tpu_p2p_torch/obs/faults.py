@@ -2,41 +2,48 @@
 
 A :class:`FaultPlan` describes injected faults, and the code that owns
 each fault's site consults it at fixed points, so a detector or a
-recovery path is testable end to end with no randomness. The dataclass
-is the reference's whole: the link throttle (``degrade_edge``), the
-straggler (``slow_rank``), the lost host (``lost_host``), the serving
-shapes (``page_pool_clamp``, ``storm_*``) and the storage shapes.
+recovery path is testable end to end with no randomness. Each shape and
+where it applies:
 
-The port applies the serving shapes, and only in
-:func:`tpu_p2p_torch.serve.resilience.apply_serve_faults`, which turns a
-plan into the batcher's page-pool clamp (``page_pool_clamp``), a
-request-storm burst (``storm_step`` + ``storm_requests``) and a per-step
-hook that calls :func:`maybe_slow_host` (``slow_rank`` + ``slow_ms``, a
-host-only sleep from ``start_step`` on).
+- **Degraded link** (``degrade_edge`` + ``degrade_factor``): the
+  ledger-recorded model-layer permutes
+  (:func:`tpu_p2p_torch.parallel.collectives.axis_ppermute_start`, the
+  chunk wave's library hops) route the arrival through
+  ``degrade_factor - 1`` extra round trips of the chosen link, each the
+  ``s <-> d`` swap applied twice, a bitwise identity: host timing, the
+  card's trace and the ledger (``fault_throttle`` rows) see a slower
+  link while every value stays exact. The decision is made at each call
+  under the active plan (the health probe builds its chains inside it).
+- **Straggler** (``slow_rank`` + ``slow_ms``): the training loop calls
+  :func:`maybe_slow_host` once a step inside its step span, on rank
+  ``slow_rank`` only; the step's collectives carry the wait to the
+  others. The serving batcher's per-step hook calls it too.
+- **Lost host** (``lost_host``): :func:`host_lost` answers whether host
+  ``h`` has stopped heartbeating at a step; the loop feeds the health
+  monitor heartbeats for every host it still admits, and the missed ones
+  become a ``lost_host`` verdict (``train --heal`` reshards onto the
+  survivors). The plan is the same on every rank, so every rank reaches
+  the verdict at one step.
+- **Serving** (``page_pool_clamp``, ``storm_*``): applied only in
+  :func:`tpu_p2p_torch.serve.resilience.apply_serve_faults`.
+- **Storage**, applied only in the interposed writer of
+  :mod:`tpu_p2p_torch.utils.checkpoint` (``_write_file`` and the
+  post-publish rot):
 
-It applies the storage shapes only in the interposed writer of
-:mod:`tpu_p2p_torch.utils.checkpoint` (``_write_file`` and the
-post-publish rot):
-
-- **Crash mid-write** (``ckpt_crash_after_bytes``): the first generation
-  save at ``step >= start_step`` writes that many bytes, fsyncs the
-  partial file and dies with :class:`SimulatedCrash`, a
-  ``BaseException`` that only the supervisor
-  (``train.run_training_supervised``) catches. One-shot per plan
-  instance: the supervisor re-entering the loop with the same plan does
-  not die again, as a restarted process would not.
-- **Published-generation rot** (``ckpt_corrupt_seed``): a seeded one-bit
-  flip in the just-published generation's ``params.npz`` at ``step >=
-  start_step``, which the verifying loader must fall back past.
-- **Transient IO errors** (``ckpt_io_errors``): the first N write
-  attempts under the plan raise ``OSError`` before touching the file;
-  the bounded retry (:func:`tpu_p2p_torch.utils.retry.retry_io`) absorbs
-  them.
-
-The training loop applies only the storage shapes: the others need the
-health monitor or the ledger-recorded collectives, neither of which is
-ported, so :func:`non_storage_shapes` names them and the loop refuses a
-plan that sets one.
+  - *crash mid-write* (``ckpt_crash_after_bytes``): the first generation
+    save at ``step >= start_step`` writes that many bytes, fsyncs the
+    partial file and dies with :class:`SimulatedCrash`, a
+    ``BaseException`` that only the supervisor
+    (``train.run_training_supervised``) catches. One-shot per plan
+    instance: the supervisor re-entering the loop with the same plan
+    does not die again, as a restarted process would not.
+  - *published-generation rot* (``ckpt_corrupt_seed``): a seeded one-bit
+    flip in the just-published generation's ``params.npz`` at ``step >=
+    start_step``, which the verifying loader must fall back past.
+  - *transient IO errors* (``ckpt_io_errors``): the first N write
+    attempts under the plan raise ``OSError`` before touching the file;
+    the bounded retry (:func:`tpu_p2p_torch.utils.retry.retry_io`)
+    absorbs them.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 __all__ = ["FaultPlan", "SimulatedCrash", "injecting", "active_plan",
-           "non_storage_shapes", "maybe_slow_host", "ckpt_crash_budget",
+           "host_lost", "maybe_slow_host", "ckpt_crash_budget",
            "mark_ckpt_crash_fired", "take_ckpt_io_error",
            "ckpt_corrupt_due"]
 
@@ -171,16 +178,6 @@ class FaultPlan:
         return ("; ".join(parts) or "no-op plan") + tail
 
 
-def non_storage_shapes(plan: Optional[FaultPlan]) -> List[str]:
-    """The fields of ``plan`` set to a shape the port does not apply
-    (every shape but the storage ones), in field order."""
-    if plan is None:
-        return []
-    unset = {"degrade_edge": None, "slow_rank": None, "lost_host": None,
-             "page_pool_clamp": None, "storm_step": None}
-    return [k for k, v in unset.items() if getattr(plan, k) != v]
-
-
 # One active plan, not a stack: two concurrent plans would make every
 # fault's attribution ambiguous.
 _ACTIVE: Optional[FaultPlan] = None
@@ -206,6 +203,15 @@ def injecting(plan: FaultPlan):
         yield plan
     finally:
         _ACTIVE = None
+
+
+def host_lost(plan: Optional[FaultPlan], host: int, step: int) -> bool:
+    """Has ``host`` stopped heartbeating at global ``step`` under
+    ``plan``? The loop feeds the health monitor heartbeats only for the
+    hosts this returns False for."""
+    return (plan is not None and plan.lost_host is not None
+            and int(host) == int(plan.lost_host)
+            and int(step) >= plan.start_step)
 
 
 def maybe_slow_host(plan: Optional[FaultPlan], step: int,

@@ -44,6 +44,8 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from tpu_p2p_torch.obs.timeline import SPAN_KINDS
+
 __all__ = ["PID_TICKS", "PID_LINKS", "PID_TRAIN", "PID_SERVE",
            "PID_UNATTR", "write_chrome_trace", "validate_chrome_trace",
            "load_obs_records", "serve_lanes", "SPAN_KINDS", "EXPORTER"]
@@ -64,11 +66,6 @@ _PROCESS_NAMES = {
     PID_UNATTR: "unattributed device time",
 }
 
-# The documented span vocabulary of a step timeline row (the
-# reference's ``tpu_p2p/obs/timeline.py`` ``SPAN_KINDS``): an open set,
-# laid out in this order, extra kinds after them alphabetically.
-SPAN_KINDS = ("data", "gather", "forward", "backward", "optimizer",
-              "step", "eval", "checkpoint")
 
 # Serve track time base: request records are step-indexed (the
 # scheduler step IS their clock), rendered at 1 step = 1000 us so

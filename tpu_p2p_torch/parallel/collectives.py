@@ -68,13 +68,25 @@ mesh. :class:`CollectiveCache` keeps what the reference caches —
 canonical edge sets and one callable per (mesh, axis, edges, chain
 length, transport), with a ``pallas_dma`` hop's completed permutation
 made once; there is nothing to compile. A chain is ``k`` data-dependent
-calls launched back to back and drained once. The reference's ledger
-hooks and fault throttle are not ported yet.
+calls launched back to back and drained once, and each cached callable
+is a ledger program (:func:`tpu_p2p_torch.obs.ledger.program`).
+
+Every collective records itself into the active collective ledger
+(:mod:`tpu_p2p_torch.obs.ledger`) where the reference records it
+(``_record_issue``): kind, axis, payload bytes, edges, count, label.
+A chain records once with its count, as the reference's traced scan.
+The model-layer permutes (:func:`axis_ppermute_start`, the chunk wave)
+are the fault-injection point of a degraded link
+(:func:`_fault_throttle`, reference :761). Ranks that share a card have
+no NCCL; inside :func:`host_staged` their library collectives run on
+the host group over host copies (the obs layer's runs there), and
+outside it they raise :class:`BackendError` as before.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
@@ -82,7 +94,9 @@ import torch
 import torch.distributed as dist
 
 from tpu_p2p_torch.config import TRANSPORTS
+from tpu_p2p_torch.obs import ledger as _obs
 from tpu_p2p_torch.parallel import pallas_dma as PD
+from tpu_p2p_torch.parallel.runtime import LocalLine
 from tpu_p2p_torch.utils.errors import BackendError
 
 Edge = Tuple[int, int]
@@ -99,6 +113,67 @@ def _check_transport(transport: str) -> str:
             f"{TRANSPORTS}"
         )
     return transport
+
+
+# ------------------------------------------- ledger hooks, host staging
+
+_HOST_STAGED = [False]
+
+
+@contextmanager
+def host_staged(on: bool = True):
+    """Inside the block, the library collectives of ranks that share a
+    card (a mesh with no device group) run on the host group (gloo)
+    over host copies of the card tensors, instead of raising
+    :class:`BackendError`: the obs layer's captures and smoke run there.
+    Those collectives leave no device event. ``on=False``: a no-op."""
+    prev = _HOST_STAGED[0]
+    _HOST_STAGED[0] = prev or bool(on)
+    try:
+        yield
+    finally:
+        _HOST_STAGED[0] = prev
+
+
+def _on_host(t: torch.Tensor, group) -> bool:
+    """Whether a collective over ``group`` must see host copies of the
+    card tensor ``t`` (gloo never runs on card tensors)."""
+    return t.is_cuda and group is not None \
+        and dist.get_backend(group) == "gloo"
+
+
+def _dist(fn, out: torch.Tensor, *ins: torch.Tensor, group, **kw):
+    """``fn(out, *ins, group=group)``, through host copies where
+    :func:`_on_host` (synchronously: no work handle is returned then)."""
+    if not _on_host(out, group):
+        return fn(out, *ins, group=group, **kw)
+    kw.pop("async_op", None)
+    h_out = out.cpu()
+    fn(h_out, *(t.cpu() for t in ins), group=group, **kw)
+    out.copy_(h_out)
+    return None
+
+
+def _axis_of(mesh) -> str:
+    """The axis name a collective over ``mesh`` records under: a line's
+    or a plane's own name (``"pp"``, ``"dp+sp"``), a LocalMesh line's
+    axis."""
+    if isinstance(mesh, LocalLine):
+        return mesh.rendezvous.name
+    return "+".join(mesh.axis_names)
+
+
+def _record(kind: str, mesh, x_or_bytes, *, label: str, edges=None,
+            count: int = 1, axis=None, axis_size=None) -> None:
+    """One ledger entry for a collective over ``mesh`` (a line, a plane,
+    or a LocalMesh line)."""
+    if not _obs._STACK:
+        return
+    nbytes = (x_or_bytes if isinstance(x_or_bytes, int)
+              else _obs.tensor_bytes(x_or_bytes))
+    _obs.record_issue(kind, axis or _axis_of(mesh), nbytes=nbytes,
+                      axis_size=axis_size or mesh.size, edges=edges,
+                      count=count, label=label)
 
 
 def elems_for(msg_bytes: int, dtype) -> int:
@@ -190,6 +265,8 @@ def _library_group(mesh, device: torch.device, what: str = ""):
     the error points at the peer-push transport."""
     if device.type == "cpu":
         return mesh.host_group
+    if mesh.device_group is None and _HOST_STAGED[0]:
+        return mesh.host_group
     if mesh.device_group is None:
         if what:
             raise BackendError(
@@ -224,7 +301,7 @@ def psum(x: torch.Tensor, mesh, *, group=None, inplace: bool = False):
         return x.copy_(y) if inplace else y
     group = group or _reduction_group(mesh, "all_reduce")
     y = x if inplace else x.clone()
-    dist.all_reduce(y, group=group)
+    _dist(dist.all_reduce, y, group=group)
     return y
 
 
@@ -235,7 +312,7 @@ def all_to_all(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
     group = group or _reduction_group(mesh, "all_to_all")
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out.view(-1), x.view(-1), group=group)
+    _dist(dist.all_to_all_single, out.view(-1), x.view(-1), group=group)
     return out
 
 
@@ -245,7 +322,8 @@ def reduce_scatter(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
     group = group or _reduction_group(mesh, "reduce_scatter")
     x = x.contiguous()
     out = x.new_empty(x.shape[:-1] + (x.shape[-1] // mesh.size,))
-    dist.reduce_scatter_tensor(out.view(-1), x.view(-1), group=group)
+    _dist(dist.reduce_scatter_tensor, out.view(-1), x.view(-1),
+          group=group)
     return out
 
 
@@ -257,7 +335,8 @@ def all_gather_own(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
     c = x.shape[-1] // mesh.size
     own = x[..., mesh.index * c:(mesh.index + 1) * c].contiguous()
     out = x.new_empty(x.shape[:-1] + (c * mesh.size,))
-    dist.all_gather_into_tensor(out.view(-1), own.view(-1), group=group)
+    _dist(dist.all_gather_into_tensor, out.view(-1), own.view(-1),
+          group=group)
     return out
 
 
@@ -306,15 +385,24 @@ def ppermute_start(x: torch.Tensor, mesh, edges: Sequence[Edge], *,
     x = x.contiguous()
     out = torch.zeros_like(x)
     group = _library_group(mesh, x.device, what)
+    staged = _on_host(x, group)
+    src, dst = (x.cpu(), torch.zeros_like(x, device="cpu")) if staged \
+        else (x, out)
     ops = []
     for s, d in edges:
         if s == i and d == i:
-            out.copy_(x)
+            dst.copy_(src)
         elif s == i:
-            ops.append(dist.P2POp(dist.isend, x, mesh.ranks[d], group))
+            ops.append(dist.P2POp(dist.isend, src, mesh.ranks[d], group))
         elif d == i:
-            ops.append(dist.P2POp(dist.irecv, out, mesh.ranks[s], group))
-    return out, (dist.batch_isend_irecv(ops) if ops else [])
+            ops.append(dist.P2POp(dist.irecv, dst, mesh.ranks[s], group))
+    pending = dist.batch_isend_irecv(ops) if ops else []
+    if staged:
+        for req in pending:
+            req.wait()
+        out.copy_(dst)
+        pending = []
+    return out, pending
 
 
 def ppermute_wait(out: torch.Tensor, pending) -> torch.Tensor:
@@ -325,15 +413,21 @@ def ppermute_wait(out: torch.Tensor, pending) -> torch.Tensor:
     return out
 
 
-def dma_ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge]):
+def dma_ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge], *,
+                 label: str = "dma_ppermute", kind: str = "dma"):
     """:func:`ppermute` over the peer-push kernel (``pallas_dma``): the
-    same contract, every member of the mesh taking part."""
+    same contract, every member of the mesh taking part. Ledger-recorded
+    (reference :826) as ``kind`` (``"dma"``, or ``"kv_migrate"``)."""
+    edges = tuple((int(s), int(d)) for s, d in edges)
+    _record(kind, mesh, mesh.rows(x)[0], edges=edges, label=label)
     return PD.dma_ppermute(x, mesh, edges)
 
 
 def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
                              edges: Sequence[Edge], chunk_dim: int,
-                             chunks: int, *, transport: str = "xla"):
+                             chunks: int, *, transport: str = "xla",
+                             label: str = "chunked_ppermute_compute",
+                             kind=None):
     """Ship ``compute_chunk(x)`` over ``edges`` as a wave of chunk hops
     (reference ``collectives.py:627``): ``x`` splits along ``chunk_dim``
     into ``chunks`` equal chunks, zero-padded when the dim does not
@@ -356,11 +450,18 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
     stream. On a process mesh the wave is differentiable over either
     transport: each hop's backward is the same hop over the reversed
     edges (the reference's transpose), run when autograd reaches it.
+
+    Ledger rows (reference :711): one a chunk hop under ``kind``
+    (default the transport's own, ``"ppermute"`` or ``"dma"``; the
+    serving migration passes ``"kv_migrate"``), the fused ships as one
+    row of ``chunks - 1``; a library chunk hop is the degraded-link
+    injection point, as the reference's ``ppermute`` wrapper is.
     """
     _check_transport(transport)
     edges = _canon_edges(edges, mesh.size)
     rows = mesh.rows(x)
     pallas = transport == "pallas_dma"
+    rec_kind = kind or ("dma" if pallas else "ppermute")
 
     def ship(per_rank):
         """Issue one chunk's hop → a callable that returns its arrivals:
@@ -368,8 +469,10 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
         hop left in flight until the caller waits (every chunk's is
         issued before the first wait); else the finished hop."""
         if not pallas and not mesh.in_process:
-            wait = axis_ppermute_start(per_rank[0], mesh, edges)
+            wait = axis_ppermute_start(per_rank[0], mesh, edges,
+                                       label=label, kind=rec_kind)
             return lambda: [wait()]
+        _record(rec_kind, mesh, per_rank[0], edges=edges, label=label)
         hop = PD.dma_ppermute if pallas else ppermute
         got = mesh.rows(hop(mesh.unrows(per_rank), mesh, edges))
         return lambda: got
@@ -399,6 +502,8 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
     arrivals = []
     if pallas:
         y_prev = computed(chunk_of(0), 0)
+        _record(rec_kind, mesh, y_prev[0], edges=edges, count=chunks - 1,
+                label=label)
         for c in range(1, chunks):
             arr, y = PD.dma_ship_compute(
                 mesh.unrows(y_prev), mesh, edges,
@@ -444,7 +549,7 @@ def _all_reduce_copy(x: torch.Tensor, line, what: str) -> torch.Tensor:
         return line.all_reduce(x)
     group = axis_group(line, what)
     y = x.contiguous().clone()
-    dist.all_reduce(y, group=group)
+    _dist(dist.all_reduce, y, group=group)
     return y
 
 
@@ -476,7 +581,7 @@ def _a2a(x: torch.Tensor, line, split_dim: int, concat_dim: int):
     group = axis_group(line, "all_to_all")
     parts = torch.stack(x.chunk(line.size, dim=split_dim)).contiguous()
     out = torch.empty_like(parts)
-    dist.all_to_all_single(out, parts, group=group)
+    _dist(dist.all_to_all_single, out, parts, group=group)
     return torch.cat(out.unbind(0), dim=concat_dim)
 
 
@@ -492,13 +597,18 @@ class _AllToAll(torch.autograd.Function):
         return _a2a(g, line, concat_dim, split_dim), None, None, None
 
 
-def psum_join(x: torch.Tensor, line) -> torch.Tensor:
+def psum_join(x: torch.Tensor, line, *, label: str = "psum"
+              ) -> torch.Tensor:
     """The sum of ``x`` over the line, replicated (the reference's
     ``psum`` of a varying value, :748): all-reduce forward, identity
     backward, since the replicated sum's cotangent reaches every member
     once. The Megatron joins after ``wo`` and ``wf2``, the pipeline's
-    output replication. ``line=None`` (no such axis): the identity."""
-    return x if line is None or line.size == 1 else _PsumJoin.apply(x, line)
+    output replication. ``line=None`` (no such axis): the identity.
+    Ledger-recorded as an ``all_reduce`` under ``label``."""
+    if line is None or line.size == 1:
+        return x
+    _record("all_reduce", line, x, label=label)
+    return _PsumJoin.apply(x, line)
 
 
 def psum_conjugate(x: torch.Tensor, line) -> torch.Tensor:
@@ -512,15 +622,17 @@ def psum_conjugate(x: torch.Tensor, line) -> torch.Tensor:
     return _PsumConjugate.apply(x, line)
 
 
-def axis_ppermute(x: torch.Tensor, line, edges: Sequence[Edge]):
+def axis_ppermute(x: torch.Tensor, line, edges: Sequence[Edge], *,
+                  label: str = "ppermute", kind: str = "ppermute"):
     """:func:`ppermute` along the line, differentiable: the backward is
     the same hop over the reversed edges (the reference's transpose).
     :func:`axis_ppermute_start`, waited for at once."""
-    return axis_ppermute_start(x, line, edges)()
+    return axis_ppermute_start(x, line, edges, label=label, kind=kind)()
 
 
 def axis_all_to_all(x: torch.Tensor, line, split_dim: int,
-                    concat_dim: int) -> torch.Tensor:
+                    concat_dim: int, *, label: str = "all_to_all"
+                    ) -> torch.Tensor:
     """Tiled all-to-all along the line (reference :846): ``x`` splits
     into ``line.size`` chunks along ``split_dim``, chunk ``j`` goes to
     member ``j``, and the chunks received concatenate along
@@ -531,6 +643,7 @@ def axis_all_to_all(x: torch.Tensor, line, split_dim: int,
     if x.shape[split_dim] % line.size:
         raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
                          f"split into {line.size} chunks")
+    _record("all_to_all", line, x, label=label)
     return _AllToAll.apply(x, line, split_dim, concat_dim)
 
 
@@ -545,8 +658,15 @@ def axis_all_gather(x: torch.Tensor, line, dim: int) -> torch.Tensor:
         parts = line.all_gather(x.contiguous())
     else:
         group = axis_group(line, "all_gather")
-        parts = [torch.empty_like(x) for _ in range(line.size)]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        x = x.contiguous()
+        if _on_host(x, group):
+            parts = [torch.empty_like(x, device="cpu")
+                     for _ in range(line.size)]
+            dist.all_gather(parts, x.cpu(), group=group)
+            parts = [p.to(x.device) for p in parts]
+        else:
+            parts = [torch.empty_like(x) for _ in range(line.size)]
+            dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -580,20 +700,85 @@ class _HopArrival(torch.autograd.Function):
         return None, ppermute(g, ctx.line, back, what="ppermute")
 
 
-def axis_ppermute_start(x: torch.Tensor, line, edges: Sequence[Edge]
+def axis_ppermute_start(x: torch.Tensor, line, edges: Sequence[Edge], *,
+                        label: str = "ppermute", kind: str = "ppermute"
                         ) -> Callable[[], torch.Tensor]:
     """Issue :func:`axis_ppermute` without waiting → a function that
     waits and returns the arrival. Work issued in between runs while the
     hop is in flight (on a card: NCCL's stream; on the CPU: gloo's
     thread); the arrival is differentiable, its backward the blocking
     reverse hop. ``x`` must stay unchanged until the wait. On a line of
-    one rank a self-edge copies ``x`` and no edge gives zeros."""
+    one rank a self-edge copies ``x`` and no edge gives zeros.
+
+    The reference's instrumented ``ppermute`` (:806): one ledger row as
+    ``kind`` under ``label``, and the arrival passes through
+    :func:`_fault_throttle`."""
+    edges = tuple((int(s), int(d)) for s, d in edges)
+    _record(kind, line, x, edges=edges, label=label)
+    wait = _hop_start(x, line, edges)
+    if line.size == 1:
+        return wait
+    return lambda: _fault_throttle(wait(), line, edges)
+
+
+def _hop_start(x: torch.Tensor, line, edges) -> Callable[[], torch.Tensor]:
+    """:func:`axis_ppermute_start`'s hop alone: no ledger row, no
+    throttle (the ring collective-matmuls' hops, which the reference
+    issues as raw ``lax.ppermute`` and records once a ring)."""
     if line.size == 1:
         y = x.clone() if any(s == d for s, d in edges) else \
             torch.zeros_like(x)
         return lambda: y
     inflight = _HopInFlight(x, line, edges)
     return lambda: _HopArrival.apply(inflight, x)
+
+
+class _Throttle(torch.autograd.Function):
+    """The degraded link's detour on the value path: ``extra`` rounds of
+    the swap permutation applied twice (a bitwise identity that crosses
+    the link both ways each time); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, y, line, swap, extra):
+        out = y.detach()
+        for _ in range(extra):
+            out = ppermute(ppermute(out, line, swap, what="ppermute"),
+                           line, swap, what="ppermute")
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def _fault_throttle(y: torch.Tensor, line, edges) -> torch.Tensor:
+    """Apply an active :class:`~tpu_p2p_torch.obs.faults.FaultPlan` link
+    throttle to one arrived ship over ``edges`` (reference :761).
+
+    When the plan degrades an edge ``(s, d)`` of this ship, the arrival
+    takes ``degrade_factor - 1`` extra round trips through that link:
+    each round applies the swap permutation (``s <-> d``, self-edges
+    elsewhere) twice, the bitwise identity, so values stay exact while
+    host timing, the card's trace and the ledger (``fault_throttle``
+    rows) all see a slower link. Without an active plan: one check."""
+    from tpu_p2p_torch.obs import faults as _faults
+
+    plan = _faults.active_plan()
+    if plan is None or plan.degrade_edge is None:
+        return y
+    edge = (int(plan.degrade_edge[0]), int(plan.degrade_edge[1]))
+    if edge not in edges:
+        return y
+    n = line.size
+    s, d = edge
+    if s >= n or d >= n:
+        return y  # a plan written for a bigger mesh: nothing to slow
+    swap = tuple((i, i) for i in range(n) if i not in (s, d)) \
+        + ((s, d), (d, s))
+    extra = plan.degrade_factor - 1
+    _record("ppermute", line, y, edges=((s, d), (d, s)), count=2 * extra,
+            label="fault_throttle")
+    return _Throttle.apply(y, line, swap, extra)
 
 
 # ------------------------------------ ring collective-matmuls along a line
@@ -641,6 +826,8 @@ def ring_allgather_matmul(compute_chunk: Callable, x_shard: torch.Tensor,
     if n == 1:
         return compute_chunk(x_shard, 0)
     fwd = ring_edges(n)
+    _record("dma" if transport == "pallas_dma" else "ppermute", line,
+            x_shard, edges=fwd, count=n - 1, label="ring_allgather_matmul")
     ys = [None] * n
     cur, src = x_shard, line.index
     for s in range(n):
@@ -648,8 +835,7 @@ def ring_allgather_matmul(compute_chunk: Callable, x_shard: torch.Tensor,
             nxt, y = PD.dma_ship_compute(cur, line, fwd, compute_chunk, cur,
                                          src)
         else:
-            wait = axis_ppermute_start(cur, line, fwd) if s + 1 < n \
-                else None
+            wait = _hop_start(cur, line, fwd) if s + 1 < n else None
             y = compute_chunk(cur, src)
             nxt = wait() if wait is not None else None
         ys[src] = y
@@ -682,8 +868,10 @@ def matmul_ring_reducescatter(compute_chunk: Callable, x: torch.Tensor,
 
     rev = tuple((j, (j - 1) % n) for j in range(n))
     acc = part((idx + 1) % n)
+    _record("ppermute", line, acc, edges=rev, count=n - 1,
+            label="matmul_ring_reducescatter")
     for s in range(1, n):
-        wait = axis_ppermute_start(acc, line, rev)
+        wait = _hop_start(acc, line, rev)
         p = part((idx + 1 + s) % n)
         acc = wait() + p
     return acc
@@ -713,11 +901,13 @@ def ring_all_to_all_matmul(compute_chunk: Callable, x: torch.Tensor, line,
     def send_chunk(s):
         return x.narrow(split_dim, (idx + s) % n * ce, ce)
 
+    for s in range(1, n):
+        _record("ppermute", line, _obs.tensor_bytes(x) // n,
+                edges=_shift_edges(n, s), label="ring_all_to_all_matmul")
     ys = [None] * n
     cur = send_chunk(0)
     for s in range(n):
-        wait = (axis_ppermute_start(send_chunk(s + 1), line,
-                                    _shift_edges(n, s + 1))
+        wait = (_hop_start(send_chunk(s + 1), line, _shift_edges(n, s + 1))
                 if s + 1 < n else None)
         src = (idx - s) % n  # hop s delivers the rank s upstream
         ys[src] = compute_chunk(cur, src)
@@ -748,7 +938,9 @@ def matmul_ring_all_to_all(compute_chunk: Callable, x: torch.Tensor, line,
     waits = []
     for s in range(1, n):
         y = part((idx - s) % n)
-        waits.append((axis_ppermute_start(y, line, _shift_edges(n, n - s)),
+        _record("ppermute", line, y, edges=_shift_edges(n, n - s),
+                label="matmul_ring_all_to_all")
+        waits.append((_hop_start(y, line, _shift_edges(n, n - s)),
                       (idx + s) % n))
     ys = [None] * n
     ys[idx] = part(idx)
@@ -771,7 +963,7 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh,
         by_dtype.setdefault(t.dtype, []).append(t)
     for same in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in same])
-        dist.all_reduce(flat, group=group)
+        _dist(dist.all_reduce, flat, group=group)
         offset = 0
         for t in same:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -816,8 +1008,8 @@ class _BucketInFlight:
             self.work = None
             return
         self.rows = self.flat.new_empty(line.size * self.flat.numel())
-        self.work = dist.all_gather_into_tensor(
-            self.rows, self.flat, group=group, async_op=True)
+        self.work = _dist(dist.all_gather_into_tensor, self.rows,
+                          self.flat, group=group, async_op=True)
 
 
 class _BucketGather(torch.autograd.Function):
@@ -859,8 +1051,8 @@ class _BucketGather(torch.autograd.Function):
             flat = ctx.line.all_reduce(rows)[ctx.line.index]
         else:
             flat = rows.new_empty(rows.shape[1])
-            dist.reduce_scatter_tensor(flat, rows.view(-1),
-                                       group=ctx.group)
+            _dist(dist.reduce_scatter_tensor, flat, rows.view(-1),
+                  group=ctx.group)
         out, off = [], 0
         for shape, _ in ctx.meta:
             size = math.prod(shape)
@@ -908,9 +1100,13 @@ def start_bucketed_all_gather(shards, line, bucket_bytes=None
     by_dtype: Dict[torch.dtype, list] = {}
     for k, (v, d) in shards.items():
         by_dtype.setdefault(v.dtype, []).append((k, v, d))
-    inflight = [_BucketInFlight(bucket, line, group)
-                for items in by_dtype.values()
-                for bucket in _gather_buckets(items, bucket_bytes)]
+    buckets = [bucket for items in by_dtype.values()
+               for bucket in _gather_buckets(items, bucket_bytes)]
+    for bucket in buckets:  # one ledger row a bucket (reference :329)
+        _record("all_gather", line,
+                sum(_obs.tensor_bytes(v) for _, v, _ in bucket),
+                label="bucketed_all_gather")
+    inflight = [_BucketInFlight(bucket, line, group) for bucket in buckets]
     return PendingGather(list(shards), {}, inflight)
 
 
@@ -948,7 +1144,7 @@ class CollectiveCache:
             self._hits += 1
             return fn
         self._misses += 1
-        fn = self._cache[key] = builder()
+        fn = self._cache[key] = _obs.program(builder())
         return fn
 
     def stats(self) -> Dict[str, int]:
@@ -970,16 +1166,32 @@ class CollectiveCache:
         _library_group(mesh, mesh.device)  # fail before any traffic
         return lambda x: ppermute(x, mesh, edges)
 
+    @staticmethod
+    def _kind(transport: str) -> str:
+        return "dma" if transport == "pallas_dma" else "ppermute"
+
     def permute(self, mesh, axis: str, edges: Sequence[Edge],
                 transport: str = "xla"):
         """One transfer of ``edges`` along ``axis``: ``[(src, dst)]`` ≙
         the blocking send/recv pair of ``p2p_matrix.cc:156-171``,
         ``[(src, dst), (dst, src)]`` ≙ its full-duplex exchange
-        (``:211-251``)."""
+        (``:211-251``). Ledger: one row a call (reference :943)."""
         edges = self._canon(mesh, axis, edges, transport)
-        return self._get(("permute", mesh, axis, edges, transport),
-                         lambda: self._hop(mesh.line(axis), edges,
-                                           transport))
+
+        def build():
+            line = mesh.line(axis)
+            hop = self._hop(line, edges, transport)
+            label = ("dma_permute" if transport == "pallas_dma"
+                     else "permute")
+
+            def one(x):
+                _record(self._kind(transport), line, x, edges=edges,
+                        axis=axis, label=label)
+                return hop(x)
+
+            return one
+
+        return self._get(("permute", mesh, axis, edges, transport), build)
 
     def permute_chain(self, mesh, axis: str, edges: Sequence[Edge],
                       count: int, transport: str = "xla"):
@@ -989,9 +1201,15 @@ class CollectiveCache:
         edges = self._canon(mesh, axis, edges, transport)
 
         def build():
-            hop = self._hop(mesh.line(axis), edges, transport)
+            line = mesh.line(axis)
+            hop = self._hop(line, edges, transport)
+            label = ("dma_permute_chain" if transport == "pallas_dma"
+                     else "permute_chain")
 
             def chain(x):
+                # One row of ``count`` (reference :981, :998).
+                _record(self._kind(transport), line, x, edges=edges,
+                        count=count, axis=axis, label=label)
                 for _ in range(count):
                     x = hop(x)
                 return x
@@ -1026,11 +1244,12 @@ class CollectiveCache:
     # -- all-to-all and reductions (library collectives) ----------------
 
     def _collective(self, name: str, mesh, axis: str, count: int, what: str,
-                    step, first=None):
+                    step, first=None, records=()):
         """A cached callable of ``count`` data-dependent ``step(x, line,
         group)`` calls along ``axis`` (``first`` for the first, when it
         differs); the line's group is found, or refused, when it is
-        built."""
+        built. ``records``: ``(kind, bytes_of(x, n))`` pairs, one ledger
+        row of ``count`` each (reference :1096-1273)."""
         if axis not in mesh.axis_names:
             raise ValueError(f"axis {axis!r} not in {mesh.axis_names}")
 
@@ -1040,6 +1259,9 @@ class CollectiveCache:
             head = first or step
 
             def chain(x):
+                for kind, nbytes in records:
+                    _record(kind, line, nbytes(x, line.size), count=count,
+                            axis=axis, label=name)
                 x = head(x, line, group)
                 for _ in range(count - 1):
                     x = step(x, line, group)
@@ -1054,8 +1276,9 @@ class CollectiveCache:
         (reference :1080): chunk ``j`` of each member's row goes to
         member ``j``."""
         return self._collective(
-            "a2a", mesh, axis, 1, "all_to_all",
-            lambda x, m, g: all_to_all(x, m, group=g))
+            "all_to_all", mesh, axis, 1, "all_to_all",
+            lambda x, m, g: all_to_all(x, m, group=g),
+            records=(("all_to_all", _whole),))
 
     def all_reduce(self, mesh, axis: str):
         """One sum of the payload over ``axis`` (reference :1111), into a
@@ -1069,14 +1292,16 @@ class CollectiveCache:
         return self._collective(
             "psum_chain", mesh, axis, count, "all_reduce",
             lambda x, m, g: psum(x, m, group=g, inplace=True),
-            first=lambda x, m, g: psum(x, m, group=g))
+            first=lambda x, m, g: psum(x, m, group=g),
+            records=(("all_reduce", _whole),))
 
     def reduce_scatter(self, mesh, axis: str):
         """One tiled reduce-scatter along the payload dim (reference
         :1163): member ``j`` keeps chunk ``j`` of the sum."""
         return self._collective(
-            "rs", mesh, axis, 1, "reduce_scatter",
-            lambda x, m, g: reduce_scatter(x, m, group=g))
+            "reduce_scatter", mesh, axis, 1, "reduce_scatter",
+            lambda x, m, g: reduce_scatter(x, m, group=g),
+            records=(("reduce_scatter", _whole),))
 
     def rs_ag_chain(self, mesh, axis: str, count: int):
         """``count`` hops of reduce-scatter + tiled all-gather (reference
@@ -1084,11 +1309,14 @@ class CollectiveCache:
         def step(x, m, g):
             rs = reduce_scatter(x, m, group=g)
             out = x.new_empty(x.shape)
-            dist.all_gather_into_tensor(out.view(-1), rs.view(-1), group=g)
+            _dist(dist.all_gather_into_tensor, out.view(-1), rs.view(-1),
+                  group=g)
             return out
 
-        return self._collective("rs_ag_chain", mesh, axis, count,
-                                "reduce_scatter", step)
+        return self._collective(
+            "rs_ag_chain", mesh, axis, count, "reduce_scatter", step,
+            records=(("reduce_scatter", _whole),
+                     ("all_gather", _own_chunk)))
 
     def all_gather(self, mesh, axis: str):
         """One slice-own-chunk + tiled all-gather (reference :1225): the
@@ -1101,7 +1329,8 @@ class CollectiveCache:
         (reference :1259)."""
         return self._collective(
             "ag_chain", mesh, axis, count, "all_gather",
-            lambda x, m, g: all_gather_own(x, m, group=g))
+            lambda x, m, g: all_gather_own(x, m, group=g),
+            records=(("all_gather", _own_chunk),))
 
     # -- the overlap knobs' ring collective-matmuls ----------------------
 
@@ -1186,6 +1415,16 @@ class CollectiveCache:
 
     def __len__(self) -> int:
         return len(self._cache)
+
+
+def _whole(x: torch.Tensor, n: int) -> int:
+    return _obs.tensor_bytes(x)
+
+
+def _own_chunk(x: torch.Tensor, n: int) -> int:
+    """A slice-own-chunk gather's operand: this rank's ``1/n`` of the
+    payload dim."""
+    return _obs.tensor_bytes(x) // x.shape[-1] * (x.shape[-1] // n)
 
 
 def _check_divides(elems: int, n: int) -> None:

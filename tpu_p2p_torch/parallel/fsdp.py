@@ -25,9 +25,9 @@ port's copy of ``tpu_p2p/parallel/fsdp.py``.
   params are gathered at once.
 
 Specs are the port's tuples (an axis name, a tuple of names, or None a
-dim). The reference's obs-ledger hook (one ``record_issue`` a planned
-leaf) comes with the port's ledger, as ``_record_issue`` does
-elsewhere.
+dim). :func:`all_gather_params` records one collective-ledger row a
+planned leaf (the reference's ``record_issue`` hook, one all-gather a
+leaf, bytes the dp shard's).
 """
 
 from __future__ import annotations
@@ -36,8 +36,10 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
+from tpu_p2p_torch.obs import ledger as _obs
 from tpu_p2p_torch.parallel.collectives import (
     PendingGather,
+    _record,
     bucketed_all_gather,
     start_bucketed_all_gather,
 )
@@ -86,12 +88,19 @@ def all_gather_params(params: Dict[str, torch.Tensor], line,
     """Rebuild full parameters from their shards over the dp ``line``:
     one tiled all-gather a planned leaf along its planned dim, in leaf
     order. Call inside the differentiated step: the backward is the
-    ZeRO gradient reduce-scatter."""
-    return {
-        k: (bucketed_all_gather({k: (v, plan[k])}, line)[k]
-            if plan.get(k) is not None else v)
-        for k, v in params.items()
-    }
+    ZeRO gradient reduce-scatter. Ledger: one ``all_gather`` row a
+    planned leaf, ``fsdp.all_gather_params:<leaf>``."""
+    for k, v in params.items():
+        if plan.get(k) is not None:
+            _record("all_gather", line, v, axis="dp" if line is None
+                    else None, axis_size=1 if line is None else None,
+                    label=f"fsdp.all_gather_params:{k}")
+    with _obs.muted():
+        return {
+            k: (bucketed_all_gather({k: (v, plan[k])}, line)[k]
+                if plan.get(k) is not None else v)
+            for k, v in params.items()
+        }
 
 
 def split_plan_for_prefetch(plan: Plan,

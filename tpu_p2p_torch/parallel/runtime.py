@@ -59,6 +59,7 @@ from typing import ClassVar, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from tpu_p2p_torch.obs import ledger as _ledger
 from tpu_p2p_torch.parallel import pallas_dma, topology
 from tpu_p2p_torch.utils.errors import PlacementError, check
 
@@ -566,7 +567,11 @@ class LocalMesh:
         out: list = [None] * len(ranks)
 
         def body(k: int, i: int) -> None:
-            with torch.set_grad_enabled(grad), self.on(i):
+            # One per-rank body, recorded once: the collective ledger
+            # hears rank ranks[0]'s collectives, as shard_map traces its
+            # body once (tpu_p2p_torch.obs.ledger).
+            with torch.set_grad_enabled(grad), self.on(i), \
+                    _ledger.muted(k > 0):
                 out[k] = fn(self.rank(i), *(r[i] for r in rows))
 
         if sync:
@@ -690,6 +695,8 @@ class Runtime:
     mesh: Mesh
     _groups: Dict = field(default_factory=dict)
     _meshes: Dict = field(default_factory=dict)
+    members: Optional[Tuple[int, ...]] = None  # a restricted runtime's
+    # ranks (:meth:`restrict`); None: the whole world
 
     @property
     def num_devices(self) -> int:
@@ -706,16 +713,22 @@ class Runtime:
         world must call it, members or not, in the same order:
         ``new_group`` is collective over the world."""
         key = tuple(sorted(set(int(r) for r in ranks)))
-        check(len(key) == len(ranks) and all(0 <= r < self.world
-                                             for r in key),
-              f"submesh ranks {tuple(ranks)} are not distinct ranks of a "
-              f"world of {self.world}")
+        pool = self.members if self.members is not None \
+            else range(self.world)
+        check(len(key) == len(ranks) and all(r in pool for r in key),
+              f"submesh ranks {tuple(ranks)} are not distinct ranks of "
+              f"{tuple(pool)}")
         groups = self._groups.get(key)
         if groups is None:
-            host = dist.new_group(list(key))
+            # A restricted runtime makes its groups among its members
+            # alone: the ranks outside it do not take part.
+            local = self.members is not None
+            host = dist.new_group(list(key),
+                                  use_local_synchronization=local)
             dev = None
             if self.mesh.device_group is not None:
-                dev = dist.new_group(list(key), backend="nccl")
+                dev = dist.new_group(list(key), backend="nccl",
+                                     use_local_synchronization=local)
             groups = (host, dev, {})
             self._groups[key] = groups
         return groups
@@ -744,8 +757,8 @@ class Runtime:
         so a step's first collective is not its first call."""
         dims = tuple(int(d) for d in dims)
         names = tuple(axis_names)
-        check(math.prod(dims) == self.world,
-              f"mesh shape {dims} != {self.world} devices")
+        check(math.prod(dims) == self.mesh.size,
+              f"mesh shape {dims} != {self.mesh.size} devices")
         check(len(names) == len(dims) and len(set(names)) == len(names),
               f"mesh shape {dims} over axes {names}: one distinct name "
               "per axis (the default names cover 1-D or 2-D meshes)")
@@ -762,6 +775,31 @@ class Runtime:
                         dist.all_reduce(torch.zeros(1, device=self.device),
                                         group=line.device_group)
         return mesh
+
+    def restrict(self, ranks: Sequence[int]) -> "Runtime":
+        """A runtime over ``ranks``, a subset of this world (the heal's
+        surviving ranks): its mesh is 1-D over them in rank order, and
+        it makes every group among them alone (``new_group(...,
+        use_local_synchronization=True)``), so only the members call
+        this and what they build on it, in the same order; the other
+        ranks of the world go on without them."""
+        ranks = tuple(sorted(set(int(r) for r in ranks)))
+        check(self.rank in ranks and all(0 <= r < self.world
+                                         for r in ranks),
+              f"rank {self.rank} restricting the world to {ranks}")
+        host = dist.new_group(list(ranks), use_local_synchronization=True)
+        dev = None
+        if self.mesh.device_group is not None:
+            dev = dist.new_group(list(ranks), backend="nccl",
+                                 use_local_synchronization=True)
+            dist.all_reduce(torch.zeros(1, device=self.device), group=dev)
+        flat = Mesh(ranks=ranks, rank=self.rank, device=self.device,
+                    host_group=host, device_group=dev)
+        rt = Runtime(rank=self.rank, world=self.world, device=self.device,
+                     placement=self.placement, mesh=flat, members=ranks)
+        flat.runtime = rt
+        rt._groups[ranks] = (host, dev, flat.windows)
+        return rt
 
     def submesh(self, device_ids: Sequence[int]) -> Mesh:
         """The 1-D mesh over ``device_ids`` (pair isolation), made with

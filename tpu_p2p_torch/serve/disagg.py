@@ -53,6 +53,7 @@ import torch
 from tpu_p2p_torch.config import SERVE_STOPS, TRANSPORTS
 from tpu_p2p_torch.models.decode import ngram_propose, spec_verify
 from tpu_p2p_torch.models.flagship import place_local_params
+from tpu_p2p_torch.obs import ledger as _obs
 from tpu_p2p_torch.parallel import collectives as C
 from tpu_p2p_torch.parallel.runtime import LocalMesh
 from tpu_p2p_torch.serve.batcher import (
@@ -171,6 +172,7 @@ class KvMigrator:
         self.chunks = max(1, int(chunks))
         self.n_prefill = int(n_prefill)
         self._zero_rows: Dict[tuple, torch.Tensor] = {}
+        self._programs: Dict[tuple, Callable] = {}  # ledger programs
 
     def block_bytes(self, blocks: int) -> int:
         """Bytes one migration of ``blocks`` pages ships: K and V, full
@@ -213,7 +215,8 @@ class KvMigrator:
         rows = self._rows(blocks)
         parts = [C.chunked_ppermute_compute(
             lambda c, _i: c, rows, self.mig, ((src, int(dst_rank)),),
-            chunk_dim=3, chunks=self.chunks, transport=self.transport)
+            chunk_dim=3, chunks=self.chunks, transport=self.transport,
+            label=f"kv_migrate:{self.transport}", kind="kv_migrate")
             for src in range(self.n_prefill)]
         if self.n_prefill == 1:
             return parts[0]
@@ -258,8 +261,14 @@ class KvMigrator:
                 f"migration of {len(prefill_pages)} prefill pages into "
                 f"{len(dec_pages)} decode pages")
         blocks = self._extract(pre_pools, prefill_pages)
-        arrived = [self._ship(b, self.n_prefill + int(dst_shard))
-                   for b in blocks]
+        # One ledger program a (pages, destination), as the reference
+        # compiles one ship a key: its first call records.
+        key = (len(prefill_pages), int(dst_shard))
+        ship = self._programs.get(key)
+        if ship is None:
+            ship = self._programs[key] = _obs.program(
+                lambda bl, dst: [self._ship(b, dst) for b in bl])
+        arrived = ship(blocks, self.n_prefill + int(dst_shard))
         self._deposit(dec_pools, arrived, dec_pages, int(dst_shard))
         self.mig.synchronize()
 
@@ -901,7 +910,8 @@ def simulate_disagg_schedule(trace: List[Request], *, slots: int,
 
 
 def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
-                      sc, emit=None, clock=time.monotonic) -> dict:
+                      sc, emit=None, ledger=None,
+                      clock=time.monotonic) -> dict:
     """Serve ``trace`` to completion on the disaggregated ranks of
     ``mig`` (the first ``sc.prefill_tp`` ranks, or 1 where it is 0, the
     tensor-parallel prefill; the rest decode replicas); ``params`` on
@@ -924,7 +934,10 @@ def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
         migrate_chunks=sc.migrate_chunks, prefill_tp=sc.prefill_tp or 1,
         clock=clock)
     t0 = clock()
-    finished = batcher.run(trace)
+    from tpu_p2p_torch.serve.engine import _recording
+
+    with _recording(ledger):  # the steps and the migration ships
+        finished = batcher.run(trace)
     mig.synchronize()
     wall = max(clock() - t0, 1e-9)
     prompt_toks = sum(r.n_prompt for r in finished)
@@ -995,6 +1008,8 @@ def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
         for ev in batcher.reuse_events:
             emit({"obs": "serve_reuse", **ev})
         emit({"obs": "serve_summary", **summary})
+        if ledger is not None:
+            emit(_obs.totals_record(ledger))
     return {**summary, "finished": finished, "shed_requests": shed,
             "events": batcher.events,
             "migrate_events": batcher.migrate_events, "batcher": batcher}

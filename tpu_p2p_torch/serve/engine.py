@@ -8,7 +8,9 @@ rank on the ``dp`` axis, one pool shard and slot slice a rank, one
 controller), and reports aggregate tokens/s
 (prompt + generated), time-to-first-token p50/p99 and per-token latency
 p50/p99. ``--obs-jsonl`` appends one ``{"obs": "request"}`` span record
-per request plus one ``{"obs": "serve_summary"}`` record; ``--trace
+per request plus one ``{"obs": "serve_summary"}`` record and the run's
+collective-ledger totals (``{"obs": "serve_ledger"}``; disagg's KV
+migration rows are ``kind="kv_migrate"``); ``--trace
 PATH`` writes the same records as a Chrome trace
 (:mod:`tpu_p2p_torch.obs.trace`). ``--batching both`` runs continuous
 and static batching on the same trace. ``--disagg`` serves the trace
@@ -46,6 +48,7 @@ from tpu_p2p_torch.config import (
     parse_range,
 )
 from tpu_p2p_torch.models.flagship import FlagshipConfig, init_flagship_params
+from tpu_p2p_torch.obs.ledger import CollectiveLedger, recording, totals_record
 from tpu_p2p_torch.parallel.runtime import LocalMesh
 from tpu_p2p_torch.serve.batcher import Batcher, Request, percentile
 from tpu_p2p_torch.serve.paged_cache import kv_page_bytes
@@ -165,7 +168,7 @@ def _request_record(r: Request) -> dict:
 
 def run_engine(mesh: LocalMesh, cfg: FlagshipConfig, params,
                trace: List[Request], *, sc: ServeConfig,
-               mode: str = "continuous", emit=None,
+               mode: str = "continuous", emit=None, ledger=None,
                clock=time.monotonic) -> dict:
     """Serve ``trace`` to completion in one batching mode over ``mesh``
     (a :func:`serve_mesh`); → the summary dict plus the ``finished`` and
@@ -173,7 +176,10 @@ def run_engine(mesh: LocalMesh, cfg: FlagshipConfig, params,
     graders: its page pool and counters). ``emit`` receives JSON-ready
     obs records. An active fault plan applies through
     :func:`tpu_p2p_torch.serve.resilience.apply_serve_faults` (the
-    page-pool clamp, a request storm, the slow-step hook)."""
+    page-pool clamp, a request storm, the slow-step hook). ``ledger``: a
+    :class:`~tpu_p2p_torch.obs.ledger.CollectiveLedger` the run records
+    into (the tp joins and ep reshards of the steps), emitted as one
+    ``{"obs": "serve_ledger"}`` row after the summary."""
     trace = [r.fresh() for r in trace]
     trace, pool_clamp, step_hook = R.apply_serve_faults(trace, sc)
     batcher = Batcher(
@@ -185,7 +191,8 @@ def run_engine(mesh: LocalMesh, cfg: FlagshipConfig, params,
         pool_clamp=pool_clamp, step_hook=step_hook,
         prefix_cache=sc.prefix_cache, spec_k=sc.spec_k, clock=clock)
     t0 = clock()
-    finished = batcher.run(trace)
+    with _recording(ledger):
+        finished = batcher.run(trace)
     wall = max(clock() - t0, 1e-9)
     prompt_toks = sum(r.n_prompt for r in finished)
     gen_toks = sum(len(r.generated) for r in finished)
@@ -246,8 +253,20 @@ def run_engine(mesh: LocalMesh, cfg: FlagshipConfig, params,
         for ev in batcher.reuse_events:
             emit({"obs": "serve_reuse", **ev})
         emit({"obs": "serve_summary", **summary})
+        if ledger is not None:
+            # Zero issues is itself the receipt on a mesh with no
+            # collective (dp only).
+            emit(totals_record(ledger))
     return {**summary, "finished": finished, "shed_requests": shed,
             "batcher": batcher}
+
+
+def _recording(ledger):
+    """Record into ``ledger`` for the block (None: a no-op)."""
+    import contextlib
+
+    return recording(ledger) if ledger is not None \
+        else contextlib.nullcontext()
 
 
 def _r3(v):
@@ -481,9 +500,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             modes = (("continuous", "static") if args.batching == "both"
                      else (args.batching,))
             summaries = {}
+            ledger = CollectiveLedger() if emit is not None else None
             for mode in modes:
+                if ledger is not None:
+                    ledger.clear()
                 s = run_engine(mesh, cfg, params, trace, sc=sc, mode=mode,
-                               emit=emit)
+                               emit=emit, ledger=ledger)
                 summaries[mode] = s
                 _print_summary(s, sc)
         finally:
@@ -534,7 +556,9 @@ def _disagg_cli(mig, mesh, cfg, params, trace, sc: ServeConfig,
     only when every stream matches."""
     from tpu_p2p_torch.serve.disagg import run_disagg_engine
 
-    s = run_disagg_engine(mig, cfg, params, trace, sc=sc, emit=emit)
+    s = run_disagg_engine(mig, cfg, params, trace, sc=sc, emit=emit,
+                          ledger=CollectiveLedger() if emit is not None
+                          else None)
     print(f"disagg: {s['requests']} requests, "
           f"{s['prompt_tokens']} prompt + "
           f"{s['gen_tokens']} generated tokens in "

@@ -29,12 +29,22 @@ moments (ZeRO-3, gathered on use; ``--overlap prefetch`` gathers one
 block ahead), ``--remat`` recomputes each block inside the backward, and
 ``--tp-overlap ring``, ``--ep-overlap ring`` and ``--pp-overlap wave``
 (with ``--pp-chunks N``) overlap the tp joins, the MoE reshards and the
-stage hops with compute. Every reference flag parses; the flags whose
-machinery is not ported (``--heal``, the link/straggler/lost-host
-faults, observability and the pipeline schedules) exit with "not ported
-yet" when set. ``--mesh-shape`` (dp x pp x sp x tp x ep) and
-``--moe-mult`` are the port's own: a mesh other than ``build_mesh``'s
-factoring, and the FFN width of the 4x-FFN configurations.
+stage hops with compute. ``--obs-jsonl PATH`` turns on the obs
+layer: a span-timed step row a step (the loop drains the card every
+step), one profiled window (``--obs-window-step``, default the second
+step) with its device-busy and overlap fractions and the collective
+ledger's join, the health monitor's verdicts, the checkpoint records and
+a closing summary; ``--trace PATH`` exports the stream as a Chrome
+trace. ``--fault-degrade-edge S:D`` / ``--fault-degrade-factor``,
+``--fault-slow-rank`` / ``--fault-slow-ms`` and ``--fault-lost-host``
+inject the link, straggler and lost-host faults from ``--fault-at-step``
+on, and ``--heal`` reshards the newest intact generation onto the
+largest power-of-two set of surviving ranks when the monitor declares a
+host lost, and resumes. ``--pp-schedule zb`` and ``--tick-lowering
+switch`` are refused, as the reference's loop refuses them.
+``--mesh-shape`` (dp x pp x sp x tp x ep) and ``--moe-mult`` are the
+port's own: a mesh other than ``build_mesh``'s factoring, and the FFN
+width of the 4x-FFN configurations.
 """
 
 from __future__ import annotations
@@ -54,23 +64,12 @@ PP_SCHEDULES = ("1f1b", "zb")
 TICK_LOWERINGS = ("masked", "switch")
 
 # run_training keywords whose machinery is not ported, with the
-# reference's defaults (a non-default value raises).
-_RUN_NOT_PORTED = {
-    "obs_jsonl": None, "heal": False, "health_config": None,
-    "obs_window_step": None,
-}
+# reference's defaults (a non-default value raises): none are left.
+_RUN_NOT_PORTED: dict = {}
 
-# CLI flags whose machinery is not ported: (argparse dest, flag).
-_FLAGS_NOT_PORTED = (
-    ("heal", "--heal"),
-    ("fault_degrade_edge", "--fault-degrade-edge"),
-    ("fault_degrade_factor", "--fault-degrade-factor"),
-    ("fault_slow_rank", "--fault-slow-rank"),
-    ("fault_slow_ms", "--fault-slow-ms"),
-    ("fault_lost_host", "--fault-lost-host"),
-    ("obs_jsonl", "--obs-jsonl"), ("obs_window_step", "--obs-window-step"),
-    ("trace", "--trace"),
-)
+# CLI flags whose machinery is not ported: (argparse dest, flag); none
+# are left.
+_FLAGS_NOT_PORTED: tuple = ()
 
 
 def _per_step_batches(cfg, seed: int, start_step: int) -> Iterator:
@@ -193,6 +192,9 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
                  eval_batches: int = 2, clip_norm: float = 0.0,
                  warmup_steps: int = 0, schedule: str = "constant",
                  fault_plan=None, device="cuda", mesh=None,
+                 obs_jsonl: Optional[str] = None,
+                 obs_window_step: Optional[int] = None,
+                 health_config=None, heal: bool = False,
                  **unported) -> dict:
     """Train the flagship for ``steps`` global steps; returns a summary
     dict (``start_step``, ``steps_run``, ``final_loss``, ``params``: this
@@ -219,9 +221,27 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
     moments are gathered on every rank, the first rank writes, and the
     save's outcome (a ``SimulatedCrash`` or an ``OSError`` included)
     reaches every rank, so all raise alike. ``fault_plan``: a
-    :class:`tpu_p2p_torch.obs.faults.FaultPlan` of storage faults,
-    injected around the loop. The reference's other keywords (obs,
-    heal) are accepted at their defaults and raise otherwise.
+    :class:`tpu_p2p_torch.obs.faults.FaultPlan`, injected around the
+    loop: the storage faults at the checkpoint writer, the link throttle
+    at the model's permutes, the straggler's sleep on rank ``slow_rank``
+    inside its step span, and the lost host's missing heartbeats.
+
+    ``obs_jsonl``: the obs layer, as the reference's loop runs it
+    (``tpu_p2p/train.py:390-563``). The first rank appends to the file
+    (and to ``log_stream``) a ``{"obs": "step"}`` row a step (spans
+    ``data``, ``step``, ``eval``, ``checkpoint``; the loop drains the
+    card every step), one profiled window at
+    :func:`~tpu_p2p_torch.obs.timeline.pick_window_step` (``obs_window_
+    step``) as a ``{"obs": "device_window"}`` record joined against the
+    run's collective ledger (recorded around the loop; the step's first
+    call records), its fractions folded into that step's row, the health
+    monitor's verdicts (``health_config``; heartbeats from the plan),
+    the ``{"obs": "ckpt"}`` save and load records and a closing
+    ``{"obs": "summary"}``. ``heal=True`` (needs ``obs_jsonl``,
+    ``ckpt_dir`` and ``ckpt_every``) raises
+    :class:`~tpu_p2p_torch.obs.health.HostLostError` on every rank at
+    the step the monitor declares a host lost
+    (:func:`run_training_with_heal` acts on it).
     """
     import torch
 
@@ -239,11 +259,12 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
         if value != _RUN_NOT_PORTED[name]:
             raise NotImplementedError(
                 f"run_training({name}={value!r}) is not ported yet")
-    shapes = faults.non_storage_shapes(fault_plan)
-    if shapes:
-        raise NotImplementedError(
-            f"run_training(fault_plan=...) with {', '.join(shapes)} is "
-            "not ported yet (only the storage faults are)")
+    if heal and not (obs_jsonl and ckpt_dir and ckpt_every):
+        raise ValueError(
+            "heal=True needs obs_jsonl (the monitor that detects the "
+            "lost host), ckpt_dir, and ckpt_every (the checkpoint the "
+            "heal reshards from)"
+        )
     if mesh is None:
         device = torch.device(device)
         resolve_device(device.type)  # "cuda" without a card raises
@@ -386,15 +407,35 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
     loader = DeviceLoader(_per_step_batches(cfg, seed, start_step), device,
                           prefetch=2, mesh=mesh, spec=spec)
 
-    def emit(rec):
+    def _emit_to(path, rec):
         if not first:
             return
         line = json.dumps(rec)
         if log_stream is not None:
             print(line, file=log_stream, flush=True)
-        if log_path:
-            with open(log_path, "a") as fh:
+        if path:
+            with open(path, "a") as fh:
                 fh.write(line + "\n")
+
+    def emit(rec):
+        _emit_to(log_path, rec)
+
+    def emit_obs(rec):
+        # Obs records ride the same emit path (the stream included) but
+        # land in their own file, so the training log's schema does not
+        # grow new shapes.
+        _emit_to(obs_jsonl, rec)
+
+    if ckpt_resume is not None and obs_jsonl:
+        # The verifying loader's verdict: a clean load is "load", one
+        # that skipped damaged generations a "fallback" (an alert).
+        emit_obs({"obs": "ckpt",
+                  "event": ("fallback" if ckpt_resume.skipped
+                            else "load"),
+                  "step": int(start_step),
+                  "generation": ckpt_resume.name,
+                  "skipped": ckpt_resume.skipped,
+                  "ok": True})
 
     def save_ckpt(step_no):
         # ONE atomic generation: params + optimizer state + schedule
@@ -433,21 +474,101 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
                                f"rank: {outcome[1]}")
         return outcome[1]
 
+    def save_and_record(step_no):
+        t0s = time.monotonic()
+        stats = save_ckpt(step_no)
+        if obs_jsonl:
+            emit_obs({"obs": "ckpt", "event": "save",
+                      "step": int(step_no),
+                      "generation": stats["name"],
+                      "save_ms": round((time.monotonic() - t0s) * 1e3, 3),
+                      "bytes": stats["bytes"],
+                      "write_retries": stats["write_retries"],
+                      "ok": True})
+        return stats
+
     import contextlib
 
+    tl = led = monitor = None
+    obs_trace_step = None
+    n_hosts = mesh.size if mesh is not None else 1
+    if obs_jsonl:
+        from tpu_p2p_torch.obs import ledger as obs_ledger
+        from tpu_p2p_torch.obs.health import HealthMonitor, HostLostError
+        from tpu_p2p_torch.obs.timeline import (
+            StepTimeline,
+            device_window_record,
+            pick_window_step,
+        )
+        from tpu_p2p_torch.utils.profiling import profile_window
+
+        tl = StepTimeline(emit_obs)
+        led = obs_ledger.CollectiveLedger()
+        # The always-on health half of the obs layer: straggler scoring
+        # on every step row and heartbeat-based lost-host tracking.
+        monitor = HealthMonitor(health_config, emit=emit_obs,
+                                n_hosts=n_hosts)
+        # One profiled window a run, by default the second step (the
+        # first builds the kernels).
+        obs_trace_step = pick_window_step(start_step, steps,
+                                          obs_window_step)
+
+    def _span(name):
+        return (tl.span(name) if tl is not None
+                else contextlib.nullcontext())
+
+    def _drain():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run_step(x, t):
+        nonlocal params, opt_state
+        if opt_state is not None:
+            params, opt_state, loss = step_fn(params, opt_state, x, t)
+        else:
+            params, loss = step_fn(params, x, t)
+        return loss
+
+    # Only rank ``slow_rank`` sleeps: its peers wait for it in the next
+    # step's collectives (a world of one sleeps itself).
+    slow_here = (fault_plan is not None and fault_plan.slow_rank is not None
+                 and (mesh is None or mesh.index == fault_plan.slow_rank))
     t0 = time.monotonic()
     tokens_per_step = cfg.batch * cfg.seq
     loss = None
     saved_at = start_step - 1
     with contextlib.ExitStack() as stack:
+        if led is not None:
+            # Recording wraps the loop: the step's first call records
+            # its collectives, as the reference's first trace does.
+            stack.enter_context(obs_ledger.recording(led))
         if fault_plan is not None:
             stack.enter_context(faults.injecting(fault_plan))
         for step in range(start_step, steps):
-            x, t = next(loader)
-            if opt_state is not None:
-                params, opt_state, loss = step_fn(params, opt_state, x, t)
-            else:
-                params, loss = step_fn(params, x, t)
+            with _span("data"):
+                x, t = next(loader)
+            dev_rec = None
+            with _span("step"):
+                if tl is not None and step == obs_trace_step:
+                    import tempfile
+
+                    with tempfile.TemporaryDirectory(
+                            prefix="obs_step_") as td:
+                        box = {}
+                        path = profile_window(
+                            lambda: box.setdefault("loss", run_step(x, t)),
+                            td)
+                        loss = box["loss"]
+                        dev_rec = device_window_record(
+                            path, step=step + 1, ledger=led)
+                else:
+                    loss = run_step(x, t)
+                if tl is not None:
+                    # Obs mode drains every step: step_ms is the step's
+                    # real cadence, not its issue time.
+                    _drain()
+                if slow_here:
+                    faults.maybe_slow_host(fault_plan, step + 1)
             if log_every and ((step + 1) % log_every == 0
                               or step + 1 == steps):
                 loss_f = float(loss)  # waits for the device on log steps
@@ -460,16 +581,40 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
                         (step + 1 - start_step) * tokens_per_step / dt),
                 })
             if eval_every and eval_fn and (step + 1) % eval_every == 0:
-                ev = float(np.mean([float(eval_fn(params, xe, te))
-                                    for xe, te in eval_set]))
+                with _span("eval"):
+                    ev = float(np.mean([float(eval_fn(params, xe, te))
+                                        for xe, te in eval_set]))
                 emit({"step": step + 1, "eval_loss": round(ev, 6)})
             if ckpt_every and ckpt_dir and (step + 1) % ckpt_every == 0:
-                save_ckpt(step + 1)
+                with _span("checkpoint"):
+                    save_and_record(step + 1)
                 saved_at = step + 1
+            if tl is not None:
+                extra = {}
+                if dev_rec is not None:
+                    extra = {k: dev_rec[k] for k in
+                             ("device_busy_frac", "gather_overlap_frac",
+                              "tp_overlap_frac")}
+                step_rec = tl.end_step(step + 1, extra=extra)
+                if dev_rec is not None:
+                    emit_obs(dev_rec)
+                alive = None
+                if fault_plan is not None:
+                    alive = [h for h in range(n_hosts)
+                             if not faults.host_lost(fault_plan, h,
+                                                     step + 1)]
+                for v in monitor.observe_step(
+                        step + 1, step_rec["step_ms"], alive_hosts=alive,
+                        # The first step and the profiled step are
+                        # instrumentation, not fleet health.
+                        score_straggler=(step not in
+                                         (start_step, obs_trace_step))):
+                    if heal and v.kind == "lost_host":
+                        raise HostLostError(v.detail["host"], step + 1)
     ran = max(0, steps - start_step)
     if ran and ckpt_dir and saved_at != steps:  # the rolling save may
         # have written this state already
-        save_ckpt(steps)
+        save_and_record(steps)
     out = {
         "start_step": start_step,
         "steps_run": ran,
@@ -480,7 +625,86 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
         out["ckpt_resume"] = {"generation": ckpt_resume.name,
                               "step": ckpt_resume.step,
                               "skipped": ckpt_resume.skipped}
+    if tl is not None:
+        summary = tl.summary_record()
+        emit_obs(summary)
+        out["obs_step_ms_p50"] = summary["obs_step_ms_p50"]
+        out["obs_step_ms_p99"] = summary["obs_step_ms_p99"]
+        out["obs_ledger_issues"] = len(led)
+        out["health_verdicts"] = len(monitor.verdicts)
     return out
+
+
+def run_training_with_heal(cfg, *, steps: int, fault_plan=None,
+                           resume: bool = False, mesh=None, **kw) -> dict:
+    """:func:`run_training` under the self-healing resume protocol (the
+    reference's ``run_training_with_heal``, ``train --heal``).
+
+    Runs normally until the health monitor declares a host lost
+    (:class:`~tpu_p2p_torch.obs.health.HostLostError`, raised on every
+    rank at one step), then: drops the lost rank, lays a mesh over the
+    first ``m`` survivors, ``m`` the largest power of two
+    (:meth:`~tpu_p2p_torch.parallel.runtime.Runtime.restrict`, groups
+    made among them alone), reshards the newest intact generation onto
+    it and resumes to ``steps``; the per-step batch stream makes the
+    healed run consume the batches an uninterrupted one would. The ranks
+    outside the new mesh (the lost one, and any past ``m``) return at
+    once and wait for the others wherever their caller meets the world.
+    Needs ``ckpt_dir``, ``ckpt_every`` and ``obs_jsonl`` in ``kw``. The
+    summary carries ``heal`` (``lost_host``, ``detected_step``,
+    ``resume_step``, ``devices``; None for an uninterrupted run) and
+    ``mesh``, the mesh the run ended on (None on a rank outside it)."""
+    from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.obs.health import HostLostError
+    from tpu_p2p_torch.utils import checkpoint as C
+
+    kw = dict(kw)
+    kw.pop("heal", None)  # the wrapper owns this knob
+    kw.pop("resume", None)
+    try:
+        out = run_training(cfg, steps=steps, resume=resume,
+                           fault_plan=fault_plan, heal=True, mesh=mesh,
+                           **kw)
+        out["heal"] = None
+        out["mesh"] = mesh
+        return out
+    except HostLostError as e:
+        ckpt_dir = kw.get("ckpt_dir")
+        first = mesh is None or mesh.index == 0
+        resume_step = _broadcast(mesh, C.latest_intact_step(ckpt_dir)
+                                 if first and C.has_checkpoint(ckpt_dir)
+                                 else None)
+        if resume_step is None:
+            raise RuntimeError(
+                f"host {e.host} lost at step {e.step}, but no intact "
+                f"checkpoint exists under {ckpt_dir!r} to heal from "
+                "(ckpt_every never fired?)") from e
+        survivors = [r for i, r in enumerate(
+            mesh.ranks if mesh is not None else (0,)) if i != e.host]
+        m = 1
+        while m * 2 <= len(survivors):
+            m *= 2
+        heal_rec = {"obs": "heal", "lost_host": e.host,
+                    "detected_step": e.step,
+                    "resume_step": resume_step, "devices": m}
+        obs_jsonl = kw.get("obs_jsonl")
+        if obs_jsonl and first:
+            with open(obs_jsonl, "a") as fh:
+                fh.write(json.dumps(heal_rec) + "\n")
+        heal = {k: v for k, v in heal_rec.items() if k != "obs"}
+        members = survivors[:m]
+        if mesh is None or mesh.rank not in members:
+            return {"start_step": resume_step, "steps_run": 0,
+                    "final_loss": None, "params": None, "heal": heal,
+                    "mesh": None}
+        new_mesh = F.build_mesh(m, runtime=mesh.runtime.restrict(members))
+        # The resumed half runs fault-free: the lost rank is gone from
+        # the mesh, and its plan must not trigger again.
+        out = run_training(cfg, steps=steps, resume=True, mesh=new_mesh,
+                           **kw)
+        out["heal"] = heal
+        out["mesh"] = new_mesh
+        return out
 
 
 def _dtype_name(dtype) -> str:
@@ -515,11 +739,17 @@ def run_training_supervised(cfg, *, steps: int, fault_plan=None,
         raise ValueError(f"max_restarts must be >= 1, got "
                          f"{max_restarts}")
     log_stream = kw.get("log_stream")
+    obs_jsonl = kw.get("obs_jsonl")
     first = mesh is None or mesh.index == 0
 
     def note(msg):
         if log_stream is not None and first:
             print(msg, file=log_stream, flush=True)
+
+    def emit_obs(rec):
+        if obs_jsonl and first:
+            with open(obs_jsonl, "a") as fh:
+                fh.write(json.dumps(rec) + "\n")
 
     restarts = 0
     crashes = []
@@ -557,6 +787,9 @@ def run_training_supervised(cfg, *, steps: int, fault_plan=None,
             else:
                 note("# supervise: no intact generation — restarting "
                      f"from step 0 ({lost} step(s) to re-run)")
+            emit_obs({"obs": "ckpt", "event": "crash_restart",
+                      "step": crash_step, "resume_step": resume_step,
+                      "restarts": restarts, "ok": False})
             if restarts > max_restarts:
                 note(f"# supervise: restart budget ({max_restarts}) "
                      "exhausted — giving up")
@@ -578,11 +811,21 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device to train on (default cuda, a card a rank; "
                         "raises without a card)")
-    nyp = "not ported yet (rejected when set)"
-    p.add_argument("--obs-jsonl", default=None, metavar="PATH", help=nyp)
+    p.add_argument("--obs-jsonl", default=None, metavar="PATH",
+                   help="observability JSONL: span-timed step rows, one "
+                        "profiled window joined against the collective "
+                        "ledger, health verdicts, checkpoint records and "
+                        "an obs_step_ms_p50 summary; drains the card every "
+                        "step")
     p.add_argument("--obs-window-step", type=int, default=None,
-                   metavar="K", help=nyp)
-    p.add_argument("--trace", default=None, metavar="PATH", help=nyp)
+                   metavar="K",
+                   help="which step gets the one torch.profiler window "
+                        "(default: the second executed step; clamped "
+                        "into the executed range)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="after the run, export the --obs-jsonl records as "
+                        "a Chrome-trace/Perfetto JSON timeline (requires "
+                        "--obs-jsonl)")
     p.add_argument("--ckpt-dir", default=None, metavar="DIR")
     p.add_argument("--ckpt-every", type=int, default=0, metavar="N")
     p.add_argument("--ckpt-keep", type=int, default=CKPT_KEEP, metavar="K",
@@ -614,19 +857,25 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-shape", default=None, metavar="DPxPPxSPxTPxEP",
                    help="the mesh's dims (default: build_mesh's factoring "
                         "of the world)")
-    p.add_argument("--heal", action="store_true", help=nyp)
+    p.add_argument("--heal", action="store_true",
+                   help="on a lost-host health verdict, reshard the newest "
+                        "intact checkpoint onto the largest power-of-two "
+                        "set of surviving ranks and resume (requires "
+                        "--obs-jsonl, --ckpt-dir and --ckpt-every)")
     p.add_argument("--fault-degrade-edge", default=None, metavar="S:D",
-                   help=nyp)
+                   help="inject: throttle the directed link S->D")
     p.add_argument("--fault-degrade-factor", type=int, default=8,
-                   metavar="K", help=nyp)
+                   metavar="K", help="trips per ship on the degraded edge "
+                                     "(>= 2)")
     p.add_argument("--fault-slow-rank", type=int, default=None, metavar="R",
-                   help=nyp)
+                   help="inject: delay rank R's step")
     p.add_argument("--fault-slow-ms", type=float, default=100.0,
-                   metavar="MS", help=nyp)
+                   metavar="MS", help="injected per-step delay")
     p.add_argument("--fault-lost-host", type=int, default=None, metavar="H",
-                   help=nyp)
+                   help="inject: host H stops heartbeating")
     p.add_argument("--fault-at-step", type=int, default=0, metavar="K",
-                   help="first step the checkpoint faults apply to")
+                   help="first step the slow/lost/checkpoint faults apply "
+                        "to")
     # Storage faults, applied only by the checkpoint writer.
     p.add_argument("--fault-ckpt-crash-bytes", type=int, default=None,
                    metavar="B",
@@ -755,23 +1004,35 @@ def _card_report(rt) -> Optional[str]:
 
 
 def fault_plan_from_args(args: argparse.Namespace):
-    """The storage :class:`~tpu_p2p_torch.obs.faults.FaultPlan` the
-    ``--fault-ckpt-*`` flags and ``--fault-at-step`` describe, or None."""
-    if (args.fault_ckpt_crash_bytes is None
-            and args.fault_ckpt_corrupt_seed is None
-            and not args.fault_ckpt_io_errors):
+    """The :class:`~tpu_p2p_torch.obs.faults.FaultPlan` the ``--fault-*``
+    flags describe, or None."""
+    if not (args.fault_degrade_edge or args.fault_slow_rank is not None
+            or args.fault_lost_host is not None
+            or args.fault_ckpt_crash_bytes is not None
+            or args.fault_ckpt_corrupt_seed is not None
+            or args.fault_ckpt_io_errors):
         return None
+    from tpu_p2p_torch.config import parse_edge
     from tpu_p2p_torch.obs.faults import FaultPlan
 
-    return FaultPlan(ckpt_crash_after_bytes=args.fault_ckpt_crash_bytes,
-                     ckpt_corrupt_seed=args.fault_ckpt_corrupt_seed,
-                     ckpt_io_errors=args.fault_ckpt_io_errors,
-                     start_step=args.fault_at_step)
+    return FaultPlan(
+        degrade_edge=(parse_edge(args.fault_degrade_edge)
+                      if args.fault_degrade_edge else None),
+        degrade_factor=args.fault_degrade_factor,
+        slow_rank=args.fault_slow_rank, slow_ms=args.fault_slow_ms,
+        lost_host=args.fault_lost_host,
+        ckpt_crash_after_bytes=args.fault_ckpt_crash_bytes,
+        ckpt_corrupt_seed=args.fault_ckpt_corrupt_seed,
+        ckpt_io_errors=args.fault_ckpt_io_errors,
+        start_step=args.fault_at_step)
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _build_parser().parse_args(argv)
+    if args.trace and not args.obs_jsonl:
+        raise SystemExit("--trace exports the observability records; "
+                         "it requires --obs-jsonl")
     if args.supervise and args.heal:
         raise SystemExit(
             "--supervise and --heal are separate recovery wrappers; "
@@ -809,14 +1070,22 @@ def main(argv=None) -> int:
             eval_every=args.eval_every, eval_batches=args.eval_batches,
             clip_norm=args.clip_norm, warmup_steps=args.warmup_steps,
             schedule=args.schedule, fault_plan=fault_plan_from_args(args),
+            obs_jsonl=args.obs_jsonl, obs_window_step=args.obs_window_step,
             mesh=rt.mesh)
         if args.supervise:
             summary = run_training_supervised(
                 cfg, resume=args.resume, max_restarts=args.max_restarts,
                 **common)
+        elif args.heal:
+            summary = run_training_with_heal(cfg, resume=args.resume,
+                                             **common)
         else:
             summary = run_training(cfg, resume=args.resume, **common)
-        report, rank = _card_report(rt), rt.rank
+        # The summary is the first rank's of the mesh the run ended on
+        # (after a heal, the survivors' mesh).
+        final = summary.pop("mesh", rt.mesh)
+        printer = final is not None and final.index == 0
+        report = _card_report(rt)
         rt.close()
         rt = None
     except KeyboardInterrupt:
@@ -832,9 +1101,20 @@ def main(argv=None) -> int:
             if dist.is_initialized():
                 dist.destroy_process_group()
     summary.pop("params")
-    if rank == 0:
+    if printer:
         if report:
             print(report, file=sys.stderr)
+        if args.trace:
+            from tpu_p2p_torch.obs.trace import (
+                load_obs_records,
+                write_chrome_trace,
+            )
+
+            obj = write_chrome_trace(
+                args.trace, obs_records=load_obs_records(args.obs_jsonl),
+                meta={"source": "train", "obs_jsonl": args.obs_jsonl})
+            print(f"# wrote chrome trace {args.trace} "
+                  f"({len(obj['traceEvents'])} events)")
         print(json.dumps({"summary": summary}))
     return 0
 

@@ -498,3 +498,175 @@ def measure_headline(
         device_per_op_s=dev, ratio=ratio, tol=tol, n_short=short,
         n_long=n_long, remeasured=remeasured, note=note, host_samples=s,
     )
+
+
+# ------------------------------------------------ device-track readers
+#
+# The reference reads an XLA trace directory (``tpu_p2p/utils/
+# profiling.py:415-560``). Here a trace is one ``torch.profiler`` window
+# exported as a Chrome trace: Kineto's device events (kernels, copies and
+# fills, each with its card, its stream and its µs stamps). Each reader
+# takes the JSON file's path or its ``traceEvents`` list, keeps the
+# lowest card's events (a process profiles its own card), and returns
+# None when the window holds no device event (a CPU world), as the
+# reference does for a platform without a device track.
+
+
+@dataclass(frozen=True)
+class DeviceEvent:
+    """One event on a card's timeline (seconds on the trace's clock)."""
+
+    name: str
+    t0: float
+    t1: float
+    stream: int
+    cat: str
+
+
+def _trace_events(trace) -> list:
+    if isinstance(trace, (list, tuple)):
+        return list(trace)
+    with open(trace) as fh:
+        return json.load(fh).get("traceEvents", [])
+
+
+def device_events(trace) -> Optional[List[DeviceEvent]]:
+    """The lowest card's device events of ``trace``, by start, or None
+    when it holds none."""
+    evs = [e for e in _trace_events(trace)
+           if e.get("cat") in DEVICE_CATS and e.get("ph", "X") == "X"]
+    if not evs:
+        return None
+
+    def card(e):
+        args = e.get("args", {})
+        return int(args.get("device", e.get("pid", 0)) or 0)
+
+    first = min(card(e) for e in evs)
+    out = [DeviceEvent(str(e.get("name", "")), e["ts"] / 1e6,
+                       (e["ts"] + e.get("dur", 0)) / 1e6,
+                       int(e.get("args", {}).get("stream", e.get("tid", 0))
+                           or 0), e["cat"])
+           for e in evs if card(e) == first]
+    out.sort(key=lambda d: d.t0)
+    return out
+
+
+def _is_collective(name: str) -> bool:
+    from tpu_p2p_torch.obs.ledger import kind_of_event
+
+    return kind_of_event(name) is not None or "nccl" in name.lower()
+
+
+def _union(spans) -> List[Tuple[float, float]]:
+    out: List[Tuple[float, float]] = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _intersect_len(a, b) -> float:
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _within(window, t0: float, t1: float) -> bool:
+    return window is None or (window[0] <= t0 and t1 <= window[1])
+
+
+def device_collective_intervals(trace, window=None):
+    """The window's collective device events → ``[(name, t0, t1), ...]``
+    by start, in seconds: NCCL's kernels and the peer-push kernels
+    (the obs ledger's join input, reference :415). ``window``: a ``(t0,
+    t1)`` containment filter. None without a device track; an empty list
+    for a device track with no collective."""
+    evs = device_events(trace)
+    if evs is None:
+        return None
+    return [(e.name, e.t0, e.t1) for e in evs
+            if _is_collective(e.name) and _within(window, e.t0, e.t1)]
+
+
+def device_busy_fraction(trace, window=None):
+    """Share of the window the card spent executing (reference :449):
+    the union of its device events over the span (``window``, else
+    first start to last end) → ``{"busy_s", "span_s", "frac"}``, or None
+    without a device track."""
+    evs = device_events(trace)
+    if evs is None:
+        return None
+    rows = [(e.t0, e.t1) for e in evs if _within(window, e.t0, e.t1)]
+    if window is not None:
+        span = window[1] - window[0]
+    else:
+        span = (max(r[1] for r in rows) - min(r[0] for r in rows)
+                if rows else 0.0)
+    busy = sum(b - a for a, b in _union(rows))
+    return {"busy_s": busy, "span_s": span,
+            "frac": (busy / span) if span > 0 else None}
+
+
+def gather_overlap_fraction(trace, names: tuple = ("allgather",),
+                            window=None) -> Optional[dict]:
+    """Share of the collective time whose event name holds one of
+    ``names`` that runs under concurrent compute (reference :480, the
+    FSDP prefetch metric): ``|gather ∩ compute| / |gather|`` over the
+    unions of those events and of every non-collective device event →
+    ``{"frac", "gather_s", "hidden_s", "compute_s"}`` (``frac`` None
+    when no such collective ran), or None without a device track."""
+    evs = device_events(trace)
+    if evs is None:
+        return None
+    inside = [e for e in evs if _within(window, e.t0, e.t1)]
+    gu = _union((e.t0, e.t1) for e in inside
+                if any(s in e.name.lower() for s in names))
+    cu = _union((e.t0, e.t1) for e in inside
+                if not _is_collective(e.name))
+    gather_s = sum(b - a for a, b in gu)
+    hidden_s = _intersect_len(gu, cu)
+    return {"frac": (hidden_s / gather_s) if gather_s > 0 else None,
+            "gather_s": gather_s, "hidden_s": hidden_s,
+            "compute_s": sum(b - a for a, b in cu)}
+
+
+def tp_overlap_fraction(trace, window=None) -> Optional[dict]:
+    """:func:`gather_overlap_fraction` over NCCL's send/recv kernels, the
+    ``tp_overlap="ring"`` hops (reference :546)."""
+    return gather_overlap_fraction(trace, names=("sendrecv",),
+                                   window=window)
+
+
+def profile_window(fn: Callable[[], object], directory: str,
+                   pad_s: float = WINDOW_PAD_S,
+                   name: str = "window.json") -> str:
+    """Run ``fn`` once under ``torch.profiler``, drained, and export the
+    window as a Chrome trace → its path. On a card only the card's
+    activity is traced (the readers here use nothing else), and the
+    window opens and closes with a host pause of ``pad_s``
+    (``WINDOW_PAD_S``: the tracer loses events near a window's edges);
+    without one, the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    card = torch.cuda.is_available() and torch.cuda.is_initialized()
+    acts = [ProfilerActivity.CUDA] if card else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        if card:
+            time.sleep(pad_s)
+        fn()
+        if card:
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+    path = os.path.join(directory, name)
+    prof.export_chrome_trace(path)
+    return path
