@@ -19,7 +19,10 @@ hooks and the link throttle against the JAX reference's
 - ``join_trace`` on synthetic Kineto event lists with NCCL's kernel
   names: per-kind and per-link results as computed by hand, ragged
   pools, unmatched events, and NCCL's all-to-all sharing the send/recv
-  pool with the permutes.
+  pool with the permutes; and a recorded-once tick loop beside an
+  all-to-all, whose kernels follow the issue labels of a real CPU
+  profiler window: joined by label, nothing is ragged and each ring edge
+  set carries its own events, where the cyclic pool comes out ragged.
 - The degraded-link throttle: values bitwise the clean ring's, the
   reference's ``fault_throttle`` rows, nothing off the edge; the health
   probe under a 16x throttle flags exactly that edge.
@@ -30,6 +33,7 @@ hooks and the link throttle against the JAX reference's
 
 import math
 import os
+import time
 
 import jax
 import numpy as np
@@ -416,6 +420,151 @@ def test_kv_migrate_rows_join_their_transports_pool():
         ("kv_migrate:pallas_dma", "dma_permute_kernel"),
         ("kv_migrate:xla", SENDRECV)]
     assert join.per_kind()["kv_migrate"]["events"] == 2
+
+
+def _labelled_tick_loop_trace(tmp_path, n=4, ticks=6):
+    """A recorded-once tick loop on rank 0 of a pp line of ``n``: the
+    activation hop ships on the ticks of ``ship_y``, the gradient hop on
+    those of ``ship_g``, and the MoE's dispatch and combine all-to-alls
+    run every tick — the real issue ranges of a CPU ``torch.profiler``
+    window, each with a synthetic NCCL launch inside it and its
+    ``SendRecv`` kernel (what the card's window would add) → (ledger,
+    events, the label each kernel was issued under)."""
+    import json
+
+    import torch
+
+    fwd = [(i, (i + 1) % n) for i in range(n)]
+    bwd = [((i + 1) % n, i) for i in range(n)]
+    ship_y = [1, 1, 1, 0, 0, 0][:ticks]
+    ship_g = [0, 0, 1, 1, 1, 1][:ticks]
+    led = TL.CollectiveLedger()
+    body = TL.ScanBody()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TL.recording(led):
+            for t in range(ticks):
+                with body.site("moe"):
+                    for lab in ("moe_dispatch", "moe_combine"):
+                        with TL.issue("all_to_all", "ep", nbytes=4096,
+                                      axis_size=n, label=lab):
+                            time.sleep(1e-4)  # the launch
+                if ship_y[t]:
+                    with body.site("fwd"), TL.issue(
+                            "ppermute", "pp", nbytes=1 << 20, axis_size=n,
+                            edges=fwd, label="pp_fwd_ship"):
+                        time.sleep(1e-4)
+                if ship_g[t]:
+                    with body.site("bwd"), TL.issue(
+                            "ppermute", "pp", nbytes=1 << 20, axis_size=n,
+                            edges=bwd, label="pp_bwd_ship"):
+                        time.sleep(1e-4)
+                # an autograd backward's hop: no issue range around it
+                time.sleep(1e-4)
+    path = tmp_path / "window.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        host = json.load(fh)["traceEvents"]
+    marks = sorted((e for e in host if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(TL.ISSUE_TAG)),
+                   key=lambda e: e["ts"])
+    events, issued = list(host), []
+    for k, m in enumerate(marks):
+        t = m["ts"] + m["dur"] / 2  # inside the issue range
+        events.append({"ph": "X", "cat": "cuda_driver",
+                       "name": "cuLaunchKernelEx", "pid": m["pid"],
+                       "tid": m["tid"], "ts": t, "dur": 2.0,
+                       "args": {"correlation": 10_000 + k}})
+        kern = _kernel(SENDRECV, t + 5.0, 3.0)
+        kern["args"]["correlation"] = 10_000 + k
+        events.append(kern)
+        issued.append(m["name"].split("|")[3])
+    # The backward hop after the last range: launched outside every
+    # issue range, so it carries no label.
+    last = marks[-1]
+    t = last["ts"] + last["dur"] + 50.0
+    events.append({"ph": "X", "cat": "cuda_driver", "name":
+                   "cuLaunchKernelEx", "pid": last["pid"],
+                   "tid": last["tid"], "ts": t, "dur": 2.0,
+                   "args": {"correlation": 99_999}})
+    kern = _kernel(SENDRECV, t + 5.0, 3.0)
+    kern["args"]["correlation"] = 99_999
+    events.append(kern)
+    return led, events, issued
+
+
+def test_join_labels_a_recorded_once_tick_loop_beside_all_to_all(tmp_path):
+    # The recorded-once loop ships on some ticks and not others, while
+    # the all-to-alls run every tick: one entry a site, many events. The
+    # cyclic pool match spreads the ring's events over the MoE entries
+    # (ragged); the issue labels put each event on its own entry, so no
+    # kind is ragged and each ring edge set carries exactly its events.
+    led, events, issued = _labelled_tick_loop_trace(tmp_path)
+    assert [it.label for it in led.issues] == [
+        "moe_dispatch", "moe_combine", "pp_fwd_ship", "pp_bwd_ship"]
+    join = TL.join_trace(led, [e for e in events
+                               if e.get("args", {}).get("correlation")
+                               != 99_999])
+    assert join.ragged == () and join.unmatched == {}
+    assert [j.issue.label for j in join.joined] == issued
+    # The unlabelled backward hop joins the pool as before the labels.
+    with_bwd = TL.join_trace(led, events)
+    assert [j.issue.label for j in with_bwd.joined][:-1] == issued
+    assert with_bwd.ragged == ("ppermute",)
+    assert issued.count("pp_fwd_ship") == 3
+    assert issued.count("pp_bwd_ship") == 4
+    assert issued.count("moe_dispatch") == 6
+    for j in join.joined:
+        if j.issue.label == "pp_fwd_ship":
+            assert j.issue.edges == ((0, 1), (1, 2), (2, 3), (3, 0))
+        elif j.issue.label == "pp_bwd_ship":
+            assert j.issue.edges == ((1, 0), (2, 1), (3, 2), (0, 3))
+        else:
+            assert j.issue.kind == "all_to_all" and j.issue.edges is None
+    m = join.link_matrix(4, src=0)
+    fwd_s = sum(j.seconds for j in join.joined
+                if j.issue.label == "pp_fwd_ship")
+    assert math.isclose(fwd_s, 3 * 3e-6, rel_tol=1e-3)  # 3 kernels of 3 us
+    assert math.isclose(m[0][1], 3 * (1 << 20) * 8 / fwd_s / 1e9,
+                        rel_tol=1e-3)  # the trace clock rounds
+    assert math.isclose(m[0][3], m[0][1], rel_tol=1e-3)
+    assert math.isnan(m[0][2])
+    # The same kernels without their labels: the cyclic pool of before.
+    from tpu_p2p_torch.utils.profiling import labelled_collective_intervals
+
+    intervals = [(n, t0, t1) for n, t0, t1, _ in
+                 labelled_collective_intervals(events)][:-1]
+    cyclic = TL.join_trace(led, intervals)
+    assert cyclic.ragged == ("ppermute",)
+    assert [j.issue.label for j in cyclic.joined] != issued
+
+
+def test_issue_markers_only_while_profiling_and_in_muted_repeats():
+    import torch
+
+    led = TL.CollectiveLedger()
+    body = TL.ScanBody()
+    with TL.recording(led):
+        for _ in range(3):
+            with body.site("ship"), TL.issue(
+                    "dma", "pp", nbytes=64, axis_size=2, edges=[(0, 1)],
+                    label="pp_fwd_ship"):
+                pass
+    assert len(led) == 1  # recorded once, no profiler: no range
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TL.recording(led):
+            for _ in range(3):
+                with body.site("ship"), TL.issue(  # muted repeats label
+                        "dma", "pp", nbytes=64, axis_size=2,
+                        edges=[(0, 1)], label="pp_fwd_ship"):
+                    pass
+    names = [e.name for e in prof.events()
+             if e.name.startswith(TL.ISSUE_TAG)]
+    assert names == [led.issues[0].signature] * 3
+    assert len(led) == 1
+    assert led.issues[0].signature == \
+        "tp_p2p_issue|dma|pp|pp_fwd_ship|0>1|64"
 
 
 def test_print_report_renders_the_matrices_with_a_track(capsys):

@@ -410,6 +410,32 @@ def test_executor_validates_as_the_reference():
     got = _ref_error(lambda: TS.make_tick_train_step(
         pp4, tcfg, TS.compile_1f1b(4, 4), tick_lowering="Switch"))
     assert got == want
-    with pytest.raises(NotImplementedError, match="obs/tickprof.py"):
-        TS.make_tick_train_step(pp4, tcfg, TS.compile_1f1b(4, 4),
-                                tick_times=object())
+    # tick_times records: on one rank (the only world the reference's
+    # recorder runs on under the installed jax), the port's stamps equal
+    # the reference's in count and keys, under both lowerings.
+    import jax
+    from jax.sharding import Mesh as JMesh
+
+    from tpu_p2p.obs.tickprof import TickRecorder as JRecorder
+    from tpu_p2p_torch.obs.tickprof import TickRecorder
+
+    one = types.SimpleNamespace(axis_names=("pp",), line=lambda a: _Line(1))
+    jone = JMesh(np.array(jax.devices()[:1]), ("pp",))
+    jc1, jparams, jx, jt = pipeline_setup(stages=1, m=2)
+    tc1 = TPL.PipelineConfig(d_model=16, d_ff=32, stages=1, microbatches=2)
+    tparams = {k: torch.from_numpy(np.asarray(v)) for k, v in jparams.items()}
+    for lowering in ("masked", "switch"):
+        jrec, rec = JRecorder(), TickRecorder()
+        JS.make_tick_train_step(
+            jone, jc1, JS.compile_zb(2, 1), tick_lowering=lowering,
+            tick_times=jrec)(JPL.place_pipeline_params(jparams, jone),
+                             jx, jt)
+        TS.make_tick_train_step(
+            one, tc1, TS.compile_zb(2, 1), tick_lowering=lowering,
+            tick_times=rec)(tparams, torch.from_numpy(np.asarray(jx)),
+                            torch.from_numpy(np.asarray(jt)))
+        jax.effects_barrier()
+        # (the reference's callbacks are unordered: keys as a multiset)
+        assert sorted(s[:3] for s in rec.stamps) == \
+            sorted(s[:3] for s in jrec.stamps)
+        assert len(rec.stamps) == 1 + 2 * TS.compile_zb(2, 1).num_ticks

@@ -22,9 +22,11 @@ against the host clock after the run, ``--profile-dir DIR`` writes a
 ``torch.profiler`` trace of the run. ``serve`` runs the serving engine,
 ``train`` the training loop, ``zb`` the graded zero-bubble smoke and
 ``obs`` the live collective-ledger report and the regress gate (``obs
-watch`` tails an obs stream, ``obs smoke`` grades the health detectors).
-The reference's flags and subcommands the port does not run yet
-(``--hybrid``, ``topo``) parse and exit 2 with "not ported yet".
+watch`` tails an obs stream, ``obs smoke`` grades the health detectors,
+``obs trace`` runs the tick flight recorder, ``obs ckpt-smoke`` the
+checkpoint chaos smoke) and ``topo`` the topology model and its smoke.
+``--hybrid`` (a multi-slice mesh: these cards have no slices) parses
+and exits 2 with "not ported yet".
 """
 
 from __future__ import annotations
@@ -384,8 +386,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
         return obs_main(argv[1:])
     if argv and argv[0] == "topo":
-        print("python -m tpu_p2p_torch: topo is not ported yet; "
-              "available: the benchmark (no subcommand), serve, train, "
-              "zb, obs (obs watch, obs smoke)", file=sys.stderr)
-        return 2
+        from tpu_p2p_torch.topo.cli import main as topo_main
+
+        return topo_main(argv[1:])
     return bench_main(argv)

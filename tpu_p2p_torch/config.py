@@ -119,6 +119,8 @@ DIRECTIONS = ("uni", "bi", "both")
 TRANSPORTS = ("xla", "pallas_dma")
 PP_SCHEDULES = ("1f1b", "zb")
 TICK_LOWERINGS = ("masked", "switch")
+# The programs ``obs trace`` (the tick flight recorder) can record.
+TRACE_SCHEDULES = ("zb", "1f1b", "gpipe")
 
 
 @dataclass

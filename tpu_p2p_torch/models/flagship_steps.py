@@ -24,6 +24,7 @@ under ``no_grad``, and returns that same dict.
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Callable, Dict, Optional, Tuple
 
@@ -140,15 +141,16 @@ def _value_and_grad(loss_fn, params: Params,
     loss = loss.detach()
     if planes is None:
         return loss, grads
-    if planes.loss.size > 1:
-        _record("all_reduce", planes.loss, loss, label="loss_allreduce")
     by_plane = {planes.loss.ranks: (planes.loss, [loss.reshape(1)])}
     for k, g in grads.items():
         plane = planes.leaf[k]
         by_plane.setdefault(plane.ranks, (plane, []))[1].append(g)
     for plane, tensors in by_plane.values():
         if plane.size > 1:
-            all_reduce_flat(tensors, plane, "the gradient all-reduce")
+            # The loss rides its plane's flat all-reduce, the ledger's row.
+            with (_record("all_reduce", plane, loss, label="loss_allreduce")
+                  if plane is planes.loss else contextlib.nullcontext()):
+                all_reduce_flat(tensors, plane, "the gradient all-reduce")
     return loss, grads
 
 

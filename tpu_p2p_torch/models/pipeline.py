@@ -209,6 +209,38 @@ def make_pipeline_train_step(mesh, cfg: PipelineConfig,
         pp_chunks=pp_chunks)
 
 
+def make_pipeline_train_step_reference(mesh, cfg: PipelineConfig,
+                                       block_fn: Callable = mlp_block,
+                                       lr: float = 1e-2,
+                                       pp_overlap: str = "none",
+                                       pp_chunks: int = 1):
+    """Parity fixture: the legacy hand-rolled GPipe step (autograd over
+    :func:`pipeline_apply_local`'s tick loop), the reference's
+    ``make_pipeline_train_step_reference``. Production code goes through
+    :func:`make_pipeline_train_step`; the tests hold the two together."""
+    from tpu_p2p_torch.models.flagship_steps import _sgd_update
+
+    line = _check_pp_mesh(mesh, cfg)
+    m = cfg.microbatches
+
+    def step(params: Params, x: torch.Tensor, target: torch.Tensor):
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        with torch.enable_grad():
+            y = pipeline_apply_local(block_fn, leaves,
+                                     _to_microbatches(x, m), line,
+                                     pp_overlap=pp_overlap,
+                                     pp_chunks=pp_chunks)
+            loss = torch.sum(
+                (y.float() - _to_microbatches(target, m).float()) ** 2)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        denom = float(np.prod(tuple(x.shape)))
+        return _sgd_update(params, grads, lr, denom), loss.detach() / denom
+
+    return program(step)
+
+
 def pipeline_reference(params: Params, x: torch.Tensor,
                        cfg: PipelineConfig,
                        block_fn: Callable = mlp_block) -> torch.Tensor:

@@ -18,8 +18,10 @@ reverse: one ring edge set for all ticks.
   :func:`from_device_major`, byte-equal to the reference's).
 - :func:`make_interleaved_train_step` runs through the tick IR
   (``compile_interleaved → lower() → tick_grads_local``), as the
-  reference's does. The reference's legacy executor
-  (``interleaved_grads_local``) and its parity fixture are not ported.
+  reference's does. The legacy hand-rolled executor
+  (:func:`interleaved_grads_local`) survives as the parity fixture
+  :func:`make_interleaved_train_step_reference`, which the tests hold
+  against the IR path and the GPipe step.
 """
 
 from __future__ import annotations
@@ -259,6 +261,134 @@ def _sched_tables(s: InterleavedSchedule) -> Dict[str, np.ndarray]:
     }
 
 
+def interleaved_grads_local(block_fn: Callable, loss_grad_fn: Callable,
+                            params_local: Params, x_mb: torch.Tensor,
+                            target_mb: torch.Tensor,
+                            sched: InterleavedSchedule, line,
+                            chunk_rows: int = 1,
+                            pp_overlap: str = "none",
+                            pp_chunks: int = 1):
+    """Run the interleaved schedule on this rank's pp ``line`` — the
+    reference's legacy executor, tick for tick: every tick runs the
+    backward body (the chunk's forward rematerialized from the stashed
+    input, its gradient taken with ``torch.autograd.grad``) and the
+    forward body, each masked by its table entry (``torch.where``: an off
+    op leaves an accumulator's bits as they are), then ships the
+    activation over the forward ring and dx over the backward ring.
+
+    ``params_local`` leaves: the rank's ``[v·chunk_rows, …]`` rows in
+    device-major chunk order; ``block_fn(chunk, x)`` applies one virtual
+    stage from its ``[chunk_rows, …]`` rows. ``pp_overlap="wave"`` with
+    ``pp_chunks`` > 1 ships both directions as token-chunk waves
+    (:func:`~tpu_p2p_torch.parallel.collectives.chunked_ppermute_compute`;
+    the same bytes and values). → ``(loss summed over the line,
+    {leaf: float32 gradient})``. The reference's ``vma_axes`` /
+    ``dparam_vma`` type its carries for ``shard_map`` and have no torch
+    counterpart."""
+    from tpu_p2p_torch.models.schedule import _line_sum
+    from tpu_p2p_torch.obs.ledger import ScanBody
+    from tpu_p2p_torch.parallel.collectives import (
+        axis_ppermute,
+        chunked_ppermute_compute,
+    )
+
+    n, my = line.size, line.index
+    v, m = sched.chunks, sched.microbatches
+    fwd_edges = [(i, (i + 1) % n) for i in range(n)]
+    bwd_edges = [((i + 1) % n, i) for i in range(n)]
+    wave = pp_overlap == "wave" and pp_chunks > 1
+    tb = _sched_tables(sched)
+    dev = x_mb.device
+    zero_mb = torch.zeros(x_mb.shape[1:], dtype=x_mb.dtype, device=dev)
+    zero_g = torch.zeros(x_mb.shape[1:], dtype=torch.float32, device=dev)
+    x_stash = [zero_mb] * sched.act_slots
+    g_stash = [zero_g] * sched.grad_slots
+    dparams = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for k, p in params_local.items()}
+    loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+    flag = {True: torch.tensor(True, device=dev),
+            False: torch.tensor(False, device=dev)}
+
+    def pick(name: str, t: int) -> int:
+        return int(tb[name][t, my])
+
+    def clip(i: int, hi: int) -> int:
+        return min(max(int(i), 0), hi)
+
+    def chunk_of(cidx: int):
+        start = clip(cidx, v - 1) * chunk_rows
+        return {k: p[start:start + chunk_rows]
+                for k, p in params_local.items()}, start
+
+    def ship(y, edges, label):
+        if n == 1:
+            return y
+        if wave:
+            return chunked_ppermute_compute(
+                lambda c, _i: c, y, line, edges, chunk_dim=1,
+                chunks=pp_chunks, label=label)
+        return axis_ppermute(y, line, edges, label=label)
+
+    y_recv, g_recv = zero_mb, zero_g
+    body = ScanBody()  # the tick scan: each ship records once
+    for t in range(sched.num_ticks):
+        rs, gs = pick("recv_slot", t), pick("grecv_slot", t)
+        if rs >= 0:
+            x_stash[clip(rs, sched.act_slots - 1)] = y_recv
+        if gs >= 0:
+            g_stash[clip(gs, sched.grad_slots - 1)] = g_recv
+
+        # Backward: the chunk's forward rematerialized, then its grads.
+        b_mb, b_cidx = pick("b_mb", t), pick("b_cidx", t)
+        b_on = flag[b_mb >= 0]
+        x_saved = x_stash[clip(pick("b_slot", t), sched.act_slots - 1)]
+        chunk_b, b_start = chunk_of(b_cidx)
+        leaves = {k: c.detach().requires_grad_(True)
+                  for k, c in chunk_b.items()}
+        xs = x_saved.detach().requires_grad_(True)
+        tgt = target_mb[clip(b_mb, m - 1)]
+        g_mid = g_stash[clip(pick("b_gslot", t), sched.grad_slots - 1)]
+        # The last virtual stage is chunk v-1 on device n-1.
+        is_last = my == n - 1 and b_cidx == v - 1
+        with torch.enable_grad():
+            y_re = block_fn(leaves, xs)
+            loss_mb, g_loss = loss_grad_fn(y_re.detach(), tgt)
+            g_in = g_loss if is_last else g_mid
+            grads = torch.autograd.grad(
+                y_re, [xs, *leaves.values()],
+                grad_outputs=g_in.to(y_re.dtype), allow_unused=True)
+        for k, g in zip(leaves, grads[1:]):
+            if g is None:
+                continue
+            acc = dparams[k]
+            cur = acc[b_start:b_start + chunk_rows]
+            acc[b_start:b_start + chunk_rows] = torch.where(
+                b_on, cur + g.float(), cur)
+        loss_acc = loss_acc + torch.where(
+            flag[b_mb >= 0 and is_last], loss_mb.float(),
+            torch.zeros_like(loss_acc))
+        dx = grads[0] if grads[0] is not None else zero_mb
+        dx = torch.where(b_on, dx.float(), zero_g)
+
+        # Forward.
+        f_mb, f_cidx = pick("f_mb", t), pick("f_cidx", t)
+        f_on = f_mb >= 0
+        f_slot = clip(pick("f_slot", t), sched.act_slots - 1)
+        # Virtual stage 0 (chunk 0 on device 0) reads the feed.
+        x_in = x_mb[clip(f_mb, m - 1)] if my == 0 and f_cidx == 0 \
+            else x_stash[f_slot]
+        x_stash[f_slot] = torch.where(flag[f_on], x_in, x_stash[f_slot])
+        with torch.no_grad():
+            y_f = block_fn(chunk_of(f_cidx)[0], x_in)
+        y_f = torch.where(flag[f_on], y_f, zero_mb)
+
+        with body.site("fwd"):
+            y_recv = ship(y_f, fwd_edges, "pp_fwd_ship")
+        with body.site("bwd"):
+            g_recv = ship(dx, bwd_edges, "pp_bwd_ship")
+    return _line_sum(loss_acc, line, "pp_loss_replicate"), dparams
+
+
 def _pp_size(mesh) -> int:
     if mesh is None or "pp" not in mesh.axis_names:
         raise ValueError("mesh needs a 'pp' axis for pipeline parallelism")
@@ -291,6 +421,41 @@ def make_interleaved_train_step(mesh, cfg: PipelineConfig, chunks: int,
         mesh, cfg, compile_interleaved(cfg.microbatches, n, chunks),
         block_fn=block_fn, lr=lr, loss_grad_fn=loss_grad_fn,
         pp_overlap=pp_overlap, pp_chunks=pp_chunks)
+
+
+def make_interleaved_train_step_reference(
+        mesh, cfg: PipelineConfig, chunks: int,
+        block_fn: Callable = mlp_block, lr: float = 1e-2,
+        loss_grad_fn: Callable = _mse_loss_grad, pp_overlap: str = "none",
+        pp_chunks: int = 1):
+    """Parity fixture: the legacy hand-rolled interleaved 1F1B step
+    (:func:`interleaved_grads_local`), the reference's
+    ``make_interleaved_train_step_reference``, with
+    :func:`make_interleaved_train_step`'s checks, normalization and
+    update. Production code goes through the tick IR."""
+    from tpu_p2p_torch.models.flagship_steps import _sgd_update
+    from tpu_p2p_torch.models.pipeline import _to_microbatches
+    from tpu_p2p_torch.obs.ledger import program
+
+    n = _pp_size(mesh)
+    if cfg.stages != n * chunks:
+        raise ValueError(
+            f"stages ({cfg.stages}) must equal pp size ({n}) x chunks "
+            f"({chunks})"
+        )
+    line = mesh.line("pp")
+    sched = build_interleaved_schedule(cfg.microbatches, n, chunks)
+
+    def step(params, x, target):
+        loss_sum, grads = interleaved_grads_local(
+            block_fn, loss_grad_fn, params,
+            _to_microbatches(x, cfg.microbatches),
+            _to_microbatches(target, cfg.microbatches), sched, line,
+            pp_overlap=pp_overlap, pp_chunks=pp_chunks)
+        denom = float(np.prod(tuple(x.shape)))
+        return _sgd_update(params, grads, lr, denom), loss_sum / denom
+
+    return program(step)
 
 
 def place_interleaved_params(params, mesh, chunks: int,

@@ -42,9 +42,16 @@
   joins every tick's hop. The branch bodies are the masked bodies
   without the masks, so the two lowerings are bitwise equal.
 
-The reference's flight-recorder hook (``tick_times``) belongs to
-``obs/tickprof.py``, which is not ported yet: a value other than None
-raises :class:`NotImplementedError`.
+- **The flight-recorder hook.** ``tick_times`` (None by default: no
+  stamp, nothing changes) is a :class:`~tpu_p2p_torch.obs.tickprof.
+  TickRecorder`: each rank stamps a seed (tick ``-1``) before its ticks,
+  then each tick twice, after its compute (phase 0) and after its hops
+  (phase 1), where the reference's ``_tick_stamp`` / ``_tick_seed``
+  stamp. The loop runs eagerly, so a host clock read would mark when a
+  tick was issued, not when it ran: on a card the recorder records a
+  CUDA event on the rank's stream at each stamp and turns them into
+  times after the step's own synchronization; on the CPU (gloo, whose
+  collectives block) it reads the host clock at the same points.
 """
 
 from __future__ import annotations
@@ -217,10 +224,9 @@ def price_program(program: TickProgram, payload_bytes: int,
     switch lowering turns from an accounting fiction into genuinely
     idle time.
 
-    ``topology`` (an object with the reference topology model's
-    ``ship_time_s`` / ``bottleneck_edge`` / ``link_gbps`` / ``source``;
-    the port's topology module is not ported yet) upgrades the bill to
-    per-link pricing: each hop's predicted wall time is the payload over
+    ``topology`` (a :class:`tpu_p2p_torch.topo.model.Topology`)
+    upgrades the bill to per-link pricing: each hop's predicted wall
+    time is the payload over
     its slowest effective link — rows gain ``hop_s`` /
     ``bottleneck_edge`` / ``bottleneck_gbps``, the totals
     ``hop_s_total`` and ``bottleneck_gbps_min``. With ``topology=None``
@@ -723,11 +729,20 @@ def lower(program: TickProgram,
 # ------------------------------------------------------------ executor
 
 
-def _no_tick_times(tick_times) -> None:
+def _tick_stamp(tick_times, my: int, tick: int, phase: int,
+                dep: torch.Tensor) -> None:
+    """One flight-recorder boundary stamp of rank ``my`` (the reference's
+    ``_tick_stamp``): nothing when ``tick_times`` is None. ``dep`` is the
+    tensor the bracketed work produced; its device decides the clock (a
+    CUDA event on the rank's stream, or the host clock)."""
     if tick_times is not None:
-        raise NotImplementedError(
-            "tick_times (the flight recorder, obs/tickprof.py) is not "
-            "ported yet; pass tick_times=None")
+        tick_times.record(my, tick, phase, dep)
+
+
+def _tick_seed(tick_times, my: int, x_mb: torch.Tensor) -> None:
+    """The seed stamp before the ticks: tick ``-1``, phase 1 — bounds
+    tick 0's duration and delimits step rounds in the recorded stream."""
+    _tick_stamp(tick_times, my, -1, 1, x_mb)
 
 
 def _ship(y: torch.Tensor, line, edges, wave: bool, pp_chunks: int,
@@ -773,8 +788,8 @@ def _line_sum(x: torch.Tensor, line, label: str) -> torch.Tensor:
 
     if (line.size > 1 and x.is_cuda and not line.in_process
             and line.device_group is None):
-        _record("all_reduce", line, x, label=label)
-        return _HostSum.apply(x, line)
+        with _record("all_reduce", line, x, label=label):
+            return _HostSum.apply(x, line)
     return psum_join(x, line, label=label)
 
 
@@ -811,8 +826,8 @@ def tick_forward_local(block_fn: Callable, params_local, x_mb: torch.Tensor,
     an idle rank's tick is :class:`_Idle` instead of the block: its
     output is zeros, as the masked block's is on the zeros of a bubble,
     so values and gradients are the masked run's. The last tick's hop
-    feeds no one and is not shipped."""
-    _no_tick_times(tick_times)
+    feeds no one and is not shipped. ``tick_times``: the flight
+    recorder (module docstring)."""
     from tpu_p2p_torch.parallel.collectives import psum_conjugate
 
     n, my = line.size, line.index
@@ -830,6 +845,7 @@ def tick_forward_local(block_fn: Callable, params_local, x_mb: torch.Tensor,
     prev_in = zero
     outs: List[Optional[torch.Tensor]] = [None] * x_mb.shape[0]
     body = _ledger.ScanBody()  # the tick scan: its ship records once
+    _tick_seed(tick_times, my, x_mb)
     for t in range(T):
         f = int(feed_mb[t])
         x_in = torch.where(first, x_mb[f] if f >= 0 else zero, prev_in)
@@ -840,10 +856,12 @@ def tick_forward_local(block_fn: Callable, params_local, x_mb: torch.Tensor,
         rec = int(out_mb[t])
         if rec >= 0:
             outs[rec] = torch.where(last, y, zero)
+        _tick_stamp(tick_times, my, t, 0, y)
         if n > 1 and t < T - 1:
             with body.site("ship"):
                 prev_in = _ship(y, line, lowered.fwd_edges, wave,
                                 pp_chunks, transport)
+        _tick_stamp(tick_times, my, t, 1, prev_in)
     return _line_sum(torch.stack(outs), line, "pp_output_replicate")
 
 
@@ -883,8 +901,8 @@ def tick_grads_local(block_fn: Callable, loss_grad_fn: Callable,
     Each stage's float32 accumulators take its gradients in microbatch
     order under both lowerings and both backward forms. The reference's
     ``vma_axes`` / ``dparam_vma`` type its carries for ``shard_map`` and
-    have no torch counterpart."""
-    _no_tick_times(tick_times)
+    have no torch counterpart. ``tick_times``: the flight recorder
+    (module docstring)."""
     from tpu_p2p_torch.models.zb_split import WeightGradStore, leaf_grads, \
         scope
 
@@ -990,6 +1008,7 @@ def tick_grads_local(block_fn: Callable, loss_grad_fn: Callable,
 
     y_recv, g_recv = zero_mb, zero_g
     body = _ledger.ScanBody()  # the tick scan: each ship records once
+    _tick_seed(tick_times, my, x_mb)
     for t in range(prog.num_ticks):
         rs, gs = pick("recv_slot", t), pick("grecv_slot", t)
         if rs >= 0:
@@ -1010,6 +1029,7 @@ def tick_grads_local(block_fn: Callable, loss_grad_fn: Callable,
             if split:
                 backward_weight(t)
             y_f = forward(t)
+        _tick_stamp(tick_times, my, t, 0, y_f)
         if n > 1:
             y_recv, g_recv = y_f, dx
             if tb["ship_y"][t]:
@@ -1022,6 +1042,7 @@ def tick_grads_local(block_fn: Callable, loss_grad_fn: Callable,
                                    pp_chunks, transport, "pp_bwd_ship")
         else:
             y_recv, g_recv = y_f, dx
+        _tick_stamp(tick_times, my, t, 1, g_recv)
     return _line_sum(loss_acc, line, "pp_loss_replicate"), dparams
 
 
@@ -1046,7 +1067,9 @@ def make_tick_train_step(mesh, cfg, program: TickProgram,
     device-major layout, :func:`~tpu_p2p_torch.models.
     pipeline_interleaved.place_interleaved_params`). ``pp_overlap`` /
     ``pp_chunks`` / ``transport`` go to the one ship site;
-    ``tick_lowering`` picks the lowering."""
+    ``tick_lowering`` picks the lowering; ``tick_times`` (a
+    :class:`~tpu_p2p_torch.obs.tickprof.TickRecorder`) records each
+    rank's tick stamps."""
     from tpu_p2p_torch.models.flagship_steps import _sgd_update
     from tpu_p2p_torch.models.pipeline import _to_microbatches, mlp_block
     from tpu_p2p_torch.models.pipeline_1f1b import _mse_loss_grad
@@ -1073,7 +1096,6 @@ def make_tick_train_step(mesh, cfg, program: TickProgram,
             f"microbatches ({program.microbatches})"
         )
     lowered = lower(program, tick_lowering=tick_lowering)
-    _no_tick_times(tick_times)
     m = cfg.microbatches
 
     def step(params, x, target):
@@ -1085,7 +1107,7 @@ def make_tick_train_step(mesh, cfg, program: TickProgram,
                 y = tick_forward_local(
                     block_fn, leaves, _to_microbatches(x, m), lowered,
                     line, pp_overlap=pp_overlap, pp_chunks=pp_chunks,
-                    transport=transport)
+                    transport=transport, tick_times=tick_times)
                 loss = torch.sum(
                     (y.float() - _to_microbatches(target, m).float()) ** 2)
                 grads = dict(zip(leaves, torch.autograd.grad(
@@ -1096,7 +1118,7 @@ def make_tick_train_step(mesh, cfg, program: TickProgram,
                 block_fn, loss_grad_fn, params, _to_microbatches(x, m),
                 _to_microbatches(target, m), lowered, line,
                 pp_overlap=pp_overlap, pp_chunks=pp_chunks,
-                transport=transport)
+                transport=transport, tick_times=tick_times)
         return _sgd_update(params, grads, lr, denom), loss / denom
 
     return _ledger.program(step)

@@ -421,7 +421,8 @@ def _smoke_cfg(dtype: str = "float32"):
                             capacity_factor=4.0, norm=True, dtype=dtype)
 
 
-def _health_records(path: str) -> List[dict]:
+def _health_records(path: str, kind: str = "health") -> List[dict]:
+    """The ``{"obs": kind}`` records of an obs JSONL stream."""
     recs = []
     with open(path) as fh:
         for line in fh:
@@ -432,7 +433,7 @@ def _health_records(path: str) -> List[dict]:
                 d = json.loads(line)
             except json.JSONDecodeError:
                 continue
-            if d.get("obs") == "health":
+            if d.get("obs") == kind:
                 recs.append(d)
     return recs
 
@@ -514,6 +515,8 @@ def run_smoke(rt, *, steps: int = 10, detect_within: int = 5,
                          **common)
             all_hits = ([r for r in _health_records(obs_path)
                          if r["verdict"] == "straggler"] if first else [])
+            step_ms = ([r["step_ms"] for r in _health_records(
+                obs_path, "step")] if first else [])
         hits = [r for r in all_hits if r["step"] >= start]
         k = hits[0]["step"] - start + 1 if hits else None
         detect["straggler"] = k
@@ -521,8 +524,12 @@ def run_smoke(rt, *, steps: int = 10, detect_within: int = 5,
             "plan": plan.describe(), "detected": bool(hits),
             "detect_steps": k, "first_verdict": hits[0] if hits else None,
             "false_positives": len(all_hits) - len(hits),
+            "step_ms": step_ms,
         }
         say(f"# smoke straggler: detected={bool(hits)} detect_steps={k}")
+        if not hits:  # the window the detector scored, for the reader
+            say(f"# smoke straggler step_ms (first rank, onset at step "
+                f"{start}): {step_ms}")
 
         # 3) lost host + heal, against an uninterrupted twin
         plan = faults.FaultPlan(lost_host=n - 1, start_step=start)

@@ -43,6 +43,20 @@ event count is not a whole multiple of its entries is flagged
 does, so the two kinds share one event pool, matched against the
 ``ppermute`` and ``all_to_all`` entries together, in issue order.
 
+That cyclic rule cannot place the events of a site that issues more
+often than it records (a recorded-once tick loop ships every tick, beside
+the MoE's all-to-alls in one pool). So every issue site, muted or not,
+also labels its launches while a profiler runs (:func:`issue`): a
+``record_function`` range named by the entry's signature
+(:data:`ISSUE_TAG`, :meth:`CollectiveIssue.signature`) around them. A
+device event whose launch lies inside such ranges on its host thread
+carries their labels (:func:`~tpu_p2p_torch.utils.profiling.
+labelled_collective_intervals`; the launch's correlation id ties the
+two), and the join matches it within the entries of the innermost label
+of its own pool; only unlabelled events (a launch outside every issue
+range, as an autograd backward's, or a trace without labels) fall back
+to the cyclic pool.
+
 Each process sees only its own card's track: every rank joins its own
 events, and the link matrix is gathered to rank 0 (each rank gives the
 row of the links it sends on). Ranks that share a card have no NCCL:
@@ -64,11 +78,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 __all__ = [
     "CollectiveIssue",
     "CollectiveLedger",
+    "ISSUE_TAG",
     "TraceJoin",
     "KINDS",
     "active",
     "recording",
     "record_issue",
+    "issue",
     "muted",
     "program",
     "ScanBody",
@@ -100,6 +116,9 @@ KINDS = (
 _KIND_NAMES = ("kv_migrate", "dma", "ppermute", "all_gather",
                "reduce_scatter", "all_to_all", "all_reduce")
 _KV_MIGRATE = "kv_migrate"
+# The ``record_function`` name prefix of an issue's label on the
+# profiler's host track (module docstring).
+ISSUE_TAG = "tp_p2p_issue"
 # NCCL runs an all-to-all as grouped send/recv: one event pool for both.
 _SENDRECV_POOL = ("ppermute", "all_to_all")
 
@@ -174,6 +193,16 @@ class CollectiveIssue:
     count: int = 1  # chained repetitions
     edges: Optional[Tuple[Tuple[int, int], ...]] = None  # permutes only
     label: str = ""
+
+    @property
+    def signature(self) -> str:
+        """The issue's label on the profiler's host track: equal for
+        every issue of one site (the recorded one and its muted
+        repeats), different for sites that differ in kind, label, edges
+        or bytes."""
+        edges = ",".join(f"{s}>{d}" for s, d in self.edges or ())
+        return (f"{ISSUE_TAG}|{self.kind}|{self.axis}|{self.label}|"
+                f"{edges}|{self.payload_bytes}")
 
 
 class CollectiveLedger:
@@ -266,16 +295,10 @@ def muted(on: bool = True):
         _LOCAL.muted -= 1
 
 
-def record_issue(kind: str, axis, *, nbytes: int, axis_size: int,
-                 edges: Optional[Sequence[Tuple[int, int]]] = None,
-                 count: int = 1, label: str = "") -> None:
-    """Record one issued collective into every active ledger (a no-op
-    costing one check when nothing records, or when muted). ``nbytes``
-    comes from the operand's shape (:func:`tensor_bytes`), never from
-    data."""
-    if not _STACK or _muted_depth():
-        return
-    entry = CollectiveIssue(
+def _entry(kind: str, axis, *, nbytes: int, axis_size: int,
+           edges: Optional[Sequence[Tuple[int, int]]] = None,
+           count: int = 1, label: str = "") -> CollectiveIssue:
+    return CollectiveIssue(
         kind=kind, axis=str(axis),
         participants=tuple(range(int(axis_size))),
         payload_bytes=int(nbytes),
@@ -285,8 +308,53 @@ def record_issue(kind: str, axis, *, nbytes: int, axis_size: int,
                if edges is not None else None),
         label=label,
     )
+
+
+def record_issue(kind: str, axis, *, nbytes: int, axis_size: int,
+                 edges: Optional[Sequence[Tuple[int, int]]] = None,
+                 count: int = 1, label: str = "") -> None:
+    """Record one issued collective into every active ledger (a no-op
+    costing one check when nothing records, or when muted). ``nbytes``
+    comes from the operand's shape (:func:`tensor_bytes`), never from
+    data."""
+    if not _STACK or _muted_depth():
+        return
+    entry = _entry(kind, axis, nbytes=nbytes, axis_size=axis_size,
+                   edges=edges, count=count, label=label)
     for led in _STACK:
         led.issues.append(entry)
+
+
+@contextmanager
+def issue(kind: str, axis, *, nbytes: int, axis_size: int,
+          edges: Optional[Sequence[Tuple[int, int]]] = None,
+          count: int = 1, label: str = ""):
+    """:func:`record_issue` around the collective's launches: while a
+    profiler runs (and a ledger is active, muted or not), the body runs
+    inside a ``record_function`` range named by the entry's signature,
+    the label the join reads off each launch inside it (module
+    docstring). Otherwise the body just runs."""
+    if not _STACK:
+        yield
+        return
+    record_issue(kind, axis, nbytes=nbytes, axis_size=axis_size,
+                 edges=edges, count=count, label=label)
+    if not _profiling():
+        yield
+        return
+    import torch
+
+    entry = _entry(kind, axis, nbytes=nbytes, axis_size=axis_size,
+                   edges=edges, count=count, label=label)
+    with torch.profiler.record_function(entry.signature):
+        yield
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` window is recording."""
+    import torch
+
+    return bool(torch._C._autograd._profiler_enabled())
 
 
 class _Program:
@@ -428,21 +496,42 @@ class TraceJoin:
 def join_trace(ledger: CollectiveLedger, trace, window=None) -> TraceJoin:
     """Match ``ledger`` against the device collective events of one
     ``torch.profiler`` window (``trace``: a Chrome-trace path, its event
-    list, or the output of
-    :func:`~tpu_p2p_torch.utils.profiling.device_collective_intervals`)
-    → :class:`TraceJoin`; ``no_device_track=True`` (and an empty join)
-    when the window holds no device event (a CPU world)."""
-    from tpu_p2p_torch.utils.profiling import device_collective_intervals
+    list, or a list of ``(name, t0, t1)`` / ``(name, t0, t1, labels)``
+    intervals as :func:`~tpu_p2p_torch.utils.profiling.
+    labelled_collective_intervals` gives them, ``labels`` the issue
+    ranges around the launch, innermost last) → :class:`TraceJoin`;
+    ``no_device_track=True`` (and an empty join) when the window holds no
+    device event (a CPU world).
+
+    A labelled event joins the entries of its innermost label that names
+    an entry of its own pool, cyclically in time order among them; an
+    unlabelled one (or one whose labels name no entry of its pool) joins
+    its kind's pool cyclically, as before the labels existed. A
+    signature or pool whose event count is not a whole multiple of its
+    entries flags its kind ``ragged``."""
+    from tpu_p2p_torch.utils.profiling import labelled_collective_intervals
 
     intervals = (trace if isinstance(trace, list) and trace
                  and isinstance(trace[0], tuple)
-                 else device_collective_intervals(trace, window=window))
+                 else labelled_collective_intervals(trace, window=window))
     if intervals is None:
         return TraceJoin(no_device_track=True)
-    by_kind_events: Dict[str, List[Tuple[str, float, float]]] = {}
+    by_kind_issues: Dict[str, List[CollectiveIssue]] = {}
+    by_sig: Dict[Tuple[str, str], List[CollectiveIssue]] = {}
+    for it in ledger.expanded():
+        pool = _match_kind(it)
+        by_kind_issues.setdefault(pool, []).append(it)
+        by_sig.setdefault((pool, it.signature), []).append(it)
+    # (pool, signature or None) → that group's events, in time order
+    groups: Dict[Tuple[str, Optional[str]],
+                 List[Tuple[str, float, float]]] = {}
     unmatched: Dict[str, Dict[str, float]] = {}
     unmatched_iv: List[Tuple[str, float, float]] = []
-    for name, t0, t1 in intervals:
+    for iv in intervals:
+        name, t0, t1 = iv[:3]
+        labels = iv[3] if len(iv) > 3 else None
+        if isinstance(labels, str):
+            labels = (labels,)
         kind = kind_of_event(name)
         if kind is None:
             d = unmatched.setdefault("other", {"events": 0, "seconds": 0.0})
@@ -452,21 +541,21 @@ def join_trace(ledger: CollectiveLedger, trace, window=None) -> TraceJoin:
             continue
         if kind in _SENDRECV_POOL:
             kind = "ppermute"
-        by_kind_events.setdefault(kind, []).append((name, t0, t1))
-    by_kind_issues: Dict[str, List[CollectiveIssue]] = {}
-    for it in ledger.expanded():
-        by_kind_issues.setdefault(_match_kind(it), []).append(it)
+        label = next((lab for lab in reversed(labels or ())
+                      if (kind, lab) in by_sig), None)
+        groups.setdefault((kind, label), []).append((name, t0, t1))
     joined: List[JoinedEvent] = []
     ragged: List[str] = []
-    for kind, evs in by_kind_events.items():
-        issues = by_kind_issues.get(kind)
+    for (kind, label), evs in groups.items():
+        issues = (by_sig[(kind, label)] if label is not None
+                  else by_kind_issues.get(kind))
         if not issues:
             d = unmatched.setdefault(kind, {"events": 0, "seconds": 0.0})
             d["events"] += len(evs)
             d["seconds"] += sum(t1 - t0 for _, t0, t1 in evs)
             unmatched_iv.extend(evs)
             continue
-        if len(evs) % len(issues):
+        if len(evs) % len(issues) and kind not in ragged:
             ragged.append(kind)
         for i, (name, t0, t1) in enumerate(evs):
             joined.append(JoinedEvent(
@@ -616,8 +705,12 @@ def live_capture(rt, msg_bytes: int = 4 * 1024 * 1024,
         with recording(led):
             run_all()
         if card:
+            # The programs are warm, so a scratch ledger records nothing
+            # new; its issue ranges label the window's launches.
             with tempfile.TemporaryDirectory(prefix="obs_cap_") as td:
-                join = join_trace(led, profile_window(run_all, td))
+                with recording(CollectiveLedger()):
+                    path = profile_window(run_all, td, host=True)
+                join = join_trace(led, path)
         else:
             run_all()
             join = TraceJoin(no_device_track=True)

@@ -480,9 +480,6 @@ def _build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_NOT_PORTED = ("trace", "ckpt-smoke")
-
-
 def _live(args, out) -> None:
     """The live half on this rank's world; the first rank prints."""
     from tpu_p2p_torch.config import parse_size
@@ -537,11 +534,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpu_p2p_torch.obs.health import smoke_main
 
         return smoke_main(argv[1:])
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"python -m tpu_p2p_torch obs {argv[0]}: not ported yet; "
-              "available: obs (the live ledger capture and the regress "
-              "gate), obs watch, obs smoke", file=sys.stderr)
-        return 2
+    if argv and argv[0] == "trace":
+        from tpu_p2p_torch.obs.tickprof import trace_main
+
+        return trace_main(argv[1:])
+    if argv and argv[0] == "ckpt-smoke":
+        from tpu_p2p_torch.obs.ckpt import ckpt_smoke_main
+
+        return ckpt_smoke_main(argv[1:])
     args = _build_parser().parse_args(argv)
     if args.cpu_mesh and not args.no_live and "RANK" not in os.environ:
         from tpu_p2p_torch.parallel.launch import spawn

@@ -85,9 +85,10 @@ outside it they raise :class:`BackendError` as before.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from contextlib import contextmanager
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -164,14 +165,16 @@ def _axis_of(mesh) -> str:
 
 
 def _record(kind: str, mesh, x_or_bytes, *, label: str, edges=None,
-            count: int = 1, axis=None, axis_size=None) -> None:
+            count: int = 1, axis=None, axis_size=None):
     """One ledger entry for a collective over ``mesh`` (a line, a plane,
-    or a LocalMesh line)."""
+    or a LocalMesh line) → a context manager to issue the collective's
+    launches in, so a profiled window labels them with the entry
+    (:func:`tpu_p2p_torch.obs.ledger.issue`)."""
     if not _obs._STACK:
-        return
+        return contextlib.nullcontext()
     nbytes = (x_or_bytes if isinstance(x_or_bytes, int)
               else _obs.tensor_bytes(x_or_bytes))
-    _obs.record_issue(kind, axis or _axis_of(mesh), nbytes=nbytes,
+    return _obs.issue(kind, axis or _axis_of(mesh), nbytes=nbytes,
                       axis_size=axis_size or mesh.size, edges=edges,
                       count=count, label=label)
 
@@ -280,15 +283,43 @@ def _library_group(mesh, device: torch.device, what: str = ""):
 
 
 def _reduction_group(mesh, what: str):
-    """:func:`_library_group` of a process mesh whose members are in
-    ascending rank order, so mesh index and group rank agree (the chunk
-    order of a gather, a scatter and an all-to-all)."""
+    """:func:`_library_group` of a process mesh, in any rank order: the
+    callers move the chunks of a gather, a scatter and an all-to-all
+    between group order and mesh order (:func:`_group_order`)."""
     if mesh.in_process:
         raise ValueError(f"{what} runs on a process mesh, not a LocalMesh")
-    if list(mesh.ranks) != sorted(mesh.ranks):
-        raise ValueError(f"{what} needs a mesh in rank order, got "
-                         f"{mesh.ranks}")
     return _library_group(mesh, mesh.device, what)
+
+
+def _group_order(mesh) -> Optional[List[int]]:
+    """Where the member at each mesh position sits in its process group's
+    rank order: None where the mesh lists its ranks ascending, else
+    ``g`` with
+    ``g[i]`` the group index of position ``i``. A library gather,
+    all-to-all or reduce-scatter orders its parts by group rank; a mesh
+    laid over a ring order (:func:`~tpu_p2p_torch.parallel.runtime.
+    make_runtime`) takes them by position, so the parts are permuted
+    between the two orders (:func:`_to_positions`, :func:`_to_groups`)."""
+    ranks = list(getattr(mesh, "ranks", ()) or ())
+    if not ranks or ranks == sorted(ranks):
+        return None
+    srt = sorted(ranks)
+    return [srt.index(r) for r in ranks]
+
+
+def _to_positions(rows: torch.Tensor, order) -> torch.Tensor:
+    """``rows`` ``[n, ...]`` in group order → in mesh-position order."""
+    if order is None:
+        return rows
+    return rows[torch.tensor(order, device=rows.device)]
+
+
+def _to_groups(rows: torch.Tensor, order) -> torch.Tensor:
+    """``rows`` ``[n, ...]`` in mesh-position order → in group order."""
+    if order is None:
+        return rows
+    inv = sorted(range(len(order)), key=order.__getitem__)
+    return rows[torch.tensor(inv, device=rows.device)].contiguous()
 
 
 def psum(x: torch.Tensor, mesh, *, group=None, inplace: bool = False):
@@ -310,17 +341,20 @@ def all_to_all(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
     dim splits into ``mesh.size`` chunks and chunk ``j`` goes to member
     ``j``, whose result holds the chunks in member order."""
     group = group or _reduction_group(mesh, "all_to_all")
-    x = x.contiguous()
+    order = _group_order(mesh)
+    n = mesh.size
+    x = _to_groups(x.contiguous().view(n, -1), order).view(x.shape)
     out = torch.empty_like(x)
     _dist(dist.all_to_all_single, out.view(-1), x.view(-1), group=group)
-    return out
+    return _to_positions(out.view(n, -1), order).view(out.shape)
 
 
 def reduce_scatter(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
     """Tiled reduce-scatter along the payload dim: member ``j`` keeps
     chunk ``j`` of the sum, ``[..., elems / n]``."""
     group = group or _reduction_group(mesh, "reduce_scatter")
-    x = x.contiguous()
+    x = _to_groups(x.contiguous().view(mesh.size, -1),
+                   _group_order(mesh)).view(x.shape)
     out = x.new_empty(x.shape[:-1] + (x.shape[-1] // mesh.size,))
     _dist(dist.reduce_scatter_tensor, out.view(-1), x.view(-1),
           group=group)
@@ -337,7 +371,8 @@ def all_gather_own(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
     out = x.new_empty(x.shape[:-1] + (c * mesh.size,))
     _dist(dist.all_gather_into_tensor, out.view(-1), own.view(-1),
           group=group)
-    return out
+    return _to_positions(out.view(mesh.size, -1),
+                         _group_order(mesh)).view(out.shape)
 
 
 def _local_ppermute(xs, mesh, edges: Sequence[Edge]) -> list:
@@ -419,8 +454,8 @@ def dma_ppermute(x: torch.Tensor, mesh, edges: Sequence[Edge], *,
     same contract, every member of the mesh taking part. Ledger-recorded
     (reference :826) as ``kind`` (``"dma"``, or ``"kv_migrate"``)."""
     edges = tuple((int(s), int(d)) for s, d in edges)
-    _record(kind, mesh, mesh.rows(x)[0], edges=edges, label=label)
-    return PD.dma_ppermute(x, mesh, edges)
+    with _record(kind, mesh, mesh.rows(x)[0], edges=edges, label=label):
+        return PD.dma_ppermute(x, mesh, edges)
 
 
 def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
@@ -472,9 +507,10 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
             wait = axis_ppermute_start(per_rank[0], mesh, edges,
                                        label=label, kind=rec_kind)
             return lambda: [wait()]
-        _record(rec_kind, mesh, per_rank[0], edges=edges, label=label)
         hop = PD.dma_ppermute if pallas else ppermute
-        got = mesh.rows(hop(mesh.unrows(per_rank), mesh, edges))
+        with _record(rec_kind, mesh, per_rank[0], edges=edges,
+                     label=label):
+            got = mesh.rows(hop(mesh.unrows(per_rank), mesh, edges))
         return lambda: got
 
     def computed(parts, c):
@@ -502,15 +538,15 @@ def chunked_ppermute_compute(compute_chunk: Callable, x, mesh,
     arrivals = []
     if pallas:
         y_prev = computed(chunk_of(0), 0)
-        _record(rec_kind, mesh, y_prev[0], edges=edges, count=chunks - 1,
-                label=label)
-        for c in range(1, chunks):
-            arr, y = PD.dma_ship_compute(
-                mesh.unrows(y_prev), mesh, edges,
-                lambda xc, cc=c: compute_chunk(xc, cc),
-                mesh.unrows(chunk_of(c)))
-            arrivals.append(mesh.rows(arr))
-            y_prev = mesh.rows(y)
+        with _record(rec_kind, mesh, y_prev[0], edges=edges,
+                     count=chunks - 1, label=label):
+            for c in range(1, chunks):
+                arr, y = PD.dma_ship_compute(
+                    mesh.unrows(y_prev), mesh, edges,
+                    lambda xc, cc=c: compute_chunk(xc, cc),
+                    mesh.unrows(chunk_of(c)))
+                arrivals.append(mesh.rows(arr))
+                y_prev = mesh.rows(y)
         arrivals.append(ship(y_prev)())
     else:
         waits = [ship(computed(chunk_of(c), c)) for c in range(chunks)]
@@ -579,10 +615,12 @@ def _a2a(x: torch.Tensor, line, split_dim: int, concat_dim: int):
     if line.in_process:
         return line.all_to_all(x, split_dim, concat_dim)
     group = axis_group(line, "all_to_all")
-    parts = torch.stack(x.chunk(line.size, dim=split_dim)).contiguous()
+    order = _group_order(line)
+    parts = _to_groups(
+        torch.stack(x.chunk(line.size, dim=split_dim)).contiguous(), order)
     out = torch.empty_like(parts)
     _dist(dist.all_to_all_single, out, parts, group=group)
-    return torch.cat(out.unbind(0), dim=concat_dim)
+    return torch.cat(_to_positions(out, order).unbind(0), dim=concat_dim)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -607,8 +645,8 @@ def psum_join(x: torch.Tensor, line, *, label: str = "psum"
     Ledger-recorded as an ``all_reduce`` under ``label``."""
     if line is None or line.size == 1:
         return x
-    _record("all_reduce", line, x, label=label)
-    return _PsumJoin.apply(x, line)
+    with _record("all_reduce", line, x, label=label):
+        return _PsumJoin.apply(x, line)
 
 
 def psum_conjugate(x: torch.Tensor, line) -> torch.Tensor:
@@ -643,8 +681,8 @@ def axis_all_to_all(x: torch.Tensor, line, split_dim: int,
     if x.shape[split_dim] % line.size:
         raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
                          f"split into {line.size} chunks")
-    _record("all_to_all", line, x, label=label)
-    return _AllToAll.apply(x, line, split_dim, concat_dim)
+    with _record("all_to_all", line, x, label=label):
+        return _AllToAll.apply(x, line, split_dim, concat_dim)
 
 
 def axis_all_gather(x: torch.Tensor, line, dim: int) -> torch.Tensor:
@@ -667,6 +705,9 @@ def axis_all_gather(x: torch.Tensor, line, dim: int) -> torch.Tensor:
         else:
             parts = [torch.empty_like(x) for _ in range(line.size)]
             dist.all_gather(parts, x, group=group)
+        order = _group_order(line)
+        if order is not None:
+            parts = [parts[g] for g in order]
     return torch.cat(parts, dim=dim)
 
 
@@ -714,8 +755,8 @@ def axis_ppermute_start(x: torch.Tensor, line, edges: Sequence[Edge], *,
     ``kind`` under ``label``, and the arrival passes through
     :func:`_fault_throttle`."""
     edges = tuple((int(s), int(d)) for s, d in edges)
-    _record(kind, line, x, edges=edges, label=label)
-    wait = _hop_start(x, line, edges)
+    with _record(kind, line, x, edges=edges, label=label):
+        wait = _hop_start(x, line, edges)
     if line.size == 1:
         return wait
     return lambda: _fault_throttle(wait(), line, edges)
@@ -776,9 +817,9 @@ def _fault_throttle(y: torch.Tensor, line, edges) -> torch.Tensor:
     swap = tuple((i, i) for i in range(n) if i not in (s, d)) \
         + ((s, d), (d, s))
     extra = plan.degrade_factor - 1
-    _record("ppermute", line, y, edges=((s, d), (d, s)), count=2 * extra,
-            label="fault_throttle")
-    return _Throttle.apply(y, line, swap, extra)
+    with _record("ppermute", line, y, edges=((s, d), (d, s)),
+                 count=2 * extra, label="fault_throttle"):
+        return _Throttle.apply(y, line, swap, extra)
 
 
 # ------------------------------------ ring collective-matmuls along a line
@@ -826,20 +867,21 @@ def ring_allgather_matmul(compute_chunk: Callable, x_shard: torch.Tensor,
     if n == 1:
         return compute_chunk(x_shard, 0)
     fwd = ring_edges(n)
-    _record("dma" if transport == "pallas_dma" else "ppermute", line,
-            x_shard, edges=fwd, count=n - 1, label="ring_allgather_matmul")
-    ys = [None] * n
-    cur, src = x_shard, line.index
-    for s in range(n):
-        if transport == "pallas_dma" and s + 1 < n:
-            nxt, y = PD.dma_ship_compute(cur, line, fwd, compute_chunk, cur,
-                                         src)
-        else:
-            wait = _hop_start(cur, line, fwd) if s + 1 < n else None
-            y = compute_chunk(cur, src)
-            nxt = wait() if wait is not None else None
-        ys[src] = y
-        cur, src = nxt, (src - 1) % n
+    with _record("dma" if transport == "pallas_dma" else "ppermute", line,
+                 x_shard, edges=fwd, count=n - 1,
+                 label="ring_allgather_matmul"):
+        ys = [None] * n
+        cur, src = x_shard, line.index
+        for s in range(n):
+            if transport == "pallas_dma" and s + 1 < n:
+                nxt, y = PD.dma_ship_compute(cur, line, fwd,
+                                             compute_chunk, cur, src)
+            else:
+                wait = _hop_start(cur, line, fwd) if s + 1 < n else None
+                y = compute_chunk(cur, src)
+                nxt = wait() if wait is not None else None
+            ys[src] = y
+            cur, src = nxt, (src - 1) % n
     return torch.cat(ys, dim=gather_dim)
 
 
@@ -868,12 +910,12 @@ def matmul_ring_reducescatter(compute_chunk: Callable, x: torch.Tensor,
 
     rev = tuple((j, (j - 1) % n) for j in range(n))
     acc = part((idx + 1) % n)
-    _record("ppermute", line, acc, edges=rev, count=n - 1,
-            label="matmul_ring_reducescatter")
-    for s in range(1, n):
-        wait = _hop_start(acc, line, rev)
-        p = part((idx + 1 + s) % n)
-        acc = wait() + p
+    with _record("ppermute", line, acc, edges=rev, count=n - 1,
+                 label="matmul_ring_reducescatter"):
+        for s in range(1, n):
+            wait = _hop_start(acc, line, rev)
+            p = part((idx + 1 + s) % n)
+            acc = wait() + p
     return acc
 
 
@@ -901,14 +943,16 @@ def ring_all_to_all_matmul(compute_chunk: Callable, x: torch.Tensor, line,
     def send_chunk(s):
         return x.narrow(split_dim, (idx + s) % n * ce, ce)
 
-    for s in range(1, n):
-        _record("ppermute", line, _obs.tensor_bytes(x) // n,
-                edges=_shift_edges(n, s), label="ring_all_to_all_matmul")
     ys = [None] * n
     cur = send_chunk(0)
     for s in range(n):
-        wait = (_hop_start(send_chunk(s + 1), line, _shift_edges(n, s + 1))
-                if s + 1 < n else None)
+        wait = None
+        if s + 1 < n:  # one ledger row a hop, in hop order
+            with _record("ppermute", line, _obs.tensor_bytes(x) // n,
+                         edges=_shift_edges(n, s + 1),
+                         label="ring_all_to_all_matmul"):
+                wait = _hop_start(send_chunk(s + 1), line,
+                                  _shift_edges(n, s + 1))
         src = (idx - s) % n  # hop s delivers the rank s upstream
         ys[src] = compute_chunk(cur, src)
         cur = wait() if wait is not None else None
@@ -938,10 +982,10 @@ def matmul_ring_all_to_all(compute_chunk: Callable, x: torch.Tensor, line,
     waits = []
     for s in range(1, n):
         y = part((idx - s) % n)
-        _record("ppermute", line, y, edges=_shift_edges(n, n - s),
-                label="matmul_ring_all_to_all")
-        waits.append((_hop_start(y, line, _shift_edges(n, n - s)),
-                      (idx + s) % n))
+        with _record("ppermute", line, y, edges=_shift_edges(n, n - s),
+                     label="matmul_ring_all_to_all"):
+            waits.append((_hop_start(y, line, _shift_edges(n, n - s)),
+                          (idx + s) % n))
     ys = [None] * n
     ys[idx] = part(idx)
     for wait, src in waits:
@@ -1027,6 +1071,8 @@ class _BucketGather(torch.autograd.Function):
             inflight.work.wait()
         n = inflight.line.size
         rows = inflight.rows.view(n, -1)
+        if not inflight.line.in_process:
+            rows = _to_positions(rows, _group_order(inflight.line))
         ctx.line, ctx.group = inflight.line, inflight.group
         ctx.meta = [(tuple(v.shape), d) for v, (_, _, d)
                     in zip(shards, inflight.bucket)]
@@ -1050,6 +1096,7 @@ class _BucketGather(torch.autograd.Function):
         if ctx.line.in_process:
             flat = ctx.line.all_reduce(rows)[ctx.line.index]
         else:
+            rows = _to_groups(rows, _group_order(ctx.line))
             flat = rows.new_empty(rows.shape[1])
             _dist(dist.reduce_scatter_tensor, flat, rows.view(-1),
                   group=ctx.group)
@@ -1102,11 +1149,12 @@ def start_bucketed_all_gather(shards, line, bucket_bytes=None
         by_dtype.setdefault(v.dtype, []).append((k, v, d))
     buckets = [bucket for items in by_dtype.values()
                for bucket in _gather_buckets(items, bucket_bytes)]
+    inflight = []
     for bucket in buckets:  # one ledger row a bucket (reference :329)
-        _record("all_gather", line,
-                sum(_obs.tensor_bytes(v) for _, v, _ in bucket),
-                label="bucketed_all_gather")
-    inflight = [_BucketInFlight(bucket, line, group) for bucket in buckets]
+        with _record("all_gather", line,
+                     sum(_obs.tensor_bytes(v) for _, v, _ in bucket),
+                     label="bucketed_all_gather"):
+            inflight.append(_BucketInFlight(bucket, line, group))
     return PendingGather(list(shards), {}, inflight)
 
 
@@ -1185,9 +1233,9 @@ class CollectiveCache:
                      else "permute")
 
             def one(x):
-                _record(self._kind(transport), line, x, edges=edges,
-                        axis=axis, label=label)
-                return hop(x)
+                with _record(self._kind(transport), line, x, edges=edges,
+                             axis=axis, label=label):
+                    return hop(x)
 
             return one
 
@@ -1208,10 +1256,10 @@ class CollectiveCache:
 
             def chain(x):
                 # One row of ``count`` (reference :981, :998).
-                _record(self._kind(transport), line, x, edges=edges,
-                        count=count, axis=axis, label=label)
-                for _ in range(count):
-                    x = hop(x)
+                with _record(self._kind(transport), line, x, edges=edges,
+                             count=count, axis=axis, label=label):
+                    for _ in range(count):
+                        x = hop(x)
                 return x
 
             return chain
@@ -1259,12 +1307,14 @@ class CollectiveCache:
             head = first or step
 
             def chain(x):
-                for kind, nbytes in records:
-                    _record(kind, line, nbytes(x, line.size), count=count,
-                            axis=axis, label=name)
-                x = head(x, line, group)
-                for _ in range(count - 1):
-                    x = step(x, line, group)
+                with contextlib.ExitStack() as issued:
+                    for kind, nbytes in records:  # a row a kind
+                        issued.enter_context(_record(
+                            kind, line, nbytes(x, line.size), count=count,
+                            axis=axis, label=name))
+                    x = head(x, line, group)
+                    for _ in range(count - 1):
+                        x = step(x, line, group)
                 return x
 
             return chain
@@ -1311,7 +1361,8 @@ class CollectiveCache:
             out = x.new_empty(x.shape)
             _dist(dist.all_gather_into_tensor, out.view(-1), rs.view(-1),
                   group=g)
-            return out
+            return _to_positions(out.view(m.size, -1),
+                                 _group_order(m)).view(out.shape)
 
         return self._collective(
             "rs_ag_chain", mesh, axis, count, "reduce_scatter", step,

@@ -90,17 +90,16 @@ def all_gather_params(params: Dict[str, torch.Tensor], line,
     order. Call inside the differentiated step: the backward is the
     ZeRO gradient reduce-scatter. Ledger: one ``all_gather`` row a
     planned leaf, ``fsdp.all_gather_params:<leaf>``."""
+    out = {}
     for k, v in params.items():
-        if plan.get(k) is not None:
-            _record("all_gather", line, v, axis="dp" if line is None
-                    else None, axis_size=1 if line is None else None,
-                    label=f"fsdp.all_gather_params:{k}")
-    with _obs.muted():
-        return {
-            k: (bucketed_all_gather({k: (v, plan[k])}, line)[k]
-                if plan.get(k) is not None else v)
-            for k, v in params.items()
-        }
+        if plan.get(k) is None:
+            out[k] = v
+            continue
+        with _record("all_gather", line, v, axis="dp" if line is None
+                     else None, axis_size=1 if line is None else None,
+                     label=f"fsdp.all_gather_params:{k}"), _obs.muted():
+            out[k] = bucketed_all_gather({k: (v, plan[k])}, line)[k]
+    return out
 
 
 def split_plan_for_prefetch(plan: Plan,

@@ -748,13 +748,16 @@ class Runtime:
         return mine
 
     def axis_mesh(self, dims: Sequence[int],
-                  axis_names: Sequence[str]) -> Mesh:
-        """A mesh of the whole world over named axes, row-major in rank
-        order, with the groups of every line of every axis of size > 1
-        made axis by axis, line by line (:meth:`groups`: every rank
-        calls this, in the same order; a rank set made before shares its
-        groups). On cards each new line's communicator is formed here,
-        so a step's first collective is not its first call."""
+                  axis_names: Sequence[str],
+                  ranks: Optional[Sequence[int]] = None) -> Mesh:
+        """A mesh of the whole world over named axes, row-major over
+        ``ranks`` (the global rank at each mesh position; default rank
+        order — a ring order relabels the positions, never a value), with
+        the groups of every line of every axis of size > 1 made axis by
+        axis, line by line (:meth:`groups`: every rank calls this, in the
+        same order; a rank set made before shares its groups). On cards
+        each new line's communicator is formed here, so a step's first
+        collective is not its first call."""
         dims = tuple(int(d) for d in dims)
         names = tuple(axis_names)
         check(math.prod(dims) == self.mesh.size,
@@ -763,7 +766,12 @@ class Runtime:
               f"mesh shape {dims} over axes {names}: one distinct name "
               "per axis (the default names cover 1-D or 2-D meshes)")
         world = self.mesh
-        mesh = Mesh(ranks=world.ranks, rank=self.rank, device=self.device,
+        ranks = tuple(sorted(world.ranks)) if ranks is None \
+            else tuple(int(r) for r in ranks)
+        check(sorted(ranks) == sorted(world.ranks),
+              f"mesh ranks {ranks} are not a permutation of the world's "
+              f"{tuple(sorted(world.ranks))}")
+        mesh = Mesh(ranks=ranks, rank=self.rank, device=self.device,
                     host_group=world.host_group,
                     device_group=world.device_group, windows=world.windows,
                     axis_names=names, dims=dims, runtime=self)
@@ -915,10 +923,39 @@ def _planes(dims: Tuple[int, ...], axes: Sequence[int]):
     return [tuple(p.tolist()) for p in grid.reshape(-1, size)]
 
 
+def _ring_ordered(world: int, ring_topology) -> Tuple[int, ...]:
+    """The 1-D mesh's ranks in the measured topology's ring order.
+
+    ``ring_topology`` is a :class:`tpu_p2p_torch.topo.model.Topology`, or
+    ``"history"`` to read the ``MULTICHIP_r*.json`` history in the working
+    directory. A relabelling of which rank sits at which mesh position:
+    the logical shift-by-1 ring rides the links the matrix recommends,
+    and every transfer's payload is unchanged; a sum over more than 2
+    ranks adds in a different order (see :func:`make_runtime`). → rank
+    order when no usable topology exists or its size is not the
+    world's."""
+    identity = tuple(range(world))
+    try:
+        from tpu_p2p_torch.topo.model import Topology
+        from tpu_p2p_torch.topo.place import ordered_devices, ring_order
+
+        topo = ring_topology
+        if isinstance(topo, str):
+            topo = Topology.from_history(".", n=world)
+        if topo is None or topo.n != world:
+            return identity
+        return tuple(ordered_devices(list(identity), ring_order(topo)))
+    except Exception:  # noqa: BLE001 — placement advice must never break
+        # bootstrap (a missing or corrupt history file): rank order
+        return identity
+
+
 def make_runtime(num_devices: Optional[int] = None,
                  device=None,
                  mesh_shape: Optional[Sequence[int]] = None,
-                 axis_names: Optional[Sequence[str]] = None) -> Runtime:
+                 axis_names: Optional[Sequence[str]] = None,
+                 ring_topology=None,
+                 apply_ring_order: bool = True) -> Runtime:
     """Bootstrap → device → placement check → groups (the setup block
     of ``p2p_matrix.cc:105-122``).
 
@@ -931,10 +968,19 @@ def make_runtime(num_devices: Optional[int] = None,
     names them, as the flagship's ``(dp, pp, sp, tp, ep)``) in row-major
     rank order, and makes the groups of every line of every axis of
     size > 1, axis by axis, line by line (the same order on every rank).
-    Without it the mesh is 1-D over ``("d",)`` in rank order. The
-    reference reorders a 1-D world of more than 2 devices by a measured
-    ring order; that relabelling changes no value and comes with the
-    topology module."""
+    Without it the mesh is 1-D over ``("d",)``, in rank order unless
+    ``ring_topology`` is given for a world of more than 2 ranks: then in
+    its ring order (:func:`_ring_ordered`; ``"history"`` reads the
+    ``MULTICHIP_r*.json`` history in the working directory), so mesh
+    index ``i`` is global rank ``ranks[i]``; first rank's choice,
+    broadcast. ``apply_ring_order=False`` keeps rank order whatever the
+    topology. The order permutes the ranks' positions: payloads move
+    unchanged, but the library's sums add in group-rank order, so a sum
+    over more than 2 ranks of a reordered mesh is reassociated (equal to
+    float32 rounding, not bitwise). Hence no history is read unless
+    asked: the reference reads it by default, its relabelling being
+    bitwise. A multi-axis mesh (``mesh_shape``) stays in rank order: its
+    axes encode structure the ring objective would scramble."""
     device = pick_device(device)
     init_distributed()
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -955,14 +1001,21 @@ def make_runtime(num_devices: Optional[int] = None,
         # Form the communicator with every rank now: a later
         # batch_isend_irecv over a pair must not be its first call.
         dist.all_reduce(torch.zeros(1, device=device), group=device_group)
-    flat = Mesh(ranks=tuple(range(world)), rank=rank, device=device,
+    ranks = tuple(range(world))
+    if (apply_ring_order and ring_topology is not None
+            and mesh_shape is None and world > 2):
+        box = [_ring_ordered(world, ring_topology) if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        ranks = box[0]
+    flat = Mesh(ranks=ranks, rank=rank, device=device,
                 host_group=dist.group.WORLD, device_group=device_group)
     rt = Runtime(rank=rank, world=world, device=device,
                  placement=placement, mesh=flat)
-    rt._groups[flat.ranks] = (flat.host_group, device_group, flat.windows)
+    rt._groups[tuple(range(world))] = (flat.host_group, device_group,
+                                       flat.windows)
     if mesh_shape is not None:
         rt.mesh = rt.axis_mesh(
             mesh_shape, axis_names or MESH_AXES_2D[:len(mesh_shape)])
     elif axis_names:
-        rt.mesh = rt.axis_mesh((world,), axis_names)
+        rt.mesh = rt.axis_mesh((world,), axis_names, ranks=flat.ranks)
     return rt

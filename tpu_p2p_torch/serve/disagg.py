@@ -128,15 +128,6 @@ def _split_mig(mig: LocalMesh, p: int) -> Tuple[LocalMesh, LocalMesh]:
             mig.submesh(range(p, mig.size), ("dp",)))
 
 
-def free_pages_first(blocks: int, candidates: Sequence[Tuple[int, int]],
-                     block_bytes: int) -> int:
-    """The migration placement (the reference's default,
-    ``tpu_p2p/topo/place.py:164``): the candidate ``(shard,
-    free_pages)`` with the most free pages, ties to the lowest shard
-    index."""
-    return min(candidates, key=lambda c: (-c[1], c[0]))[0]
-
-
 class KvMigrator:
     """KV-page migration from the prefill pool to a decode shard's pool
     over the ``mig`` mesh, whose first ``n_prefill`` ranks are the
@@ -300,6 +291,7 @@ class DisaggBatcher:
                  eos_prob: float = 0.0, prefix_cache: bool = False,
                  spec_k: int = 0, transport: str = "xla",
                  migrate_chunks: int = 1, prefill_tp: int = 1,
+                 placement: Optional[Callable] = None,
                  clock: Callable[[], float] = time.monotonic) -> None:
         if stop not in SERVE_STOPS:
             raise ValueError(
@@ -343,6 +335,15 @@ class DisaggBatcher:
         self.deadline_steps = deadline_steps
         self.stop, self.stop_seed = stop, stop_seed
         self.eos_prob = eos_prob
+        # The migration placement policy, ``placement(blocks,
+        # candidates, block_bytes) -> shard`` over the dry-visible
+        # candidates; None = free-pages-first (the rule without a
+        # topology). Resolved once: it sits on the per-step path.
+        if placement is None:
+            from tpu_p2p_torch.topo.place import free_pages_first
+
+            placement = free_pages_first
+        self.placement = placement
         self.clock = clock
         # Two pools, two identities: a prefill-side exhaustion message
         # must not read like a decode-side one.
@@ -644,8 +645,12 @@ class DisaggBatcher:
 
     def _choose_decode_shard(self, blocks: int) -> Optional[int]:
         """The eligible shards (a free slot AND ``blocks`` free pages),
-        placed by :func:`free_pages_first`, which sees only ``(shard,
-        free_pages)`` pairs, so dry == real holds."""
+        placed by the placement policy: free-pages-first (most free
+        pages, ties to the lowest shard) when none was injected, the
+        predicted-ship-time policy
+        (:func:`tpu_p2p_torch.topo.place.topo_migration_placement`) when
+        one was. Policies see only ``(shard, free_pages)`` pairs and the
+        migration's bytes, so dry == real holds under any policy."""
         per = self.slots_n // self.n_dec
         cands = []
         for shard in range(self.n_dec):
@@ -658,8 +663,8 @@ class DisaggBatcher:
             cands.append((shard, free))
         if not cands:
             return None
-        return int(free_pages_first(blocks, cands,
-                                    self._block_bytes(blocks)))
+        return int(self.placement(blocks, cands,
+                                  self._block_bytes(blocks)))
 
     def _finish(self, req: Request, now: float) -> None:
         req.t_finish = now
@@ -877,12 +882,15 @@ def simulate_disagg_schedule(trace: List[Request], *, slots: int,
                              n_decode_shards: int, queue_depth: int = 0,
                              deadline_steps: int = 0, stop: str = "length",
                              stop_seed: int = 0, eos_prob: float = 0.0,
-                             prefix_cache: bool = False, cfg=None) -> Dict:
+                             prefix_cache: bool = False, cfg=None,
+                             placement: Optional[Callable] = None) -> Dict:
     """Run the disagg scheduler without a device: → the exact two-sided
     event trace the engine executes — per-step inputs of both banks,
     every migration (rid / blocks / destination shard / wait),
     preemptions, sheds. No ``spec_k``: speculative acceptance depends on
-    token values. ``kv_migrate_bytes`` needs ``cfg`` (None without)."""
+    token values. ``kv_migrate_bytes`` needs ``cfg`` (None without).
+    ``placement`` injects a migration placement policy (None =
+    free-pages-first)."""
     trace = [r.fresh() for r in trace]
     b = DisaggBatcher(
         None, cfg, None, slots=slots, prefill_slots=prefill_slots,
@@ -890,7 +898,8 @@ def simulate_disagg_schedule(trace: List[Request], *, slots: int,
         prefill_pages=prefill_pages, max_blocks=max_blocks, chunk=chunk,
         dry=True, n_decode_shards=n_decode_shards,
         queue_depth=queue_depth, deadline_steps=deadline_steps, stop=stop,
-        stop_seed=stop_seed, eos_prob=eos_prob, prefix_cache=prefix_cache)
+        stop_seed=stop_seed, eos_prob=eos_prob, prefix_cache=prefix_cache,
+        placement=placement)
     finished = b.run(trace)
     return {
         "steps": b.step_idx,
@@ -910,7 +919,7 @@ def simulate_disagg_schedule(trace: List[Request], *, slots: int,
 
 
 def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
-                      sc, emit=None, ledger=None,
+                      sc, emit=None, ledger=None, placement=None,
                       clock=time.monotonic) -> dict:
     """Serve ``trace`` to completion on the disaggregated ranks of
     ``mig`` (the first ``sc.prefill_tp`` ranks, or 1 where it is 0, the
@@ -919,7 +928,8 @@ def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
     colocated engine's summary schema plus ``kv_migrated`` /
     ``kv_migrate_blocks`` / ``kv_migrate_bytes`` /
     ``serve_kv_migrate_gbps`` (shipped bits over migration wall) /
-    ``migrate_wait_steps_{p50,max}``, and the ``batcher``."""
+    ``migrate_wait_steps_{p50,max}``, and the ``batcher``.
+    ``placement`` as :func:`simulate_disagg_schedule` takes it."""
     from tpu_p2p_torch.serve.engine import _r3, _request_record
 
     trace = [r.fresh() for r in trace]
@@ -932,7 +942,7 @@ def run_disagg_engine(mig: LocalMesh, cfg, params, trace: List[Request], *,
         eos_prob=sc.eos_prob, prefix_cache=sc.prefix_cache,
         spec_k=sc.spec_k, transport=sc.transport,
         migrate_chunks=sc.migrate_chunks, prefill_tp=sc.prefill_tp or 1,
-        clock=clock)
+        placement=placement, clock=clock)
     t0 = clock()
     from tpu_p2p_torch.serve.engine import _recording
 

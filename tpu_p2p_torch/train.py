@@ -529,8 +529,10 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
             params, loss = step_fn(params, x, t)
         return loss
 
-    # Only rank ``slow_rank`` sleeps: its peers wait for it in the next
-    # step's collectives (a world of one sleeps itself).
+    # Only rank ``slow_rank`` sleeps, at the start of the step span and
+    # before the step's collectives, so its peers wait for it in the same
+    # step (a world of one sleeps itself), as the reference's one
+    # controller sees a slow step.
     slow_here = (fault_plan is not None and fault_plan.slow_rank is not None
                  and (mesh is None or mesh.index == fault_plan.slow_rank))
     t0 = time.monotonic()
@@ -549,6 +551,8 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
                 x, t = next(loader)
             dev_rec = None
             with _span("step"):
+                if slow_here:
+                    faults.maybe_slow_host(fault_plan, step + 1)
                 if tl is not None and step == obs_trace_step:
                     import tempfile
 
@@ -567,8 +571,6 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
                     # Obs mode drains every step: step_ms is the step's
                     # real cadence, not its issue time.
                     _drain()
-                if slow_here:
-                    faults.maybe_slow_host(fault_plan, step + 1)
             if log_every and ((step + 1) % log_every == 0
                               or step + 1 == steps):
                 loss_f = float(loss)  # waits for the device on log steps

@@ -521,6 +521,7 @@ class DeviceEvent:
     t1: float
     stream: int
     cat: str
+    correlation: Optional[int] = None  # the launching runtime call's id
 
 
 def _trace_events(trace) -> list:
@@ -546,7 +547,8 @@ def device_events(trace) -> Optional[List[DeviceEvent]]:
     out = [DeviceEvent(str(e.get("name", "")), e["ts"] / 1e6,
                        (e["ts"] + e.get("dur", 0)) / 1e6,
                        int(e.get("args", {}).get("stream", e.get("tid", 0))
-                           or 0), e["cat"])
+                           or 0), e["cat"],
+                       e.get("args", {}).get("correlation"))
            for e in evs if card(e) == first]
     out.sort(key=lambda d: d.t0)
     return out
@@ -595,6 +597,42 @@ def device_collective_intervals(trace, window=None):
     if evs is None:
         return None
     return [(e.name, e.t0, e.t1) for e in evs
+            if _is_collective(e.name) and _within(window, e.t0, e.t1)]
+
+
+def labelled_collective_intervals(trace, window=None):
+    """:func:`device_collective_intervals` with each event's ledger labels
+    → ``[(name, t0, t1, labels), ...]``: the names of the
+    :data:`~tpu_p2p_torch.obs.ledger.ISSUE_TAG` ranges that enclose the
+    event's launch on its host thread, innermost last (the runtime or
+    driver call's ``correlation`` id ties the device event to its
+    launch), ``()`` where none does. None without a device track."""
+    from tpu_p2p_torch.obs.ledger import ISSUE_TAG
+
+    events = _trace_events(trace)
+    evs = device_events(events)
+    if evs is None:
+        return None
+    ranges: Dict[tuple, List[Tuple[float, float, str]]] = defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and \
+                str(e.get("name", "")).startswith(ISSUE_TAG):
+            ranges[(e.get("pid"), e.get("tid"))].append(
+                (e["ts"], e["ts"] + e.get("dur", 0), str(e["name"])))
+    owner = {}
+    for e in events:
+        if e.get("cat") not in LAUNCH_CATS:
+            continue
+        rs = ranges.get((e.get("pid"), e.get("tid")))
+        if not rs:
+            continue
+        inside = sorted((r for r in rs if r[0] <= e["ts"] <= r[1]),
+                        key=lambda r: r[0])
+        if inside:
+            owner[e.get("args", {}).get("correlation")] = tuple(
+                r[2] for r in inside)
+    return [(e.name, e.t0, e.t1, owner.get(e.correlation, ()))
+            for e in evs
             if _is_collective(e.name) and _within(window, e.t0, e.t1)]
 
 
@@ -649,17 +687,20 @@ def tp_overlap_fraction(trace, window=None) -> Optional[dict]:
 
 def profile_window(fn: Callable[[], object], directory: str,
                    pad_s: float = WINDOW_PAD_S,
-                   name: str = "window.json") -> str:
+                   name: str = "window.json", *, host: bool = False) -> str:
     """Run ``fn`` once under ``torch.profiler``, drained, and export the
-    window as a Chrome trace → its path. On a card only the card's
-    activity is traced (the readers here use nothing else), and the
-    window opens and closes with a host pause of ``pad_s``
-    (``WINDOW_PAD_S``: the tracer loses events near a window's edges);
-    without one, the host's."""
+    window as a Chrome trace → its path. On a card the card's activity
+    is traced, and the host's only with ``host`` (the ledger's issue
+    labels and the launches that tie each device event to one, which the
+    labelled join reads; the host tracer's cost would change every other
+    reading of the window); there the window opens and closes with a
+    host pause of ``pad_s`` (``WINDOW_PAD_S``: the tracer loses events
+    near a window's edges). Without a card, the host's."""
     from torch.profiler import ProfilerActivity, profile
 
     card = torch.cuda.is_available() and torch.cuda.is_initialized()
-    acts = [ProfilerActivity.CUDA] if card else [ProfilerActivity.CPU]
+    acts = ([ProfilerActivity.CPU] if host or not card else []) + (
+        [ProfilerActivity.CUDA] if card else [])
     with profile(activities=acts) as prof:
         if card:
             time.sleep(pad_s)

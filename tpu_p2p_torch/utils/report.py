@@ -19,6 +19,8 @@ import sys
 from dataclasses import dataclass, field
 from typing import IO, Optional
 
+from tpu_p2p_torch.utils import native as _native
+
 
 class MatrixReporter:
     """Streams one N×N matrix in the reference's exact format."""
@@ -35,8 +37,13 @@ class MatrixReporter:
 
     def header(self) -> None:
         # p2p_matrix.cc:134-139 — title line, then "   D\D" + "%6d " ids.
-        self._w(f"{self.title}\n   D\\D"
-                + "".join("%6d " % i for i in range(self.n)) + "\n")
+        # Once per matrix, so the native snprintf path (byte-equal to the
+        # Python one) runs here; the per-cell path stays %-formatting.
+        text = _native.format_header(self.title, self.n)
+        if text is None:
+            text = f"{self.title}\n   D\\D" + "".join(
+                "%6d " % i for i in range(self.n)) + "\n"
+        self._w(text)
 
     def row_label(self, src: int) -> None:
         self._w("%6d " % src)  # p2p_matrix.cc:143

@@ -33,6 +33,12 @@ Clock = Callable[[], int]  # monotonic nanoseconds
 
 
 def default_clock() -> Clock:
+    """The native monotonic clock when the support library builds, else
+    Python's (the same ``CLOCK_MONOTONIC``)."""
+    from tpu_p2p_torch.utils import native
+
+    if native.available():
+        return native.monotonic_ns
     return time.monotonic_ns
 
 
@@ -68,6 +74,10 @@ class Samples:
         """Nearest-rank percentile over per-iteration samples."""
         if self.timed_out or not self.count:
             return math.nan
+        from tpu_p2p_torch.utils import native
+
+        if native.available():
+            return native.percentile(self.iter_seconds, q)
         s = sorted(self.iter_seconds)
         rank = max(0, min(len(s) - 1, math.ceil(q / 100.0 * len(s)) - 1))
         return s[rank]
