@@ -266,7 +266,12 @@ the first phase that goes wrong:
    switch bitwise masked, the wave bitwise the one-shot ship, each
    update within ``GRAD_TOL`` of ``pipeline_reference``'s on the card,
    the peer-push launches a rank equal to the lowered hop tables'; step
-   ms (time-sliced processes, not a link number); (c) ``python -m
+   ms (time-sliced processes, not a link number); the GPipe masked step
+   profiled once more, its measured part between two barriers of the
+   mesh, and joined to the ledger of its first call: on every rank its
+   forward hops and its autograd-backward hops (labelled as the forward
+   site's transpose) each on their edge set, none ragged or unmatched;
+   (c) ``python -m
    tpu_p2p_torch zb`` in this process: its JSON line, ``loss_bitwise``
    true, the ratio and the program's own grade.
 19. Observability and health, each part in processes of its own (the
@@ -4745,6 +4750,7 @@ SCHED_VARIANTS = (  # (name, pp_schedule, tick_lowering, chunks)
 # 1024, 2048] float32, 16 MiB a hop.
 MLP_DM, MLP_FF, MLP_MB, MLP_T, MLP_M = 2048, 8192, 2, 1024, 4
 MLP_LR = 5e-2
+JOIN_CASE = "gpipe masked"  # profiled once more, its backward hops joined
 SCHED_PROGRAMS = ("gpipe", "1f1b", "interleaved", "zb")
 
 
@@ -4908,6 +4914,39 @@ def mlp_expected_hops(lowered, chunks: int) -> dict:
     return {"dma_ship": hops * (chunks - 1), "dma_permute": hops}
 
 
+def backward_join(led, step, mesh, program) -> dict:
+    """The warm step once more in a profiled window, its measured part
+    between two barriers of the mesh, joined to ``led`` (the ledger of
+    its first, recorded call) → this rank's join: ragged kinds, unmatched
+    events, the ledger's ship rows and unrowed entries, the ``dma``
+    events on the forward edge set and on the reversed one (GPipe's
+    autograd-backward hops, labelled as the forward site's transpose),
+    and the hops the program ships (its ticks less the last)."""
+    import tempfile
+
+    from tpu_p2p_torch.obs import ledger as L
+    from tpu_p2p_torch.utils.profiling import profile_window
+
+    def run():
+        step()
+        torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="pp_join_") as td:
+        with L.recording(L.CollectiveLedger()):
+            path = profile_window(run, td, host=True, barrier=mesh.barrier)
+        join = L.join_trace(led, path)
+    ship = [it for it in led.issues if it.kind == "dma"]
+    fwd = ship[0].edges if ship else ()
+    rev = tuple((d, s) for s, d in fwd)
+    dma = [j for j in join.joined if j.issue.kind == "dma"]
+    return {"ragged": list(join.ragged), "unmatched": dict(join.unmatched),
+            "no_track": join.no_device_track, "ships": len(ship),
+            "unrowed": len(led.unrowed),
+            "fwd_events": sum(j.issue.edges == fwd for j in dma),
+            "bwd_events": sum(j.issue.edges == rev for j in dma),
+            "hops": program.num_ticks - 1}
+
+
 def schedule_rank_case() -> dict:
     """One rank of a world sharing cuda:0: ``make_tick_train_step`` with
     ``mlp_block`` at flagship_large's widths over ``transport=
@@ -4917,11 +4956,14 @@ def schedule_rank_case() -> dict:
     launches counted from zero. Checks on this rank's rows: zb bitwise
     1f1b, switch bitwise masked, the wave bitwise the one-shot ship; each
     update within ``GRAD_TOL`` (relative L2) of ``pipeline_reference``'s
-    autograd update in this process; the launches the hop tables give."""
+    autograd update in this process; the launches the hop tables give;
+    the ``JOIN_CASE`` step's labelled backward join
+    (:func:`backward_join`)."""
     from tpu_p2p_torch.models import pipeline as PL
     from tpu_p2p_torch.models import pipeline_interleaved as IL
     from tpu_p2p_torch.models import schedule as S
     from tpu_p2p_torch.models.flagship_steps import _sgd_update
+    from tpu_p2p_torch.obs import ledger as L
     from tpu_p2p_torch.parallel import pallas_dma as PD
     from tpu_p2p_torch.parallel.runtime import make_runtime
 
@@ -4951,6 +4993,7 @@ def schedule_rank_case() -> dict:
     cases = [(prog, low, "none") for prog in SCHED_PROGRAMS
              for low in ("masked", "switch")] + [("1f1b", "masked", "wave")]
     got = {}
+    led = L.CollectiveLedger()
     for prog, low, overlap in cases:
         v = 2 if prog == "interleaved" else 1
         cfg, p = full[v]
@@ -4965,7 +5008,9 @@ def schedule_rank_case() -> dict:
         name = f"{prog} {low}" + (" wave" if overlap == "wave" else "")
         rt.barrier()
         PD.reset_launches()
-        new, loss = step(placed, x, tgt)
+        with (L.recording(led) if name == JOIN_CASE
+              else contextlib.nullcontext()):
+            new, loss = step(placed, x, tgt)
         torch.cuda.synchronize()
         PD.check_faults()
         out["launches"][name] = dict(PD.launches)
@@ -4983,6 +5028,9 @@ def schedule_rank_case() -> dict:
             out["bad"].append(f"{name}: a second step from the same params "
                               "differs")
         del again
+        if name == JOIN_CASE:
+            out["join"] = backward_join(led, lambda: step(placed, x, tgt),
+                                        mesh, program)
         want_loss, want_p = oracle[v]
         rows = IL.place_interleaved_params(want_p, mesh, v)
         rel = max(rel_l2(placed[k] - new[k], placed[k] - rows[k])
@@ -5022,6 +5070,13 @@ def schedule_world(n: int, card: str) -> list:
                 f"schedule world of {n}, rank {r['rank']}: launches "
                 f"{r['launches']} (the hop tables give {r['expected']}), "
                 f"failed checks {r['bad']}")
+        j = r["join"]
+        if (j["no_track"] or j["ragged"] or j["unmatched"] or j["ships"] != 1
+                or j["unrowed"] != 1 or j["fwd_events"] != j["hops"]
+                or j["bwd_events"] != j["hops"]):
+            raise AssertionError(
+                f"schedule world of {n}, rank {r['rank']}: the profiled "
+                f"{JOIN_CASE} step's join {j}")
     hop = MLP_MB * MLP_T * MLP_DM * 4
     say(f"schedule world of {n} on cuda:0 (time-sliced processes, not a "
         f"link number): make_tick_train_step(mlp_block) at d_model "
@@ -5035,6 +5090,10 @@ def schedule_world(n: int, card: str) -> list:
         f"{max(max(r['rel'].values()) for r in res):.2e} (tol {GRAD_TOL})"
         f" | peer-push launches a rank = the hop tables': "
         + ", ".join(f"{k} {v}" for k, v in res[0]["launches"].items())
+        + f" | {JOIN_CASE} profiled once more between barriers: "
+        f"{res[0]['join']['hops']} hops and {res[0]['join']['hops']} "
+        f"labelled backward hops joined on their edge sets, none ragged "
+        f"or unmatched, on every rank"
         + f" | world {time.perf_counter() - t0:.1f} s | {card}")
     return res
 

@@ -25,15 +25,47 @@ a window of 1024), called with that model config, and one call of
 each under ``torch.profiler`` (every rank's wall, busy and device time
 by kernel family).
 
+``--set mesh_order``, one world of every card (3 or more) that holds
+a ring-ordered 1-D mesh (``Runtime.axis_mesh(ranks=)`` over the
+permutation ``0, n-1, ..., 1``) against the rank-order one, each result
+compared bitwise across the two:
+
+- ``psum`` and ``reduce_scatter`` of seeded float32 operands at 1, 32
+  and 256 MiB a rank (on the permuted mesh each sum takes one
+  mesh-order hop first, a reduce-scatter a second after), and the
+  shift-by-1 ``ppermute`` ring at 32 MiB: per-call ms of each arm (CUDA
+  events around ``ORDER_ITERS`` calls, the best of ``ORDER_ROUNDS``
+  rounds taken in turns rank, perm, perm, rank);
+- one dp SGD step of the flagship at flagship_large's widths, 2 of its
+  8 blocks (B 4 x T 4096, bf16, flash, MSE), on the dp mesh of every
+  card in each order: step ms (a barrier to the slower rank's drain)
+  and whether every step's params and loss are bitwise across the runs
+  and the orders;
+- three profiled windows over NCCL (each the work's second call, its
+  measured part between two barriers of the mesh, joined to the ledger
+  of its first call): the ``CollectiveCache`` all-reduce and
+  reduce-scatter at 32 MiB on the permuted mesh (the hops' events on
+  their own ``sum_mesh_order`` entries); a GPipe step through the tick
+  executor at d_model 2048, d_ff 8192 (4 microbatches of [2, 1024,
+  2048] float32) over the library transport, whose autograd backward
+  sends each hop's reverse hop; an MoE layer's forward and backward
+  over an ep line (4096 tokens of 2048 a rank, an expert of 8192 a
+  card), whose backward sends each all-to-all's inverse. Each: ragged
+  kinds, unmatched events and the events on each entry.
+
+Rank 0 prints one JSON line a part.
+
 The world is every visible card. ``--cpu`` runs the same cells as a
 gloo world of 4 CPU ranks at 64 KiB x 4 (the model set at 2 iterations,
-the wide world at a small width): a rehearsal of the commands, whose
-numbers are host speeds. Exits non-zero when a cell fails.
+the wide world and the mesh-order set at a small width): a rehearsal of
+the commands, whose numbers are host speeds (there is no device track
+to join). Exits non-zero when a cell fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -44,6 +76,12 @@ NCCL_ONLY = ("all_to_all", "allreduce", "reduce_scatter", "all_gather")
 CELL_TIMEOUT_S = 600.0
 SP_WIDTH_CPU = dict(batch=1, heads=4, seq=256, head_dim=16)
 WIDE = "--wide-rank"  # the rank side of the wide world
+ORDER = "--order-rank"  # the rank side of the mesh-order world
+ORDER_MIB = (1, 32, 256)
+ORDER_CPU_KIB = (64, 1024)
+ORDER_ITERS, ORDER_ROUNDS = 20, 3
+ORDER_STEP_CPU = dict(batch=4, seq=64, heads=4, kv_heads=2, head_dim=16)
+ORDER_PP_CPU = dict(dm=64, ff=128, mb=2, t=16)
 
 
 def transfer_cells(n: int):
@@ -108,6 +146,269 @@ def wide_rank(cpu: bool) -> int:
     return 0
 
 
+def order_rank(cpu: bool) -> int:
+    """One rank of the mesh-order world (module docstring)."""
+    import torch
+
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.parallel.runtime import make_runtime
+
+    rt = make_runtime(device="cpu" if cpu else None, apply_ring_order=False)
+    n, dev = rt.world, rt.device
+    perm = (0,) + tuple(range(n - 1, 0, -1))
+    line = {"rank": rt.axis_mesh((n,), ("d",)),
+            "perm": rt.axis_mesh((n,), ("d",), ranks=perm)}
+    iters = 2 if cpu else ORDER_ITERS
+
+    def per_call_ms(fn) -> float:
+        rt.barrier()
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(iters):
+                fn()
+            ev[1].record()
+            ev[1].synchronize()
+            return ev[0].elapsed_time(ev[1]) / iters
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    def say(row) -> None:
+        if rt.rank == 0:
+            print(json.dumps(row), flush=True)
+
+    ok = True
+    sizes = ([k << 10 for k in ORDER_CPU_KIB] if cpu
+             else [m << 20 for m in ORDER_MIB])
+    sites = {"psum": lambda x, m: C.psum(x, m),
+             "reduce_scatter": lambda x, m: C.reduce_scatter(x, m),
+             "ring": lambda x, m: C.ppermute(x, m, C.ring_edges(n))}
+    for size in sizes:
+        for site, fn in sites.items():
+            if site == "ring" and size != sizes[-2]:
+                continue
+            xs, got = {}, {}
+            for arm, m in line.items():
+                g = torch.Generator(device=dev).manual_seed(1000 + m.index)
+                xs[arm] = torch.randn((1, size // 4), generator=g,
+                                      device=dev)
+                got[arm] = (m.index, _digest(fn(xs[arm], m)))
+            ms = {"rank": [], "perm": []}
+            for arm in ("rank", "perm", "perm", "rank") * ORDER_ROUNDS:
+                ms[arm].append(per_call_ms(
+                    lambda a=arm: fn(xs[a], line[a])))
+            every = rt.gather(got)
+            same = all(dict(d["rank"] for d in every)[p] ==
+                       dict(d["perm"] for d in every)[p] for p in range(n))
+            ok = ok and same
+            slow = rt.gather({a: min(v) for a, v in ms.items()})
+            say({"sum" if site != "ring" else "ring": site, "bytes": size,
+                 "perm": list(perm), "iters": iters, "bitwise": same,
+                 "rank_ms": max(r["rank"] for r in slow),
+                 "perm_ms": max(r["perm"] for r in slow),
+                 "every_rank": slow})
+    step = _order_step(rt, perm, cpu)
+    ok = ok and step["bitwise"]
+    say(step)
+    joins = _order_joins(rt, line["perm"], cpu)
+    for row in joins:
+        ok = ok and row["ok"]
+        say(row)
+    rt.close()
+    return 0 if ok else 1
+
+
+def _digest(t) -> str:
+    import torch
+
+    return hashlib.sha1(t.detach().contiguous().view(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _order_step(rt, perm, cpu: bool) -> dict:
+    """One flagship dp SGD step on the dp mesh of every rank in rank
+    order and over ``perm``, from the same params and global batch: ms
+    of each run (rounds rank, perm, perm, rank), the slower rank's, and
+    whether every run's new params and loss are bitwise on every rank."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import TRAIN
+    from tpu_p2p_torch.models import flagship as F
+    from tpu_p2p_torch.parallel.runtime import local_shard
+
+    n, dev = rt.world, rt.device
+    cfg = F.FlagshipConfig(**{
+        **{k: v for k, v in TRAIN.items() if k != "vocab"}, "stages": 2,
+        **(ORDER_STEP_CPU if cpu else {})})
+    start = F.init_flagship_params(cfg, device=dev)
+    host = F.flagship_host_batch(cfg, np.random.default_rng(1))
+    dims = (n, 1, 1, 1, 1)
+    arms = {}
+    for arm, ranks in (("rank", None), ("perm", perm)):
+        mesh = rt.axis_mesh(dims, F.AXES, ranks=ranks)
+        spec = F.flagship_data_spec(mesh)
+        params = F.place_flagship_params(start, mesh, cfg)
+        batch = [local_shard(a, mesh, spec[:a.ndim]).to(dev) for a in host]
+        arms[arm] = (F.make_flagship_train_step(cfg, lr=1e-2, mesh=mesh),
+                     params, batch)
+    digests, ms = set(), {"rank": [], "perm": []}
+    for arm in ("rank*", "perm*") + ("rank", "perm", "perm", "rank") * 2:
+        fn, params, (x, t) = arms[arm.rstrip("*")]
+        rt.barrier()
+        t0 = time.perf_counter()
+        new, loss = fn({k: v.clone() for k, v in params.items()}, x, t)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if arm in ms:  # the first call of each is a warm-up
+            ms[arm].append(max(rt.gather(wall)))
+        digests.add(_digest(torch.cat(
+            [loss.reshape(-1).float()] +
+            [new[k].reshape(-1).float() for k in sorted(new)])))
+        del new
+    same = all(len(d) == 1 for d in rt.gather(digests))
+    return {"step": "flagship dp", "dp": n, "perm": list(perm),
+            "batch": cfg.batch, "seq": cfg.seq, "blocks": cfg.stages,
+            "dtype": cfg.dtype, "bitwise": same, "rank_ms": ms["rank"],
+            "perm_ms": ms["perm"]}
+
+
+def _order_joins(rt, perm_line, cpu: bool) -> list:
+    """The three profiled windows of the module docstring → one row each:
+    every rank's ragged kinds, unmatched events, device collective events
+    launched outside every issue range (``unlabelled``), the events on
+    each ``kind|label|edges`` entry, and the checks (``ok``; on the CPU
+    there is no device track to join, and nothing is checked)."""
+    import tempfile
+
+    import torch
+
+    from chip_smoke import MLP_DM, MLP_FF, MLP_M, MLP_MB, MLP_T, _seeded
+    from tpu_p2p_torch.models import moe as M
+    from tpu_p2p_torch.models import pipeline as PL
+    from tpu_p2p_torch.models import schedule as SCH
+    from tpu_p2p_torch.obs import ledger as L
+    from tpu_p2p_torch.parallel import collectives as C
+    from tpu_p2p_torch.utils.profiling import (
+        labelled_collective_intervals, profile_window)
+
+    n, dev = rt.world, rt.device
+    card = dev.type == "cuda"
+
+    def joined(name, run, check, world_check=lambda every: True) -> dict:
+        led = L.CollectiveLedger()
+        with L.recording(led):
+            run()
+        with tempfile.TemporaryDirectory(prefix="order_join_") as td:
+            with L.recording(L.CollectiveLedger()):
+                path = profile_window(run, td, host=True,
+                                      barrier=rt.mesh.barrier)
+            join = L.join_trace(led, path)
+            ivs = labelled_collective_intervals(path) or []
+        on = {}
+        for j in join.joined:
+            key = f"{j.issue.kind}|{j.issue.label}|{j.issue.edges}"
+            on[key] = on.get(key, 0) + 1
+        mine = {"rank": rt.rank, "ragged": list(join.ragged),
+                "unmatched": join.unmatched,
+                "unlabelled": sum(not iv[3] for iv in ivs), "events": on,
+                "rows": len(led.issues), "unrowed": len(led.unrowed)}
+        mine["ok"] = (not card) or (
+            not join.no_device_track and not join.ragged
+            and not join.unmatched and not mine["unlabelled"]
+            and check(led, join))
+        every = rt.gather(mine)
+        return {"join": name, "ok": all(r["ok"] for r in every)
+                and (not card or world_check(every)), "ranks": every}
+
+    # the sums of the permuted line: the hops' events on their own entries
+    cache = C.CollectiveCache()
+    fns = (cache.all_reduce(perm_line, "d"),
+           cache.reduce_scatter(perm_line, "d"))
+    x = torch.randn((1, (64 << 10 if cpu else 32 << 20) // 4),
+                    generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+
+    def sums():
+        for fn in fns:
+            fn(x)
+        if card:
+            torch.cuda.synchronize()
+
+    def sums_ok(led, join) -> bool:
+        kinds = {j.issue.kind for j in join.joined}
+        return (len(led.unrowed) == 2 and kinds >= {"all_reduce",
+                                                    "reduce_scatter"}
+                and all(j.issue.label == "sum_mesh_order"
+                        for j in join.joined if j.issue.kind == "ppermute"))
+
+    def hops_seen(every) -> bool:  # ranks that swap send; others copy
+        return sum(v for r in every for k, v in r["events"].items()
+                   if k.startswith("ppermute|sum_mesh_order")) > 0
+
+    rows = [joined("sums on the permuted line", sums, sums_ok, hops_seen)]
+
+    # GPipe over the library transport: autograd's reverse hops
+    w = ORDER_PP_CPU if cpu else dict(dm=MLP_DM, ff=MLP_FF, mb=MLP_MB,
+                                      t=MLP_T)
+    pp = rt.axis_mesh((n,), ("pp",))
+    cfg = PL.PipelineConfig(d_model=w["dm"], d_ff=w["ff"], stages=n,
+                            microbatches=MLP_M)
+    placed = PL.place_pipeline_params(PL.init_pipeline_params(cfg), pp,
+                                      device=dev)
+    xb = _seeded((w["mb"] * MLP_M, w["t"], w["dm"]), 11, dev, torch.float32)
+    tb = _seeded((w["mb"] * MLP_M, w["t"], w["dm"]), 12, dev, torch.float32)
+    step = SCH.make_tick_train_step(pp, cfg, SCH.compile_gpipe(MLP_M, n),
+                                    transport="xla")
+
+    def pp_step():
+        step({k: v.clone() for k, v in placed.items()}, xb, tb)
+        if card:
+            torch.cuda.synchronize()
+
+    def pp_ok(led, join) -> bool:
+        ship = {it.edges for it in led.issues if it.label == "pp_stage_ship"}
+        if len(ship) != 1 or not led.unrowed:
+            return False
+        fwd = ship.pop()
+        rev = tuple((d, s) for s, d in fwd)
+        on = [j.issue.edges for j in join.joined
+              if j.issue.label == "pp_stage_ship"]
+        return on.count(fwd) == on.count(rev) > 0
+
+    rows.append(joined("gpipe over NCCL", pp_step, pp_ok))
+
+    # an MoE layer's forward and backward: autograd's inverse all-to-alls
+    ep = rt.axis_mesh((n,), ("ep",)).line("ep")
+    d = 64 if cpu else 2048
+    mcfg = M.MoEConfig(d_model=d, d_ff=4 * d, num_experts=n,
+                       capacity_factor=2.0, group_size=0)
+    full = M.init_moe_params(mcfg)
+    mp = {"router": full["router"].to(dev),
+          "w1": full["w1"][ep.index:ep.index + 1].to(dev),
+          "w2": full["w2"][ep.index:ep.index + 1].to(dev)}
+    mp = {k: v.requires_grad_(True) for k, v in mp.items()}
+    mx = _seeded((64 if cpu else 4096, d), 13 + ep.index, dev,
+                 torch.float32).requires_grad_(True)
+
+    def moe_step():
+        M.moe_layer_local(mp, mx, mcfg, ep).square().sum().backward()
+        if card:
+            torch.cuda.synchronize()
+
+    def moe_ok(led, join) -> bool:
+        rows_a2a = sum(it.kind == "all_to_all" for it in led.issues)
+        got = sum(j.issue.kind == "all_to_all" for j in join.joined)
+        return bool(led.unrowed) and rows_a2a > 0 and got >= 2 * rows_a2a
+
+    rows.append(joined("moe forward and backward over NCCL", moe_step,
+                       moe_ok))
+    return rows
+
+
 def profile_call(rt, mc, label: str, fn) -> None:
     """``fn`` on this rank's ``T`` blocks: one warm call, a barrier, then
     one call under ``torch.profiler``: wall ms, the card's busy ms and
@@ -164,12 +465,15 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--cpu", action="store_true",
                    help="a gloo world of 4 CPU ranks at 64 KiB x 4")
-    p.add_argument("--set", choices=("transfers", "model"),
+    p.add_argument("--set", choices=("transfers", "model", "mesh_order"),
                    default="transfers", help="which cells to run")
     p.add_argument(WIDE, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument(ORDER, action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.wide_rank:
         return wide_rank(args.cpu)
+    if args.order_rank:
+        return order_rank(args.cpu)
     if args.cpu:
         n = 4
     else:
@@ -189,6 +493,14 @@ def main(argv=None) -> int:
                       "--iters", "4"]
         runs = [(label, [*torchrun, "-m", "tpu_p2p_torch"], cell, extra)
                 for label, cell in transfer_cells(n)]
+    elif args.set == "mesh_order":
+        if n < 3:
+            print("collectives_cards: the mesh-order set needs 3 or more "
+                  "cards (a sum of 2 takes no hop)", file=sys.stderr)
+            return 2
+        runs = [("mesh order", torchrun,
+                 [os.path.abspath(__file__), ORDER], ["--cpu"] if args.cpu
+                 else [])]
     else:
         extra = ["--cpu-mesh", str(n), "--iters", "2"] if args.cpu else []
         wide = [os.path.abspath(__file__), WIDE] + (["--cpu"] if args.cpu

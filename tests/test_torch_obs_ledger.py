@@ -22,7 +22,19 @@ hooks and the link throttle against the JAX reference's
   pool with the permutes; and a recorded-once tick loop beside an
   all-to-all, whose kernels follow the issue labels of a real CPU
   profiler window: joined by label, nothing is ragged and each ring edge
-  set carries its own events, where the cyclic pool comes out ragged.
+  set carries its own events, where the cyclic pool comes out ragged;
+  the same loop's autograd-backward hops inside their labelled ranges,
+  with two programs' sites of one signature: nothing ragged, each
+  backward event on the reversed edge set, the totals the forward rows'.
+- The sums of a reordered line on the gloo world: each mesh-order hop an
+  unrowed ``ppermute`` entry over its edges, the rows and totals those
+  of the rank-order line; NCCL kernels placed in the real issue ranges
+  of the window join with nothing ragged or unmatched, each hop's
+  ``SendRecv`` on its own entry and each sum's kernel on its row.
+- A GPipe step's autograd backward on the gloo world labels each reverse
+  hop with the forward site over the reversed edges and adds no row; a
+  profiled window's measured part starts after the mesh's barrier on
+  every rank.
 - The degraded-link throttle: values bitwise the clean ring's, the
   reference's ``fault_throttle`` rows, nothing off the edge; the health
   probe under a 16x throttle flags exactly that edge.
@@ -537,6 +549,208 @@ def test_join_labels_a_recorded_once_tick_loop_beside_all_to_all(tmp_path):
     cyclic = TL.join_trace(led, intervals)
     assert cyclic.ragged == ("ppermute",)
     assert [j.issue.label for j in cyclic.joined] != issued
+
+
+def _labelled_backward_trace(tmp_path, n=4):
+    """Two recorded-once pp programs on rank 0 of a line of ``n`` that
+    ship one activation signature 6 and 7 times (as the 1F1B and
+    zero-bubble steps' ``pp_bwd_ship`` do on 4 ranks), beside an
+    all-to-all every tick; then autograd's backward of each: every
+    forward ship's reverse hop and the all-to-all's inverse, each inside
+    :func:`TL.backward_issue` of the site its forward saved. The real
+    issue ranges of a CPU profiler window, each with a synthetic NCCL
+    launch and ``SendRecv`` kernel inside → (ledger, events, the label
+    and edges each kernel was issued under)."""
+    import json
+
+    import torch
+
+    fwd = tuple((i, (i + 1) % n) for i in range(n))
+    led = TL.CollectiveLedger()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TL.recording(led):
+            for ships in (6, 7):
+                body = TL.ScanBody()
+                saved = []
+                for _ in range(ships):
+                    with body.site("moe"), TL.issue(
+                            "all_to_all", "ep", nbytes=4096, axis_size=n,
+                            label="moe_dispatch"):
+                        saved.append(TL.current_site())
+                        time.sleep(1e-4)
+                    with body.site("ship"), TL.issue(
+                            "ppermute", "pp", nbytes=1 << 20, axis_size=n,
+                            edges=fwd, label="pp_stage_ship"):
+                        saved.append(TL.current_site())
+                        time.sleep(1e-4)
+                assert TL.current_site() is None
+                for site in reversed(saved):  # autograd's backward
+                    with TL.backward_issue(site):
+                        time.sleep(1e-4)
+    path = tmp_path / "window.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        host = json.load(fh)["traceEvents"]
+    marks = sorted((e for e in host if e.get("cat") == "user_annotation"
+                    and e["name"].startswith(TL.ISSUE_TAG)),
+                   key=lambda e: e["ts"])
+    events, issued = list(host), []
+    for k, m in enumerate(marks):
+        t = m["ts"] + m["dur"] / 2
+        events.append({"ph": "X", "cat": "cuda_driver",
+                       "name": "cuLaunchKernelEx", "pid": m["pid"],
+                       "tid": m["tid"], "ts": t, "dur": 2.0,
+                       "args": {"correlation": 20_000 + k}})
+        kern = _kernel(SENDRECV, t + 5.0, 3.0)
+        kern["args"]["correlation"] = 20_000 + k
+        events.append(kern)
+        issued.append(m["name"].split("|")[3:5])
+    return led, events, issued
+
+
+def test_join_places_labelled_backward_hops_on_reversed_edges(tmp_path):
+    # The backward's hops join by their labels: nothing ragged, although
+    # the two programs' ships of one signature (6 + 7 over 2 entries)
+    # would be ragged in a cyclic pool, and each backward event lands on
+    # the reversed edge set; the rows and totals are the forward's.
+    led, events, issued = _labelled_backward_trace(tmp_path)
+    fwd = ((0, 1), (1, 2), (2, 3), (3, 0))
+    rev = ((1, 0), (2, 1), (3, 2), (0, 3))
+    assert [(it.kind, it.label, it.edges) for it in led.issues] == [
+        ("all_to_all", "moe_dispatch", None),
+        ("ppermute", "pp_stage_ship", fwd)] * 2
+    assert [(it.kind, it.label, it.edges, it.count)
+            for it in led.unrowed] == [
+        ("ppermute", "pp_stage_ship", rev, 1),
+        ("all_to_all", "moe_dispatch", None, 1)]
+    plain = TL.CollectiveLedger()
+    plain.issues.extend(led.issues)
+    assert led.totals() == plain.totals() and len(led) == 4
+    join = TL.join_trace(led, events)
+    assert join.ragged == () and join.unmatched == {}
+    assert len(join.joined) == len(issued) == 2 * (6 + 7) * 2
+    ships = [j for j in join.joined if j.issue.label == "pp_stage_ship"]
+    assert [j.issue.edges for j in ships] == [
+        tuple(tuple(int(v) for v in e.split(">")) for e in edges.split(","))
+        for label, edges in issued if label == "pp_stage_ship"]
+    assert sum(j.issue.edges == rev for j in ships) == 13
+    m = join.link_matrix(4, src=1)
+    assert not math.isnan(m[1][0]) and not math.isnan(m[1][2])
+    # The forward ships' signature has 13 events over its 2 entries: a
+    # rule holding a labelled group to a whole multiple of its entries
+    # would call it ragged, though every event's entry is known.
+    sig = led.issues[1].signature
+    assert sum(it.signature == sig for it in led.issues) == 2
+    assert sum(j.issue.signature == sig for j in join.joined) == 13
+
+
+def test_backward_hops_label_reversed_edges_and_add_no_row(world):
+    got = world[0]["backward_labels"]
+    # The rows are the forward-only GPipe forward's, held to the
+    # reference by the capture test.
+    gpipe = world[0]["workloads"]["gpipe_none"]
+    assert got["rows"] == gpipe["issues"] and got["totals"] == \
+        gpipe["totals"]
+    ship = [r for r in got["rows"] if r[5] == "pp_stage_ship"]
+    assert len(ship) == 1
+    kind, axis, nbytes, _, count, label, edges = ship[0]
+    rev = tuple((d, s) for s, d in edges)
+    assert got["backward"] == [(kind, axis, nbytes, 1, label, rev)]
+    fwd_sig = f"{TL.ISSUE_TAG}|ppermute|pp|pp_stage_ship|" + ",".join(
+        f"{s}>{d}" for s, d in edges) + f"|{nbytes}"
+    bwd_sig = f"{TL.ISSUE_TAG}|ppermute|pp|pp_stage_ship|" + ",".join(
+        f"{s}>{d}" for s, d in rev) + f"|{nbytes}"
+    hops = 2 + 8 - 2  # GPipe's ticks less the last, on 8 stages
+    assert got["ranges"][fwd_sig] == got["ranges"][bwd_sig] == hops
+
+
+REDUCESCATTER = "ncclDevKernel_ReduceScatter_Sum_f32_RING_LL(x)"
+
+
+def _kernels_in_ranges(ranges):
+    """A synthetic launch and NCCL kernel for each issue range, the kind
+    of its signature, launched where the range's own code issues it: in
+    the first gap after its first nested range (a sum's library call
+    follows its hop), else at its middle → the events."""
+    kernel = {"ppermute": SENDRECV, "all_reduce": ALLREDUCE,
+              "reduce_scatter": REDUCESCATTER}
+    events = list(ranges)
+    for k, r in enumerate(ranges):
+        end = r["ts"] + r["dur"]
+        kids = sorted((c for c in ranges if c is not r
+                       and r["ts"] <= c["ts"]
+                       and c["ts"] + c["dur"] <= end), key=lambda c: c["ts"])
+        if kids:
+            lo = kids[0]["ts"] + kids[0]["dur"]
+            hi = kids[1]["ts"] if len(kids) > 1 else end
+        else:
+            lo, hi = r["ts"], end
+        t = (lo + hi) / 2
+        events.append({"ph": "X", "cat": "cuda_driver",
+                       "name": "cuLaunchKernelEx", "pid": r["pid"],
+                       "tid": r["tid"], "ts": t, "dur": 0.0,
+                       "args": {"correlation": 30_000 + k}})
+        kern = _kernel(kernel[r["name"].split("|")[1]], t + 5.0, 3.0)
+        kern["args"]["correlation"] = 30_000 + k
+        events.append(kern)
+    return events
+
+
+def test_join_places_a_reordered_sums_hops_on_their_own_entry(world):
+    got = world[0]["reordered_sums"]
+    rank, perm = got["rank"], got["perm"]
+    # The hops are no rows: the reordered line's rows and totals are the
+    # rank-order line's, and only it has unrowed entries.
+    assert perm["rows"] == rank["rows"] and perm["totals"] == \
+        rank["totals"]
+    assert [r[0] for r in rank["rows"]] == ["all_reduce", "reduce_scatter"]
+    assert rank["unrowed"] == []
+    swap = ((0, 0), (1, 7), (2, 6), (3, 5), (4, 4), (5, 3), (6, 2), (7, 1))
+    assert perm["unrowed"] == [("ppermute", "d", 4096 * 4, 1,
+                                "sum_mesh_order", swap),
+                               ("ppermute", "d", 4096 * 4 // 8, 1,
+                                "sum_mesh_order", swap)]
+    led = TL.CollectiveLedger()
+    led.issues.extend(
+        TL._entry(kind, axis, nbytes=nbytes, axis_size=8, edges=edges,
+                  count=count, label=label)
+        for kind, axis, nbytes, _, count, label, edges in perm["rows"])
+    led.unrowed.extend(
+        TL._entry(kind, axis, nbytes=nbytes, axis_size=8, edges=edges,
+                  label=label)
+        for kind, axis, nbytes, _, label, edges in perm["unrowed"])
+    ranges = sorted(got["ranges"], key=lambda r: r["ts"])
+    # The window's ranges: each sum's row, the all-reduce's hop inside it
+    # and the reduce-scatter's two.
+    assert [r["name"].split("|")[1] for r in ranges] == [
+        "all_reduce", "ppermute", "reduce_scatter", "ppermute", "ppermute"]
+    join = TL.join_trace(led, _kernels_in_ranges(ranges))
+    assert join.ragged == () and join.unmatched == {}
+    assert [(j.issue.kind, j.issue.label, j.issue.payload_bytes)
+            for j in join.joined] == [
+        ("ppermute", "sum_mesh_order", 4096 * 4),
+        ("all_reduce", "psum_chain", 4096 * 4),
+        ("ppermute", "sum_mesh_order", 4096 * 4),
+        ("reduce_scatter", "reduce_scatter", 4096 * 4),
+        ("ppermute", "sum_mesh_order", 4096 * 4 // 8)]
+    assert all(j.issue.edges == swap for j in join.joined
+               if j.issue.kind == "ppermute")
+
+
+def test_profiled_window_starts_after_the_barrier_on_every_rank(world):
+    stamps = world[0]["window"]
+    assert len(stamps) == 8 and all(len(s["enter"]) == 2 for s in stamps)
+    # Ranks reached the window 50 ms apart; every measured part starts
+    # after the last rank entered the first barrier, and every window
+    # closes after the last measured part ended.
+    last_in = max(s["enter"][0] for s in stamps)
+    assert all(s["start"] >= last_in for s in stamps)
+    assert max(s["enter"][0] for s in stamps) - \
+        min(s["enter"][0] for s in stamps) > 0.3
+    last_end = max(s["end"] for s in stamps)
+    assert all(s["after"] >= last_end for s in stamps)
+    assert all(s["enter"][1] >= s["end"] for s in stamps)
 
 
 def test_issue_markers_only_while_profiling_and_in_muted_repeats():

@@ -364,8 +364,27 @@ def _flagship_cases():
     return out
 
 
+def _history_matrix():
+    """A link history of 8 devices whose ring order is not rank order:
+    uniform 100 Gbps but for a 1 Gbps link 3 → 4."""
+    mat = [[None if i == j else 100.0 for j in range(8)] for i in range(8)]
+    mat[3][4] = 1.0
+    return mat
+
+
 @pytest.fixture(scope="module")
-def world():
+def history_dir(tmp_path_factory):
+    """A directory holding one ``MULTICHIP_r*.json`` of
+    :func:`_history_matrix`, written by the port's writer."""
+    from tpu_p2p_torch.obs import regress as R
+
+    d = tmp_path_factory.mktemp("history")
+    R.write_probe_artifact(_history_matrix(), 8, str(d))
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def world(history_dir):
     cfg, params, x, target = conftest.pipeline_setup(stages=8, m=4)
     problem = {"cfg": {"d_model": cfg.d_model, "d_ff": cfg.d_ff,
                        "stages": cfg.stages,
@@ -376,7 +395,8 @@ def world():
                     {"flagship_cases": _flagship_cases(),
                      "pipeline_problem": problem,
                      "probe_kw": {"msg_bytes": 128 * 1024, "iters": 4,
-                                  "repeats": 2}}, timeout=400)
+                                  "repeats": 2},
+                     "history_dir": history_dir}, timeout=400)
     return got[0]
 
 
@@ -414,26 +434,20 @@ def test_topo_smoke_full():
     assert "dry==real migration events OK" in proc.stdout
 
 
-# The meshes whose every sum has at most two members. The library's
-# all-reduce adds in group-rank order, so a reordered mesh reassociates a
-# sum over more ranks (dp 4; the dp x sp gradient plane of 4): there the
-# step is equal to float32 reassociation, not bitwise.
-_BITWISE = {"pp4": True, "dp4": False, "dp2tp2": True, "dp2pp2sp2": False}
+# Every mesh is bitwise: a sum over more than two members of a
+# reordered mesh (dp 4; the dp x sp gradient plane of 4) adds in mesh
+# order, as on the rank-order mesh.
+_BITWISE = {"pp4": True, "dp4": True, "dp2tp2": True, "dp2pp2sp2": True}
 
 
 @pytest.mark.parametrize("name", ["pp4", "dp4", "dp2tp2", "dp2pp2sp2"])
 def test_flagship_step_bitwise_under_reordered_mesh(world, name):
     got = world["flagship"][name]
     (l_n, p_n), (l_t, p_t) = got["naive"], got["topo"]
-    if _BITWISE[name]:
-        assert l_n == l_t
-        for k in p_n:
-            np.testing.assert_array_equal(p_n[k], p_t[k], err_msg=k)
-        return
-    assert l_n == pytest.approx(l_t, rel=1e-6)
+    assert _BITWISE[name]
+    assert l_n == l_t
     for k in p_n:
-        np.testing.assert_allclose(p_n[k], p_t[k], rtol=1e-6, atol=1e-7,
-                                   err_msg=k)
+        np.testing.assert_array_equal(p_n[k], p_t[k], err_msg=k)
 
 
 def test_make_runtime_threads_ring_order_and_step_stays_bitwise(world):
@@ -457,7 +471,10 @@ def test_make_runtime_ring_order_leaves_small_and_2d_worlds_alone(world):
     rt = world["runtime"]
     assert rt["two_d"] == tuple(range(8))
     assert rt["mismatch"] == tuple(range(8))
-    assert rt["default"] == tuple(range(8))  # no history unless asked
+    # No argument: the history in the working directory, as the
+    # reference reads it (the repo's own files yield none).
+    assert rt["default"] == rt["order"] != tuple(range(8))
+    assert rt["default_here"] == tuple(range(8))
     assert rt["history"] == tuple(range(8))  # the repo's files: none
     t = Topology.preset_uniform(8, 100.0)
     t.gbps[3][4] = 1.0
@@ -469,6 +486,77 @@ def test_make_runtime_ring_order_leaves_small_and_2d_worlds_alone(world):
         assert one.mesh.ranks == (0,)
     finally:
         one.close()
+
+
+def test_make_runtime_default_takes_the_references_history_order(
+        world, history_dir, monkeypatch):
+    # make_runtime() with no argument, in a directory holding a
+    # MULTICHIP_r*.json the port's writer made, lays the world out in the
+    # order the reference's _ring_ordered takes from the same file.
+    from tpu_p2p.parallel.runtime import _ring_ordered as j_ring_ordered
+    from tpu_p2p_torch.parallel import runtime as RT
+
+    monkeypatch.chdir(history_dir)
+    want = j_ring_ordered(tuple(range(8)), None)
+    assert want != tuple(range(8))
+    assert world["runtime"]["default"] == want
+    assert RT._ring_ordered(8, "history") == want
+    t = Topology.from_history(history_dir, n=8)
+    assert t.source == "history" and PL.ring_order(t) == want
+
+
+def _sum_results(world):
+    """{(mesh, view): {arm: {position: {site: array}}}} from every
+    rank's results."""
+    out = {}
+    for per_rank in world["sums"]["sites"]:
+        for (name, arm, view), (pos, got) in per_rank.items():
+            out.setdefault((name, view), {}).setdefault(arm, {})[pos] = got
+    return out
+
+
+@pytest.mark.parametrize("view", ["d8/d", "x2y4/y", "x2y4/x", "x2y4/x+y"])
+def test_every_sum_site_bitwise_under_reordered_mesh(world, view):
+    # Seeded float32 operands through every library sum site of the port
+    # on a reordered mesh and on the rank-order one: bitwise equal at
+    # every position (a reassociated sum would show in the low bits).
+    name, v = view.split("/")
+    got = _sum_results(world)[(name, v)]
+    assert sorted(got["rank"]) == sorted(got["perm"]) == list(range(8))
+    sites = set(got["rank"][0])
+    assert {"psum", "psum_inplace", "reduce_scatter", "psum_join",
+            "psum_conjugate_bwd", "all_reduce_flat", "bucket_gather_bwd",
+            "host_sum"} <= sites
+    if v != "x+y":
+        assert {"cache_all_reduce", "cache_psum_chain",
+                "cache_reduce_scatter", "cache_rs_ag_chain"} <= sites
+    for pos in range(8):
+        for site in sites:
+            a, b = got["rank"][pos][site], got["perm"][pos][site]
+            assert a.dtype == np.float32
+            np.testing.assert_array_equal(a, b, err_msg=f"{site} @{pos}")
+
+
+def test_mesh_order_sum_hops_only_where_a_sum_would_reassociate(world):
+    hops = world["sums"]["hops"]
+    # Rank-order meshes issue no hop at all, and neither does a reordered
+    # line of 2 (IEEE addition commutes).
+    for (name, arm, view), n in hops.items():
+        if arm == "rank" or (name, view) == ("x2y4", "x"):
+            assert n == 0, (name, arm, view)
+    # One hop a sum, two a reduce-scatter (there and back): 10 sites on a
+    # plane, 19 with the CollectiveCache chains along an axis.
+    assert hops[("d8", "perm", "d")] == 19
+    assert hops[("x2y4", "perm", "y")] == 19
+    assert hops[("x2y4", "perm", "x+y")] == 10
+
+
+def test_library_sum_without_the_hop_reassociates(world):
+    # The same float32 operands summed by gloo straight over the permuted
+    # world differ from the rank-order sum; the port's psum does not.
+    s = world["sums"]
+    assert not np.array_equal(s["raw"], s["ref"])
+    np.testing.assert_array_equal(s["psum"], s["ref"])
 
 
 @pytest.mark.parametrize("arm", ["topo", "raw"])

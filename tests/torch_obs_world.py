@@ -7,9 +7,11 @@ kwargs)``) and returns what the parent compares with the JAX reference
 it ran on its CPU mesh.
 """
 
+import collections
 import json
 import os
 import tempfile
+import time
 
 import torch
 
@@ -29,12 +31,117 @@ def _totals(led):
     return {f"{k}/{a}": v for (k, a), v in sorted(led.totals().items())}
 
 
+def _backward_labels(rt):
+    """A GPipe step through the tick IR on the world's pp line, whose
+    backward is autograd's (each stage hop's reverse hop): recorded once,
+    then again in a CPU profiler window → its rows, its backward entries
+    and the count of each issue range's label in the window."""
+    from tpu_p2p_torch.models import pipeline as PL
+    from tpu_p2p_torch.models import schedule as SCH
+
+    n = rt.world
+    pp = rt.axis_mesh((n,), ("pp",))
+    cfg = PL.PipelineConfig(d_model=8, d_ff=16, stages=n, microbatches=2)
+    params = PL.place_pipeline_params(PL.init_pipeline_params(cfg), pp,
+                                      device=pp.device)
+    x = torch.zeros((2, 4, 8), dtype=torch.float32)
+    step = SCH.make_tick_train_step(pp, cfg, SCH.compile_gpipe(2, n))
+
+    def run():
+        step({k: v.clone() for k, v in params.items()}, x,
+             torch.ones_like(x))
+
+    with TL.recording() as led:
+        run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TL.recording():
+            run()
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.name.startswith(TL.ISSUE_TAG))
+    return {"rows": _issues(led), "totals": _totals(led),
+            "backward": [(it.kind, it.axis, it.payload_bytes, it.count,
+                          it.label, it.edges) for it in led.unrowed],
+            "ranges": dict(names)}
+
+
+def _reordered_sums(rt):
+    """The ``CollectiveCache``'s all-reduce and reduce-scatter of one
+    seeded float32 operand on the world's 1-D line in rank order and over
+    the permutation ``0, n-1, ..., 1`` (there each sum takes a mesh-order
+    hop first, the reduce-scatter a second one after), each recorded once
+    → per arm its rows, totals and unrowed entries; then the permuted
+    arm again in a CPU profiler window, whose issue ranges on this rank's
+    host track are returned too (``ranges``: name, start, duration,
+    process, thread)."""
+    import numpy as np
+
+    n = rt.world
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (n, 1, 4096)).astype(np.float32)[rt.rank])
+    out = {}
+    for arm, ranks in (("rank", None),
+                       ("perm", (0,) + tuple(range(n - 1, 0, -1)))):
+        mesh = rt.axis_mesh((n,), ("d",), ranks=ranks)
+        cache = TC.CollectiveCache()
+        fns = (cache.all_reduce(mesh, "d"), cache.reduce_scatter(mesh, "d"))
+        with TL.recording() as led:
+            for fn in fns:
+                fn(x)
+        out[arm] = {"rows": _issues(led), "totals": _totals(led),
+                    "unrowed": [(it.kind, it.axis, it.payload_bytes,
+                                 it.count, it.label, it.edges)
+                                for it in led.unrowed]}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TL.recording():
+            for fn in fns:
+                fn(x)
+    with tempfile.TemporaryDirectory(prefix="obs_sums_") as td:
+        path = os.path.join(td, "window.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            host = json.load(fh)["traceEvents"]
+    out["ranges"] = [{k: e[k] for k in ("name", "ts", "dur", "pid", "tid",
+                                        "cat")}
+                     for e in host if e.get("cat") == "user_annotation"
+                     and str(e.get("name", "")).startswith(TL.ISSUE_TAG)]
+    return out
+
+
+def _aligned_window(rt):
+    """``profile_window`` with the mesh's barrier, the ranks reaching it
+    50 ms apart → every rank's stamps: when it entered each barrier, when
+    its measured part started and ended, and when the window returned."""
+    from tpu_p2p_torch.utils.profiling import profile_window
+
+    stamps = {"enter": []}
+
+    def barrier():
+        stamps["enter"].append(time.time())
+        rt.mesh.barrier()
+
+    def work():
+        stamps["start"] = time.time()
+        time.sleep(0.01)
+        stamps["end"] = time.time()
+
+    rt.mesh.barrier()
+    time.sleep(0.05 * rt.rank)
+    with tempfile.TemporaryDirectory(prefix="obs_window_") as td:
+        profile_window(work, td, barrier=barrier)
+    stamps["after"] = time.time()
+    return rt.gather(stamps)
+
+
 def ledger_case(msg_bytes, count):
     """The ledger and the link throttle on a world of 8: each capture
     workload recorded alone (issues and totals), the whole capture, the
     warm program, the bucketed and FSDP gathers, the ring
-    collective-matmuls, the throttle's rows and values, and the probe
-    under a 16x degraded edge."""
+    collective-matmuls, the throttle's rows and values, the probe
+    under a 16x degraded edge, a GPipe step's labelled backward hops,
+    the sums of a reordered line with their mesh-order hops and the
+    profiled window's barriers."""
     from tpu_p2p_torch.parallel import fsdp
 
     rt = make_runtime(device="cpu")
@@ -105,6 +212,9 @@ def ledger_case(msg_bytes, count):
     vs = TH.HealthMonitor().observe_link_matrix(1, mat)
     out["probe"] = [[(f["src"], f["dst"], f["reasons"])
                      for f in v.detail["links"]] for v in vs]
+    out["backward_labels"] = _backward_labels(rt)
+    out["reordered_sums"] = _reordered_sums(rt)
+    out["window"] = _aligned_window(rt)
     rt.close()
     return out
 

@@ -7,12 +7,16 @@ kwargs)``) and returns, on rank 0, what the parent holds against the JAX
 reference: the throttled probe on the first 4 ranks, one flagship SGD
 step per mesh shape on the rank-order mesh and on a reordered one, the
 pipeline step on ``make_runtime``'s ring-ordered world and on the
-rank-order world, the ranks ``make_runtime`` lays out, the library
-collectives, the reduction patterns and the obs live capture on a
-ring-ordered world and in rank order, and the smoke's ring parity pins.
+rank-order world, the ranks ``make_runtime`` lays out (with no argument,
+in a directory that holds a link history), the library collectives, the
+reduction patterns and the obs live capture on a ring-ordered world and
+in rank order, every library sum site on seeded float32 operands over
+reordered and rank-order meshes with the mesh-order hops counted, and
+the smoke's ring parity pins.
 """
 
 import io
+import os
 
 import numpy as np
 import torch
@@ -119,7 +123,117 @@ def _reductions(rt, msg_bytes):
     return verdicts, buf.getvalue(), totals
 
 
-def topo_case(flagship_cases, pipeline_problem, probe_kw):
+# The meshes of the sum sites: a 1-D world of 8 and a 2 x 4 mesh, each
+# in rank order and over a permutation of the ranks.
+SUM_MESHES = {"d8": ((8,), ("d",), (0, 3, 1, 5, 2, 7, 4, 6)),
+              "x2y4": ((2, 4), ("x", "y"), tuple(reversed(range(8))))}
+SUM_ELEMS = 4096
+
+
+def _sum_sites(m, axis, full):
+    """Every library sum site of the port on the process mesh ``m`` (a
+    line ``axis`` of a mesh, or a plane), each on seeded float32 operands
+    chosen by this rank's position in the parent mesh (``full[p]``, so a
+    reordered mesh sums the same logical operands) → {site: numpy}."""
+    from tpu_p2p_torch.models import schedule as SCH
+    from tpu_p2p_torch.parallel import collectives as C
+
+    def x(k):
+        return torch.from_numpy(full[k]).reshape(1, -1).clone()
+
+    n = m.size
+    out = {}
+    out["psum"] = C.psum(x(0), m)
+    out["psum_inplace"] = C.psum(x(1), m, inplace=True)
+    out["reduce_scatter"] = C.reduce_scatter(x(0), m)
+    out["psum_join"] = C.psum_join(x(2), m)
+    leaf = x(3).requires_grad_(True)
+    C.psum_conjugate(leaf, m).backward(x(4))
+    out["psum_conjugate_bwd"] = leaf.grad
+    flat = [x(0)[:, :1000].clone(), x(1)[:, 1000:].clone()]
+    C.all_reduce_flat(flat, m, "the sum sites")
+    out["all_reduce_flat"] = torch.cat(flat, dim=1)
+    shard = torch.from_numpy(full[5][:SUM_ELEMS // n]).reshape(8, -1) \
+        .clone().requires_grad_(True)
+    whole = C.bucketed_all_gather({"w": (shard, 0)}, m)["w"]
+    whole.backward(torch.from_numpy(full[6]).reshape(whole.shape))
+    out["bucket_gather_bwd"] = shard.grad
+    out["host_sum"] = SCH._HostSum.apply(x(7), m)
+    if axis is not None:  # the CollectiveCache chains along an axis
+        cache = C.CollectiveCache()
+        out["cache_all_reduce"] = cache.all_reduce(m, axis)(x(0))
+        out["cache_psum_chain"] = cache.psum_chain(m, axis, 2)(x(1))
+        out["cache_reduce_scatter"] = cache.reduce_scatter(m, axis)(x(2))
+        out["cache_rs_ag_chain"] = cache.rs_ag_chain(m, axis, 2)(x(3))
+    return {k: v.detach().numpy().copy() for k, v in out.items()}
+
+
+def _sums(rt, seed):
+    """The sum sites over each mesh of :data:`SUM_MESHES`, in rank order
+    (``rank``) and over the permutation (``perm``): every line of size >
+    1 and the whole mesh as a plane, this rank's results keyed by its
+    parent-mesh position, gathered (``sites``); the hops of the
+    mesh-order sum a view, counted by a wrapper around
+    ``collectives.ppermute`` (``hops``); and one set of operands summed
+    on the permuted 1-D world by the library alone (``raw``: what the sum
+    would be without the hop), by ``psum`` (``psum``) and by the library
+    in rank order (``ref``)."""
+    import torch.distributed as dist
+
+    from tpu_p2p_torch.parallel import collectives as C
+
+    real = C.ppermute
+    hops = {}
+    out = {}
+    for name, (dims, axes, perm) in SUM_MESHES.items():
+        for arm, ranks in (("rank", None), ("perm", perm)):
+            mesh = rt.axis_mesh(dims, axes, ranks=ranks)
+            full = np.random.default_rng(seed).standard_normal(
+                (8, 8, SUM_ELEMS)).astype(np.float32)[:, mesh.index]
+            views = [(a, mesh.line(a)) for a, d in zip(axes, dims) if d > 1]
+            if len(dims) > 1:
+                views.append((None, mesh.plane(axes)))
+            for a, m in views:
+                key = (name, arm, a or "+".join(axes))
+                count = [0]
+
+                def counted(*args, _count=count, **kw):
+                    _count[0] += 1
+                    return real(*args, **kw)
+
+                C.ppermute = counted
+                try:
+                    got = _sum_sites(m, a, full)
+                finally:
+                    C.ppermute = real
+                hops[key] = count[0]
+                out[key] = (mesh.index, got)
+    ops = np.random.default_rng(seed).standard_normal(
+        (8, SUM_ELEMS)).astype(np.float32)
+    perm = rt.axis_mesh((8,), ("d",), ranks=SUM_MESHES["d8"][2])
+    plain = rt.axis_mesh((8,), ("d",))
+    raw = torch.from_numpy(ops[perm.index].copy())
+    dist.all_reduce(raw, group=perm.host_group)
+    ref = torch.from_numpy(ops[plain.index].copy())
+    dist.all_reduce(ref, group=plain.host_group)
+    return {"sites": rt.gather(out), "hops": hops,
+            "raw": raw.numpy(), "ref": ref.numpy(),
+            "psum": C.psum(torch.from_numpy(ops[perm.index].copy()),
+                           perm).numpy()}
+
+
+def _default_runtime(history_dir):
+    """``make_runtime()`` with no argument, run in ``history_dir`` (a
+    ``MULTICHIP_r*.json`` the port's writer made) → its mesh's ranks."""
+    here = os.getcwd()
+    os.chdir(history_dir)
+    try:
+        return make_runtime(device="cpu").mesh.ranks
+    finally:
+        os.chdir(here)
+
+
+def topo_case(flagship_cases, pipeline_problem, probe_kw, history_dir):
     """Every rank: the cases of the module docstring → on rank 0 a dict
     of their results; None elsewhere."""
     from tpu_p2p_torch.topo.smoke import _ring_parity
@@ -163,7 +277,8 @@ def topo_case(flagship_cases, pipeline_problem, probe_kw):
         "mismatch": make_runtime(
             device="cpu", ring_topology=Topology.preset_uniform(4)
         ).mesh.ranks,
-        "default": make_runtime(device="cpu").mesh.ranks,
+        "default": _default_runtime(history_dir),
+        "default_here": make_runtime(device="cpu").mesh.ranks,
         "history": make_runtime(device="cpu",
                                 ring_topology="history").mesh.ranks,
     }
@@ -176,6 +291,9 @@ def topo_case(flagship_cases, pipeline_problem, probe_kw):
         red[name] = {"verdicts": rt.gather(verdicts), "text": text,
                      "totals": totals}
     out["reductions"] = red
+
+    # Every library sum site, reordered and in rank order.
+    out["sums"] = _sums(rt, 23)
 
     # The smoke's ring parity pins, both transports.
     log = io.StringIO()

@@ -763,15 +763,16 @@ def _ship(y: torch.Tensor, line, edges, wave: bool, pp_chunks: int,
 class _HostSum(torch.autograd.Function):
     """The sum over the line of ranks that share a card: the host group's
     all-reduce on a host copy (gloo never runs on card tensors, and those
-    ranks have no NCCL group); the backward is the identity, as
+    ranks have no NCCL group), added in mesh order as every library sum
+    of the port; the backward is the identity, as
     :func:`~tpu_p2p_torch.parallel.collectives.psum_join`'s."""
 
     @staticmethod
     def forward(ctx, x, line):
-        import torch.distributed as dist
+        from tpu_p2p_torch.parallel.collectives import _sum_into
 
         y = x.detach().cpu()
-        dist.all_reduce(y, group=line.host_group)
+        _sum_into(y, line, line.host_group)
         return y.to(x.device)
 
     @staticmethod

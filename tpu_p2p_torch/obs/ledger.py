@@ -52,10 +52,22 @@ also labels its launches while a profiler runs (:func:`issue`): a
 device event whose launch lies inside such ranges on its host thread
 carries their labels (:func:`~tpu_p2p_torch.utils.profiling.
 labelled_collective_intervals`; the launch's correlation id ties the
-two), and the join matches it within the entries of the innermost label
-of its own pool; only unlabelled events (a launch outside every issue
-range, as an autograd backward's, or a trace without labels) fall back
-to the cyclic pool.
+two), and the join gives it the entry of the innermost label of its own
+pool. Entries of one signature are equal in every field the join reads
+(two programs' sites of one label: the 1F1B and zero-bubble steps'
+``pp_bwd_ship`` on 4 ranks ship 6 and 7 times a step), so a labelled
+event's entry is known and a labelled group is never ragged. An
+autograd backward that launches the transpose of a forward site's
+collective (a hop's reverse hop, an all-to-all's inverse) labels its
+launches the same way (:func:`backward_issue`): the forward site's
+entry over the reversed edges. So does a launch that is part of a
+recorded collective without being one, as a sum's mesh-order hop on a
+reordered line (:func:`unrowed_issue`: a ``ppermute`` over the hop's
+edges, inside the sum's range). Both kinds of entry are kept in the
+ledger's :attr:`unrowed` list, which the join matches and the rows and
+totals never count (the reference has no such rows). Only unlabelled
+events (a launch outside every issue range, or a trace without labels)
+fall back to the cyclic pool.
 
 Each process sees only its own card's track: every rank joins its own
 events, and the link matrix is gathered to rank 0 (each rank gives the
@@ -72,7 +84,7 @@ from __future__ import annotations
 import math
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -85,6 +97,9 @@ __all__ = [
     "recording",
     "record_issue",
     "issue",
+    "current_site",
+    "backward_issue",
+    "unrowed_issue",
     "muted",
     "program",
     "ScanBody",
@@ -206,13 +221,20 @@ class CollectiveIssue:
 
 
 class CollectiveLedger:
-    """Append-only registry of :class:`CollectiveIssue` entries."""
+    """Append-only registry of :class:`CollectiveIssue` entries.
+    :attr:`unrowed` holds, once a signature, the launches that belong to
+    recorded sites without being rows: the transposes autograd launched
+    (:func:`backward_issue`) and the mesh-order hops of reordered sums
+    (:func:`unrowed_issue`). The join matches them, the rows and totals
+    do not count them."""
 
     def __init__(self) -> None:
         self.issues: List[CollectiveIssue] = []
+        self.unrowed: List[CollectiveIssue] = []
 
     def clear(self) -> None:
         self.issues.clear()
+        self.unrowed.clear()
 
     def __len__(self) -> int:
         return len(self.issues)
@@ -262,6 +284,12 @@ _LOCAL = threading.local()
 
 def _muted_depth() -> int:
     return getattr(_LOCAL, "muted", 0)
+
+
+def _sites() -> List[CollectiveIssue]:
+    if not hasattr(_LOCAL, "sites"):
+        _LOCAL.sites = []
+    return _LOCAL.sites
 
 
 def active() -> Optional[CollectiveLedger]:
@@ -339,13 +367,81 @@ def issue(kind: str, axis, *, nbytes: int, axis_size: int,
         return
     record_issue(kind, axis, nbytes=nbytes, axis_size=axis_size,
                  edges=edges, count=count, label=label)
+    entry = _entry(kind, axis, nbytes=nbytes, axis_size=axis_size,
+                   edges=edges, count=count, label=label)
+    sites = _sites()
+    sites.append(entry)
+    try:
+        with _labelled(entry):
+            yield
+    finally:
+        sites.pop()
+
+
+def current_site() -> Optional[CollectiveIssue]:
+    """The entry of the innermost :func:`issue` this thread is inside
+    (muted or not), or None: an autograd function saves it at forward
+    time for :func:`backward_issue`."""
+    sites = getattr(_LOCAL, "sites", None)
+    return sites[-1] if sites else None
+
+
+@contextmanager
+def backward_issue(site: Optional[CollectiveIssue]):
+    """Around an autograd backward's launches of the transpose of the
+    collective that the forward ``site`` issued (:func:`current_site`):
+    ``site`` over the reversed edges, count 1, as :func:`_unrowed` (the
+    join places their events on the reversed edge set). ``site`` None or
+    no ledger: the body just runs."""
+    if site is None or not _STACK:
+        yield
+        return
+    with _unrowed(replace(
+            site, count=1, edges=(tuple((d, s) for s, d in site.edges)
+                                  if site.edges is not None else None))):
+        yield
+
+
+@contextmanager
+def unrowed_issue(kind: str, axis, *, nbytes: int, axis_size: int,
+                  edges: Optional[Sequence[Tuple[int, int]]] = None,
+                  label: str = ""):
+    """Around launches that are part of a recorded collective without
+    being a row of their own (a reordered sum's mesh-order hop, issued
+    inside the sum's :func:`issue`): their own entry, as
+    :func:`_unrowed`, so the join places their events on it and not on
+    the enclosing row, whose pool they are not in. No ledger: the body
+    just runs."""
+    if not _STACK:
+        yield
+        return
+    with _unrowed(_entry(kind, axis, nbytes=nbytes, axis_size=axis_size,
+                         edges=edges, label=label)):
+        yield
+
+
+@contextmanager
+def _unrowed(entry: CollectiveIssue):
+    """``entry`` added once a signature to every active ledger's
+    :attr:`CollectiveLedger.unrowed` (muted or not) and, while a
+    profiler runs, the range that labels the body's launches with it.
+    Never a row: the totals stay the reference's."""
+    for led in _STACK:
+        if all(b.signature != entry.signature for b in led.unrowed):
+            led.unrowed.append(entry)
+    with _labelled(entry):
+        yield
+
+
+@contextmanager
+def _labelled(entry: CollectiveIssue):
+    """The ``record_function`` range of ``entry``'s signature while a
+    profiler runs, else nothing."""
     if not _profiling():
         yield
         return
     import torch
 
-    entry = _entry(kind, axis, nbytes=nbytes, axis_size=axis_size,
-                   edges=edges, count=count, label=label)
     with torch.profiler.record_function(entry.signature):
         yield
 
@@ -503,12 +599,12 @@ def join_trace(ledger: CollectiveLedger, trace, window=None) -> TraceJoin:
     ``no_device_track=True`` (and an empty join) when the window holds no
     device event (a CPU world).
 
-    A labelled event joins the entries of its innermost label that names
-    an entry of its own pool, cyclically in time order among them; an
-    unlabelled one (or one whose labels name no entry of its pool) joins
-    its kind's pool cyclically, as before the labels existed. A
-    signature or pool whose event count is not a whole multiple of its
-    entries flags its kind ``ragged``."""
+    A labelled event joins the entry of its innermost label that names
+    an entry of its own pool, a ledger row or an unrowed entry
+    (:attr:`CollectiveLedger.unrowed`); an unlabelled one (or one whose
+    labels name no entry of its pool) joins its kind's pool cyclically,
+    as before the labels existed. A pool whose unlabelled event count is
+    not a whole multiple of its entries flags its kind ``ragged``."""
     from tpu_p2p_torch.utils.profiling import labelled_collective_intervals
 
     intervals = (trace if isinstance(trace, list) and trace
@@ -517,11 +613,11 @@ def join_trace(ledger: CollectiveLedger, trace, window=None) -> TraceJoin:
     if intervals is None:
         return TraceJoin(no_device_track=True)
     by_kind_issues: Dict[str, List[CollectiveIssue]] = {}
-    by_sig: Dict[Tuple[str, str], List[CollectiveIssue]] = {}
+    by_sig: Dict[Tuple[str, str], CollectiveIssue] = {}
     for it in ledger.expanded():
-        pool = _match_kind(it)
-        by_kind_issues.setdefault(pool, []).append(it)
-        by_sig.setdefault((pool, it.signature), []).append(it)
+        by_kind_issues.setdefault(_match_kind(it), []).append(it)
+    for it in ledger.issues + ledger.unrowed:
+        by_sig.setdefault((_match_kind(it), it.signature), it)
     # (pool, signature or None) → that group's events, in time order
     groups: Dict[Tuple[str, Optional[str]],
                  List[Tuple[str, float, float]]] = {}
@@ -547,8 +643,12 @@ def join_trace(ledger: CollectiveLedger, trace, window=None) -> TraceJoin:
     joined: List[JoinedEvent] = []
     ragged: List[str] = []
     for (kind, label), evs in groups.items():
-        issues = (by_sig[(kind, label)] if label is not None
-                  else by_kind_issues.get(kind))
+        if label is not None:
+            joined.extend(JoinedEvent(issue=by_sig[(kind, label)], t0=t0,
+                                      t1=t1, event_name=name)
+                          for name, t0, t1 in evs)
+            continue
+        issues = by_kind_issues.get(kind)
         if not issues:
             d = unmatched.setdefault(kind, {"events": 0, "seconds": 0.0})
             d["events"] += len(evs)
@@ -671,10 +771,11 @@ def live_capture(rt, msg_bytes: int = 4 * 1024 * 1024,
     """Run :func:`capture_workloads` on the world of runtime ``rt`` under
     a fresh ledger (the recorded warm-up: every program's first call),
     then once more in a ``torch.profiler`` window, which records
-    nothing, as the reference's compiled second pass; join this rank's
-    window, and merge the link matrices over the world. Ranks that share
-    a card run the library collectives on the host group. Every rank
-    calls this."""
+    nothing, as the reference's compiled second pass, its measured part
+    between two barriers of the mesh inside the window (every rank's
+    window holds the same span); join this rank's window, and merge the
+    link matrices over the world. Ranks that share a card run the
+    library collectives on the host group. Every rank calls this."""
     import tempfile
 
     import torch
@@ -709,7 +810,8 @@ def live_capture(rt, msg_bytes: int = 4 * 1024 * 1024,
             # new; its issue ranges label the window's launches.
             with tempfile.TemporaryDirectory(prefix="obs_cap_") as td:
                 with recording(CollectiveLedger()):
-                    path = profile_window(run_all, td, host=True)
+                    path = profile_window(run_all, td, host=True,
+                                          barrier=mesh.barrier)
                 join = join_trace(led, path)
         else:
             run_all()

@@ -588,7 +588,8 @@ def _compile(schedule: str, microbatches: int, devices: int):
 
 
 def _device_join(prog, step, rt, device_trace: bool) -> dict:
-    """One step profiled on every rank (each its own window), its hop
+    """One step profiled on every rank (each its own window, the step
+    between two barriers of the mesh inside it), its hop
     events joined to the shipping ticks (:func:`join_device_trace`) →
     the first rank's view of every rank's join."""
     import tempfile
@@ -604,7 +605,8 @@ def _device_join(prog, step, rt, device_trace: bool) -> dict:
                 "reason": "device trace not sampled"}
     with tempfile.TemporaryDirectory(prefix="tickprof_") as td:
         with L.recording():  # the issue labels of the step's hops
-            path = profile_window(step, td, host=True)
+            path = profile_window(step, td, host=True,
+                                  barrier=rt.mesh.barrier)
         intervals = labelled_collective_intervals(path)
     mine = None
     if intervals is not None:

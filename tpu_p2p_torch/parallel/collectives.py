@@ -20,7 +20,11 @@
   on every transport, as the reference's are XLA collectives. On ranks
   that share a card there is no device group, and they raise
   :class:`BackendError` before any traffic: NCCL needs a card a rank,
-  and gloo never runs on card tensors.
+  and gloo never runs on card tensors. On a mesh laid over a ring order
+  the gathers and all-to-alls take their parts by mesh position, and
+  every sum adds in mesh order (:func:`_sum_into`, :func:`_scatter_sum`),
+  so a reordered mesh's values are bitwise the rank-order mesh's, as the
+  reference's relabelling is.
 - Along an axis of a 2-D mesh every collective runs on this rank's
   line (``mesh.line(axis)``): an axis edge set is the same edges in
   every line of the other axis, as a ``ppermute`` over one axis of a
@@ -284,8 +288,9 @@ def _library_group(mesh, device: torch.device, what: str = ""):
 
 def _reduction_group(mesh, what: str):
     """:func:`_library_group` of a process mesh, in any rank order: the
-    callers move the chunks of a gather, a scatter and an all-to-all
-    between group order and mesh order (:func:`_group_order`)."""
+    callers take a gather's and an all-to-all's chunks by mesh position
+    (:func:`_group_order`), and a sum adds in mesh order
+    (:func:`_sum_into`, :func:`_scatter_sum`)."""
     if mesh.in_process:
         raise ValueError(f"{what} runs on a process mesh, not a LocalMesh")
     return _library_group(mesh, mesh.device, what)
@@ -294,17 +299,87 @@ def _reduction_group(mesh, what: str):
 def _group_order(mesh) -> Optional[List[int]]:
     """Where the member at each mesh position sits in its process group's
     rank order: None where the mesh lists its ranks ascending, else
-    ``g`` with
-    ``g[i]`` the group index of position ``i``. A library gather,
-    all-to-all or reduce-scatter orders its parts by group rank; a mesh
-    laid over a ring order (:func:`~tpu_p2p_torch.parallel.runtime.
-    make_runtime`) takes them by position, so the parts are permuted
-    between the two orders (:func:`_to_positions`, :func:`_to_groups`)."""
+    ``g`` with ``g[i]`` the group index of position ``i``. A library
+    gather, all-to-all or reduce-scatter orders its parts by group rank,
+    and a library sum adds in an order fixed by group rank; a mesh laid
+    over a ring order (:func:`~tpu_p2p_torch.parallel.runtime.
+    make_runtime`, ``Runtime.axis_mesh(ranks=)``) takes them by position.
+    So a gather's and an all-to-all's parts are permuted between the two
+    orders (:func:`_to_positions`, :func:`_to_groups`), and a sum's
+    operands are moved (:func:`_sum_order`)."""
     ranks = list(getattr(mesh, "ranks", ()) or ())
     if not ranks or ranks == sorted(ranks):
         return None
     srt = sorted(ranks)
     return [srt.index(r) for r in ranks]
+
+
+def _sum_order(mesh) -> Optional[List[int]]:
+    """:func:`_group_order` where it changes a sum's bits: a mesh of more
+    than 2 members that lists its ranks out of ascending order. IEEE
+    addition commutes, so a sum of 2 is the same either way; a sum of
+    more, added in group-rank order, would be reassociated. There the
+    library's sum takes its operands in mesh order (:func:`_sum_into`,
+    :func:`_scatter_sum`); None elsewhere (no hop)."""
+    return _group_order(mesh) if mesh.size > 2 else None
+
+
+def _mesh_order_hop(x: torch.Tensor, mesh, edges) -> torch.Tensor:
+    """One :func:`ppermute` of a sum in mesh order on ``mesh`` (its group
+    and transport: NCCL where each rank has a card, the host group on the
+    CPU or on ranks that share a card), labelled while a ledger records
+    as a ``ppermute`` over ``edges`` that is no row
+    (:func:`~tpu_p2p_torch.obs.ledger.unrowed_issue`): the join places
+    the hop's events on it, not in the enclosing sum's pool."""
+    x = x.contiguous()
+    with _obs.unrowed_issue("ppermute", _axis_of(mesh),
+                            nbytes=_obs.tensor_bytes(x),
+                            axis_size=mesh.size, edges=edges,
+                            label="sum_mesh_order"):
+        return ppermute(x, mesh, edges, what="a sum in mesh order")
+
+
+def _to_group_ranks(x: torch.Tensor, mesh, order) -> torch.Tensor:
+    """One :func:`_mesh_order_hop` → this rank's copy of the operand of
+    the position whose index is this rank's group rank: group rank ``k``
+    then holds position ``k``'s operand, as on a rank-order mesh."""
+    inv = sorted(range(len(order)), key=order.__getitem__)
+    return _mesh_order_hop(x, mesh,
+                           tuple((i, inv[i]) for i in range(len(order))))
+
+
+def _sum_into(y: torch.Tensor, mesh, group) -> None:
+    """``y`` summed over ``group`` in place by the library's all-reduce,
+    added in mesh order: on a mesh of :func:`_sum_order`, one hop first
+    (:func:`_to_group_ranks`), so the unchanged library call adds the
+    operands in the order it adds them on a rank-order mesh and every
+    result is bitwise that mesh's. The hop runs inside the caller's
+    ledger scope: it is part of the sum, not a row of its own."""
+    order = _sum_order(mesh)
+    if order is not None:
+        y.copy_(_to_group_ranks(y, mesh, order))
+    _dist(dist.all_reduce, y, group=group)
+
+
+def _scatter_sum(out: torch.Tensor, rows: torch.Tensor, mesh,
+                 group) -> torch.Tensor:
+    """The library's summing reduce-scatter of ``rows`` ``[n, c]`` (chunk
+    ``j`` bound for position ``j``) into ``out`` ``[c]``, position ``i``
+    keeping chunk ``i`` of the sum, added in mesh order. On a mesh of
+    :func:`_sum_order` a hop puts position ``k``'s rows on group rank
+    ``k`` (:func:`_to_group_ranks`), the library call leaves chunk ``k``
+    there, and a second hop takes it to position ``k``; on a reordered
+    mesh of 2 the chunks are permuted to group order instead."""
+    order = _sum_order(mesh)
+    if order is None:
+        rows = _to_groups(rows, _group_order(mesh))
+        _dist(dist.reduce_scatter_tensor, out, rows.reshape(-1),
+              group=group)
+        return out
+    rows = _to_group_ranks(rows, mesh, order)
+    _dist(dist.reduce_scatter_tensor, out, rows.view(-1), group=group)
+    out.copy_(_mesh_order_hop(out, mesh, tuple(enumerate(order))))
+    return out
 
 
 def _to_positions(rows: torch.Tensor, order) -> torch.Tensor:
@@ -332,7 +407,7 @@ def psum(x: torch.Tensor, mesh, *, group=None, inplace: bool = False):
         return x.copy_(y) if inplace else y
     group = group or _reduction_group(mesh, "all_reduce")
     y = x if inplace else x.clone()
-    _dist(dist.all_reduce, y, group=group)
+    _sum_into(y, mesh, group)
     return y
 
 
@@ -353,11 +428,9 @@ def reduce_scatter(x: torch.Tensor, mesh, *, group=None) -> torch.Tensor:
     """Tiled reduce-scatter along the payload dim: member ``j`` keeps
     chunk ``j`` of the sum, ``[..., elems / n]``."""
     group = group or _reduction_group(mesh, "reduce_scatter")
-    x = _to_groups(x.contiguous().view(mesh.size, -1),
-                   _group_order(mesh)).view(x.shape)
     out = x.new_empty(x.shape[:-1] + (x.shape[-1] // mesh.size,))
-    _dist(dist.reduce_scatter_tensor, out.view(-1), x.view(-1),
-          group=group)
+    _scatter_sum(out.view(-1), x.contiguous().view(mesh.size, -1), mesh,
+                 group)
     return out
 
 
@@ -585,7 +658,7 @@ def _all_reduce_copy(x: torch.Tensor, line, what: str) -> torch.Tensor:
         return line.all_reduce(x)
     group = axis_group(line, what)
     y = x.contiguous().clone()
-    _dist(dist.all_reduce, y, group=group)
+    _sum_into(y, line, group)
     return y
 
 
@@ -627,12 +700,14 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, line, split_dim, concat_dim):
         ctx.args = line, split_dim, concat_dim
+        ctx.site = _obs.current_site()
         return _a2a(x, line, split_dim, concat_dim)
 
     @staticmethod
     def backward(ctx, g):
         line, split_dim, concat_dim = ctx.args
-        return _a2a(g, line, concat_dim, split_dim), None, None, None
+        with _obs.backward_issue(ctx.site):
+            return _a2a(g, line, concat_dim, split_dim), None, None, None
 
 
 def psum_join(x: torch.Tensor, line, *, label: str = "psum"
@@ -719,6 +794,7 @@ class _HopInFlight:
     def __init__(self, x: torch.Tensor, line, edges) -> None:
         axis_group(line, "ppermute")  # ranks sharing a card: no traffic
         self.line, self.edges = line, tuple(edges)
+        self.site = _obs.current_site()  # labels the backward's hop
         self.x = x.detach().contiguous()
         self.out, self.pending = ppermute_start(self.x, line, self.edges,
                                                 what="ppermute")
@@ -731,6 +807,7 @@ class _HopArrival(torch.autograd.Function):
     @staticmethod
     def forward(ctx, inflight, x):
         ctx.line, ctx.edges = inflight.line, inflight.edges
+        ctx.site = inflight.site
         out = ppermute_wait(inflight.out, inflight.pending)
         inflight.x = inflight.out = inflight.pending = None
         return out
@@ -738,7 +815,8 @@ class _HopArrival(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         back = [(d, s) for s, d in ctx.edges]
-        return None, ppermute(g, ctx.line, back, what="ppermute")
+        with _obs.backward_issue(ctx.site):
+            return None, ppermute(g, ctx.line, back, what="ppermute")
 
 
 def axis_ppermute_start(x: torch.Tensor, line, edges: Sequence[Edge], *,
@@ -1007,7 +1085,7 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh,
         by_dtype.setdefault(t.dtype, []).append(t)
     for same in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in same])
-        _dist(dist.all_reduce, flat, group=group)
+        _sum_into(flat, mesh, group)
         offset = 0
         for t in same:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -1096,10 +1174,8 @@ class _BucketGather(torch.autograd.Function):
         if ctx.line.in_process:
             flat = ctx.line.all_reduce(rows)[ctx.line.index]
         else:
-            rows = _to_groups(rows, _group_order(ctx.line))
-            flat = rows.new_empty(rows.shape[1])
-            _dist(dist.reduce_scatter_tensor, flat, rows.view(-1),
-                  group=ctx.group)
+            flat = _scatter_sum(rows.new_empty(rows.shape[1]), rows,
+                                ctx.line, ctx.group)
         out, off = [], 0
         for shape, _ in ctx.meta:
             size = math.prod(shape)

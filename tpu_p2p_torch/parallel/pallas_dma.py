@@ -73,6 +73,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpu_p2p_torch.obs import ledger as _obs
 from tpu_p2p_torch.utils.errors import BackendError, TransferTimeout
 
 Edge = Tuple[int, int]
@@ -589,17 +590,22 @@ def _permute_rows(rows, mesh, edges, tables, timeout_s) -> list:
 
 def _reverse_rows(ctx, grads) -> tuple:
     """The backward of a hop: the same transport over the reversed
-    edges (a permutation's transpose), zeros for an absent cotangent."""
+    edges (a permutation's transpose), zeros for an absent cotangent,
+    labelled as the forward site's transpose while a ledger records
+    (:func:`tpu_p2p_torch.obs.ledger.backward_issue`)."""
     rev = tuple((d, s) for s, d in ctx.edges)
     tables = complete_permutation(rev, ctx.mesh.size)
     g = [gi if gi is not None else torch.zeros(shape, dtype=dt, device=dev)
          for gi, (shape, dt, dev) in zip(grads, ctx.meta)]
-    return tuple(_permute_rows(g, ctx.mesh, rev, tables, ctx.timeout_s))
+    with _obs.backward_issue(ctx.site):
+        return tuple(_permute_rows(g, ctx.mesh, rev, tables,
+                                   ctx.timeout_s))
 
 
 def _save(ctx, mesh, edges, timeout_s, rows) -> None:
     ctx.mesh, ctx.edges, ctx.timeout_s = mesh, edges, timeout_s
     ctx.meta = [(r.shape, r.dtype, r.device) for r in rows]
+    ctx.site = _obs.current_site()
 
 
 class _DmaPPermute(torch.autograd.Function):

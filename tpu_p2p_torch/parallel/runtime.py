@@ -752,7 +752,9 @@ class Runtime:
                   ranks: Optional[Sequence[int]] = None) -> Mesh:
         """A mesh of the whole world over named axes, row-major over
         ``ranks`` (the global rank at each mesh position; default rank
-        order — a ring order relabels the positions, never a value), with
+        order — a ring order relabels the positions, never a value: the
+        gathers and all-to-alls take parts by position, and every library
+        sum adds in mesh order, bitwise the rank-order mesh's), with
         the groups of every line of every axis of size > 1 made axis by
         axis, line by line (:meth:`groups`: every rank calls this, in the
         same order; a rank set made before shares its groups). On cards
@@ -928,12 +930,12 @@ def _ring_ordered(world: int, ring_topology) -> Tuple[int, ...]:
 
     ``ring_topology`` is a :class:`tpu_p2p_torch.topo.model.Topology`, or
     ``"history"`` to read the ``MULTICHIP_r*.json`` history in the working
-    directory. A relabelling of which rank sits at which mesh position:
-    the logical shift-by-1 ring rides the links the matrix recommends,
-    and every transfer's payload is unchanged; a sum over more than 2
-    ranks adds in a different order (see :func:`make_runtime`). → rank
-    order when no usable topology exists or its size is not the
-    world's."""
+    directory (:func:`make_runtime`'s default). A relabelling of which
+    rank sits at which mesh position: the logical shift-by-1 ring rides
+    the links the matrix recommends, and every value is bitwise the
+    rank-order mesh's (every transfer's payload is unchanged, and a sum
+    adds in mesh order: ``collectives._sum_into``). → rank order when no
+    usable topology exists or its size is not the world's."""
     identity = tuple(range(world))
     try:
         from tpu_p2p_torch.topo.model import Topology
@@ -968,19 +970,20 @@ def make_runtime(num_devices: Optional[int] = None,
     names them, as the flagship's ``(dp, pp, sp, tp, ep)``) in row-major
     rank order, and makes the groups of every line of every axis of
     size > 1, axis by axis, line by line (the same order on every rank).
-    Without it the mesh is 1-D over ``("d",)``, in rank order unless
-    ``ring_topology`` is given for a world of more than 2 ranks: then in
-    its ring order (:func:`_ring_ordered`; ``"history"`` reads the
-    ``MULTICHIP_r*.json`` history in the working directory), so mesh
-    index ``i`` is global rank ``ranks[i]``; first rank's choice,
-    broadcast. ``apply_ring_order=False`` keeps rank order whatever the
-    topology. The order permutes the ranks' positions: payloads move
-    unchanged, but the library's sums add in group-rank order, so a sum
-    over more than 2 ranks of a reordered mesh is reassociated (equal to
-    float32 rounding, not bitwise). Hence no history is read unless
-    asked: the reference reads it by default, its relabelling being
-    bitwise. A multi-axis mesh (``mesh_shape``) stays in rank order: its
-    axes encode structure the ring objective would scramble."""
+    Without it the mesh of a world of more than 2 ranks is 1-D over
+    ``("d",)`` in the ring order of a measured topology
+    (:func:`_ring_ordered`), as the reference's: ``ring_topology`` when
+    given (a :class:`~tpu_p2p_torch.topo.model.Topology`), else the
+    ``MULTICHIP_r*.json`` history in the working directory (``"history"``
+    says the same); rank order where there is none. Mesh index ``i`` is
+    then global rank ``ranks[i]``, the first rank's choice, broadcast.
+    ``apply_ring_order=False`` keeps rank order whatever the topology.
+    The order permutes the ranks' positions and no value: payloads move
+    unchanged, and every library sum adds its operands in mesh order
+    (``collectives._sum_into``), so two runs give the same floats
+    whatever history the working directory holds. A multi-axis mesh
+    (``mesh_shape``) stays in rank order: its axes encode structure the
+    ring objective would scramble."""
     device = pick_device(device)
     init_distributed()
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -1002,9 +1005,9 @@ def make_runtime(num_devices: Optional[int] = None,
         # batch_isend_irecv over a pair must not be its first call.
         dist.all_reduce(torch.zeros(1, device=device), group=device_group)
     ranks = tuple(range(world))
-    if (apply_ring_order and ring_topology is not None
-            and mesh_shape is None and world > 2):
-        box = [_ring_ordered(world, ring_topology) if rank == 0 else None]
+    if apply_ring_order and mesh_shape is None and world > 2:
+        topo = "history" if ring_topology is None else ring_topology
+        box = [_ring_ordered(world, topo) if rank == 0 else None]
         dist.broadcast_object_list(box, src=0)
         ranks = box[0]
     flat = Mesh(ranks=ranks, rank=rank, device=device,

@@ -232,7 +232,9 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
     ``data``, ``step``, ``eval``, ``checkpoint``; the loop drains the
     card every step), one profiled window at
     :func:`~tpu_p2p_torch.obs.timeline.pick_window_step` (``obs_window_
-    step``) as a ``{"obs": "device_window"}`` record joined against the
+    step``; on a mesh the step runs between two of its barriers inside
+    the window, so every rank's window holds the same span) as a
+    ``{"obs": "device_window"}`` record joined against the
     run's collective ledger (recorded around the loop; the step's first
     call records), its fractions folded into that step's row, the health
     monitor's verdicts (``health_config``; heartbeats from the plan),
@@ -561,7 +563,8 @@ def run_training(cfg, *, steps: int, lr: float = 1e-2, seed: int = 0,
                         box = {}
                         path = profile_window(
                             lambda: box.setdefault("loss", run_step(x, t)),
-                            td)
+                            td, barrier=(mesh.barrier if mesh is not None
+                                         and mesh.size > 1 else None))
                         loss = box["loss"]
                         dev_rec = device_window_record(
                             path, step=step + 1, ledger=led)

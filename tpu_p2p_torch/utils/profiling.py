@@ -687,7 +687,8 @@ def tp_overlap_fraction(trace, window=None) -> Optional[dict]:
 
 def profile_window(fn: Callable[[], object], directory: str,
                    pad_s: float = WINDOW_PAD_S,
-                   name: str = "window.json", *, host: bool = False) -> str:
+                   name: str = "window.json", *, host: bool = False,
+                   barrier: Optional[Callable[[], None]] = None) -> str:
     """Run ``fn`` once under ``torch.profiler``, drained, and export the
     window as a Chrome trace → its path. On a card the card's activity
     is traced, and the host's only with ``host`` (the ledger's issue
@@ -695,7 +696,15 @@ def profile_window(fn: Callable[[], object], directory: str,
     labelled join reads; the host tracer's cost would change every other
     reading of the window); there the window opens and closes with a
     host pause of ``pad_s`` (``WINDOW_PAD_S``: the tracer loses events
-    near a window's edges). Without a card, the host's."""
+    near a window's edges). Without a card, the host's.
+
+    ``barrier`` (the mesh's, where every rank of it profiles the same
+    work): the measured part, ``fn``, starts after it inside the window
+    and ends, drained, with it, as :func:`capture_device_slope` fences
+    its runs. Every rank's window then holds the same span of the work:
+    a rank still opening its profiler (seconds, the first time in a
+    process) does not show up as the others' collectives waiting on the
+    card."""
     from torch.profiler import ProfilerActivity, profile
 
     card = torch.cuda.is_available() and torch.cuda.is_initialized()
@@ -704,9 +713,14 @@ def profile_window(fn: Callable[[], object], directory: str,
     with profile(activities=acts) as prof:
         if card:
             time.sleep(pad_s)
+        if barrier is not None:
+            barrier()
         fn()
         if card:
             torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        if card:
             time.sleep(pad_s)
     path = os.path.join(directory, name)
     prof.export_chrome_trace(path)
